@@ -1,0 +1,402 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (dlaf_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout.  The workload is fixed: the headline
+configuration of bench.py (N=16384, nb=512, f32, 1x1 grid, distributed
+kernel forced), on a random SPD matrix made from seed 0.  Phases, each
+fatal on failure:
+
+0. header: the card's name and power limit (nvidia-smi), stamped on every
+   timing line;
+1. build: every kernel under dlaf_tpu_torch/csrc/, one nvcc call;
+2. kernels vs their plain PyTorch versions at the main path's shapes (f32),
+   on seeded inputs whose off-diagonal coupling is not small (so a kernel
+   that drops terms disagrees), each within a stated tolerance, with
+   kernel / plain / library-call times (CUDA events) and the card's bound
+   for the same work; then a small ragged input factored by the port and
+   by torch.linalg.cholesky;
+3. path A, the headline configuration: cholesky_factorization(backend=
+   "distributed"), panel TRSM kernel on (DLAF_TPU_PANEL_TRSM_PALLAS=1);
+   residual, wall time, GFlop/s (N^3/3 flops, as bench.py counts them),
+   launch counts;
+4. path B, the fused tier: lookahead Cholesky and lookahead triangular
+   solves (Left/Lower/N then Left/Lower/C, i.e. cholesky_solver with the
+   distributed kernel forced) with trailing_update_impl=fused;
+5. POSV through positive_definite_solver(..., return_info=True);
+6. one {"kernels": [...]} JSON line, the card line again, and as the last
+   line {"ok": true, "device": {...}}.
+
+Solutions are held to a float64 reference solve on the card (relative
+forward error); the script first checks that this test rejects X = B.
+Exits non-zero without a result when no CUDA device is present or the
+package is missing beside this file.  Needs one card.  scripts/
+port_profile.py imports N, NB, PATH_A, PATH_B and make_inputs from here.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+FP32_PEAK = 67e12   # H100 SXM float32 outside the tensor cores, FLOP/s
+HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
+
+# the headline workload, bench.py's potrf_gflops_nb512_f32_1chip_distributed
+N, NB, SEED = 16384, 512, 0
+# tune knobs of the two factorization paths
+PATH_A = {"panel_trsm_pallas": True}
+PATH_B = {"cholesky_lookahead": True, "trsm_lookahead": True,
+          "trailing_update_impl": "fused", "panel_trsm_pallas": True}
+
+
+def make_inputs(dev):
+    """The main path's f32 inputs, made on ``dev`` from SEED: the SPD matrix
+    A = G G^T / N + I (eigenvalues in [1, 5]) and a right-hand side [N, NB]."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    g = torch.randn(N, N, generator=gen, device=dev, dtype=torch.float32)
+    a = g @ g.T / N
+    a.diagonal().add_(1.0)
+    del g
+    rhs = torch.randn(N, NB, generator=gen, device=dev, dtype=torch.float32)
+    return a, rhs
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+        return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() \
+            else f"nvidia-smi rc {out.returncode}"
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi unavailable ({e.__class__.__name__})"
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", flush=True)
+        return 2
+    if not os.path.isdir(os.path.join(HERE, "dlaf_tpu_torch")):
+        print("chip_smoke: dlaf_tpu_torch/ is not beside this script", flush=True)
+        return 2
+    sys.path.insert(0, HERE)
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import ops, tune
+    from dlaf_tpu_torch.matrix import layout
+    from dlaf_tpu_torch.ops import _build, panel_trsm, potrf, trailing_update
+    from dlaf_tpu_torch.testing import tol_for
+
+    n, nb = N, NB
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    card = card_line()
+    stamp = {"card": card}
+
+    # ---- 0. header
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; N={n} nb={nb} seed={SEED}",
+          flush=True)
+
+    # ---- 1. build
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.lib()
+    emit({"phase": "build", "library": os.path.relpath(lib_path, HERE),
+          "nvcc_s": round(_build.build_seconds, 3),
+          "build_and_load_s": round(time.perf_counter() - t0, 3),
+          "sources": [os.path.relpath(p, HERE) for p in _build.sources()]})
+
+    def timed_ms(fn, iters: int, warmup: int = 1) -> float:
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def bound(flops: float, nbytes: float):
+        t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+    def rel_err(got, ref) -> tuple[float, float]:
+        """Max abs error, and the Frobenius norm of the error over ref's."""
+        diff = got.double() - ref.double()
+        rel = torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(ref.double())
+        return diff.abs().max().item(), rel.item()
+
+    # ---- 2. kernels vs plain versions (f32, main-path shapes)
+    # Inputs of their own, from seed SEED + 1: the main path's matrix is
+    # diagonally dominant, so against it a kernel that drops a few terms
+    # would still agree within the tolerance.  Each tolerance is
+    # tol_for(f32, k) with k the length of the kernel's inner sums (nb).
+    kgen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    report = {}
+
+    # B1 potrf: a Wishart tile G G^T / (2 nb), G (nb, 2 nb) (cond about 34;
+    # later rows of the factor carry half their weight off the diagonal)
+    g = torch.randn(nb, 2 * nb, generator=kgen, device=dev, dtype=f32)
+    d = (g @ g.T / (2 * nb)).contiguous()
+    del g
+    k_out, p_out = potrf.potrf_tile(d), potrf.potrf_tile_plain(d)
+    torch.cuda.synchronize()
+    err_abs, err = rel_err(k_out, p_out)
+    tol = tol_for("float32", nb)
+    herm = torch.tril(d) + torch.tril(d, -1).T
+    b_ms, b_by = bound(nb ** 3 / 3, 2 * nb * nb * 4)
+    rec = {"kernel": "potrf", "shape": [nb, nb], "max_abs_err": err_abs, "rel_err": err,
+           "tol": tol, "kernel_ms": timed_ms(lambda: potrf.potrf_tile(d), 20),
+           "plain_ms": timed_ms(lambda: potrf.potrf_tile_plain(d), 2),
+           "library_ms": timed_ms(lambda: torch.linalg.cholesky(herm), 20),
+           "library_call": "torch.linalg.cholesky", "bound_ms": b_ms, "bound_by": b_by, **stamp}
+    emit(rec)
+    if not err <= tol:
+        fail(f"potrf kernel vs plain: rel err {err:.3e} > tol {tol:.3e}")
+    report["potrf"] = rec
+    ell = p_out
+
+    # B2 panel TRSM: that factor against a standard normal panel of the
+    # main path's height
+    rows = n - nb
+    pb = torch.randn(rows, nb, generator=kgen, device=dev, dtype=f32)
+    k_out = panel_trsm.panel_trsm_right_lower_t(ell, pb)
+    p_out = panel_trsm.panel_trsm_plain(ell, pb)
+    torch.cuda.synchronize()
+    err_abs, err = rel_err(k_out, p_out)
+    tol = tol_for("float32", nb)
+    ell_t = ell.T.contiguous()
+    b_ms, b_by = bound(rows * nb * nb, (2 * rows * nb + nb * nb) * 4)
+    rec = {"kernel": "panel_trsm", "shape": [rows, nb], "max_abs_err": err_abs, "rel_err": err,
+           "tol": tol, "kernel_ms": timed_ms(lambda: panel_trsm.panel_trsm_right_lower_t(ell, pb), 20),
+           "plain_ms": timed_ms(lambda: panel_trsm.panel_trsm_plain(ell, pb), 3),
+           "library_ms": timed_ms(
+               lambda: torch.linalg.solve_triangular(ell_t, pb, upper=True, left=False), 20),
+           "library_call": "torch.linalg.solve_triangular", "bound_ms": b_ms, "bound_by": b_by,
+           **stamp}
+    emit(rec)
+    if not err <= tol:
+        fail(f"panel_trsm kernel vs plain: rel err {err:.3e} > tol {tol:.3e}")
+    report["panel_trsm"] = rec
+    del d, herm, ell, ell_t, pb, k_out, p_out
+
+    # B3 trailing update, both forms at their lookahead shapes, standard
+    # normal operands; the applied updates (x - x0) are compared
+    mt = n // nb
+    forms = {}
+    for sub, c in ((trailing_update.CHOLESKY_SUBSCRIPTS, mt), (trailing_update.TRSM_SUBSCRIPTS, 1)):
+        L, C, M, N_, K = mt, c, nb, nb, nb
+        b_shape = (C, N_, K) if sub == trailing_update.CHOLESKY_SUBSCRIPTS else (C, K, N_)
+        x0 = torch.randn(L, C, M, N_, generator=kgen, device=dev, dtype=f32)
+        a_op = torch.randn(L, M, K, generator=kgen, device=dev, dtype=f32)
+        b_op = torch.randn(*b_shape, generator=kgen, device=dev, dtype=f32)
+        xk, xp = x0.clone(), x0.clone()
+        trailing_update.trailing_update(xk, a_op, b_op, sub)
+        trailing_update.trailing_update_plain(xp, a_op, b_op, sub)
+        torch.cuda.synchronize()
+        err_abs, err = rel_err(xk.sub_(x0), xp.sub_(x0))
+        tol = tol_for("float32", K)
+        del xp, x0
+        # yardstick: one in-place baddbmm over the pair batch, operands
+        # expanded to the batch beforehand
+        a_exp = a_op.unsqueeze(1).expand(L, C, M, K).reshape(L * C, M, K)
+        b_kn = b_op.transpose(-1, -2) if sub == trailing_update.CHOLESKY_SUBSCRIPTS else b_op
+        b_exp = b_kn.unsqueeze(0).expand(L, C, K, N_).reshape(L * C, K, N_)
+        xv = xk.view(L * C, M, N_)
+        b_ms, b_by = bound(2.0 * L * C * M * N_ * K,
+                           (2 * L * C * M * N_ + L * M * K + C * N_ * K) * 4)
+        iters = 5 if L * C > 64 else 50
+        forms[sub] = {
+            "shape": {"x": [L, C, M, N_], "a": list(a_op.shape), "b": list(b_op.shape)},
+            "max_abs_err": err_abs, "rel_err": err, "tol": tol,
+            "kernel_ms": timed_ms(lambda: trailing_update.trailing_update(xk, a_op, b_op, sub), iters),
+            "plain_ms": timed_ms(lambda: trailing_update.trailing_update_plain(xk, a_op, b_op, sub),
+                                 iters),
+            "library_ms": timed_ms(lambda: xv.baddbmm_(a_exp, b_exp, alpha=-1), iters),
+            "library_call": "torch.Tensor.baddbmm_", "bound_ms": b_ms, "bound_by": b_by,
+        }
+        emit({"kernel": "trailing_update", "subscripts": sub, **forms[sub], **stamp})
+        del xk, xv, a_op, b_op, a_exp, b_exp
+        if not err <= tol:
+            fail(f"trailing_update[{sub}] kernel vs plain: rel err {err:.3e} > tol {tol:.3e}")
+    report["trailing_update"] = {**forms[trailing_update.CHOLESKY_SUBSCRIPTS], "forms": forms}
+    torch.cuda.empty_cache()
+
+    # the main path's matrix and right-hand side
+    a_glob, rhs = make_inputs(dev)
+    torch.cuda.synchronize()
+
+    # small ragged input: the port's factor (kernels on) vs torch.linalg.cholesky
+    ns = 2 * nb + nb // 2 + 8
+    tune.initialize(cholesky_lookahead=True, trailing_update_impl="fused", panel_trsm_pallas=True)
+    small = a_glob[:ns, :ns].double()
+    mat = dtt.DistributedMatrix.from_global(dtt.Grid.create(), a_glob[:ns, :ns].clone(), (nb, nb))
+    fac = dtt.cholesky_factorization("L", mat, backend="distributed")
+    got = torch.tril(torch.from_numpy(fac.to_global()).to(dev).double())
+    ref = torch.linalg.cholesky(small)
+    _, err = rel_err(got, ref)
+    tol = tol_for("float32", ns)
+    emit({"phase": "small_reference", "n": ns, "nb": nb, "rel_err_vs_torch_cholesky": err,
+          "tol": tol, "finite": bool(torch.isfinite(got).all())})
+    if not (err <= tol and torch.isfinite(got).all()):
+        fail(f"small ragged factor vs torch.linalg.cholesky: {err:.3e} > {tol:.3e}")
+    del small, mat, fac, got, ref
+
+    def factor_residual(data_mat) -> float:
+        lo = torch.tril(layout.unpack(data_mat.data, data_mat.dist)[:n, :n].double())
+        a64 = a_glob.double()
+        r = (torch.linalg.matrix_norm(a64 - lo @ lo.T) / torch.linalg.matrix_norm(a64)).item()
+        del lo, a64
+        return r
+
+    res_tol = tol_for("float32", n)
+
+    # the reference solution, float64 on the card; solutions are held to it
+    # by their relative forward error (cond(A) <= 5, so a correct f32 solve
+    # lands orders below res_tol)
+    a64 = a_glob.double()
+    x_ref = torch.cholesky_solve(rhs.double(), torch.linalg.cholesky(a64))
+    del a64
+    torch.cuda.empty_cache()
+
+    def solve_err(x) -> float:
+        return (torch.linalg.matrix_norm(x.double() - x_ref)
+                / torch.linalg.matrix_norm(x_ref)).item()
+
+    not_solved = solve_err(rhs)
+    emit({"phase": "solve_check", "forward_err_of_x_eq_b": not_solved, "tol": res_tol})
+    if not not_solved > res_tol:
+        fail(f"the solve check accepts X = B ({not_solved:.3e} <= {res_tol:.3e})")
+
+    def factor_run(backend="distributed"):
+        mat = dtt.DistributedMatrix.from_global(dtt.Grid.create(), a_glob, (nb, nb))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fac = dtt.cholesky_factorization("L", mat, backend=backend)
+        torch.cuda.synchronize()
+        return fac, time.perf_counter() - t0, ops.launch_counts()
+
+    gflop = n ** 3 / 3 / 1e9
+    by_path = {}
+
+    # ---- 3. path A: the headline configuration
+    os.environ["DLAF_TPU_PANEL_TRSM_PALLAS"] = "1"
+    tune.initialize(**PATH_A)
+    factor_run()  # warm-up (allocator, library handles), as bench.py discards its first run
+    fac, wall, counts = factor_run()
+    res = factor_residual(fac)
+    del fac
+    emit({"phase": "path_A", "config": "bucketed, panel_trsm_pallas=1", "n": n, "nb": nb,
+          "wall_s": wall, "gflops": gflop / wall, "factor_residual": res, "tol": res_tol,
+          "launches": counts, **stamp})
+    by_path["A_factor"] = counts
+    if not res <= res_tol:
+        fail(f"path A residual {res:.3e} > {res_tol:.3e}")
+    if counts["potrf"] <= 0 or counts["panel_trsm"] <= 0:
+        fail(f"path A did not launch potrf and panel_trsm: {counts}")
+    torch.cuda.empty_cache()
+
+    # ---- 4. path B: lookahead, fused trailing-update tier
+    tune.initialize(**PATH_B)
+    factor_run()  # warm-up
+    fac, wall, counts = factor_run()
+    res = factor_residual(fac)
+    by_path["B_factor"] = counts
+    mat_b = dtt.DistributedMatrix.from_global(dtt.Grid.create(), rhs.clone(), (nb, nb))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    x = dtt.cholesky_solver("L", fac, mat_b, backend="distributed")
+    torch.cuda.synchronize()
+    wall_solve = time.perf_counter() - t0
+    solve_counts = ops.launch_counts()
+    by_path["B_solve"] = solve_counts
+    serr = solve_err(layout.unpack(x.data, x.dist)[:n, :nb])
+    del fac, mat_b, x
+    emit({"phase": "path_B", "config": "lookahead, trailing_update_impl=fused, panel_trsm_pallas=1",
+          "n": n, "nb": nb, "factor_wall_s": wall, "factor_gflops": gflop / wall,
+          "factor_residual": res, "solve_wall_s": wall_solve, "solve_forward_err": serr,
+          "tol": res_tol, "factor_launches": counts, "solve_launches": solve_counts, **stamp})
+    if not (res <= res_tol and serr <= res_tol):
+        fail(f"path B factor residual {res:.3e} / solve error {serr:.3e} > {res_tol:.3e}")
+    if min(counts["potrf"], counts["panel_trsm"], counts["trailing_update"]) <= 0 \
+            or solve_counts["trailing_update"] <= 0:
+        fail(f"path B did not launch every kernel: factor {counts}, solve {solve_counts}")
+    torch.cuda.empty_cache()
+
+    # ---- 5. POSV through the public entry point (panel TRSM env still on)
+    tune.initialize()
+    mat_a = dtt.DistributedMatrix.from_global(dtt.Grid.create(), a_glob, (nb, nb))
+    mat_b = dtt.DistributedMatrix.from_global(dtt.Grid.create(), rhs.clone(), (nb, nb))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    x, info = dtt.positive_definite_solver("L", mat_a, mat_b, return_info=True)
+    info = int(info)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    by_path["posv"] = counts
+    serr = solve_err(layout.unpack(x.data, x.dist)[:n, :nb])
+    del mat_a, mat_b, x
+    emit({"phase": "posv", "config": "defaults + panel_trsm_pallas=1, return_info=True",
+          "n": n, "nrhs": nb, "wall_s": wall, "info": info, "solve_forward_err": serr,
+          "tol": res_tol, "launches": counts, **stamp})
+    if info != 0 or not serr <= res_tol:
+        fail(f"POSV info {info}, solve error {serr:.3e}")
+
+    # ---- 6. summary
+    meta = {
+        "potrf": ("dlaf_tpu_torch/csrc/potrf.cu", "dlaf_tpu/ops/pallas_potrf.py:48"),
+        "panel_trsm": ("dlaf_tpu_torch/csrc/panel_trsm.cu", "dlaf_tpu/ops/pallas_panel_trsm.py:90"),
+        "trailing_update": ("dlaf_tpu_torch/csrc/trailing_update.cu",
+                            "dlaf_tpu/ops/pallas_trailing_update.py:163"),
+    }
+    kernels = []
+    for name, (src, replaces) in meta.items():
+        r = report[name]
+        entry = {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        }
+        if name == "trailing_update":
+            entry["max_abs_err"] = max(f["max_abs_err"] for f in r["forms"].values())
+            entry["forms"] = {s: {k: f[k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                                                    "bound_ms", "max_abs_err")}
+                              for s, f in r["forms"].items()}
+        kernels.append(entry)
+    emit({"kernels": kernels})
+    print(card, flush=True)  # as nvidia-smi prints it: name, power limit
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

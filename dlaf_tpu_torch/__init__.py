@@ -1,0 +1,29 @@
+"""dlaf_tpu_torch: the PyTorch/CUDA port of dlaf_tpu.
+
+A second package beside the JAX one (``dlaf_tpu/``, the reference it is
+held against): the same 2D block-cyclic data model
+(``X[Pr, Pc, ltr, ltc, mb, nb]``), the same algorithms, and hand-written
+CUDA kernels for Hopper where the JAX package has Pallas kernels.  This
+slice runs the main path on a 1x1 grid: distributed Cholesky, the Left
+triangular solves, and POTRS/POSV, with the potrf, panel-TRSM and
+trailing-update kernels (``ops/``, sources in ``csrc/``).
+
+Entry points run on the CUDA device unless the caller passes
+``Grid.create(device="cpu")``, where every kernel wrapper takes its plain
+PyTorch version.  The package imports ``torch``, numpy and the standard
+library only; it never imports JAX or the JAX package.
+"""
+from dlaf_tpu_torch.algorithms.cholesky import cholesky_factorization
+from dlaf_tpu_torch.algorithms.solver import cholesky_solver, positive_definite_solver
+from dlaf_tpu_torch.algorithms.triangular_solver import triangular_solver
+from dlaf_tpu_torch.comm.grid import Grid
+from dlaf_tpu_torch.matrix.matrix import DistributedMatrix
+
+__all__ = [
+    "Grid",
+    "DistributedMatrix",
+    "cholesky_factorization",
+    "triangular_solver",
+    "cholesky_solver",
+    "positive_definite_solver",
+]

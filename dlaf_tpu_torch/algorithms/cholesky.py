@@ -1,0 +1,257 @@
+"""Distributed tiled Cholesky factorization (counterpart of
+``dlaf_tpu/algorithms/cholesky.py``), lower triangle.
+
+Each panel step k factors the diagonal tile (hand-written potrf kernel,
+``ops/potrf.py``), solves the column panel below it (``tile.trsm``, the
+hand-written panel-TRSM kernel under ``tune.panel_trsm_pallas``),
+broadcasts the panel and transposes it into a row panel
+(``comm/collectives.py``), and applies the trailing update.  The JAX
+package runs the loop as one jitted ``lax.fori_loop`` over a
+``shard_map``-local tile stack; here it is an eager Python loop over the
+local stack ``x[ltr, ltc, mb, nb]``, which the kernels update in place.
+
+Two kernels, as in the JAX package: the bucketed kernel (default), whose
+trailing update runs on a window that shrinks by segment, and the
+lookahead kernel (``tune.cholesky_lookahead``), which factors panel k+1
+before the bulk trailing update of step k.  Under
+``tune.trailing_update_impl='fused'`` the lookahead bulk update is the
+hand-written trailing-update kernel (``ops/trailing_update.py``); under
+'xla' it is a ``torch.einsum``.
+
+Not in this slice (they raise ``NotImplementedError``, see ROADMAP.md):
+the U path, ``shift_recovery`` and checkpointing.
+"""
+from __future__ import annotations
+
+import torch
+
+from dlaf_tpu_torch import tune
+from dlaf_tpu_torch.algorithms import _spmd
+from dlaf_tpu_torch.comm import collectives as coll
+from dlaf_tpu_torch.comm.grid import COL_AXIS, ROW_AXIS
+from dlaf_tpu_torch.health import DistributionError, NotPositiveDefiniteError
+from dlaf_tpu_torch.matrix import layout
+from dlaf_tpu_torch.matrix.matrix import DistributedMatrix
+from dlaf_tpu_torch.ops import potrf as _potrf
+from dlaf_tpu_torch.ops import tile as t
+from dlaf_tpu_torch.ops import trailing_update as _tu
+
+
+def _diag_potrf(d):
+    """Diagonal-tile Cholesky: the potrf kernel for real tiles under the JAX
+    package's gate, ``tile.potrf`` (``torch.linalg.cholesky``) otherwise.
+    Unlike the JAX package there is no catch-all fallback: a kernel failure
+    raises."""
+    if _potrf.supported(d):
+        return _potrf.potrf_tile(d)
+    return t.potrf(d, lower=True)
+
+
+def _pivot_scan(d):
+    """First non-positive pivot of the Hermitian tile ``d``: int32 0 when
+    every pivot is positive, else the 1-based within-tile index of the first
+    pivot that is <= 0 or non-finite (LAPACK xPOTRF info semantics).
+
+    An unblocked right-looking sweep (the masked rank-1 updates of the
+    JAX package's ``_pivot_scan``, restricted to the trailing block where
+    they are non-zero) that carries the failure index instead of the
+    factor.  Once a pivot fails its scale is forced to zero, freezing the
+    trailing matrix so the first index stays exact.  Stays on the device:
+    no host synchronisation."""
+    n = d.shape[-1]
+    a = torch.tril(d) + torch.tril(d, -1).transpose(-1, -2).conj()
+    bad = torch.zeros((), dtype=torch.int32, device=d.device)
+    for j in range(n):
+        dj = a[j, j].real
+        ok = dj > 0  # False for NaN/Inf-poisoned pivots too
+        bad = torch.where((bad == 0) & ~ok, j + 1, bad).to(torch.int32)
+        inv = torch.where(ok, 1.0 / torch.sqrt(torch.where(ok, dj, 1.0)), 0.0)
+        col = a[j + 1:, j] * inv.to(a.dtype)
+        a[j + 1:, j + 1:] -= col[:, None] * col[None, :].conj()
+    return bad
+
+
+def _update_info(info, bad, offset: int):
+    """info <- offset + bad where info is still 0 and bad > 0."""
+    return torch.where((info == 0) & (bad > 0), offset + bad, info).to(torch.int32)
+
+
+def _chol_L_bucketed(x, g: _spmd.Geometry, want_info: bool):
+    """Bucketed kernel: the trailing update runs on a window of the local
+    tile stack whose size shrinks by segment (``_spmd.halving_segments``).
+    Windows are over-approximate and clamped; masked panels make the
+    overlap rows/cols no-ops."""
+    myr, myc = coll.my_rank()
+    dev = x.device
+    info = torch.zeros((), dtype=torch.int32, device=dev) if want_info else None
+    for k0, k1 in _spmd.halving_segments(g.mt):
+        L = max(min(g.ltr, (g.mt - 1 - k0 + g.pr - 1) // g.pr + 1), 1)
+        C = max(min(g.ltc, (g.mt - 1 - k0 + g.pc - 1) // g.pc + 1), 1)
+        for k in range(k0, k1):
+            kr, kc = k % g.pr, k % g.pc
+            lkr, lkc = k // g.pr, k // g.pc
+            d = _spmd.bcast_diag_tile(x, k, g, myr, myc)
+            lkk = _diag_potrf(d)
+            if want_info:
+                info = _update_info(info, _pivot_scan(d), k * g.mb)
+            # local window starts (first slot with gi >= k+1 / gj >= k+1),
+            # clamped like the JAX windows
+            rs = min(max((k + g.pr - myr) // g.pr, 0), max(g.ltr - L, 0))
+            cs = min(max((k + g.pc - myc) // g.pc, 0), max(g.ltc - C, 0))
+            gi_w = (rs + torch.arange(L, device=dev)) * g.pr + myr
+            jv = (cs + torch.arange(C, device=dev)) * g.pc + myc
+            xc = x[rs:rs + L, lkc]
+            pan = t.trsm(t.RIGHT, t.LOWER, t.CONJ_TRANS, t.NON_UNIT, 1.0, lkk, xc)
+            below = (gi_w > k)[:, None, None]
+            cp = coll.bcast(torch.where(below, pan, torch.zeros_like(pan)), kc, COL_AXIS)
+            rp = coll.transpose_panel_windowed(cp, jv, rs, g.mt)
+            if myc == kc:
+                x[rs:rs + L, lkc] = torch.where(below, pan, xc)
+            if myr == kr and myc == kc:
+                x[lkr, lkc] = lkk
+            xs = x[rs:rs + L, cs:cs + C]  # a view: the update lands in x
+            xs -= t.contract("iab,jcb->ijac", cp, rp.conj())
+    return info
+
+
+def _chol_L_lookahead(x, g: _spmd.Geometry, want_info: bool):
+    """Lookahead kernel: each step k writes back panel k, applies the
+    narrow update to column k+1, factors panel k+1, and applies the bulk
+    trailing update (column k+1 excluded).  Under the fused tier the bulk
+    update is the trailing-update kernel, issued before the narrow update
+    as in the JAX package (the reorder is exact: the bulk excludes column
+    k+1)."""
+    myr, myc = coll.my_rank()
+    dev = x.device
+    gi = _spmd.local_row_tiles(g, myr, dev)
+    gj = _spmd.local_col_tiles(g, myc, dev)
+    fused_tier = tune.trailing_update_tier() == "fused"
+
+    def compute_panel(k):
+        d = _spmd.bcast_diag_tile(x, k, g, myr, myc)
+        bad = _pivot_scan(d) if want_info else None
+        xc = _spmd.take_col(x, k // g.pc, g)
+        lkk = _diag_potrf(d)
+        pan = t.trsm(t.RIGHT, t.LOWER, t.CONJ_TRANS, t.NON_UNIT, 1.0, lkk, xc)
+        below = (gi > k)[:, None, None]
+        cp = coll.bcast(torch.where(below, pan, torch.zeros_like(pan)), k % g.pc, COL_AXIS,
+                        consumed=fused_tier)
+        return lkk, cp, bad
+
+    def write_back(k, lkk, cp):
+        if myc != k % g.pc:
+            return
+        lkc = k // g.pc
+        xc = _spmd.take_col(x, lkc, g)
+        below = (gi > k)[:, None, None]
+        new_col = torch.where((gi == k)[:, None, None], lkk[None],
+                              torch.where(below, cp, xc))
+        _spmd.put_col(x, new_col, lkc)
+
+    lkk, cp, bad = compute_panel(0)
+    info = bad if want_info else None
+    for k in range(g.mt - 1):
+        write_back(k, lkk, cp)
+        suppress = (gj == k + 1)[:, None, None]
+        if fused_tier:
+            # one-rank branch of the JAX fused_transpose_update: the ring
+            # exchange of a size-1 axis is the identity, then the bulk
+            # update with column k+1 suppressed
+            taken, have = coll.transpose_panel_parts(cp, g.mt, g.ltc)
+            rp = coll._panel_exchange(taken, have, ROW_AXIS)
+            rp_bulk = torch.where(suppress, torch.zeros_like(rp), rp).conj()
+            if _tu.update_kernel_ok(x.dtype):
+                _tu.trailing_update(x, cp, rp_bulk, _tu.CHOLESKY_SUBSCRIPTS)
+            else:
+                x -= t.contract(_tu.CHOLESKY_SUBSCRIPTS, cp, rp_bulk)
+        else:
+            rp = coll.transpose_panel(cp, g.mt, g.ltc)
+        # narrow update: column k+1 only, so its panel starts now
+        l_next = (k + 1) // g.pc
+        if myc == (k + 1) % g.pc:
+            rp1 = _spmd.take_tile(rp, l_next)
+            xc1 = _spmd.take_col(x, l_next, g)
+            xc1 -= t.contract("iab,cb->iac", cp, rp1.conj())
+        lkk1, cp1, bad1 = compute_panel(k + 1)
+        if not fused_tier:
+            rp_bulk = torch.where(suppress, torch.zeros_like(rp), rp)
+            x -= t.contract("iab,jcb->ijac", cp, rp_bulk.conj())
+        if want_info:
+            info = _update_info(info, bad1, (k + 1) * g.mb)
+        lkk, cp = lkk1, cp1
+    write_back(g.mt - 1, lkk, cp)
+    return info
+
+
+def _factor_distributed(mat_a: DistributedMatrix, g: _spmd.Geometry, want_info: bool):
+    """Run the distributed L kernel in place on ``mat_a.data``; returns the
+    info (a device int32 scalar) or None."""
+    kern = _chol_L_lookahead if tune.get_tune_parameters().cholesky_lookahead else _chol_L_bucketed
+    myr, myc = coll.my_rank()
+    x = coll.local(mat_a.data)
+    _spmd.pad_diag_identity(x, g, myr, myc)
+    info = kern(x, g, want_info)
+    _spmd.pad_diag_identity(x, g, myr, myc, remove=True)
+    return info
+
+
+def _cholesky_single_device(mat_a: DistributedMatrix) -> DistributedMatrix:
+    """1x1-grid dense path (``backend='auto'``): ``torch.linalg.cholesky``
+    on the whole matrix, where the JAX package leaves the work to XLA's
+    dense Cholesky.  The caller's upper triangle is kept."""
+    dist = mat_a.dist
+    g_ = layout.unpad_global(layout.unpack(mat_a.data, dist), dist)
+    herm = torch.tril(g_) + torch.tril(g_, -1).transpose(-1, -2).conj()
+    out = torch.linalg.cholesky(herm) + torch.triu(g_, 1)
+    return mat_a._inplace(layout.pack(layout.pad_global(out, dist), dist))
+
+
+def cholesky_factorization(
+    uplo: str,
+    mat_a: DistributedMatrix,
+    backend: str = "auto",
+    return_info: bool = False,
+    raise_on_failure: bool = False,
+    shift_recovery: bool = False,
+    checkpoint_every: int = 0,
+    checkpoint_path: str | None = None,
+    resume_from: str | None = None,
+):
+    """Factor the Hermitian positive-definite ``mat_a`` in place: on return
+    its lower triangle holds the Cholesky factor (the upper triangle holds
+    update residue, as in LAPACK potrf and the JAX package).
+
+    ``backend='auto'`` uses the dense ``torch.linalg.cholesky`` path on 1x1
+    grids; 'distributed' forces the tiled kernel.  ``return_info=True``
+    returns ``(factor, info)`` with ``info`` the LAPACK-style 1-based first
+    failing pivot (0 on success) as a device int32 scalar;
+    ``raise_on_failure=True`` raises :class:`NotPositiveDefiniteError`.
+    Info requests route 1x1 grids through the distributed kernel, as in
+    the JAX package: the dense path cannot name the pivot."""
+    if uplo != t.LOWER:
+        raise NotImplementedError(
+            f"cholesky_factorization(uplo={uplo!r}): only 'L' is ported; the U "
+            "mirror waits in ROADMAP.md (port queue, left out of slice 1)"
+        )
+    if shift_recovery or checkpoint_every or checkpoint_path is not None or resume_from is not None:
+        raise NotImplementedError(
+            "cholesky_factorization: shift_recovery and checkpointing are not "
+            "ported yet (ROADMAP.md, port queue, left out of slice 1)"
+        )
+    if mat_a.size.rows != mat_a.size.cols:
+        raise DistributionError("cholesky: matrix must be square")
+    if mat_a.block_size.rows != mat_a.block_size.cols:
+        raise DistributionError("cholesky: tiles must be square")
+    want_info = return_info or raise_on_failure
+    g = _spmd.Geometry.of(mat_a.dist)
+    if g.mt == 0:
+        return (mat_a, 0) if return_info else mat_a
+    if backend == "auto" and mat_a.grid.grid_size.count() == 1 and not want_info:
+        return _cholesky_single_device(mat_a)
+    if backend not in ("auto", "distributed"):
+        raise ValueError(f"cholesky: unknown backend {backend!r}")
+    info = _factor_distributed(mat_a, g, want_info)
+    out = mat_a._inplace(mat_a.data)
+    if raise_on_failure and int(info) > 0:
+        raise NotPositiveDefiniteError(int(info))
+    return (out, info) if return_info else out

@@ -1,0 +1,125 @@
+"""Build and load the port's CUDA kernels (the role
+``dlaf_tpu/common/nativebuild.py`` plays for the JAX package's C++ code).
+
+Every ``csrc/*.cu`` is compiled at first use, in one ``nvcc`` call, into a
+shared library with a plain C interface, which is loaded with ``ctypes``.
+The library lands in ``dlaf_tpu_torch/_build/`` (listed in ``.gitignore``)
+under a name keyed by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one is reused.  Nothing is built when the package
+is imported: only the first kernel launch on a CUDA tensor calls
+:func:`lib`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: C entry points and their argument types; every one returns the
+#: ``cudaGetLastError()`` of its launch as an int
+SIGNATURES = {
+    # (a, out, n, stream)
+    "dlaf_potrf_f32": [_P, _P, _I, _P],
+    "dlaf_potrf_f64": [_P, _P, _I, _P],
+    # (ell, b, x, rows, nb, stream)
+    "dlaf_panel_trsm_f32": [_P, _P, _P, _LL, _I, _P],
+    "dlaf_panel_trsm_f64": [_P, _P, _P, _LL, _I, _P],
+    # (x, a, b, L, C, M, N, K, b_is_nk, stream)
+    "dlaf_trailing_update_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dlaf_trailing_update_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+#: wall seconds of the last nvcc run in this process (0.0 when the cached
+#: library was reused)
+build_seconds = 0.0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda/bin)")
+
+
+def sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libdlaf_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile every ``csrc/*.cu`` into one library unless it exists;
+    raises ``RuntimeError`` with nvcc's output when the build fails."""
+    global build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.dlaf_error_string.argtypes = [ctypes.c_int]
+        handle.dlaf_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a launch reported a CUDA error."""
+    if rc != 0:
+        msg = lib().dlaf_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc} ({msg})")
+
+
+def stream_of(t) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, as an int handle."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

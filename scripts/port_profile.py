@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch/CUDA port's main path goes, on one GPU.
+
+    python3 scripts/port_profile.py
+
+Runs the two factorization paths of chip_smoke.py (A: bucketed, panel-TRSM
+kernel on; B: lookahead, fused trailing-update tier), on its inputs and its
+knobs (chip_smoke.N, NB, make_inputs, PATH_A, PATH_B), once as warm-up and
+once under torch.profiler, then prints one JSON line per path: wall time,
+device time summed over kernels, the device's idle share of the wall time
+(one stream, so kernels do not overlap), and device time by kernel group
+(the port's three kernels, library GEMMs, everything else) and by the
+top kernel names.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+GROUPS = (
+    ("potrf", "potrf_kernel"),
+    ("panel_trsm", "panel_trsm_kernel"),
+    ("trailing_update", "trailing_update_kernel"),
+    ("library_gemm", "gemm"),
+)
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for group, key in GROUPS:
+        if key in low:
+            return group
+    return "other"
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("port_profile: no CUDA device", flush=True)
+        return 2
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import tune
+
+    card = chip_smoke.card_line()
+    n, nb = chip_smoke.N, chip_smoke.NB
+    a, _ = chip_smoke.make_inputs(torch.device("cuda"))
+
+    for name, knobs in (("A", chip_smoke.PATH_A), ("B", chip_smoke.PATH_B)):
+        tune.initialize(**knobs)
+
+        def run():
+            mat = dtt.DistributedMatrix.from_global(dtt.Grid.create(), a, (nb, nb))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dtt.cholesky_factorization("L", mat, backend="distributed")
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        run()  # warm-up
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = run()
+        by_name = {}
+        for evt in prof.key_averages():
+            t = getattr(evt, "self_device_time_total", 0) or 0
+            if t > 0 and str(getattr(evt, "device_type", "")).endswith("CUDA"):
+                by_name[evt.key] = by_name.get(evt.key, 0.0) + t / 1e3  # us -> ms
+        groups = {}
+        for k, ms in by_name.items():
+            groups[group_of(k)] = groups.get(group_of(k), 0.0) + ms
+        device_ms = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        print(json.dumps({
+            "path": name, "config": knobs, "n": n, "nb": nb, "card": card,
+            "wall_ms_profiled": wall * 1e3, "device_ms": device_ms,
+            "idle_share": (1 - device_ms / (wall * 1e3)) if device_ms else None,
+            "groups_ms": groups,
+            "top_kernels_ms": [[k[:90], ms] for k, ms in top],
+        }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,128 @@
+"""The port's cholesky_factorization against the JAX package's, on the 1x1
+grid, at small sizes, with the same tune knobs set in both packages and the
+same input state carried across (``DistributedMatrix.from_stacked``).
+
+Variants: bucketed (default), lookahead under the 'xla' tier, lookahead
+under the 'fused' tier (the trailing-update kernel, its plain version on
+the CPU); ``panel_trsm_pallas`` on and off (the panel-TRSM kernel engages
+where mb % 32 == 0).  The lower triangle is compared at
+``tol_for(dtype, n)`` of the relative max error
+(``dlaf_tpu/testing/__init__.py:55``): the frameworks sum in different
+orders.
+"""
+import contextlib
+import itertools
+
+import jax
+import numpy as np
+import pytest
+
+import dlaf_tpu as dt
+import dlaf_tpu.testing as tu
+from dlaf_tpu import tune as jtune
+from dlaf_tpu_torch import tune as ttune
+from dlaf_tpu_torch.algorithms.cholesky import cholesky_factorization
+from dlaf_tpu_torch.comm.grid import Grid
+from dlaf_tpu_torch.health import NotPositiveDefiniteError
+from dlaf_tpu_torch.matrix.matrix import DistributedMatrix
+
+VARIANTS = {
+    "bucketed": dict(cholesky_lookahead=False, trailing_update_impl="auto"),
+    "lookahead_xla": dict(cholesky_lookahead=True, trailing_update_impl="xla"),
+    "lookahead_fused": dict(cholesky_lookahead=True, trailing_update_impl="fused"),
+}
+
+
+def _cases():
+    out = []
+    for n, mb, dtype, variant in itertools.product(
+            (64, 100, 192), (16, 32), (np.float32, np.float64), VARIANTS):
+        # mb=16 never meets the panel kernel's gate; at mb=32 one variant
+        # per dtype runs with the kernel off
+        panel = mb == 32 and not (variant == "bucketed" and dtype == np.float64)
+        out.append((n, mb, dtype, variant, panel))
+    return out
+
+
+@contextlib.contextmanager
+def knobs(**kw):
+    """Set the same knobs in both packages; restore both afterwards."""
+    jp, tp = jtune.get_tune_parameters(), ttune.get_tune_parameters()
+    jold = {k: getattr(jp, k) for k in kw}
+    told = {k: getattr(tp, k) for k in kw}
+    jp.update(**kw)
+    tp.update(**kw)
+    try:
+        yield
+    finally:
+        jp.update(**jold)
+        tp.update(**told)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_compiled_state():
+    yield
+    jax.clear_caches()
+
+
+def _pair(grid_1x1, a, mb):
+    jm = dt.DistributedMatrix.from_global(grid_1x1, a, (mb, mb))
+    tm = DistributedMatrix.from_stacked(np.asarray(jm.data), jm.dist, Grid.create(device="cpu"))
+    return jm, tm
+
+
+def _rel_err(got, ref):
+    return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1.0))
+
+
+@pytest.mark.parametrize("n,mb,dtype,variant,panel", _cases())
+def test_cholesky_matches_jax(grid_1x1, n, mb, dtype, variant, panel):
+    a = tu.random_hermitian_pd(n, dtype, seed=n + mb)
+    a = np.tril(a) + np.triu(tu.random_matrix(n, n, dtype, seed=1), 1)  # upper not read
+    jm, tm = _pair(grid_1x1, a, mb)
+    with knobs(panel_trsm_pallas=panel, **VARIANTS[variant]):
+        ref = np.tril(dt.cholesky_factorization("L", jm, backend="distributed").to_global())
+        out = cholesky_factorization("L", tm, backend="distributed")
+    got = np.tril(out.to_global())
+    assert out.data is tm.data  # in place
+    assert np.isfinite(got).all()
+    assert _rel_err(got, ref) <= tu.tol_for(dtype, n)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_info_on_non_spd_matches_jax(grid_1x1, variant):
+    n, mb = 96, 32
+    a = tu.random_hermitian_pd(n, np.float64, seed=5)
+    a[70, 70] = -50.0  # the leading minor of order 71 fails
+    jm, tm = _pair(grid_1x1, a, mb)
+    with knobs(panel_trsm_pallas=True, **VARIANTS[variant]):
+        _, jinfo = dt.cholesky_factorization("L", jm, backend="distributed", return_info=True)
+        _, tinfo = cholesky_factorization("L", tm, backend="distributed", return_info=True)
+        assert int(tinfo) == int(jinfo) == 71
+        with pytest.raises(NotPositiveDefiniteError) as e:
+            cholesky_factorization("L", _pair(grid_1x1, a, mb)[1], raise_on_failure=True)
+        assert e.value.info == 71
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_info_zero_and_dense_auto_path_match_jax(grid_1x1, dtype):
+    n, mb = 100, 32
+    a = tu.random_hermitian_pd(n, dtype, seed=6)
+    jm, tm = _pair(grid_1x1, a, mb)
+    _, info = cholesky_factorization("L", tm, backend="distributed", return_info=True)
+    assert int(info) == 0
+    # backend='auto' on 1x1: the dense path in both packages, upper kept
+    jm, tm = _pair(grid_1x1, a, mb)
+    ref = dt.cholesky_factorization("L", jm).to_global()
+    got = cholesky_factorization("L", tm).to_global()
+    assert _rel_err(np.tril(got), np.tril(ref)) <= tu.tol_for(dtype, n)
+    np.testing.assert_array_equal(np.triu(got, 1), np.triu(a, 1))
+
+
+def test_left_out_options_raise():
+    tm = DistributedMatrix.from_global(Grid.create(device="cpu"), np.eye(8), (4, 4))
+    for kw in (dict(uplo="U"), dict(shift_recovery=True), dict(checkpoint_every=2),
+               dict(resume_from="x")):
+        uplo = kw.pop("uplo", "L")
+        with pytest.raises(NotImplementedError):
+            cholesky_factorization(uplo, tm, **kw)

@@ -1,0 +1,108 @@
+"""The port stands alone: no module of dlaf_tpu_torch, and not
+chip_smoke.py, imports JAX or the JAX package; importing the port leaves
+JAX unloaded; the card is the default device; the slice runs 1x1 grids
+only; and the tune knobs keep the JAX package's names, environment and
+domains."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import dlaf_tpu_torch as dtt
+from dlaf_tpu_torch import tune
+from dlaf_tpu_torch.health import ConfigurationError
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "dlaf_tpu")
+
+
+def _port_sources():
+    return sorted((ROOT / "dlaf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    srcs = _port_sources()
+    assert len(srcs) > 10
+    bad = [(str(p.relative_to(ROOT)), m) for p in srcs for m in _imported_roots(p)
+           if m in FORBIDDEN]
+    assert bad == []
+
+
+def test_importing_the_port_leaves_jax_unloaded():
+    code = ("import sys, dlaf_tpu_torch, dlaf_tpu_torch.ops.tile; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dlaf_tpu')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_grid_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dtt.Grid.create()
+    g = dtt.Grid.create(device="cpu")
+    assert g.device == torch.device("cpu") and tuple(g.grid_size) == (1, 1)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 2), (2, 1)])
+def test_multi_rank_grids_wait_for_the_next_slice(shape):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dtt.Grid.create(shape, device="cpu")
+
+
+def test_tune_env_names_precedence_and_domains(monkeypatch):
+    monkeypatch.setenv("DLAF_TPU_PANEL_TRSM_PALLAS", "1")
+    monkeypatch.setenv("DLAF_TPU_TRAILING_UPDATE_IMPL", "fused")
+    monkeypatch.setenv("DLAF_TPU_BUCKET_SEGMENT_RATIO", "2.0")
+    p = tune.TuneParameters()
+    assert p.panel_trsm_pallas and p.trailing_update_impl == "fused"
+    assert p.bucket_segment_ratio == 2.0 and not p.cholesky_lookahead
+    p.update(panel_trsm_pallas=False)  # explicit update beats the environment
+    assert not p.panel_trsm_pallas
+    with pytest.raises(ConfigurationError):
+        p.update(trailing_update_impl="pallas")
+    with pytest.raises(ConfigurationError, match="ROADMAP"):
+        p.update(gemm_precision="bf16x3")
+    with pytest.raises(ValueError):
+        p.update(no_such_knob=1)
+
+
+def test_auto_trailing_update_tier_resolves_to_xla():
+    tp = tune.get_tune_parameters()
+    old = tp.trailing_update_impl
+    try:
+        tp.update(trailing_update_impl="auto")
+        assert tune.trailing_update_tier() == "xla"
+        tp.update(trailing_update_impl="fused")
+        assert tune.trailing_update_tier() == "fused"
+    finally:
+        tp.update(trailing_update_impl=old)
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """Alone in a directory, or on a machine without a card, the smoke
+    script exits non-zero and prints no result line."""
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    scripts = [lone] if torch.cuda.is_available() else [lone, ROOT / "chip_smoke.py"]
+    for script in scripts:
+        proc = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                              timeout=120, cwd=tmp_path)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout

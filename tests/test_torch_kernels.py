@@ -1,0 +1,221 @@
+"""The port's kernels: each plain PyTorch version against the JAX package's
+Pallas kernel run in interpret mode (as the JAX package's own tests run it
+on the CPU), the wrappers' dispatch and checks, and — on a CUDA card only —
+each CUDA kernel against its plain version.
+
+Tolerance: ``tol_for(dtype, n)`` (``dlaf_tpu/testing/__init__.py:55``) of
+the relative max error, n the tile side or contraction depth: the two
+frameworks sum in different orders.
+
+The JAX side is imported inside the reference tests, so that on a machine
+with a card and no JAX the CUDA tests still run:
+``python -m pytest tests/test_torch_kernels.py --noconftest -m cuda``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from dlaf_tpu_torch import ops
+from dlaf_tpu_torch.ops import panel_trsm, potrf, tile, trailing_update
+from dlaf_tpu_torch.testing import random_hermitian_pd, random_matrix, tol_for
+from dlaf_tpu_torch.tune import get_tune_parameters
+
+DTYPES = [np.float32, np.float64]
+
+
+def _rel_err(got, ref) -> float:
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1.0))
+
+
+def _jax():
+    jax = pytest.importorskip("jax")
+    return jax, pytest.importorskip("jax.numpy")
+
+
+def _lower_factor(n, dtype, seed=0):
+    return np.linalg.cholesky(random_hermitian_pd(n, np.float64, seed)).astype(dtype)
+
+
+# ------------------------------------------------ plain versions vs the JAX kernels
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [32, 64])
+def test_potrf_plain_matches_pallas(n, dtype):
+    jax, jnp = _jax()
+    from jax.experimental import pallas as pl
+
+    from dlaf_tpu.ops import pallas_potrf
+
+    a = random_hermitian_pd(n, dtype, seed=n)
+    a_lower = np.tril(a) + np.triu(random_matrix(n, n, dtype, seed=1), 1)  # garbage upper
+    herm = jnp.tril(a_lower) + jnp.tril(a_lower, -1).T
+    ref = pl.pallas_call(pallas_potrf._potrf_kernel,
+                         out_shape=jax.ShapeDtypeStruct(herm.shape, herm.dtype),
+                         interpret=True)(herm)
+    got = potrf.potrf_tile(torch.from_numpy(a_lower))
+    assert got.dtype == torch.from_numpy(a).dtype
+    assert np.all(np.triu(got.numpy(), 1) == 0)
+    assert _rel_err(got.numpy(), np.asarray(ref)) <= tol_for(dtype, n)
+
+
+@pytest.mark.parametrize("conj", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,nb", [(64, 32), (96, 64)])
+def test_panel_trsm_plain_matches_pallas(m, nb, dtype, conj):
+    _, jnp = _jax()
+    from dlaf_tpu.ops.pallas_panel_trsm import panel_trsm_right_lower_t
+
+    ell = _lower_factor(nb, dtype, seed=m)
+    ell_g = ell + np.triu(random_matrix(nb, nb, dtype, seed=2), 1)  # upper is not read
+    b = random_matrix(m, nb, dtype, seed=3)
+    ref = panel_trsm_right_lower_t(jnp.asarray(ell_g), jnp.asarray(b), conj, True)
+    got = panel_trsm.panel_trsm_right_lower_t(torch.from_numpy(ell_g), torch.from_numpy(b), conj)
+    assert _rel_err(got.numpy(), np.asarray(ref)) <= tol_for(dtype, nb)
+    np.testing.assert_allclose(got.numpy() @ ell.T, b, rtol=0, atol=tol_for(dtype, nb) * 10)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("subscripts", [trailing_update.CHOLESKY_SUBSCRIPTS,
+                                        trailing_update.TRSM_SUBSCRIPTS])
+def test_trailing_update_plain_matches_pallas(subscripts, dtype):
+    _, jnp = _jax()
+    from dlaf_tpu.ops import pallas_trailing_update as ptu
+
+    L, C, M, N, K = 3, 2, 16, 8, 16
+    x = random_matrix(L * C * M, N, dtype, seed=4).reshape(L, C, M, N)
+    a = random_matrix(L * M, K, dtype, seed=5).reshape(L, M, K)
+    bshape = (C, N, K) if subscripts == trailing_update.CHOLESKY_SUBSCRIPTS else (C, K, N)
+    b = random_matrix(int(np.prod(bshape[:-1])), bshape[-1], dtype, seed=6).reshape(bshape)
+    ref = ptu.trailing_update(jnp.asarray(x), jnp.asarray(a), jnp.asarray(b), subscripts,
+                              interpret=True, tier="default")
+    xt = torch.from_numpy(x.copy())
+    out = trailing_update.trailing_update(xt, torch.from_numpy(a), torch.from_numpy(b), subscripts)
+    assert out is xt  # written in place
+    assert _rel_err(out.numpy(), np.asarray(ref)) <= tol_for(dtype, K)
+
+
+# ------------------------------------------------------ wrappers on the CPU
+
+
+def test_cpu_wrappers_take_plain_versions_and_count_nothing():
+    ops.reset_launch_counts()
+    d = torch.from_numpy(random_hermitian_pd(32, np.float64, 1))
+    potrf.potrf_tile(d)
+    panel_trsm.panel_trsm_right_lower_t(torch.linalg.cholesky(d), torch.ones(8, 32, dtype=d.dtype))
+    x = torch.zeros(1, 1, 4, 4, dtype=d.dtype)
+    trailing_update.trailing_update(x, torch.ones(1, 4, 2, dtype=d.dtype),
+                                    torch.ones(1, 4, 2, dtype=d.dtype))
+    assert ops.launch_counts() == {"potrf": 0, "panel_trsm": 0, "trailing_update": 0}
+    assert torch.all(x == -2)
+
+
+def test_wrappers_reject_other_devices_and_forms():
+    meta = torch.empty(32, 32, device="meta")
+    with pytest.raises(ValueError):
+        potrf.potrf_tile(meta)
+    with pytest.raises(ValueError):
+        panel_trsm.panel_trsm_right_lower_t(meta, torch.empty(8, 32, device="meta"))
+    with pytest.raises(ValueError):
+        trailing_update.trailing_update(torch.zeros(1, 1, 2, 2), torch.zeros(1, 2, 2),
+                                        torch.zeros(1, 2, 2), "ab,bc->ac")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_static_gates_match_jax(dtype):
+    _, jnp = _jax()
+    from dlaf_tpu.ops import pallas_panel_trsm, pallas_potrf
+
+    for n in (8, 12, 32, 64):
+        a = np.zeros((n, n), dtype)
+        assert potrf.supported(torch.from_numpy(a)) == pallas_potrf.supported(jnp.asarray(a))
+    for nb, rows in ((32, 64), (64, 12), (16, 16), (64, 8)):
+        a, b = np.zeros((nb, nb), dtype), np.zeros((rows, nb), dtype)
+        for op in (tile.TRANS, tile.CONJ_TRANS, tile.NO_TRANS):
+            args = (tile.RIGHT, tile.LOWER, op, tile.NON_UNIT)
+            assert (panel_trsm.supported(*args, torch.from_numpy(a), torch.from_numpy(b))
+                    == pallas_panel_trsm.supported(*args, jnp.asarray(a), jnp.asarray(b)))
+
+
+@pytest.mark.parametrize("panel", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tile_trsm_panel_routing(dtype, panel):
+    """The Cholesky-panel trsm gives the same X with the panel kernel
+    routed on (plain version here) and off (torch.linalg.solve_triangular)."""
+    tp = get_tune_parameters()
+    old = tp.panel_trsm_pallas
+    ell = torch.from_numpy(_lower_factor(64, dtype, seed=7))
+    b = torch.from_numpy(random_matrix(3 * 64, 64, dtype, seed=8)).reshape(3, 64, 64)
+    try:
+        tp.update(panel_trsm_pallas=panel)
+        x = tile.trsm(tile.RIGHT, tile.LOWER, tile.CONJ_TRANS, tile.NON_UNIT, 1.0, ell, b)
+    finally:
+        tp.update(panel_trsm_pallas=old)
+    assert x.shape == b.shape and x.is_contiguous()
+    back = x @ ell.T
+    assert _rel_err(back.numpy(), b.numpy()) <= tol_for(dtype, 64)
+
+
+# --------------------------------------------------- CUDA kernels (card only)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_potrf_matches_plain(dtype):
+    dev = _cuda()
+    d = torch.from_numpy(random_hermitian_pd(200, np.float64, 9)).to(dev, dtype)
+    before = potrf.launches
+    got = potrf.potrf_tile(d)
+    assert potrf.launches == before + 1
+    ref = potrf.potrf_tile_plain(d)
+    assert _rel_err(got.cpu().numpy(), ref.cpu().numpy()) <= tol_for(np.dtype(str(dtype)[6:]), 200)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_panel_trsm_matches_plain(dtype):
+    dev = _cuda()
+    ell = torch.from_numpy(_lower_factor(128, np.float64, 10)).to(dev, dtype)
+    b = torch.from_numpy(random_matrix(200, 128, np.float64, 11)).to(dev, dtype)
+    got = panel_trsm.panel_trsm_right_lower_t(ell, b)
+    ref = panel_trsm.panel_trsm_plain(ell, b)
+    assert _rel_err(got.cpu().numpy(), ref.cpu().numpy()) <= tol_for(np.dtype(str(dtype)[6:]), 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subscripts", [trailing_update.CHOLESKY_SUBSCRIPTS,
+                                        trailing_update.TRSM_SUBSCRIPTS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_trailing_update_matches_plain(dtype, subscripts):
+    dev = _cuda()
+    g = torch.Generator(device="cpu").manual_seed(12)
+    L, C, M, N, K = 3, 2, 70, 90, 40  # ragged against the 64 x 64 x 16 tiling
+    x = torch.randn(L, C, M, N, generator=g, dtype=dtype)
+    a = torch.randn(L, M, K, generator=g, dtype=dtype)
+    bshape = (C, N, K) if subscripts == trailing_update.CHOLESKY_SUBSCRIPTS else (C, K, N)
+    b = torch.randn(*bshape, generator=g, dtype=dtype)
+    ref = trailing_update.trailing_update_plain(x.clone(), a, b, subscripts)
+    got = trailing_update.trailing_update(x.to(dev), a.to(dev), b.to(dev), subscripts)
+    assert _rel_err(got.cpu().numpy(), ref.numpy()) <= tol_for(np.dtype(str(dtype)[6:]), K)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take():
+    dev = _cuda()
+    with pytest.raises(TypeError):
+        potrf.potrf_tile(torch.eye(32, dtype=torch.complex64, device=dev))
+    with pytest.raises(ValueError):
+        potrf.potrf_tile(torch.eye(12, device=dev))
+    with pytest.raises(ValueError):
+        panel_trsm.panel_trsm_right_lower_t(torch.eye(32, device=dev), torch.ones(8, 32, device=dev).T)
+    with pytest.raises(ValueError):
+        trailing_update.trailing_update(torch.zeros(1, 1, 4, 4, device=dev),
+                                        torch.zeros(1, 4, 2, device=dev),
+                                        torch.zeros(1, 2, 4, device=dev))

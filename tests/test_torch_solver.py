@@ -1,0 +1,117 @@
+"""The port's Left/Lower triangular_solver and positive_definite_solver
+against the JAX package's, on the 1x1 grid, at small sizes, with the same
+knobs and input state in both packages.
+
+Tolerance: ``tol_for(dtype, n)`` of the relative max error
+(``dlaf_tpu/testing/__init__.py:55``).
+"""
+import contextlib
+
+import jax
+import numpy as np
+import pytest
+
+import dlaf_tpu as dt
+import dlaf_tpu.testing as tu
+from dlaf_tpu import tune as jtune
+from dlaf_tpu_torch import positive_definite_solver, triangular_solver
+from dlaf_tpu_torch import tune as ttune
+from dlaf_tpu_torch.comm.grid import Grid
+from dlaf_tpu_torch.matrix.matrix import DistributedMatrix
+
+VARIANTS = {
+    "bucketed": dict(trsm_lookahead=False, cholesky_lookahead=False,
+                     trailing_update_impl="auto"),
+    "lookahead_fused": dict(trsm_lookahead=True, cholesky_lookahead=True,
+                            trailing_update_impl="fused"),
+}
+
+
+@contextlib.contextmanager
+def knobs(**kw):
+    jp, tp = jtune.get_tune_parameters(), ttune.get_tune_parameters()
+    jold = {k: getattr(jp, k) for k in kw}
+    told = {k: getattr(tp, k) for k in kw}
+    jp.update(**kw)
+    tp.update(**kw)
+    try:
+        yield
+    finally:
+        jp.update(**jold)
+        tp.update(**told)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_compiled_state():
+    yield
+    jax.clear_caches()
+
+
+def _pair(grid_1x1, a, block):
+    jm = dt.DistributedMatrix.from_global(grid_1x1, a, block)
+    tm = DistributedMatrix.from_stacked(np.asarray(jm.data), jm.dist, Grid.create(device="cpu"))
+    return jm, tm
+
+
+def _rel_err(got, ref):
+    return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1.0))
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("op", ["N", "C"])
+@pytest.mark.parametrize("dtype,n,mb,nrhs", [(np.float32, 100, 32, 40), (np.float64, 64, 16, 24)])
+def test_triangular_solver_left_lower_matches_jax(grid_1x1, variant, op, dtype, n, mb, nrhs):
+    a = tu.random_triangular(n, dtype, lower=True, seed=n)
+    a = a + np.triu(tu.random_matrix(n, n, dtype, seed=2), 1)  # upper is not read
+    b = tu.random_matrix(n, nrhs, dtype, seed=3)
+    ja, ta = _pair(grid_1x1, a, (mb, mb))
+    jb, tb = _pair(grid_1x1, b, (mb, mb // 2))
+    with knobs(panel_trsm_pallas=True, **VARIANTS[variant]):
+        ref = dt.triangular_solver("Left", "L", op, "N", 2.0, ja, jb, backend="distributed")
+        out = triangular_solver("Left", "L", op, "N", 2.0, ta, tb, backend="distributed")
+    assert out.data is tb.data  # in place
+    np.testing.assert_array_equal(ta.to_global(), a)  # A untouched
+    assert _rel_err(out.to_global(), ref.to_global()) <= tu.tol_for(dtype, n)
+
+
+@pytest.mark.parametrize("op", ["N", "C"])
+def test_triangular_solver_dense_auto_path_matches_jax(grid_1x1, op):
+    n, mb = 72, 16
+    a = tu.random_triangular(n, np.float64, lower=True, seed=4)
+    b = tu.random_matrix(n, 10, np.float64, seed=5)
+    ja, ta = _pair(grid_1x1, a, (mb, mb))
+    jb, tb = _pair(grid_1x1, b, (mb, mb))
+    ref = dt.triangular_solver("Left", "L", op, "N", 1.0, ja, jb).to_global()
+    got = triangular_solver("Left", "L", op, "N", 1.0, ta, tb).to_global()
+    assert _rel_err(got, ref) <= tu.tol_for(np.float64, n)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("return_info", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_positive_definite_solver_matches_jax(grid_1x1, dtype, return_info, variant):
+    n, mb = 96, 32
+    a = tu.random_hermitian_pd(n, dtype, seed=7)
+    b = tu.random_matrix(n, 12, dtype, seed=8)
+    ja, ta = _pair(grid_1x1, a, (mb, mb))
+    jb, tb = _pair(grid_1x1, b, (mb, mb))
+    with knobs(panel_trsm_pallas=True, **VARIANTS[variant]):
+        ref = dt.positive_definite_solver("L", ja, jb, return_info=return_info)
+        out = positive_definite_solver("L", ta, tb, return_info=return_info)
+    if return_info:
+        (ref, jinfo), (out, tinfo) = ref, out
+        assert int(tinfo) == int(jinfo) == 0
+    assert _rel_err(out.to_global(), ref.to_global()) <= tu.tol_for(dtype, n)
+    assert _rel_err(a.astype(np.float64) @ out.to_global(), b) <= tu.tol_for(dtype, n) * 10
+
+
+def test_left_out_options_raise():
+    g = Grid.create(device="cpu")
+    ta = DistributedMatrix.from_global(g, np.eye(8), (4, 4))
+    tb = DistributedMatrix.from_global(g, np.ones((8, 2)), (4, 4))
+    with pytest.raises(NotImplementedError):
+        triangular_solver("Right", "L", "N", "N", 1.0, ta, tb)
+    with pytest.raises(NotImplementedError):
+        triangular_solver("Left", "L", "N", "N", 1.0, ta, tb, refine_to="input")
+    with pytest.raises(NotImplementedError):
+        positive_definite_solver("L", ta, tb, refine_to="input")
