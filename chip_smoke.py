@@ -3,20 +3,26 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  The workload is fixed: the headline
-configuration of bench.py (N=16384, nb=512, f32, 1x1 grid, distributed
-kernel forced), on a random SPD matrix made from seed 0.  Phases, each
-fatal on failure:
+Run from the root of a checkout.  The workloads are fixed: the headline
+Cholesky configuration of bench.py (N=16384, nb=512, f32, 1x1 grid,
+distributed kernel forced), on a random SPD matrix made from seed 0, and
+bench.py's HEEV configuration (N=8192, nb=512, f32, 1x1 grid, the full
+pipeline) on random_hermitian_pd(8192, f32, seed=2).  Phases, each fatal
+on failure:
 
 0. header: the card's name and power limit (nvidia-smi), stamped on every
    timing line;
-1. build: every kernel under dlaf_tpu_torch/csrc/, one nvcc call;
-2. kernels vs their plain PyTorch versions at the main path's shapes (f32),
+1. build: every kernel under dlaf_tpu_torch/csrc/, one nvcc call, and the
+   host bulge chase (csrc/host/band2trid.cpp, g++);
+2. kernels vs their plain PyTorch versions at the main paths' shapes (f32),
    on seeded inputs whose off-diagonal coupling is not small (so a kernel
    that drops terms disagrees), each within a stated tolerance, with
    kernel / plain / library-call times (CUDA events) and the card's bound
-   for the same work; then a small ragged input factored by the port and
-   by torch.linalg.cholesky;
+   for the same work: B1, B2, B3 in both lookahead forms and at
+   red2band's shapes (K = band = 128), and B10, the secular bisection, at
+   each of path H's shapes (8192, S), S = 1024, 2048, 4096, 8192, on true
+   secular equations; then a small ragged input
+   factored by the port and by torch.linalg.cholesky;
 3. path A, the headline configuration: cholesky_factorization(backend=
    "distributed"), panel TRSM kernel on (DLAF_TPU_PANEL_TRSM_PALLAS=1);
    residual, wall time, GFlop/s (N^3/3 flops, as bench.py counts them),
@@ -25,7 +31,14 @@ fatal on failure:
    solves (Left/Lower/N then Left/Lower/C, i.e. cholesky_solver with the
    distributed kernel forced) with trailing_update_impl=fused;
 5. POSV through positive_definite_solver(..., return_info=True);
-6. one {"kernels": [...]} JSON line, the card line again, and as the last
+6. path H: hermitian_eigensolver("L", A, backend="pipeline") with
+   dc_secular_pallas=1, trailing_update_impl=fused, band_chase_backend=
+   native: one warm-up, one timed run (wall, GFlop/s at 4/3 N^3 as bench.py
+   counts them, launch counts), one instrumented run for the stage
+   breakdown; eigenvalues, residual and orthogonality held in float64 on
+   the card to tol_for(f32, N), each check first shown to reject a wrong
+   answer;
+7. one {"kernels": [...]} JSON line, the card line again, and as the last
    line {"ok": true, "device": {...}}.
 
 Solutions are held to a float64 reference solve on the card (relative
@@ -52,6 +65,15 @@ N, NB, SEED = 16384, 512, 0
 PATH_A = {"panel_trsm_pallas": True}
 PATH_B = {"cholesky_lookahead": True, "trsm_lookahead": True,
           "trailing_update_impl": "fused", "panel_trsm_pallas": True}
+# the HEEV workload, bench.py's heev_n8192_nb512_f32_1chip_pipeline, and
+# the knobs of path H (the band, SBR band and D&C leaf are the JAX
+# package's accelerator defaults: 128, 32 and 512 at nb=512)
+NH, NBH, SEED_H = 8192, 512, 2
+PATH_H = {"dc_secular_pallas": True, "trailing_update_impl": "fused",
+          "band_chase_backend": "native"}
+# B10 phase: (K, S) secular tables at path H's merge levels (leaf 512:
+# one compiled instantiation of the kernel per S), f32 bisection rounds
+K_B10, S_B10, ITERS_B10 = 8192, (1024, 2048, 4096, 8192), 42
 
 
 def make_inputs(dev):
@@ -89,6 +111,104 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def path_h(stamp: dict) -> dict:
+    """Phase 6: hermitian_eigensolver("L", A, backend="pipeline") at NH,
+    NBH.  Returns the timed run's launch counts."""
+    import numpy as np
+    import torch
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import ops, tune
+    from dlaf_tpu_torch.algorithms.eigensolver import _sbr_target
+    from dlaf_tpu_torch.algorithms.reduction_to_band import get_band_size
+    from dlaf_tpu_torch.algorithms.tridiag_dc_dist import _plan
+    from dlaf_tpu_torch.common import stagetimer
+    from dlaf_tpu_torch.matrix import layout
+    from dlaf_tpu_torch.testing import random_hermitian_pd, tol_for
+
+    n, nb = NH, NBH
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    a_np = random_hermitian_pd(n, np.float32, seed=SEED_H)
+    a_low = torch.from_numpy(np.tril(a_np)).to(dev)
+    emit({"phase": "path_H_input", "n": n, "seed": SEED_H, "host_s": time.perf_counter() - t0})
+    del a_np
+    os.environ.pop("DLAF_TPU_PANEL_TRSM_PALLAS", None)
+    tune.initialize(**PATH_H)
+
+    def run(instrumented: bool = False):
+        mat = dtt.DistributedMatrix.from_global(dtt.Grid.create(), a_low, (nb, nb))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        if instrumented:
+            stagetimer.start()
+        t0 = time.perf_counter()
+        res = dtt.hermitian_eigensolver("L", mat, backend="pipeline")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        times = stagetimer.stop() if instrumented else None
+        return res, wall, ops.launch_counts(), times
+
+    band = get_band_size(nb, dev)
+    run()  # warm-up (allocator, library handles, the chase's threads), discarded
+    res, wall, counts, _ = run()
+    _, wall_i, _, times = run(instrumented=True)
+    gflop = 4.0 * n ** 3 / 3 / 1e9
+
+    # checks in float64 on the card against eigvalsh of the same matrix
+    a64 = a_low.double()
+    a64 = a64 + torch.tril(a64, -1).T
+    w_ref = torch.linalg.eigvalsh(a64)
+    norm2 = w_ref.abs().max()
+    norm_f = torch.linalg.matrix_norm(a64)
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+
+    def eig_err(w):
+        return ((w - w_ref).abs().max() / norm2).item()
+
+    def residual(v, w):
+        return (torch.linalg.matrix_norm(a64 @ v - v * w[None, :]) / norm_f).item()
+
+    def orthogonality(v):
+        return (torch.linalg.matrix_norm(v.T @ v - eye) / n ** 0.5).item()
+
+    tol = tol_for("float32", n)
+    w = torch.from_numpy(np.asarray(res.eigenvalues, np.float64)).to(dev)
+    v = layout.unpad_global(layout.unpack(res.eigenvectors.data, res.eigenvectors.dist),
+                            res.eigenvectors.dist).double()
+    got = {"eig_err": eig_err(w), "residual": residual(v, w), "orthogonality": orthogonality(v)}
+    # each check first rejects a wrong answer
+    w_diag = torch.sort(a64.diagonal()).values
+    swapped = v[:, [n - 1] + list(range(1, n - 1)) + [0]]
+    dup = v.clone()
+    dup[:, 0] = v[:, n - 1]
+    wrong = {"eig_err of w = sort(diag A)": eig_err(w_diag),
+             "residual of V = I": residual(eye, w),
+             "residual of V with its first and last columns swapped": residual(swapped, w),
+             "orthogonality of V with its first column replaced by its last": orthogonality(dup)}
+    del a64, eye, v, swapped, dup
+    torch.cuda.empty_cache()
+    emit({"phase": "path_H", "config": "hermitian_eigensolver(L, pipeline), " + ", ".join(
+              f"{k}={v_}" for k, v_ in PATH_H.items()),
+          "n": n, "nb": nb, "band": band, "sbr_band": _sbr_target(band, dev),
+          "dc_leaf_size": tune.get_tune_parameters().dc_leaf_size, "wall_s": wall,
+          "gflops": gflop / wall, "instrumented_wall_s": wall_i, "stage_s": times,
+          "checks": got, "tol": tol, "wrong_answers": wrong, "launches": counts, **stamp})
+    for name, val in wrong.items():
+        if not val > tol:
+            fail(f"path H check accepts a wrong answer: {name} = {val:.3e} <= {tol:.3e}")
+    for name, val in got.items():
+        if not val <= tol:
+            fail(f"path H {name} {val:.3e} > {tol:.3e}")
+    s0, levels = _plan(n, nb, tune.get_tune_parameters().dc_leaf_size)[:2]
+    if tuple(s0 << lv for lv in range(1, levels + 1)) != S_B10:
+        fail(f"path H's merge sizes {[s0 << lv for lv in range(1, levels + 1)]} are not "
+             f"the B10 phase's {S_B10}")
+    if counts["secular_bisect"] != 2 * levels or counts["trailing_update"] <= 0:
+        fail(f"path H did not launch B10 twice per merge level ({levels} levels) and B3: {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -101,9 +221,9 @@ def main() -> int:
     sys.path.insert(0, HERE)
 
     import dlaf_tpu_torch as dtt
-    from dlaf_tpu_torch import ops, tune
+    from dlaf_tpu_torch import native, ops, tune
     from dlaf_tpu_torch.matrix import layout
-    from dlaf_tpu_torch.ops import _build, panel_trsm, potrf, trailing_update
+    from dlaf_tpu_torch.ops import _build, panel_trsm, potrf, secular, trailing_update
     from dlaf_tpu_torch.testing import tol_for
 
     n, nb = N, NB
@@ -121,10 +241,16 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.lib()
+    t1 = time.perf_counter()
+    chase_path = native.build()
+    native.lib()
     emit({"phase": "build", "library": os.path.relpath(lib_path, HERE),
           "nvcc_s": round(_build.build_seconds, 3),
-          "build_and_load_s": round(time.perf_counter() - t0, 3),
-          "sources": [os.path.relpath(p, HERE) for p in _build.sources()]})
+          "build_and_load_s": round(t1 - t0, 3),
+          "sources": [os.path.relpath(p, HERE) for p in _build.sources()],
+          "chase_library": os.path.relpath(chase_path, HERE),
+          "chase_build_and_load_s": round(time.perf_counter() - t1, 3),
+          "chase_source": os.path.relpath(native.SOURCE, HERE)})
 
     def timed_ms(fn, iters: int, warmup: int = 1) -> float:
         for _ in range(warmup):
@@ -241,7 +367,89 @@ def main() -> int:
         del xk, xv, a_op, b_op, a_exp, b_exp
         if not err <= tol:
             fail(f"trailing_update[{sub}] kernel vs plain: rel err {err:.3e} > tol {tol:.3e}")
+    # B3 at red2band's shapes (path H): x[i, j] -= w2[i] @ v[j]^T over the
+    # first trailing window, K = band = 128, the 'iab,jcb->ijac' form twice
+    # per panel
+    L, C, M, N_, K = NH // NBH, NH // NBH, NBH, NBH, 128
+    sub = trailing_update.CHOLESKY_SUBSCRIPTS
+    x0 = torch.randn(L, C, M, N_, generator=kgen, device=dev, dtype=f32)
+    a_op = torch.randn(L, M, K, generator=kgen, device=dev, dtype=f32)
+    b_op = torch.randn(C, N_, K, generator=kgen, device=dev, dtype=f32)
+    xk, xp = x0.clone(), x0.clone()
+    trailing_update.trailing_update(xk, a_op, b_op, sub)
+    trailing_update.trailing_update_plain(xp, a_op, b_op, sub)
+    torch.cuda.synchronize()
+    err_abs, err = rel_err(xk.sub_(x0), xp.sub_(x0))
+    tol = tol_for("float32", K)
+    del xp, x0
+    a_exp = a_op.unsqueeze(1).expand(L, C, M, K).reshape(L * C, M, K)
+    b_exp = b_op.transpose(-1, -2).unsqueeze(0).expand(L, C, K, N_).reshape(L * C, K, N_)
+    xv = xk.view(L * C, M, N_)
+    b_ms, b_by = bound(2.0 * L * C * M * N_ * K, (2 * L * C * M * N_ + L * M * K + C * N_ * K) * 4)
+    red2band_form = f"{sub} (red2band, K={K})"
+    forms[red2band_form] = {
+        "shape": {"x": [L, C, M, N_], "a": list(a_op.shape), "b": list(b_op.shape)},
+        "max_abs_err": err_abs, "rel_err": err, "tol": tol,
+        "kernel_ms": timed_ms(lambda: trailing_update.trailing_update(xk, a_op, b_op, sub), 20),
+        "plain_ms": timed_ms(lambda: trailing_update.trailing_update_plain(xk, a_op, b_op, sub), 20),
+        "library_ms": timed_ms(lambda: xv.baddbmm_(a_exp, b_exp, alpha=-1), 20),
+        "library_call": "torch.Tensor.baddbmm_", "bound_ms": b_ms, "bound_by": b_by,
+    }
+    emit({"kernel": "trailing_update", "subscripts": red2band_form, **forms[red2band_form], **stamp})
+    del xk, xv, a_op, b_op, a_exp, b_exp
+    if not err <= tol:
+        fail(f"trailing_update[{red2band_form}] kernel vs plain: rel err {err:.3e} > tol {tol:.3e}")
     report["trailing_update"] = {**forms[trailing_update.CHOLESKY_SUBSCRIPTS], "forms": forms}
+    torch.cuda.empty_cache()
+
+    # B10 secular bisection at path H's shapes: K rows of S poles, S one
+    # merge level's subproblem size.  True secular equations shaped like
+    # the D&C's: increasing poles d in [1, 5] (a jittered grid, so no two
+    # coincide and every bracket is wider than 2 / S), weights z2 > 0
+    # summing to about 1 per row, rho in [0.1, 1.6]; row r anchors at pole
+    # j = r mod (S - 1) with the bracket (0, d[j+1] - d[j]), which holds
+    # exactly one root (f rises from -inf to +inf).  The roots are compared
+    # relative to the bracket width; the tolerance is tol_for(f32, S), S
+    # the length of the row sums.  Every S is checked before any failure
+    # stops the script.
+    kk = K_B10
+    shapes, b10_bad = {}, []
+    for ss in S_B10:
+        jitter = torch.rand(ss, generator=kgen, device=dev)
+        poles = 1 + 4 * (torch.arange(ss, device=dev) + 0.25 + 0.5 * jitter) / ss
+        dw = poles.expand(kk, ss).contiguous()
+        z2 = (torch.rand(kk, ss, generator=kgen, device=dev) + 0.01) * (2.0 / ss)
+        rho = torch.rand(kk, generator=kgen, device=dev) * 1.5 + 0.1
+        jj = torch.arange(kk, device=dev) % (ss - 1)
+        anchor = poles[jj].contiguous()
+        width = (poles[jj + 1] - poles[jj]).contiguous()
+        lo0 = torch.zeros(kk, device=dev)
+        b10 = (dw, z2, rho, anchor, lo0, width, ITERS_B10)
+        k_out, p_out = secular.secular_bisect(*b10), secular.secular_bisect_plain(*b10)
+        torch.cuda.synchronize()
+        err = ((k_out - p_out).abs() / width).max().item()
+        err_abs = (k_out - p_out).abs().max().item()
+        inside = bool(((p_out > 0) & (p_out < width)).all())
+        tol = tol_for("float32", ss)
+        b_ms, b_by = bound(4.0 * ITERS_B10 * kk * ss, (2 * kk * ss + 5 * kk) * 4)
+        rec = {"kernel": "secular_bisect", "shape": [kk, ss], "iters": ITERS_B10,
+               "max_abs_err": err_abs, "max_err_rel_to_bracket": err, "tol": tol,
+               "plain_roots_inside_brackets": inside,
+               "kernel_ms": timed_ms(lambda: secular.secular_bisect(*b10), 10),
+               "plain_ms": timed_ms(lambda: secular.secular_bisect_plain(*b10), 3),
+               "library_ms": None, "library_call": "none: no single PyTorch call computes it",
+               "bound_ms": b_ms, "bound_by": b_by,
+               "bound_counts": "4 flops per element and round (sub, IEEE div as 1, FMA as 2); "
+                               "bytes 2*K*S*4 + 5*K*4", **stamp}
+        emit(rec)
+        del dw, z2, b10, k_out, p_out
+        shapes[ss] = rec
+        if not (err <= tol and inside):
+            b10_bad.append(f"S={ss}: max err / bracket {err:.3e} (tol {tol:.3e}), "
+                           f"plain roots inside their brackets: {inside}")
+    if b10_bad:
+        fail("secular_bisect kernel vs plain: " + "; ".join(b10_bad))
+    report["secular_bisect"] = {**shapes[max(S_B10)], "shapes": shapes}
     torch.cuda.empty_cache()
 
     # the main path's matrix and right-hand side
@@ -368,20 +576,27 @@ def main() -> int:
     if info != 0 or not serr <= res_tol:
         fail(f"POSV info {info}, solve error {serr:.3e}")
 
-    # ---- 6. summary
+    del a_glob, rhs, x_ref
+    torch.cuda.empty_cache()
+
+    # ---- 6. path H: the HEEV pipeline
+    by_path["H_heev"] = path_h(stamp)
+
+    # ---- 7. summary
     meta = {
         "potrf": ("dlaf_tpu_torch/csrc/potrf.cu", "dlaf_tpu/ops/pallas_potrf.py:48"),
         "panel_trsm": ("dlaf_tpu_torch/csrc/panel_trsm.cu", "dlaf_tpu/ops/pallas_panel_trsm.py:90"),
         "trailing_update": ("dlaf_tpu_torch/csrc/trailing_update.cu",
                             "dlaf_tpu/ops/pallas_trailing_update.py:163"),
+        "secular_bisect": ("dlaf_tpu_torch/csrc/secular.cu", "dlaf_tpu/ops/pallas_secular.py:57"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
         r = report[name]
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(c[name] for c in by_path.values()),
-            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "launches": sum(c.get(name, 0) for c in by_path.values()),
+            "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         }
@@ -390,6 +605,11 @@ def main() -> int:
             entry["forms"] = {s: {k: f[k] for k in ("kernel_ms", "plain_ms", "library_ms",
                                                     "bound_ms", "max_abs_err")}
                               for s, f in r["forms"].items()}
+        if name == "secular_bisect":
+            entry["max_abs_err"] = max(f["max_abs_err"] for f in r["shapes"].values())
+            entry["shapes"] = {f"{K_B10}x{s}": {k: f[k] for k in (
+                "kernel_ms", "plain_ms", "bound_ms", "max_abs_err", "max_err_rel_to_bracket")}
+                for s, f in r["shapes"].items()}
         kernels.append(entry)
     emit({"kernels": kernels})
     print(card, flush=True)  # as nvidia-smi prints it: name, power limit

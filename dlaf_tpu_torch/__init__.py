@@ -4,9 +4,13 @@ A second package beside the JAX one (``dlaf_tpu/``, the reference it is
 held against): the same 2D block-cyclic data model
 (``X[Pr, Pc, ltr, ltc, mb, nb]``), the same algorithms, and hand-written
 CUDA kernels for Hopper where the JAX package has Pallas kernels.  This
-slice runs the main path on a 1x1 grid: distributed Cholesky, the Left
-triangular solves, and POTRS/POSV, with the potrf, panel-TRSM and
-trailing-update kernels (``ops/``, sources in ``csrc/``).
+package runs on a 1x1 grid: distributed Cholesky, the Left triangular
+solves and POTRS/POSV, with the potrf, panel-TRSM and trailing-update
+kernels; and the Hermitian eigensolver pipeline (reduction to band, SBR,
+the host bulge chase, the distributed D&C tridiagonal solver with the
+secular-bisection kernel, and the three back-transforms).  Kernels live in
+``ops/`` with their CUDA sources in ``csrc/``; the host chase's C++ source
+is ``csrc/host/band2trid.cpp`` (``native.py``).
 
 Entry points run on the CUDA device unless the caller passes
 ``Grid.create(device="cpu")``, where every kernel wrapper takes its plain
@@ -14,6 +18,7 @@ PyTorch version.  The package imports ``torch``, numpy and the standard
 library only; it never imports JAX or the JAX package.
 """
 from dlaf_tpu_torch.algorithms.cholesky import cholesky_factorization
+from dlaf_tpu_torch.algorithms.eigensolver import EigResult, hermitian_eigensolver
 from dlaf_tpu_torch.algorithms.solver import cholesky_solver, positive_definite_solver
 from dlaf_tpu_torch.algorithms.triangular_solver import triangular_solver
 from dlaf_tpu_torch.comm.grid import Grid
@@ -26,4 +31,6 @@ __all__ = [
     "triangular_solver",
     "cholesky_solver",
     "positive_definite_solver",
+    "hermitian_eigensolver",
+    "EigResult",
 ]

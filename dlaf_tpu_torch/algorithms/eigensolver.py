@@ -1,0 +1,169 @@
+"""Hermitian eigensolver (counterpart of ``dlaf_tpu/algorithms/eigensolver.py``),
+full spectrum, real dtypes.
+
+``backend='pipeline'`` runs the reference's staging on the grid's device:
+
+  reduction_to_band        dense -> band b1 (device)
+  sbr_reduce               band b1 -> b2, when the SBR stage is on (device)
+  host bulge chase         band -> tridiagonal + compact reflectors (host)
+  tridiagonal_eigensolver  multi-level D&C (device; B10 for f32)
+  bt_band_hh               E <- Q2 E (device)
+  sbr_back_transform       E <- Q_sbr E (device)
+  bt_reduction_to_band     E <- Q1 E (device)
+
+``backend='auto'`` on a 1x1 grid is one ``torch.linalg.eigh`` of the
+hermitized dense matrix, as the JAX package calls XLA's ``eigh`` there.
+'U' runs through the hermitized mirror.  Stage clocks: run between
+``common.stagetimer.start()`` and ``stop()`` (red2band, sbr, chase,
+tridiag, bt_band, bt_sbr, bt_red2band); each boundary then synchronises
+the card.
+
+Not ported (ROADMAP.md): the generalized problem, eigenvalues only,
+partial spectra, complex dtypes, the device chase and the dense host band
+stage the JAX package falls back to without a chase library.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from dlaf_tpu_torch import health, tune
+from dlaf_tpu_torch.algorithms.band_to_tridiag import (
+    band_to_tridiagonal_hh_storage,
+    extract_band_storage,
+    resolve_chase_backend,
+)
+from dlaf_tpu_torch.algorithms.bt_band_hh import bt_band_to_tridiagonal_hh_dist
+from dlaf_tpu_torch.algorithms.bt_reduction_to_band import bt_reduction_to_band
+from dlaf_tpu_torch.algorithms.reduction_to_band import get_band_size, reduction_to_band
+from dlaf_tpu_torch.algorithms.tridiag_solver import tridiagonal_eigensolver
+from dlaf_tpu_torch.common import stagetimer as st
+from dlaf_tpu_torch.matrix import layout
+from dlaf_tpu_torch.matrix import util as mutil
+from dlaf_tpu_torch.matrix.matrix import DistributedMatrix
+from dlaf_tpu_torch.ops import tile as t
+
+
+@dataclass
+class EigResult:
+    eigenvalues: np.ndarray  # ascending, host
+    eigenvectors: DistributedMatrix  # n x n distributed
+
+
+def _check_full_f32_products() -> None:
+    """The pipeline's float32 products must be full float32: TF32 would
+    change every stage (and it is off since ``ops/tile.py`` is imported)."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "hermitian_eigensolver: float32 products must be full float32 "
+            "(torch.backends.cuda.matmul.allow_tf32 False, "
+            "torch.get_float32_matmul_precision() == 'highest')")
+    tune.validate_eigensolver_matmul_precision(
+        tune.get_tune_parameters().eigensolver_matmul_precision)
+
+
+def _sbr_target(band: int, device) -> int:
+    """SBR target band: the largest divisor of ``band`` not above
+    ``eigensolver_sbr_band`` when that shrinks the band, else 0 (off); -1 =
+    32 on the card, off on the CPU (``eigensolver.py:152``)."""
+    t_ = int(tune.get_tune_parameters().eigensolver_sbr_band)
+    if t_ < 0:
+        t_ = 32 if tune.on_accelerator(device) else 0
+    if t_ <= 0 or band <= t_:
+        return 0
+    b2 = min(t_, band - 1)
+    while band % b2:
+        b2 -= 1
+    return b2 if b2 >= 2 else 0
+
+
+def _band_stage_hh(band_mat: DistributedMatrix, band: int):
+    """Band -> tridiagonal: the optional SBR shrink on the device, then the
+    host chase at the small band.  Returns (hh tuple, SbrTransforms or
+    None)."""
+    from dlaf_tpu_torch.algorithms.band_reduction import sbr_reduce
+
+    dev = band_mat.data.device
+    dt = torch.empty(0, dtype=band_mat.dtype).numpy().dtype
+    resolve_chase_backend(dev)  # raises before any work for the device chase
+    b2 = _sbr_target(band, dev)
+    if b2:
+        with st.stage("sbr", dev):
+            ab2, tr = sbr_reduce(extract_band_storage(band_mat, band), band, b2)
+        with st.stage("chase", dev):
+            hh = band_to_tridiagonal_hh_storage(ab2, b2, dt, device=dev)
+        return hh, (tr if tr.n_sweeps else None)
+    with st.stage("chase", dev):
+        hh = band_to_tridiagonal_hh_storage(extract_band_storage(band_mat, band), band, dt,
+                                            device=dev)
+    return hh, None
+
+
+def _eigh_single_device(mat_a: DistributedMatrix) -> EigResult:
+    """1x1 fast path: ``torch.linalg.eigh`` of the hermitized dense matrix."""
+    dist = mat_a.dist
+    g = layout.unpad_global(layout.unpack(mat_a.data, dist), dist)
+    full = torch.tril(g) + torch.tril(g, -1).transpose(0, 1).conj()
+    w, v = torch.linalg.eigh(full)
+    return EigResult(w.cpu().numpy(),
+                     DistributedMatrix(dist, mat_a.grid, layout.pack(layout.pad_global(v, dist), dist)))
+
+
+def hermitian_eigensolver(
+    uplo: str,
+    mat_a: DistributedMatrix,
+    spectrum: Optional[Tuple[int, int]] = None,
+    backend: str = "auto",
+) -> EigResult:
+    """Eigendecomposition of the Hermitian matrix stored in the ``uplo``
+    triangle of ``mat_a`` (not modified).  ``backend='auto'`` takes
+    ``torch.linalg.eigh`` on 1x1 grids; 'pipeline' forces the distributed
+    band-reduction pipeline."""
+    if spectrum is not None:
+        raise NotImplementedError(
+            "hermitian_eigensolver: partial spectra are not ported yet (ROADMAP.md)")
+    if backend not in ("auto", "pipeline"):
+        raise ValueError(f"hermitian_eigensolver: unknown backend {backend!r}")
+    if mat_a.dtype.is_complex:
+        raise NotImplementedError("hermitian_eigensolver: complex dtypes are not ported yet (ROADMAP.md)")
+    if mat_a.size.rows != mat_a.size.cols:
+        raise ValueError("hermitian_eigensolver: matrix must be square")
+    if uplo == t.UPPER:
+        # lower-storage pipeline on the mirrored matrix
+        mat_a = mutil.extract_triangle(mutil.hermitize(mat_a, "U"), "L")
+    elif uplo != t.LOWER:
+        raise ValueError(f"hermitian_eigensolver: bad uplo {uplo!r}")
+    grid = mat_a.grid
+    dev = mat_a.data.device
+    n = mat_a.size.rows
+    if backend == "auto" and grid.size == 1 and n > 0:
+        return _eigh_single_device(mat_a)
+    _check_full_f32_products()
+    nb = mat_a.block_size.rows
+    if n == 0:
+        return EigResult(np.zeros(0, torch.empty(0, dtype=mat_a.dtype).numpy().dtype), mat_a)
+    band = get_band_size(nb, dev)
+    with st.stage("red2band", dev):
+        band_mat, taus = reduction_to_band(mat_a, band=band)
+    health.check_finite("red2band", band_mat, taus)
+    hh, tr_sbr = _band_stage_hh(band_mat, band)
+    health.check_finite("band_stage", hh[0], hh[1])
+    with st.stage("tridiag", dev):
+        evals, v = tridiagonal_eigensolver(grid, hh[0], hh[1], nb, dtype=hh[0].dtype)
+    health.check_finite("tridiag", evals, v)
+    with st.stage("bt_band", dev):
+        e = bt_band_to_tridiagonal_hh_dist(hh, v, out_cols=True)
+    health.check_finite("bt_band", e)
+    if tr_sbr is not None:
+        from dlaf_tpu_torch.algorithms.band_reduction import sbr_back_transform
+
+        with st.stage("bt_sbr", dev):
+            e = sbr_back_transform(tr_sbr, e, out_cols=True)
+        health.check_finite("bt_sbr", e)
+    with st.stage("bt_red2band", dev):
+        e = bt_reduction_to_band(e, band_mat, taus)
+    health.check_finite("bt_red2band", e)
+    return EigResult(evals, e)

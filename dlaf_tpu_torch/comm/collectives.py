@@ -53,6 +53,21 @@ def bcast2d(x, root_r, root_c):
     return bcast(bcast(x, root_c, COL_AXIS), root_r, ROW_AXIS)
 
 
+def psum_axis(x, axis: str):
+    """All-reduce along ``axis``; the identity on a size-1 axis."""
+    if axis_size(axis) == 1:
+        return x
+    _multi_rank("psum_axis", axis)
+
+
+def all_gather_axis(x, axis: str):
+    """Gather the local blocks along ``axis`` into a new leading axis of
+    size P; on a size-1 axis that axis is just added."""
+    if axis_size(axis) == 1:
+        return x[None]
+    _multi_rank("all_gather_axis", axis)
+
+
 def _expand(mask, x):
     return mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
 
@@ -138,3 +153,8 @@ def transpose_panel_rows(rp, nr_col_tiles, ltr: int):
 def local(x):
     """Strip the two size-1 leading grid axes of a stacked tensor."""
     return x.reshape(x.shape[2:])
+
+
+def relocal(x):
+    """Restore the two size-1 leading grid axes (inverse of :func:`local`)."""
+    return x.reshape((1, 1) + tuple(x.shape))

@@ -1,11 +1,13 @@
 """Error taxonomy of the port (counterpart of ``dlaf_tpu/health.py:38-84``).
 
-Only the four exception classes the Cholesky/POSV slice raises are ported;
-the NaN sentinels and the health event stream wait for the observability
-items of ROADMAP queue A.  LAPACK conventions carry over: ``info == 0`` is
+Only the exception classes the Cholesky/POSV and HEEV slices raise are
+ported, with the stage-boundary NaN/Inf sentinel :func:`check_finite`; the
+health event stream waits for the observability items of ROADMAP queue A.  LAPACK conventions carry over: ``info == 0`` is
 success, ``info == k > 0`` names the 1-based first failing pivot.
 """
 from __future__ import annotations
+
+import os
 
 
 class DlafError(Exception):
@@ -40,3 +42,57 @@ class DistributionError(DlafError, ValueError):
 
 class ConfigurationError(DlafError, ValueError):
     """A tune/config knob holds a value outside its documented domain."""
+
+
+class ConvergenceError(DlafError, RuntimeError):
+    """An iterative stage did not converge (e.g. a non-finite eigenvalue out
+    of the tridiagonal solver).  ``info`` carries the solver's detail."""
+
+    def __init__(self, message: str, info=None):
+        self.info = info
+        super().__init__(message)
+
+
+class NonFiniteError(DlafError, ArithmeticError):
+    """A stage-boundary sentinel found NaN/Inf.  ``stage`` names the first
+    pipeline stage whose output went non-finite."""
+
+    def __init__(self, stage: str, message: str | None = None):
+        self.stage = stage
+        super().__init__(
+            message
+            or f"non-finite values (NaN/Inf) first appeared after stage {stage!r}"
+        )
+
+
+def check_level() -> int:
+    """``DLAF_TPU_CHECK_LEVEL``, read on every call (default 1), as the JAX
+    package reads it (``dlaf_tpu/common/checks.py:23``)."""
+    try:
+        return int(os.environ.get("DLAF_TPU_CHECK_LEVEL", "1"))
+    except ValueError:
+        return 1
+
+
+def check_finite(stage: str, *operands) -> None:
+    """NaN/Inf sentinel at a pipeline stage boundary
+    (``dlaf_tpu/health.py:237``).  Below check level 2 it returns at once
+    and touches no operand; at level 2 and above every operand (a
+    ``DistributedMatrix``, ``ColPanels``, tensor or numpy array) is reduced
+    with ``isfinite`` in one host synchronisation, and the first non-finite
+    one raises :class:`NonFiniteError` naming ``stage``."""
+    if check_level() < 2:
+        return
+    import numpy as np
+    import torch
+
+    flags = []
+    for op in operands:
+        if op is None:
+            continue
+        d = getattr(op, "data", op)
+        if isinstance(d, np.ndarray):
+            d = torch.from_numpy(d)
+        flags.append(torch.isfinite(d).all())
+    if flags and not bool(torch.stack([f.to(flags[0].device) for f in flags]).all()):
+        raise NonFiniteError(stage)

@@ -11,7 +11,9 @@ the same way (:meth:`DistributedMatrix._inplace`).
 :meth:`from_stacked` / :meth:`to_stacked` carry state across packages: the
 first takes the JAX package's stacked array as numpy
 (``np.asarray(jax_matrix.data)``), the second returns numpy in the same
-layout.
+layout.  :func:`carry` builds any pipeline stage's input from the JAX
+package's numpy output (a stacked matrix with its distribution, or a bare
+array such as ``taus`` or the compact band storage).
 """
 from __future__ import annotations
 
@@ -133,3 +135,15 @@ class DistributedMatrix:
             f"DistributedMatrix({self.size.rows}x{self.size.cols}, "
             f"tiles {self.block_size.rows}x{self.block_size.cols}, grid {self.grid})"
         )
+
+
+def carry(grid: Grid, x, dist=None):
+    """A stage input of this package from the JAX package's numpy output:
+    with ``dist``, the stacked array ``x`` as a :class:`DistributedMatrix`
+    (the band matrix, an eigenvector matrix); without, ``x`` as a tensor on
+    the grid's device (``taus``, the compact band storage).  The
+    tridiagonal ``(d, e)`` is host numpy in both packages and needs no
+    carrying."""
+    if dist is not None:
+        return DistributedMatrix.from_stacked(x, dist, grid)
+    return torch.from_numpy(np.array(x, copy=True)).to(grid.device)

@@ -1,0 +1,76 @@
+"""Matrix-level utilities on stacked block-cyclic storage (counterpart of
+``dlaf_tpu/matrix/util.py``): triangle extraction, hermitization and
+sub-matrix copies, as elementwise masks on the stacked
+``[Pr, Pc, ltr, ltc, mb, nb]`` tensor or through the global form.
+"""
+from __future__ import annotations
+
+import torch
+
+from dlaf_tpu_torch.matrix import layout
+from dlaf_tpu_torch.matrix.distribution import Distribution
+from dlaf_tpu_torch.matrix.matrix import DistributedMatrix
+
+
+def _global_element_grids(dist: Distribution, device):
+    """Broadcastable global (row, col) element indices for the stacked shape."""
+    pr, pc = dist.grid_size
+    ltr, ltc = dist.local_slots
+    mb, nb = dist.block_size
+    sr, sc = dist.source_rank
+
+    def ar(n, axis):
+        shape = [1] * 6
+        shape[axis] = n
+        return torch.arange(n, device=device).reshape(shape)
+
+    gi = (ar(ltr, 2) * pr + (ar(pr, 0) - sr) % pr) * mb + ar(mb, 4)
+    gj = (ar(ltc, 3) * pc + (ar(pc, 1) - sc) % pc) * nb + ar(nb, 5)
+    return gi, gj
+
+
+def _triangle_data(x, dist: Distribution, uplo: str, k: int):
+    gi, gj = _global_element_grids(dist, x.device)
+    # np convention: tril keeps i >= j - k, triu keeps i <= j - k
+    keep = (gi >= gj - k) if uplo == "L" else (gi <= gj - k)
+    return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def extract_triangle(mat: DistributedMatrix, uplo: str, k: int = 0) -> DistributedMatrix:
+    """A copy with only the ``uplo`` triangle kept (diagonal offset ``k`` as
+    in ``np.tril``/``np.triu``)."""
+    return mat.like(_triangle_data(mat.data, mat.dist, uplo, k))
+
+
+def hermitize(mat: DistributedMatrix, uplo: str) -> DistributedMatrix:
+    """Full Hermitian storage from the ``uplo`` triangle (the other
+    triangle's stored values are ignored); a new tensor."""
+    if mat.size.rows != mat.size.cols:
+        raise ValueError("hermitize: matrix must be square")
+    dist = mat.dist
+    tri = _triangle_data(mat.data, dist, uplo, 0)
+    strict = _triangle_data(mat.data, dist, uplo, -1 if uplo == "L" else 1)
+    g = layout.unpad_global(layout.unpack(strict, dist), dist)
+    mirror = layout.pack(layout.pad_global(g.transpose(0, 1).conj(), dist), dist)
+    return mat.like(tri + mirror)
+
+
+def sub_matrix(mat: DistributedMatrix, origin, size) -> DistributedMatrix:
+    """Sub-matrix copy at any element origin (1x1 grids: a slice of the
+    global form, as the JAX package's 1x1 branch)."""
+    origin = tuple(int(v) for v in origin)
+    size = tuple(int(v) for v in size)
+    if (origin[0] < 0 or origin[1] < 0 or origin[0] + size[0] > mat.size.rows
+            or origin[1] + size[1] > mat.size.cols):
+        raise ValueError(f"sub-matrix {origin}+{size} out of bounds {tuple(mat.size)}")
+    if mat.grid.size != 1:
+        raise NotImplementedError(
+            "sub_matrix on a multi-rank grid waits for the torch.distributed "
+            "slice (ROADMAP.md, queue A item 3)"
+        )
+    out_dist = Distribution(size, mat.dist.block_size, mat.dist.grid_size)
+    if not all(DistributedMatrix.stacked_shape(out_dist)):
+        return DistributedMatrix.zeros(mat.grid, out_dist.size, out_dist.block_size, mat.dtype)
+    g = layout.unpad_global(layout.unpack(mat.data, mat.dist), mat.dist)
+    s = g[origin[0]:origin[0] + size[0], origin[1]:origin[1] + size[1]]
+    return DistributedMatrix(out_dist, mat.grid, layout.pack(layout.pad_global(s, out_dist), out_dist))

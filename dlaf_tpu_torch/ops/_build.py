@@ -41,6 +41,8 @@ SIGNATURES = {
     # (x, a, b, L, C, M, N, K, b_is_nk, stream)
     "dlaf_trailing_update_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dlaf_trailing_update_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (dw, z2, rho, anchor, lo0, hi0, out, K, S, iters, stream)
+    "dlaf_secular_bisect_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -12,6 +12,10 @@ uses them:
 * ``iab,jbc->ijac``: ``x[i, j] -= a[i] @ b[j]`` (b [C, K, N]), the lookahead
   triangular-solve bulk update.
 
+* the same ``iab,jcb->ijac`` form at K = band (128 at nb=512) twice per
+  panel of ``reduction_to_band`` under the fused tier, on a contiguous copy
+  of the trailing window.
+
 Both write into ``x`` in place (the JAX kernel returns a new array): on the
 1x1 lookahead path ``x`` is the whole local tile stack, 1 GiB at N=16384 f32,
 and a second copy buys nothing.
@@ -86,3 +90,27 @@ def trailing_update(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS):
     _build.check(rc, "trailing_update")
     launches += 1
     return x
+
+
+def fused_transpose_update(x, cp, taken, have, suppress):
+    """The fused tier's exchange-and-consume of one panel
+    (``dlaf_tpu/ops/pallas_trailing_update.py:425``), one-rank branch:
+    ``(taken, have)`` are the ``_parts`` of a ``transpose_panel*`` call, and
+    on a size-1 axis the exchange moves nothing, so the row panel is
+    ``rp = where(have, taken, 0)``.  ``suppress`` masks the slots whose
+    update the caller applies elsewhere.  Applies
+    ``x -= contract('iab,jcb->ijac', cp, rp_bulk.conj())`` through
+    :func:`trailing_update` (the kernel on the card) and returns
+    ``(x, rp)``; ``x`` is updated in place."""
+    def expand(mask, t):
+        return mask.reshape(mask.shape + (1,) * (t.dim() - mask.dim()))
+
+    zero = torch.zeros((), dtype=taken.dtype, device=taken.device)
+    rp = torch.where(expand(have, taken), taken, zero)
+    rp_bulk = torch.where(expand(suppress, rp), zero, rp)
+    b = rp_bulk.conj().contiguous()
+    if update_kernel_ok(x.dtype):
+        trailing_update(x, cp.contiguous(), b, CHOLESKY_SUBSCRIPTS)
+    else:
+        x.sub_(torch.einsum(CHOLESKY_SUBSCRIPTS, cp, b))
+    return x, rp

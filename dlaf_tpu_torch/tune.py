@@ -1,7 +1,7 @@
 """Tunable algorithm parameters of the port (counterpart of
 ``dlaf_tpu/tune.py``).
 
-Only the knobs the Cholesky/POSV slice reads are ported.  They keep the
+Only the knobs the Cholesky/POSV and HEEV slices read are ported.  They keep the
 JAX package's names, defaults and ``DLAF_TPU_*`` environment variables, so
 one environment configures both packages, and the same precedence:
 defaults, then the environment (read when the parameters are built), then
@@ -22,6 +22,30 @@ explicit :meth:`TuneParameters.update` calls.
   the bf16 split tiers wait in ROADMAP (queue A, item 4).
 - ``bucket_segment_ratio``: window-shrink factor per bucketed segment
   (``algorithms._spmd.halving_segments``).
+
+The eigensolver knobs (HEEV slice).  Where the JAX package resolves an
+'auto' value (-1) by "the default JAX backend is an accelerator", the port
+asks whether the grid's device is CUDA (:func:`on_accelerator`):
+
+- ``eigensolver_min_band``: lower bound of ``get_band_size``'s band; -1 =
+  33 on the CPU, 100 on the card (band 128 at nb=512).
+- ``eigensolver_sbr_band``: target band of the SBR second stage; 0 = off,
+  -1 = 32 on the card, off on the CPU.
+- ``bt_band_hh_group_size``: reflector sweeps per compact-WY group of the
+  band back-transform; -1 = 32 on the CPU, 128 on the card.
+- ``dc_leaf_size``: leaf size of the distributed D&C tridiagonal solver.
+- ``eigensolver_matmul_precision``: only full float32 products ('float32',
+  its alias 'f32', or 'highest'; no TF32) are ported; every other value
+  raises.
+- ``band_chase_backend``: 'native' (the threaded host chase,
+  ``csrc/host/band2trid.cpp``) or 'auto' (the device chase on the card,
+  the native one on the CPU).  The device wavefront chase is not ported:
+  'device', and 'auto' on the card, raise ``NotImplementedError``.
+- ``dc_secular_pallas``: read from the JAX package's environment and kept
+  for it, but it selects nothing in the port: the D&C secular bisection
+  always goes through ``ops/secular.py`` for f32 (the kernel on the card,
+  the plain loop for CPU tensors), and f64 takes the plain loop, as the
+  JAX gate.  The card has no second route for f32.
 """
 from __future__ import annotations
 
@@ -31,6 +55,10 @@ from dataclasses import dataclass, field, fields
 from dlaf_tpu_torch.health import ConfigurationError
 
 TRAILING_UPDATE_IMPLS = ("xla", "fused", "auto")
+#: the JAX package's domains; values outside the ported subset raise
+BAND_CHASE_BACKENDS = ("native", "device", "auto")
+#: the values that mean full float32 products, the only ones ported
+FULL_F32_PRECISIONS = ("float32", "f32", "highest")
 #: the JAX package's domain; every value but 'default' raises here
 GEMM_PRECISIONS = ("default", "bf16x3", "bf16x6", "auto")
 
@@ -56,6 +84,19 @@ class TuneParameters:
         default_factory=lambda: _env("trailing_update_impl", "auto", str)
     )
     panel_trsm_pallas: bool = field(default_factory=lambda: _env("panel_trsm_pallas", False, bool))
+    eigensolver_min_band: int = field(default_factory=lambda: _env("eigensolver_min_band", -1, int))
+    eigensolver_sbr_band: int = field(default_factory=lambda: _env("eigensolver_sbr_band", -1, int))
+    bt_band_hh_group_size: int = field(
+        default_factory=lambda: _env("bt_band_hh_group_size", -1, int)
+    )
+    dc_leaf_size: int = field(default_factory=lambda: _env("dc_leaf_size", 512, int))
+    eigensolver_matmul_precision: str = field(
+        default_factory=lambda: _env("eigensolver_matmul_precision", "float32", str)
+    )
+    band_chase_backend: str = field(
+        default_factory=lambda: _env("band_chase_backend", "auto", str)
+    )
+    dc_secular_pallas: bool = field(default_factory=lambda: _env("dc_secular_pallas", False, bool))
 
     def update(self, **kwargs) -> "TuneParameters":
         names = {f.name for f in fields(self)}
@@ -66,6 +107,12 @@ class TuneParameters:
                 validate_trailing_update_impl(v)
             elif k == "gemm_precision":
                 validate_gemm_precision(v)
+            elif k == "eigensolver_matmul_precision":
+                validate_eigensolver_matmul_precision(v)
+            elif k == "band_chase_backend":
+                validate_band_chase_backend(v)
+            elif k == "dc_leaf_size" and int(v) < 1:
+                raise ConfigurationError(f"dc_leaf_size must be >= 1, got {v!r}")
             setattr(self, k, v)
         return self
 
@@ -92,6 +139,34 @@ def validate_gemm_precision(value) -> str:
             "contract and in the trailing-update kernel)"
         )
     return value
+
+
+def validate_eigensolver_matmul_precision(value) -> str:
+    if value not in FULL_F32_PRECISIONS:
+        raise ConfigurationError(
+            f"eigensolver_matmul_precision={value!r} is not ported: the port runs "
+            f"the eigensolver in full float32 only, {FULL_F32_PRECISIONS} (no TF32, "
+            "no bf16 passes; env DLAF_TPU_EIGENSOLVER_MATMUL_PRECISION); see "
+            "ROADMAP.md, queue A item 4"
+        )
+    return value
+
+
+def validate_band_chase_backend(value) -> str:
+    if value not in BAND_CHASE_BACKENDS:
+        raise ConfigurationError(
+            f"band_chase_backend must be one of {BAND_CHASE_BACKENDS}, "
+            f"got {value!r} (env DLAF_TPU_BAND_CHASE_BACKEND)"
+        )
+    return value
+
+
+def on_accelerator(device) -> bool:
+    """The port's reading of the JAX package's "accelerator backend": the
+    grid's device is a CUDA device."""
+    import torch
+
+    return torch.device(device).type == "cuda"
 
 
 def trailing_update_tier() -> str:

@@ -106,3 +106,45 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                               timeout=120, cwd=tmp_path)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_host_chase_source_is_the_jax_packages_copy():
+    """The port builds its own copy of the chase; it must stay the JAX
+    package's C++ (plain C++, no framework), byte for byte."""
+    mine = ROOT / "dlaf_tpu_torch" / "csrc" / "host" / "band2trid.cpp"
+    theirs = ROOT / "dlaf_tpu" / "native" / "band2trid.cpp"
+    assert mine.read_bytes() == theirs.read_bytes()
+
+
+def test_importing_the_port_builds_nothing():
+    """The CUDA kernels and the host chase build at first use, never at
+    import: importing every module leaves the build directory alone."""
+    code = ("import pathlib, sys, importlib; root = pathlib.Path(sys.argv[1]); "
+            "before = sorted((root / 'dlaf_tpu_torch' / '_build').glob('*')) "
+            "if (root / 'dlaf_tpu_torch' / '_build').exists() else []; "
+            "[importlib.import_module('dlaf_tpu_torch.' + '.'.join(p.relative_to(root / 'dlaf_tpu_torch')"
+            ".with_suffix('').parts)) for p in (root / 'dlaf_tpu_torch').rglob('*.py') "
+            "if p.name != '__init__.py']; "
+            "after = sorted((root / 'dlaf_tpu_torch' / '_build').glob('*')) "
+            "if (root / 'dlaf_tpu_torch' / '_build').exists() else []; "
+            "sys.exit(0 if before == after else 1)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT)], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_eigensolver_knobs_env_and_domains(monkeypatch):
+    monkeypatch.setenv("DLAF_TPU_DC_SECULAR_PALLAS", "1")
+    monkeypatch.setenv("DLAF_TPU_DC_LEAF_SIZE", "64")
+    monkeypatch.setenv("DLAF_TPU_BAND_CHASE_BACKEND", "native")
+    monkeypatch.setenv("DLAF_TPU_EIGENSOLVER_SBR_BAND", "16")
+    p = tune.TuneParameters()
+    assert p.dc_secular_pallas and p.dc_leaf_size == 64 and p.band_chase_backend == "native"
+    assert p.eigensolver_sbr_band == 16 and p.eigensolver_min_band == -1
+    assert p.bt_band_hh_group_size == -1 and p.eigensolver_matmul_precision == "float32"
+    p.update(eigensolver_matmul_precision="f32")  # the JAX package's alias of float32
+    for bad in ({"eigensolver_matmul_precision": "bfloat16"}, {"band_chase_backend": "host"},
+                {"dc_leaf_size": 0}):
+        with pytest.raises(ConfigurationError):
+            p.update(**bad)

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from dlaf_tpu_torch import ops
-from dlaf_tpu_torch.ops import panel_trsm, potrf, tile, trailing_update
+from dlaf_tpu_torch.ops import panel_trsm, potrf, secular, tile, trailing_update
 from dlaf_tpu_torch.testing import random_hermitian_pd, random_matrix, tol_for
 from dlaf_tpu_torch.tune import get_tune_parameters
 
@@ -107,8 +107,13 @@ def test_cpu_wrappers_take_plain_versions_and_count_nothing():
     x = torch.zeros(1, 1, 4, 4, dtype=d.dtype)
     trailing_update.trailing_update(x, torch.ones(1, 4, 2, dtype=d.dtype),
                                     torch.ones(1, 4, 2, dtype=d.dtype))
-    assert ops.launch_counts() == {"potrf": 0, "panel_trsm": 0, "trailing_update": 0}
+    root = secular.secular_bisect(torch.tensor([[0.0, 1.0]]), torch.tensor([[0.5, 0.5]]),
+                                  torch.ones(1), torch.zeros(1), torch.zeros(1), torch.ones(1), 30)
+    assert ops.launch_counts() == {"potrf": 0, "panel_trsm": 0, "trailing_update": 0,
+                                   "secular_bisect": 0}
     assert torch.all(x == -2)
+    # 1 - 0.5/x + 0.5/(1 - x) = 0 at x = 1 - sqrt(1/2)
+    assert abs(root.item() - (1 - 0.5 ** 0.5)) < 1e-6
 
 
 def test_wrappers_reject_other_devices_and_forms():
