@@ -5,15 +5,16 @@
 
 Run from the root of a checkout.  The workloads are fixed: the headline
 Cholesky configuration of bench.py (N=16384, nb=512, f32, 1x1 grid,
-distributed kernel forced), on a random SPD matrix made from seed 0, and
+distributed kernel forced), on a random SPD matrix made from seed 0, the
+same inputs on a 2x4 grid of rank threads (path M), and
 bench.py's HEEV configuration (N=8192, nb=512, f32, 1x1 grid, the full
 pipeline) on random_hermitian_pd(8192, f32, seed=2).  Phases, each fatal
 on failure:
 
 0. header: the card's name and power limit (nvidia-smi), stamped on every
    timing line;
-1. build: every kernel under dlaf_tpu_torch/csrc/, one nvcc call, and the
-   host bulge chase (csrc/host/band2trid.cpp, g++);
+1. build: every kernel under dlaf_tpu_torch/csrc/, one nvcc per source,
+   all started together, then one link, and the host bulge chase (csrc/host/band2trid.cpp, g++);
 2. kernels vs their plain PyTorch versions at the main paths' shapes (f32),
    on seeded inputs whose off-diagonal coupling is not small (so a kernel
    that drops terms disagrees), each within a stated tolerance, with
@@ -21,8 +22,14 @@ on failure:
    for the same work: B1, B2, B3 in both lookahead forms and at
    red2band's shapes (K = band = 128), and B10, the secular bisection, at
    each of path H's shapes (8192, S), S = 1024, 2048, 4096, 8192, on true
-   secular equations; then a small ragged input
-   factored by the port and by torch.linalg.cholesky;
+   secular equations; then B4 (hop merge), B5 (ring exchange: M1's panel
+   broadcast, slotted exchanges on both axes, the diagonal tile on both
+   axes, and a skewed run in which one rank sleeps 50 ms before each
+   launch) and B7 (fused factor-and-send) at path M's shapes on a 2x4 grid
+   of rank threads, B4 and B5 bitwise against their plain twins (on a CPU
+   grid), B7 against its plain twin within tol_for(f32, nb) and bitwise
+   against the unfused B1 -> B2 -> mask -> B5; then a small
+   ragged input factored by the port and by torch.linalg.cholesky;
 3. path A, the headline configuration: cholesky_factorization(backend=
    "distributed"), panel TRSM kernel on (DLAF_TPU_PANEL_TRSM_PALLAS=1);
    residual, wall time, GFlop/s (N^3/3 flops, as bench.py counts them),
@@ -31,6 +38,14 @@ on failure:
    solves (Left/Lower/N then Left/Lower/C, i.e. cholesky_solver with the
    distributed kernel forced) with trailing_update_impl=fused;
 5. POSV through positive_definite_solver(..., return_info=True);
+5b. the factor under the psum, v2 and pallas collectives tiers on a 2x4
+   grid of rank threads at N=4096, bucketed and lookahead, bitwise;
+5c. path M, the multi-rank main path on a 2x4 grid of rank threads on the
+   one card, path A's inputs, collectives_impl=pallas: M1 bucketed
+   Cholesky, M2 lookahead Cholesky (trailing_update_impl=xla), M3
+   positive_definite_solver(..., return_info=True); residuals as in A, B
+   and POSV, wall time, GFlop/s, launch counts (B7 once per rank and
+   panel on M2);
 6. path H: hermitian_eigensolver("L", A, backend="pipeline") with
    dc_secular_pallas=1, trailing_update_impl=fused, band_chase_backend=
    native: one warm-up, one timed run (wall, GFlop/s at 4/3 N^3 as bench.py
@@ -71,6 +86,16 @@ PATH_B = {"cholesky_lookahead": True, "trsm_lookahead": True,
 NH, NBH, SEED_H = 8192, 512, 2
 PATH_H = {"dc_secular_pallas": True, "trailing_update_impl": "fused",
           "band_chase_backend": "native"}
+# path M: distributed Cholesky and POSV on a 2x4 grid of rank threads on
+# the one card, path A's inputs, the 'pallas' collectives tier (ring
+# kernels B5 and B7); M1 bucketed, M2 lookahead with the 'xla' bulk
+# update, M3 positive_definite_solver(..., return_info=True)
+GRID_M = (2, 4)
+PATH_M1 = {"collectives_impl": "pallas", "panel_trsm_pallas": True}
+PATH_M2 = {"collectives_impl": "pallas", "panel_trsm_pallas": True,
+           "cholesky_lookahead": True, "trailing_update_impl": "xla"}
+# the tier-equality phase: the factor under psum, v2 and pallas, bitwise
+N_TIERS = 4096
 # B10 phase: (K, S) secular tables at path H's merge levels (leaf 512:
 # one compiled instantiation of the kernel per S), f32 bisection rounds
 K_B10, S_B10, ITERS_B10 = 8192, (1024, 2048, 4096, 8192), 42
@@ -209,18 +234,382 @@ def path_h(stamp: dict) -> dict:
     return counts
 
 
+def grid_span_ms(grid, fn, stacked, iters: int, gate_s: float = 1.0):
+    """Device time of one call of ``fn`` on every rank of ``grid``, and the
+    slowest rank thread's host time to queue its calls (both in ms).  The
+    caller's stream first sleeps on the card for ``gate_s``, so that every
+    rank thread has queued its ``iters`` calls before any runs (eight rank
+    threads queue a ring call in several ms: without the gate the span
+    would time the host); then the span from the earliest rank's start
+    event to the latest rank's end event, over ``iters``."""
+    import torch
+
+    from dlaf_tpu_torch.comm import collectives as coll
+
+    pc = grid.grid_size.cols
+    starts, ends = [None] * grid.size, [None] * grid.size
+    enqueue = [0.0] * grid.size
+    ref = torch.cuda.Event(enable_timing=True)
+    ref.record()
+    torch.cuda._sleep(int(gate_s * 2e9))  # cycles; the H100's clock is below 2 GHz
+
+    def body(*views):
+        r, c = coll.my_rank()
+        t0 = time.perf_counter()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(iters):
+            fn(*views)
+        e.record()
+        enqueue[r * pc + c] = time.perf_counter() - t0
+        starts[r * pc + c], ends[r * pc + c] = s, e
+
+    coll.spmd(grid, body, *stacked)
+    torch.cuda.synchronize()
+    t0 = min(ref.elapsed_time(s) for s in starts)
+    t1 = max(ref.elapsed_time(e) for e in ends)
+    return (t1 - t0) / iters, max(enqueue) * 1e3
+
+
+def on_ranks(grid, fn, stacked):
+    """``fn(*views)`` on every rank; its tuple of tensors gathered into
+    stacked outputs [Pr, Pc, ...] (on the grid's device)."""
+    import torch
+
+    from dlaf_tpu_torch.comm import collectives as coll
+
+    got = {}
+
+    def body(*views):
+        got[coll.my_rank()] = [t.clone() for t in fn(*views)]
+
+    coll.spmd(grid, body, *stacked)
+    pr, pc = grid.grid_size
+    return [torch.stack([torch.stack([got[(r, c)][i] for c in range(pc)]) for r in range(pr)])
+            for i in range(len(got[(0, 0)]))]
+
+
+def ring_phases(stamp: dict, bound, kgen) -> dict:
+    """Phase 2b: B4, B5 and B7 against their twins at path M's shapes (f32,
+    a 2x4 grid of rank threads on the card; the twins run on a CPU grid of
+    the same shape).  Returns their report entries."""
+    import torch
+
+    from dlaf_tpu_torch.comm import collectives as coll
+    from dlaf_tpu_torch.comm.grid import Grid
+    from dlaf_tpu_torch.ops import panel_exchange as px
+    from dlaf_tpu_torch.ops import panel_trsm, potrf
+    from dlaf_tpu_torch.testing import tol_for
+
+    dev = torch.device("cuda")
+    nb, ltr, ltc = NB, N // NB // GRID_M[0], N // NB // GRID_M[1]
+    pr, pc = GRID_M
+    gpu, cpu = Grid.create(GRID_M, device=dev), Grid.create(GRID_M, device="cpu")
+    report = {}
+
+    def timed_ms(fn, iters):
+        fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / iters
+
+    # ---- B4: one hop merge of the column panel's wire layout, mixed have masks
+    slots, w = ltr, nb * nb
+    y = torch.randn(slots, w, generator=kgen, device=dev)
+    y_in = torch.randn(slots, w, generator=kgen, device=dev)
+    h = torch.randint(0, 2, (slots, 1), generator=kgen, device=dev, dtype=torch.int32)
+    h_in = torch.randint(0, 2, (slots, 1), generator=kgen, device=dev, dtype=torch.int32)
+    ky, kh = px.merge_hop(y, y_in, h, h_in)
+    py, ph = px.merge_hop_plain(y.cpu(), y_in.cpu(), h.cpu(), h_in.cpu())
+    torch.cuda.synchronize()
+    bitwise = torch.equal(ky.cpu(), py) and torch.equal(kh.cpu(), ph)
+    take = ((h == 0) & (h_in != 0)).expand(slots, w)
+    nbytes = 3 * slots * w * 4 + 3 * slots * 4
+    b_ms, b_by = bound(0.0, nbytes)
+    rec = {"kernel": "merge_hop", "shape": [slots, w], "bitwise_vs_plain": bitwise,
+           "max_abs_err": (ky.cpu() - py).abs().max().item(),
+           "kernel_ms": timed_ms(lambda: px.merge_hop(y, y_in, h, h_in), 20),
+           "plain_ms": timed_ms(lambda: px.merge_hop_plain(y, y_in, h, h_in), 20),
+           "library_ms": timed_ms(lambda: torch.where(take, y_in, y), 20),
+           "library_call": "torch.where on the precomputed take mask",
+           "bound_ms": b_ms, "bound_by": b_by, **stamp}
+    emit(rec)
+    if not bitwise:
+        fail("merge_hop kernel vs plain: not bitwise equal")
+    report["merge_hop"] = rec
+    del y, y_in, take, ky
+
+    # ---- B5 at path M's shapes, on all rings of the grid at once
+    def slotted(axis, n_slots):
+        have = torch.zeros(pr, pc, n_slots, dtype=torch.bool)
+        for s_ in range(n_slots - 1):  # one contributor per slot, the last slot none
+            if axis == "c":
+                have[:, s_ % pc, s_] = True
+            else:
+                have[s_ % pr, :, s_] = True
+        return have
+
+    cases = {
+        # M1's panel broadcast over 'c' (16 MiB, 3 hops)
+        "bcast_c": ("c", (ltr, nb, nb), None),
+        # a slotted exchange over 'c' (16 slots of 1 MiB)
+        "exchange_c": ("c", (ltr, nb, nb), slotted("c", ltr)),
+        # M2's transpose_panel over 'r' (8 slots of 1 MiB, 1 hop)
+        "exchange_r": ("r", (ltc, nb, nb), slotted("r", ltc)),
+        # bcast_diag_tile: 1 MiB over 'c', then over 'r'
+        "diag_c": ("c", (nb, nb), None),
+        "diag_r": ("r", (nb, nb), None),
+    }
+    root = 1
+    shapes, bad = {}, []
+    for name, (axis, shape, have) in cases.items():
+        x = torch.randn(pr, pc, *shape, generator=kgen, device=dev)
+
+        def fn(xl, hl=None, axis=axis):
+            if hl is None:
+                is_root = coll._ranks.current().axis(axis)[0] == root
+                return (px.ring_bcast(xl, is_root, axis),)
+            return px.ring_exchange(xl, hl, axis)
+
+        args_gpu = [x] if have is None else [x, have.to(dev)]
+        args_cpu = [x.cpu()] if have is None else [x.cpu(), have]
+        got = on_ranks(gpu, fn, args_gpu)
+        t0 = time.perf_counter()
+        ref = on_ranks(cpu, fn, args_cpu)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        same = all(torch.equal(g.cpu(), r_) for g, r_ in zip(got, ref))
+        err = max((g.cpu().double() - r_.double()).abs().max().item() for g, r_ in zip(got, ref))
+        payload = x[0, 0].numel() * 4
+        # every rank reads its contribution and writes its result once
+        b_ms, b_by = bound(0.0, 2 * pr * pc * payload)
+        union = got[0].reshape(pr * pc, -1)
+        src = union[0].clone()
+        span_ms, enqueue_ms = grid_span_ms(gpu, fn, args_gpu, 10)
+        rec = {"kernel": "ring_exchange", "case": name, "axis": axis,
+               "payload_shape": list(shape), "ranks": pr * pc, "bitwise_vs_plain": same,
+               "max_abs_err": err, "kernel_ms": span_ms, "enqueue_ms_of_10_calls": enqueue_ms,
+               "plain_ms": plain_ms, "plain_on": "cpu (the twin's landing slots and flags are "
+                                                  "host objects)",
+               "library_ms": timed_ms(lambda: union.copy_(src.expand_as(union)), 20),
+               "library_call": "one copy_ writing a payload into every rank's buffer",
+               "bound_ms": b_ms, "bound_by": b_by, **stamp}
+        emit(rec)
+        shapes[name] = rec
+        if not same:
+            bad.append(f"{name}: not bitwise equal to the plain ring (max err {err:.3e})")
+        del x, got, ref, union, src
+    # skewed run: rank (0, 1) sleeps 50 ms before each launch
+    x = torch.randn(pr, pc, ltr, nb, nb, generator=kgen, device=dev)
+    bc = lambda xl: (px.ring_bcast(xl, coll.my_rank()[1] == root, "c"),)  # noqa: E731
+    ref = on_ranks(cpu, bc, [x.cpu()])[0]
+    px.launch_delay_s[(0, 1)] = 0.05
+    t0 = time.perf_counter()
+    try:
+        got = on_ranks(gpu, bc, [x])[0]
+        torch.cuda.synchronize()
+    finally:
+        px.launch_delay_s.clear()
+    skew = {"case": "bcast_c, rank (0, 1) sleeps 50 ms before launching",
+            "bitwise_vs_plain": torch.equal(got.cpu(), ref), "wall_s": time.perf_counter() - t0}
+    emit({"kernel": "ring_exchange", "skewed_run": skew, **stamp})
+    if not skew["bitwise_vs_plain"]:
+        bad.append("skewed bcast_c: not bitwise equal to the plain ring")
+    del x, got, ref
+    if bad:
+        fail("ring_exchange kernel vs plain ring: " + "; ".join(bad))
+    report["ring_exchange"] = {**shapes["bcast_c"], "shapes": shapes, "skewed_run": skew}
+    torch.cuda.empty_cache()
+
+    # ---- B7 at path M's shapes: d 512 x 512, xc [16, 512, 512], ring P = 4
+    g = torch.randn(nb, 2 * nb, generator=kgen, device=dev)
+    d = (g @ g.T / (2 * nb)).expand(pr, pc, nb, nb).contiguous()
+    xc = torch.randn(pr, pc, ltr, nb, nb, generator=kgen, device=dev)
+    below = torch.arange(ltr, device=dev) >= 4  # the first 4 tiles above the diagonal
+    root = 1
+
+    def fused(dl, xl):
+        return px.fused_factor_bcast(dl, xl, below, root, "c")
+
+    def unfused(dl, xl):
+        lkk = potrf.potrf_tile(dl)
+        pan = panel_trsm.panel_trsm_right_lower_t(lkk, xl.reshape(-1, nb)).reshape(xl.shape)
+        cp = torch.where(below[:, None, None], pan, torch.zeros_like(pan))
+        return lkk, px.ring_bcast(cp, coll.my_rank()[1] == root, "c")
+
+    def errs(outs, refs):
+        """Max abs error and relative (Frobenius) error, the worse of lkk, cp."""
+        outs = [o.cpu().double() for o in outs]
+        refs = [r_.cpu().double() for r_ in refs]
+        return (max((o - r_).abs().max().item() for o, r_ in zip(outs, refs)),
+                max((torch.linalg.vector_norm(o - r_) / torch.linalg.vector_norm(r_)).item()
+                    for o, r_ in zip(outs, refs)))
+
+    got = on_ranks(gpu, fused, [d, xc])
+    ref = on_ranks(gpu, unfused, [d, xc])
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    err_unfused, rel_unfused = errs(got, ref)
+    tol = tol_for("float32", nb)
+    fused_ms, fused_enqueue_ms = grid_span_ms(gpu, fused, [d, xc], 3)
+    unfused_ms, unfused_enqueue_ms = grid_span_ms(gpu, unfused, [d, xc], 3)
+    # B7's plain twin on the same inputs (a CPU grid of the same shape)
+    below_c = below.cpu()
+    t0 = time.perf_counter()
+    plain = on_ranks(cpu, lambda dl, xl: px.fused_factor_bcast(dl, xl, below_c, root, "c"),
+                     [d.cpu(), xc.cpu()])
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, rel = errs(got, plain)
+    rows_solved = int(below_c.sum()) * nb * pr  # the root column's ranks solve
+    flops = pr * pc * nb ** 3 / 3 + rows_solved * nb * nb
+    nbytes = pr * pc * 2 * nb * nb * 4 + pr * ltr * nb * nb * 4 + pr * pc * ltr * nb * nb * 4
+    b_ms, b_by = bound(flops, nbytes)
+    rec = {"kernel": "fused_factor_bcast", "shape": {"d": [nb, nb], "xc": [ltr, nb, nb]},
+           "ranks": pr * pc, "ring": pc, "max_abs_err": err, "rel_err": rel, "tol": tol,
+           "vs": "the plain twin on a CPU grid (lkk and cp of every rank)",
+           "bitwise_vs_unfused": same, "max_abs_err_vs_unfused": err_unfused,
+           "rel_err_vs_unfused": rel_unfused, "kernel_ms": fused_ms, "unfused_ms": unfused_ms,
+           "enqueue_ms_of_3_calls": {"fused": fused_enqueue_ms, "unfused": unfused_enqueue_ms},
+           "unfused": "potrf_tile -> panel_trsm -> mask -> ring_bcast (B1, B2, B5)",
+           "plain_ms": plain_ms, "plain_on": "cpu (the twin's ring is host objects)",
+           "library_ms": None, "library_call": "none: no single PyTorch call computes it",
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bound_counts": "potrf nb^3/3 on every rank, the solve rows*nb^2 on the root "
+                           "column; bytes: d and lkk per rank, xc on the root, cp per rank",
+           **stamp}
+    emit(rec)
+    if not rel <= tol:
+        fail(f"fused_factor_bcast vs its plain twin: rel err {rel:.3e} > {tol:.3e}")
+    if not same:
+        fail(f"fused_factor_bcast vs the unfused composition: not bitwise equal "
+             f"(rel err {rel_unfused:.3e})")
+    report["fused_factor_bcast"] = rec
+    del d, xc, got, ref, plain
+    torch.cuda.empty_cache()
+    return report
+
+
+def tier_equality(stamp: dict, a_glob) -> None:
+    """Phase 5b: the factor under psum, v2 and pallas on the 2x4 grid at
+    N_TIERS, bucketed and lookahead, bitwise."""
+    import torch
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import tune
+
+    grid = dtt.Grid.create(GRID_M)
+    a = a_glob[:N_TIERS, :N_TIERS].contiguous()
+    out = {}
+    for variant, knobs in (("bucketed", {}), ("lookahead", {"cholesky_lookahead": True,
+                                                            "trailing_update_impl": "xla"})):
+        res = {}
+        for tier in ("psum", "v2", "pallas"):
+            tune.initialize(collectives_impl=tier, panel_trsm_pallas=True, **knobs)
+            mat = dtt.DistributedMatrix.from_global(grid, a, (NB, NB))
+            res[tier] = dtt.cholesky_factorization("L", mat, backend="distributed").data
+        torch.cuda.synchronize()
+        out[variant] = {t: torch.equal(res[t], res["v2"]) for t in ("psum", "pallas")}
+        del res
+    emit({"phase": "tier_equality", "n": N_TIERS, "nb": NB, "grid": list(GRID_M),
+          "bitwise_equal_to_v2": out, **stamp})
+    if not all(all(v.values()) for v in out.values()):
+        fail(f"the collectives tiers disagree on the factor: {out}")
+
+
+def path_m(stamp: dict, a_glob, rhs, factor_residual, solve_err, res_tol) -> dict:
+    """Phase 5c: path M, M1 / M2 / M3 on the 2x4 grid of rank threads at
+    N, NB.  Returns each run's launch counts."""
+    import torch
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import ops, tune
+    from dlaf_tpu_torch.matrix import layout
+
+    n, nb = N, NB
+    grid = dtt.Grid.create(GRID_M)
+    ranks = grid.size
+    gflop = n ** 3 / 3 / 1e9
+    counts_by = {}
+
+    def factor_run():
+        mat = dtt.DistributedMatrix.from_global(grid, a_glob, (nb, nb))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fac = dtt.cholesky_factorization("L", mat, backend="distributed")
+        torch.cuda.synchronize()
+        return fac, time.perf_counter() - t0, ops.launch_counts()
+
+    for label, knobs, desc in (("M1", PATH_M1, "bucketed"),
+                               ("M2", PATH_M2, "lookahead, trailing_update_impl=xla")):
+        tune.initialize(**knobs)
+        factor_run()  # warm-up: the ring states (landing slots, flags) are made here
+        fac, wall, counts = factor_run()
+        res = factor_residual(fac)
+        del fac
+        torch.cuda.empty_cache()
+        counts_by[label] = counts
+        emit({"phase": f"path_{label}", "config": f"{desc}, collectives_impl=pallas, "
+              "panel_trsm_pallas=1", "grid": list(GRID_M), "n": n, "nb": nb, "wall_s": wall,
+              "gflops": gflop / wall, "factor_residual": res, "tol": res_tol,
+              "launches": counts, "launches_per_rank": {k: v / ranks for k, v in counts.items()},
+              **stamp})
+        if not res <= res_tol:
+            fail(f"path {label} residual {res:.3e} > {res_tol:.3e}")
+        need = ("potrf", "panel_trsm", "ring_exchange") if label == "M1" \
+            else ("fused_factor_bcast", "ring_exchange")
+        if min(counts[k] for k in need) <= 0:
+            fail(f"path {label} did not launch {need}: {counts}")
+        if label == "M2" and counts["fused_factor_bcast"] != ranks * (n // nb):
+            fail(f"path M2 launched B7 {counts['fused_factor_bcast']} times, not "
+                 f"{ranks} ranks x {n // nb} panels")
+
+    tune.initialize(collectives_impl="pallas", panel_trsm_pallas=True)
+    mat_a = dtt.DistributedMatrix.from_global(grid, a_glob, (nb, nb))
+    mat_b = dtt.DistributedMatrix.from_global(grid, rhs.clone(), (nb, nb))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    x, info = dtt.positive_definite_solver("L", mat_a, mat_b, return_info=True)
+    info = int(info)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    counts_by["M3"] = counts
+    serr = solve_err(layout.unpack(x.data, x.dist)[:n, :nb])
+    del mat_a, mat_b, x
+    torch.cuda.empty_cache()
+    emit({"phase": "path_M3", "config": "positive_definite_solver(return_info=True), "
+          "collectives_impl=pallas, panel_trsm_pallas=1", "grid": list(GRID_M), "n": n,
+          "nrhs": nb, "wall_s": wall, "info": info, "solve_forward_err": serr, "tol": res_tol,
+          "launches": counts, "launches_per_rank": {k: v / ranks for k, v in counts.items()},
+          **stamp})
+    if info != 0 or not serr <= res_tol:
+        fail(f"path M3 info {info}, solve error {serr:.3e}")
+    if min(counts[k] for k in ("potrf", "panel_trsm", "ring_exchange")) <= 0:
+        fail(f"path M3 did not launch B1, B2 and B5: {counts}")
+    return counts_by
+
+
 def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, "dlaf_tpu_torch")):
+        print("chip_smoke: dlaf_tpu_torch/ is not beside this script", flush=True)
+        return 2
+    sys.path.insert(0, HERE)
+    # imported before torch touches the card: the package asks CUDA for
+    # what its ring kernels need (dlaf_tpu_torch/__init__.py)
+    import dlaf_tpu_torch as dtt
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", flush=True)
         return 2
-    if not os.path.isdir(os.path.join(HERE, "dlaf_tpu_torch")):
-        print("chip_smoke: dlaf_tpu_torch/ is not beside this script", flush=True)
-        return 2
-    sys.path.insert(0, HERE)
 
-    import dlaf_tpu_torch as dtt
     from dlaf_tpu_torch import native, ops, tune
     from dlaf_tpu_torch.matrix import layout
     from dlaf_tpu_torch.ops import _build, panel_trsm, potrf, secular, trailing_update
@@ -452,6 +841,9 @@ def main() -> int:
     report["secular_bisect"] = {**shapes[max(S_B10)], "shapes": shapes}
     torch.cuda.empty_cache()
 
+    # B4, B5 and B7 at path M's shapes, on a 2x4 grid of rank threads
+    report.update(ring_phases(stamp, bound, kgen))
+
     # the main path's matrix and right-hand side
     a_glob, rhs = make_inputs(dev)
     torch.cuda.synchronize()
@@ -576,6 +968,13 @@ def main() -> int:
     if info != 0 or not serr <= res_tol:
         fail(f"POSV info {info}, solve error {serr:.3e}")
 
+    # ---- 5b. the three collectives tiers on the 2x4 grid, bitwise
+    tier_equality(stamp, a_glob)
+    torch.cuda.empty_cache()
+
+    # ---- 5c. path M: 2x4 grid of rank threads, the 'pallas' tier
+    by_path.update(path_m(stamp, a_glob, rhs, factor_residual, solve_err, res_tol))
+
     del a_glob, rhs, x_ref
     torch.cuda.empty_cache()
 
@@ -589,6 +988,12 @@ def main() -> int:
         "trailing_update": ("dlaf_tpu_torch/csrc/trailing_update.cu",
                             "dlaf_tpu/ops/pallas_trailing_update.py:163"),
         "secular_bisect": ("dlaf_tpu_torch/csrc/secular.cu", "dlaf_tpu/ops/pallas_secular.py:57"),
+        "merge_hop": ("dlaf_tpu_torch/csrc/panel_exchange.cu",
+                      "dlaf_tpu/ops/pallas_panel_exchange.py:200"),
+        "ring_exchange": ("dlaf_tpu_torch/csrc/panel_exchange.cu",
+                          "dlaf_tpu/ops/pallas_panel_exchange.py:380"),
+        "fused_factor_bcast": ("dlaf_tpu_torch/csrc/panel_exchange.cu",
+                               "dlaf_tpu/ops/pallas_panel_exchange.py:533"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
@@ -605,6 +1010,19 @@ def main() -> int:
             entry["forms"] = {s: {k: f[k] for k in ("kernel_ms", "plain_ms", "library_ms",
                                                     "bound_ms", "max_abs_err")}
                               for s, f in r["forms"].items()}
+        if name == "merge_hop":
+            # B4's body runs inside every B5 and B7 hop; its own entry point
+            # is launched by its kernel phase only, as the JAX package
+            # launches merge_hop only on its ring without remote copies
+            entry["body_runs_in_launches"] = sum(
+                c.get("ring_exchange", 0) + c.get("fused_factor_bcast", 0) for c in by_path.values())
+        if name == "ring_exchange":
+            entry["max_abs_err"] = max(f["max_abs_err"] for f in r["shapes"].values())
+            entry["shapes"] = {s: {k: f[k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                                                     "bound_ms", "max_abs_err")}
+                               for s, f in r["shapes"].items()}
+        if name == "fused_factor_bcast":
+            entry["unfused_ms"] = r["unfused_ms"]
         if name == "secular_bisect":
             entry["max_abs_err"] = max(f["max_abs_err"] for f in r["shapes"].values())
             entry["shapes"] = {f"{K_B10}x{s}": {k: f[k] for k in (

@@ -4,11 +4,14 @@ A second package beside the JAX one (``dlaf_tpu/``, the reference it is
 held against): the same 2D block-cyclic data model
 (``X[Pr, Pc, ltr, ltc, mb, nb]``), the same algorithms, and hand-written
 CUDA kernels for Hopper where the JAX package has Pallas kernels.  This
-package runs on a 1x1 grid: distributed Cholesky, the Left triangular
-solves and POTRS/POSV, with the potrf, panel-TRSM and trailing-update
-kernels; and the Hermitian eigensolver pipeline (reduction to band, SBR,
-the host bulge chase, the distributed D&C tridiagonal solver with the
-secular-bisection kernel, and the three back-transforms).  Kernels live in
+package runs distributed Cholesky, the Left triangular solves and
+POTRS/POSV on any ``Pr x Pc`` grid of ranks on one card, with the potrf,
+panel-TRSM and trailing-update kernels and, under the 'pallas'
+collectives tier, the ring kernels (hop merge, ring exchange, fused
+factor-and-send); and, on a 1x1 grid, the Hermitian eigensolver
+pipeline (reduction to band, SBR, the host bulge chase, the distributed
+D&C tridiagonal solver with the secular-bisection kernel, and the three
+back-transforms).  Kernels live in
 ``ops/`` with their CUDA sources in ``csrc/``; the host chase's C++ source
 is ``csrc/host/band2trid.cpp`` (``native.py``).
 
@@ -16,8 +19,22 @@ Entry points run on the CUDA device unless the caller passes
 ``Grid.create(device="cpu")``, where every kernel wrapper takes its plain
 PyTorch version.  The package imports ``torch``, numpy and the standard
 library only; it never imports JAX or the JAX package.
+
+A ``Pr x Pc`` grid runs its ranks as threads of this process, each on its
+own CUDA stream (``comm/_ranks.py``), and the ring kernels of one
+collective spin on each other.  Two CUDA defaults can put a spinning
+kernel in front of the one it waits for: lazy module loading (the first
+launch of a kernel may wait for the running ones) and 8 hardware queues
+shared by all streams.  So, unless the environment says otherwise, the
+package asks for eager loading and 32 queues at import
+(``_ranks.request_cuda_env``); both take effect only if CUDA has not been
+initialised yet in the process, and a multi-rank grid on the card raises
+``ConfigurationError`` when they did not.
 """
-from dlaf_tpu_torch.algorithms.cholesky import cholesky_factorization
+from dlaf_tpu_torch.comm import _ranks as _ranks
+
+_ranks.request_cuda_env()
+from dlaf_tpu_torch.algorithms.cholesky import cholesky_factorization  # noqa: E402
 from dlaf_tpu_torch.algorithms.eigensolver import EigResult, hermitian_eigensolver
 from dlaf_tpu_torch.algorithms.solver import cholesky_solver, positive_definite_solver
 from dlaf_tpu_torch.algorithms.triangular_solver import triangular_solver

@@ -18,8 +18,16 @@ before the bulk trailing update of step k.  Under
 hand-written trailing-update kernel (``ops/trailing_update.py``); under
 'xla' it is a ``torch.einsum``.
 
+On a ``Pr x Pc`` grid the kernel body runs once per rank thread
+(``comm/_ranks.py``), on that rank's view of the stacked tensor, and the
+collectives meet the other ranks.  Under ``collectives_impl='pallas'`` with
+a column axis > 1 the lookahead panel is the fused factor-and-send
+(``ops/panel_exchange.fused_factor_bcast``, B7; its plain twin on the CPU).
+
 Not in this slice (they raise ``NotImplementedError``, see ROADMAP.md):
-the U path, ``shift_recovery`` and checkpointing.
+the U path, ``shift_recovery``, checkpointing, and the fused trailing-
+update tier of the lookahead kernel on a grid with an axis > 1 (its ring
+consumers B6 and B8 are the next slice).
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from dlaf_tpu_torch.comm.grid import COL_AXIS, ROW_AXIS
 from dlaf_tpu_torch.health import DistributionError, NotPositiveDefiniteError
 from dlaf_tpu_torch.matrix import layout
 from dlaf_tpu_torch.matrix.matrix import DistributedMatrix
+from dlaf_tpu_torch.ops import panel_exchange as _px
 from dlaf_tpu_torch.ops import potrf as _potrf
 from dlaf_tpu_torch.ops import tile as t
 from dlaf_tpu_torch.ops import trailing_update as _tu
@@ -47,33 +56,64 @@ def _diag_potrf(d):
     return t.potrf(d, lower=True)
 
 
+def _fused_panel_bcast(d, xc, below, root: int):
+    """Fused factor-and-send of the lookahead panel
+    (``dlaf_tpu/algorithms/cholesky.py:87``): B7 composes the potrf and
+    panel-TRSM bodies with the ring broadcast over 'c'.  It engages under
+    the JAX package's gate, with "a TPU backend" read as "the 'pallas'
+    tier": the tier is 'pallas', the column axis > 1 and
+    ``fusion_supported``; it returns None otherwise (the unfused path, the
+    same math).  On the card it launches B7, on the CPU B7's plain twin;
+    a failure raises."""
+    if (coll.collectives_trace_key() != "pallas" or coll.axis_size(COL_AXIS) <= 1
+            or not _px.fusion_supported(d, xc)):
+        return None
+    return _px.fused_factor_bcast(d.contiguous(), xc.contiguous(), below, root, COL_AXIS)
+
+
 def _pivot_scan(d):
     """First non-positive pivot of the Hermitian tile ``d``: int32 0 when
     every pivot is positive, else the 1-based within-tile index of the first
-    pivot that is <= 0 or non-finite (LAPACK xPOTRF info semantics).
+    pivot that is <= 0 or NaN (LAPACK xPOTRF info semantics).
 
-    An unblocked right-looking sweep (the masked rank-1 updates of the
-    JAX package's ``_pivot_scan``, restricted to the trailing block where
-    they are non-zero) that carries the failure index instead of the
-    factor.  Once a pivot fails its scale is forced to zero, freezing the
-    trailing matrix so the first index stays exact.  Stays on the device:
-    no host synchronisation."""
+    The unblocked right-looking sweep of the JAX package's ``_pivot_scan``
+    (its masked rank-1 updates restricted to the trailing block, where they
+    are non-zero), with the same arithmetic.  Each pivot is left on the
+    diagonal, which later steps do not touch, and the first failing one is
+    read from there at the end: every pivot up to it is computed exactly as
+    the JAX sweep computes it, and what follows a failure does not matter,
+    so the JAX package's freezing of the trailing matrix and its per-step
+    bookkeeping are not needed (five launches per step).  Stays on the
+    device: no host synchronisation."""
     n = d.shape[-1]
     a = torch.tril(d) + torch.tril(d, -1).transpose(-1, -2).conj()
-    bad = torch.zeros((), dtype=torch.int32, device=d.device)
-    for j in range(n):
-        dj = a[j, j].real
-        ok = dj > 0  # False for NaN/Inf-poisoned pivots too
-        bad = torch.where((bad == 0) & ~ok, j + 1, bad).to(torch.int32)
-        inv = torch.where(ok, 1.0 / torch.sqrt(torch.where(ok, dj, 1.0)), 0.0)
+    for j in range(n - 1):
+        inv = torch.sqrt(a[j, j].real).reciprocal()  # the JAX 1.0 / sqrt(dj)
         col = a[j + 1:, j] * inv.to(a.dtype)
         a[j + 1:, j + 1:] -= col[:, None] * col[None, :].conj()
-    return bad
+    bad = ~(a.diagonal().real > 0)  # True for NaN pivots too
+    first = bad.to(torch.int32).argmax().to(torch.int32) + 1
+    return torch.where(bad.any(), first, torch.zeros_like(first))
 
 
 def _update_info(info, bad, offset: int):
     """info <- offset + bad where info is still 0 and bad > 0."""
     return torch.where((info == 0) & (bad > 0), offset + bad, info).to(torch.int32)
+
+
+def _first_failure(info):
+    """The grid's info from each rank's.  Every rank scans only the
+    diagonal tiles it owns, so the first failing pivot is the least
+    non-zero info over the grid, which every rank gets (the JAX package's
+    info is rank-replicated too: there every rank scans every tile).  The
+    scan is thousands of eager launches per tile, and eight rank threads
+    launching at once through one interpreter are several times slower
+    than one thread making all of their launches (PERF.md, PR 4), so the
+    port does not repeat it on every rank."""
+    none = torch.iinfo(torch.int32).max
+    v = torch.where(info > 0, info, none)
+    v = coll.all_gather_axis(coll.all_gather_axis(v, COL_AXIS).amin(), ROW_AXIS).amin()
+    return torch.where(v == none, 0, v).to(torch.int32)
 
 
 def _chol_L_bucketed(x, g: _spmd.Geometry, want_info: bool):
@@ -92,7 +132,7 @@ def _chol_L_bucketed(x, g: _spmd.Geometry, want_info: bool):
             lkr, lkc = k // g.pr, k // g.pc
             d = _spmd.bcast_diag_tile(x, k, g, myr, myc)
             lkk = _diag_potrf(d)
-            if want_info:
+            if want_info and myr == kr and myc == kc:
                 info = _update_info(info, _pivot_scan(d), k * g.mb)
             # local window starts (first slot with gi >= k+1 / gj >= k+1),
             # clamped like the JAX windows
@@ -129,8 +169,12 @@ def _chol_L_lookahead(x, g: _spmd.Geometry, want_info: bool):
 
     def compute_panel(k):
         d = _spmd.bcast_diag_tile(x, k, g, myr, myc)
-        bad = _pivot_scan(d) if want_info else None
+        owner = myr == k % g.pr and myc == k % g.pc
+        bad = _pivot_scan(d) if want_info and owner else None
         xc = _spmd.take_col(x, k // g.pc, g)
+        fused = _fused_panel_bcast(d, xc, gi > k, k % g.pc)
+        if fused is not None:
+            return fused[0], fused[1], bad
         lkk = _diag_potrf(d)
         pan = t.trsm(t.RIGHT, t.LOWER, t.CONJ_TRANS, t.NON_UNIT, 1.0, lkk, xc)
         below = (gi > k)[:, None, None]
@@ -148,8 +192,10 @@ def _chol_L_lookahead(x, g: _spmd.Geometry, want_info: bool):
                               torch.where(below, cp, xc))
         _spmd.put_col(x, new_col, lkc)
 
+    info = torch.zeros((), dtype=torch.int32, device=dev) if want_info else None
     lkk, cp, bad = compute_panel(0)
-    info = bad if want_info else None
+    if bad is not None:
+        info = _update_info(info, bad, 0)
     for k in range(g.mt - 1):
         write_back(k, lkk, cp)
         suppress = (gj == k + 1)[:, None, None]
@@ -176,7 +222,7 @@ def _chol_L_lookahead(x, g: _spmd.Geometry, want_info: bool):
         if not fused_tier:
             rp_bulk = torch.where(suppress, torch.zeros_like(rp), rp)
             x -= t.contract("iab,jcb->ijac", cp, rp_bulk.conj())
-        if want_info:
+        if bad1 is not None:
             info = _update_info(info, bad1, (k + 1) * g.mb)
         lkk, cp = lkk1, cp1
     write_back(g.mt - 1, lkk, cp)
@@ -184,15 +230,27 @@ def _chol_L_lookahead(x, g: _spmd.Geometry, want_info: bool):
 
 
 def _factor_distributed(mat_a: DistributedMatrix, g: _spmd.Geometry, want_info: bool):
-    """Run the distributed L kernel in place on ``mat_a.data``; returns the
-    info (a device int32 scalar) or None."""
-    kern = _chol_L_lookahead if tune.get_tune_parameters().cholesky_lookahead else _chol_L_bucketed
-    myr, myc = coll.my_rank()
-    x = coll.local(mat_a.data)
-    _spmd.pad_diag_identity(x, g, myr, myc)
-    info = kern(x, g, want_info)
-    _spmd.pad_diag_identity(x, g, myr, myc, remove=True)
-    return info
+    """Run the distributed L kernel in place on ``mat_a.data``, once per
+    rank (``coll.spmd``); returns the info (a device int32 scalar,
+    identical on every rank) or None."""
+    lookahead = tune.get_tune_parameters().cholesky_lookahead
+    if lookahead and tune.trailing_update_tier() == "fused" and mat_a.grid.size > 1:
+        raise NotImplementedError(
+            f"cholesky_factorization: the lookahead kernel's fused trailing-update tier on a "
+            f"{g.pr}x{g.pc} grid needs the ring consumers B6 (dma_ring_consume) and B8 "
+            "(fused_step), which are not ported yet (ROADMAP.md, port queue: the next slice); "
+            "use trailing_update_impl='xla' or the bucketed kernel"
+        )
+    kern = _chol_L_lookahead if lookahead else _chol_L_bucketed
+
+    def body(x):
+        myr, myc = coll.my_rank()
+        _spmd.pad_diag_identity(x, g, myr, myc)
+        info = kern(x, g, want_info)
+        _spmd.pad_diag_identity(x, g, myr, myc, remove=True)
+        return _first_failure(info) if want_info else None
+
+    return coll.spmd(mat_a.grid, body, mat_a.data)
 
 
 def _cholesky_single_device(mat_a: DistributedMatrix) -> DistributedMatrix:

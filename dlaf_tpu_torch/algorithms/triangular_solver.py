@@ -11,6 +11,9 @@ bulk update is the hand-written trailing-update kernel under
 is one dense ``torch.linalg.solve_triangular``, where the JAX package uses
 one XLA ``triangular_solve``.
 
+On a ``Pr x Pc`` grid the kernel body runs once per rank thread
+(``comm/_ranks.py``) on the ranks' views of A and B.
+
 Not in this slice (``NotImplementedError``, see ROADMAP.md): the Right
 side and ``refine_to``.
 """
@@ -120,9 +123,11 @@ def _trsm_left_lookahead(a, b, g_a, g_b, uplo, op, diag):
         k1 = k + 1 if forward else k - 1
         write_row(k, xr)
         # narrow update: row k1 only, so its solve can start immediately
+        # (the tile's broadcast is a collective: every rank takes part)
+        a1 = a_tile(k, k1)
         if myr == k1 % g_a.pr:
             brow1 = _spmd.take_row(b, k1 // g_a.pr, g_b)
-            brow1 -= t.contract("ab,jbc->jac", a_tile(k, k1), xr)
+            brow1 -= t.contract("ab,jbc->jac", a1, xr)
         xr1 = solve_row(k1)
         # bulk update, row k1 excluded (already updated)
         cp = panel(k)
@@ -178,14 +183,16 @@ def triangular_solver(side: str, uplo: str, op: str, diag: str, alpha,
         return _trsm_single_device(side, uplo, op, diag, alpha, mat_a, mat_b)
     if backend not in ("auto", "distributed"):
         raise ValueError(f"trsm: unknown backend {backend!r}")
-    myr, myc = coll.my_rank()
-    a = coll.local(mat_a.data)
-    if g_a.m % g_a.mb:  # ragged: padded diagonal tiles need an identity, on a copy
-        a = _spmd.pad_diag_identity(a.clone(), g_a, myr, myc)
-    b = coll.local(mat_b.data)
-    if alpha != 1:
-        b.mul_(alpha)
     lookahead = tune.get_tune_parameters().trsm_lookahead and g_a.mt > 1
     kern = _trsm_left_lookahead if lookahead else _trsm_left_bucketed
-    kern(a, b, g_a, g_b, uplo, op, diag)
+
+    def body(a, b):
+        myr, myc = coll.my_rank()
+        if g_a.m % g_a.mb:  # ragged: padded diagonal tiles need an identity, on a copy
+            a = _spmd.pad_diag_identity(a.clone(), g_a, myr, myc)
+        if alpha != 1:
+            b.mul_(alpha)
+        kern(a, b, g_a, g_b, uplo, op, diag)
+
+    coll.spmd(mat_b.grid, body, mat_a.data, mat_b.data)
     return mat_b._inplace(mat_b.data)

@@ -1,10 +1,12 @@
 """2D process grid over one ``torch.device`` (counterpart of
 ``dlaf_tpu/comm/grid.py``).
 
-The JAX package's grid is a ``jax.sharding.Mesh`` with axes ``('r', 'c')``.
-This slice of the port runs the 1x1 grid only: one rank, one device.  Any
-other shape raises ``NotImplementedError``; multi-rank grids over
-``torch.distributed`` are the next slice (ROADMAP.md, queue A item 3).
+The JAX package's grid is a ``jax.sharding.Mesh`` with axes ``('r', 'c')``
+and runs every rank of it in one process (``jit(shard_map(fn))``).  The
+port keeps that model: a ``Pr x Pc`` grid is ``Pr * Pc`` rank threads of
+one process, all on the grid's one device, each on its own CUDA stream
+(``comm/_ranks.py``).  Spreading the ranks over several cards, and one
+process per rank for multi-host runs, are later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -19,7 +21,11 @@ COL_AXIS = "c"
 
 
 class Grid:
-    """A ``Pr x Pc`` grid of ranks; here always 1x1 on ``device``."""
+    """A ``Pr x Pc`` grid of ranks on ``device``.
+
+    ``runtime`` holds what the ranks share for the grid's lifetime (their
+    streams, the ring kernels' landing slots and flags); it is made at
+    first use by ``comm/_ranks.py``."""
 
     def __init__(self, grid_size: Size2D, device: torch.device):
         self._grid_size = Size2D(*grid_size)
@@ -28,19 +34,17 @@ class Grid:
             # pin the index so it compares equal to tensors' devices
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
+        self.runtime = None
 
     @classmethod
     def create(cls, shape: Optional[Size2D] = None, device=None) -> "Grid":
-        """Build a grid.  ``device`` defaults to ``torch.device("cuda")``;
+        """Build a ``shape`` grid (default 1x1) whose ranks all live on
+        ``device``.  ``device`` defaults to ``torch.device("cuda")``;
         without a CUDA device this raises rather than run on the CPU (pass
         ``device="cpu"`` explicitly for that)."""
         shape = Size2D(1, 1) if shape is None else Size2D(*shape)
-        if shape != Size2D(1, 1):
-            raise NotImplementedError(
-                f"grid {shape.rows}x{shape.cols}: the port runs 1x1 grids only; "
-                "multi-rank grids over torch.distributed wait in ROADMAP.md "
-                "(queue A item 3, the next slice)"
-            )
+        if shape.rows < 1 or shape.cols < 1:
+            raise ValueError(f"grid shape must be positive, got {shape.rows}x{shape.cols}")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(

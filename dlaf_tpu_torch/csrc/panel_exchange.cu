@@ -1,0 +1,422 @@
+// The ring kernels of the 'pallas' collectives tier: the hop merge (B4),
+// the one-contributor ring exchange (B5) and the fused factor-and-send of
+// the lookahead Cholesky panel (B7).
+//
+// Replaces dlaf_tpu/ops/pallas_panel_exchange.py: merge_hop
+// [_merge_kernel], dma_ring_exchange [_dma_ring_kernel, _ring_hops] and
+// fused_factor_bcast [_fused_kernel].
+//
+// The ranks of a grid are threads of one process, each with its own CUDA
+// stream on the one card (dlaf_tpu_torch/comm/_ranks.py).  A ring of P
+// ranks along a grid axis runs one launch per rank, all at the same time.
+// Each rank carries a (payload, have) pair and, in P - 1 unidirectional
+// hops, sends it into its downstream neighbour's landing slot s % 2 and
+// merges what its upstream neighbour sent into its own:
+//     take = !have && have_in;  y = take ? y_in : y;  have |= have_in.
+// A pure select: the result is bit-identical to the v2 doubling chain and
+// to the psum tier.  The payload travels as 32-bit words, whatever its
+// dtype (complex and float64 payloads are bit-preserving word views).
+//
+// Protocol (the TPU kernel's, with flags in device memory in place of DMA
+// and REGULAR semaphores):
+//   entry barrier: store my entry flag, wait for both neighbours' (their
+//     kernels run, and their previous call on this ring is over, so the
+//     persistent landing slots may be written);
+//   hop s: (s >= 2) wait for the downstream rank's ack of my hop s - 2
+//     copy out of slot s % 2; write the accumulator into the downstream
+//     rank's slot s % 2, fence, release-store its recv flag; acquire-wait
+//     for my own recv flag of hop s; merge; (s + 2 < P - 1) release-store
+//     my ack for the upstream writer.
+// Send before wait on every rank, and every wait is on an event earlier in
+// the global hop order, so a delayed rank stalls its neighbours, never a
+// cycle.  Flags never reset: a flag's value is (epoch << 16) | (hop + 1),
+// the epoch growing by one per call of the ring (every rank calls the
+// ring collectives in the same SPMD order, so the epochs agree), and a
+// wait is "flag >= target".  No reset can race a late reader.
+//
+// Each block of a launch runs an independent ring over its own segments
+// of the payload (segments b, b + G, b + 2G, ... of `seg` words), with
+// its own flags and its own copy of `have` in shared memory, so no
+// grid-wide barrier is needed.  Every rank of a ring launches the same
+// number of blocks G, and G * (ranks of the grid) stays within the card's
+// SMs, so all ring launches of a grid can be resident at once next to
+// other work: a spinning block never waits for a block that cannot be
+// scheduled.
+//
+// Every spin polls %globaltimer against a bound (a few seconds); when it
+// runs out the block sets the grid's sticky error word and exits, and a
+// spinning block also exits when it finds the word set (by another block,
+// or by the host when a rank thread failed).  The host reads the word at
+// the end of every algorithm call and raises DeadlineExceededError.  A hang
+// is a failure, never a wait.
+//
+// Scope: thread_scope_device, as every rank of a ring shares one card; a
+// ring spread over several cards needs thread_scope_system flags and peer
+// access to the landing slots, nothing else.
+//
+// What bounds them on the H100: bytes.  A hop moves the accumulator into
+// the neighbour's slot and merges it back, so a ring moves about
+// 2 (P - 1) + 2 times the payload per rank through HBM, against the
+// 2 payloads per rank (read the input, write the output) that any one-card
+// implementation must move.  B7 adds B1's and B2's work, in their own
+// block bodies (potrf.cuh, panel_trsm.cuh), so its factor and panel carry
+// B1's and B2's bits.
+
+#include <cuda/atomic>
+#include <cuda_runtime.h>
+
+#include "panel_trsm.cuh"
+#include "potrf.cuh"
+
+namespace {
+
+using u32 = unsigned int;
+using u64 = unsigned long long;
+using flag_ref = cuda::atomic_ref<u64, cuda::thread_scope_device>;
+using err_ref = cuda::atomic_ref<int, cuda::thread_scope_device>;
+
+constexpr int kMergeThreads = 256;
+constexpr int kRingThreads = 256;
+constexpr int kFusedThreads = 512;
+
+// which wait ran out (the error word's value; -1 is set by the host)
+enum : int { kErrEntry = 1, kErrAck = 2, kErrRecv = 3, kErrFactor = 4 };
+
+__device__ __forceinline__ u64 globaltimer() {
+  u64 t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The hop merge of one slot: take the incoming word only where this rank
+// has no contribution yet and the sender has one (B4's body; B5 and B7 call
+// it in every hop).
+__device__ __forceinline__ bool hop_take(int have, int have_in) {
+  return have == 0 && have_in != 0;
+}
+
+struct Ring {
+  const u32* y;        // this rank's payload (input), total words
+  u32* acc;            // the accumulator, which is the output
+  u32* land;           // landing slots [P][2][total]
+  int* land_h;         // have of the landing slots [P][2][G][slots]
+  u64* entry;          // [P][G]
+  u64* rflag;          // [P][2][G]
+  u64* aflag;          // [P][2][G]
+  int* err;            // the grid's sticky error word
+  long long total;     // payload words
+  long long w;         // words per have slot (total = slots * w)
+  long long seg;       // words per segment
+  int slots;
+  int P, me;
+  u64 epoch;           // this call's epoch << 16
+  u64 timeout_ns;
+};
+
+// Thread 0: wait until *flag >= target; false when the bound ran out (the
+// error word is then set to `code`) or another block set the error word.
+__device__ bool wait_flag(u64* flag, u64 target, const Ring& r, int code) {
+  flag_ref f(*flag);
+  err_ref e(*r.err);
+  const u64 t0 = globaltimer();
+  while (f.load(cuda::memory_order_acquire) < target) {
+    if (e.load(cuda::memory_order_relaxed) != 0) return false;
+    if (globaltimer() - t0 > r.timeout_ns) {
+      int zero = 0;
+      e.compare_exchange_strong(zero, code, cuda::memory_order_relaxed);
+      return false;
+    }
+    __nanosleep(128);
+  }
+  return true;
+}
+
+__device__ __forceinline__ void publish(u64* flag, u64 value) {
+  __threadfence();
+  flag_ref(*flag).store(value, cuda::memory_order_release);
+}
+
+// Block-uniform result of a wait done by thread 0.
+__device__ bool block_ok(bool ok_thread0, int* sh_ok) {
+  if (threadIdx.x == 0) *sh_ok = ok_thread0;
+  __syncthreads();
+  const bool ok = *sh_ok;
+  __syncthreads();
+  return ok;
+}
+
+// dst[i] = src[i] over this block's segments (16-byte accesses when the
+// segment layout allows them).
+__device__ void copy_segments(u32* __restrict__ dst, const u32* __restrict__ src, const Ring& r) {
+  const bool vec = (r.seg % 4 == 0) && (r.total % 4 == 0);
+  for (long long lo = (long long)blockIdx.x * r.seg; lo < r.total; lo += (long long)gridDim.x * r.seg) {
+    const long long hi = min(lo + r.seg, r.total);
+    if (vec) {
+      const uint4* s4 = reinterpret_cast<const uint4*>(src + lo);
+      uint4* d4 = reinterpret_cast<uint4*>(dst + lo);
+      for (long long i = threadIdx.x; i < (hi - lo) / 4; i += blockDim.x) d4[i] = __ldcg(s4 + i);
+    } else {
+      for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) dst[i] = __ldcg(src + i);
+    }
+  }
+}
+
+// acc[i] = land[i] where hop_take(have[slot(i)], have_in[slot(i)]).
+__device__ void merge_segments(u32* __restrict__ acc, const u32* __restrict__ land,
+                               const int* sh_have, const int* sh_hin, const Ring& r) {
+  const bool vec = (r.seg % 4 == 0) && (r.total % 4 == 0) && (r.w % 4 == 0);
+  for (long long lo = (long long)blockIdx.x * r.seg; lo < r.total; lo += (long long)gridDim.x * r.seg) {
+    const long long hi = min(lo + r.seg, r.total);
+    if (vec) {
+      const uint4* l4 = reinterpret_cast<const uint4*>(land + lo);
+      uint4* a4 = reinterpret_cast<uint4*>(acc + lo);
+      for (long long i = threadIdx.x; i < (hi - lo) / 4; i += blockDim.x) {
+        const long long slot = (lo + 4 * i) / r.w;
+        if (hop_take(sh_have[slot], sh_hin[slot])) a4[i] = __ldcg(l4 + i);
+      }
+    } else {
+      for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+        const long long slot = i / r.w;
+        if (hop_take(sh_have[slot], sh_hin[slot])) acc[i] = __ldcg(land + i);
+      }
+    }
+  }
+}
+
+// The P - 1 hops of one block's ring (the TPU kernel's _ring_hops).
+// sh_have holds this rank's have on entry and the merged have on exit;
+// sh_hin and sh_ok are scratch.  False when a wait failed.
+__device__ bool ring_hops(const Ring& r, int* sh_have, int* sh_hin, int* sh_ok) {
+  const int b = blockIdx.x, G = gridDim.x, tid = threadIdx.x, nt = blockDim.x;
+  const int dst = (r.me + 1) % r.P, src = (r.me + r.P - 1) % r.P;
+  const int nhops = r.P - 1;
+
+  bool ok = true;
+  if (tid == 0) {
+    publish(&r.entry[(long long)r.me * G + b], r.epoch);
+    ok = wait_flag(&r.entry[(long long)dst * G + b], r.epoch, r, kErrEntry) &&
+         wait_flag(&r.entry[(long long)src * G + b], r.epoch, r, kErrEntry);
+  }
+  if (!block_ok(ok, sh_ok)) return false;
+
+  for (int s = 0; s < nhops; ++s) {
+    const int j = s & 1;
+    if (s >= 2) {
+      // the downstream rank has merged my hop s - 2 copy out of slot j
+      ok = tid != 0 || wait_flag(&r.aflag[((long long)dst * 2 + j) * G + b],
+                                 r.epoch | (u64)(s - 1), r, kErrAck);
+      if (!block_ok(ok, sh_ok)) return false;
+    }
+    // send: the accumulator into the downstream rank's slot j
+    copy_segments(r.land + ((long long)dst * 2 + j) * r.total, r.acc, r);
+    int* dh = r.land_h + (((long long)dst * 2 + j) * G + b) * r.slots;
+    for (int i = tid; i < r.slots; i += nt) dh[i] = sh_have[i];
+    __syncthreads();
+    ok = true;
+    if (tid == 0) {
+      publish(&r.rflag[((long long)dst * 2 + j) * G + b], r.epoch | (u64)(s + 1));
+      ok = wait_flag(&r.rflag[((long long)r.me * 2 + j) * G + b], r.epoch | (u64)(s + 1), r,
+                     kErrRecv);
+      __threadfence();
+    }
+    if (!block_ok(ok, sh_ok)) return false;
+    // merge my slot j
+    const int* mh = r.land_h + (((long long)r.me * 2 + j) * G + b) * r.slots;
+    for (int i = tid; i < r.slots; i += nt) sh_hin[i] = __ldcg(mh + i);
+    __syncthreads();
+    merge_segments(r.acc, r.land + ((long long)r.me * 2 + j) * r.total, sh_have, sh_hin, r);
+    __syncthreads();
+    for (int i = tid; i < r.slots; i += nt) sh_have[i] |= sh_hin[i];
+    __syncthreads();
+    if (s + 2 < nhops && tid == 0) {
+      // slot j consumed: the upstream writer may reuse it at hop s + 2
+      publish(&r.aflag[((long long)r.me * 2 + j) * G + b], r.epoch | (u64)(s + 1));
+    }
+  }
+  return true;
+}
+
+// ---------------------------------------------------------------- B4
+
+__global__ void __launch_bounds__(kMergeThreads)
+merge_kernel(const u32* __restrict__ y, const u32* __restrict__ y_in, const int* __restrict__ h,
+             const int* __restrict__ h_in, u32* __restrict__ oy, int* __restrict__ oh,
+             long long total, long long w, int slots) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
+    const long long slot = i / w;
+    oy[i] = hop_take(h[slot], h_in[slot]) ? y_in[i] : y[i];
+  }
+  for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x; s < slots; s += stride)
+    oh[s] = h[s] | h_in[s];
+}
+
+// ---------------------------------------------------------------- B5
+
+__global__ void __launch_bounds__(kRingThreads)
+ring_kernel(Ring r, const int* __restrict__ h, int* __restrict__ oh) {
+  extern __shared__ int sh[];
+  int* sh_have = sh;
+  int* sh_hin = sh + r.slots;
+  int* sh_ok = sh + 2 * r.slots;
+  for (int i = threadIdx.x; i < r.slots; i += blockDim.x) sh_have[i] = h[i];
+  copy_segments(r.acc, r.y, r);  // the accumulator starts as this rank's payload
+  __syncthreads();
+  if (!ring_hops(r, sh_have, sh_hin, sh_ok)) return;
+  if (blockIdx.x == 0)
+    for (int i = threadIdx.x; i < r.slots; i += blockDim.x) oh[i] = sh_have[i];
+}
+
+// ---------------------------------------------------------------- B7
+
+// One launch per rank of the column ring: block 0 factors the (broadcast)
+// diagonal tile d into lkk with B1's body and publishes it through `ready`;
+// on the root rank every block then solves its strips of the panel xc
+// against lkk with B2's body, writing zeros for the strips of tiles that
+// are not below the diagonal (below[tile] == 0); the other ranks'
+// contributions are masked out entirely (have = 0), so they solve nothing.
+// Then each block runs the ring over its strips (segment = one strip), so
+// the root's masked panel reaches every rank of the column ring.
+template <typename T, int R>
+__global__ void __launch_bounds__(kFusedThreads)
+fused_kernel(Ring r, const T* __restrict__ d, const T* __restrict__ xc,
+             const int* __restrict__ below, T* __restrict__ lkk, int nb, int pw, int is_root,
+             u64* ready, size_t work_smem) {
+  extern __shared__ unsigned char smem_raw[];
+  T* work = reinterpret_cast<T*>(smem_raw);
+  int* sh_have = reinterpret_cast<int*>(smem_raw + work_smem);
+  int* sh_hin = sh_have + 1;
+  int* sh_ok = sh_have + 2;
+  T* cp = reinterpret_cast<T*>(r.acc);
+  const long long rows = r.total * (long long)sizeof(u32) / sizeof(T) / nb;
+
+  if (blockIdx.x == 0) {
+    dlaf_potrf::factor_tile<T, kFusedThreads>(d, lkk, nb, pw, work);
+    __syncthreads();
+    if (threadIdx.x == 0) publish(ready + r.me, r.epoch);
+  }
+  if (is_root) {
+    bool ok = blockIdx.x == 0 || threadIdx.x != 0 ||
+              wait_flag(ready + r.me, r.epoch, r, kErrFactor);
+    if (!block_ok(ok, sh_ok)) return;
+    if (threadIdx.x == 0) __threadfence();
+    const long long strips = (rows + R - 1) / R;
+    for (long long st = blockIdx.x; st < strips; st += gridDim.x) {
+      if (below[(st * R) / nb]) {
+        dlaf_panel_trsm::solve_strip<T, R, kFusedThreads>(lkk, xc, cp, rows, nb, st, work);
+      } else {
+        for (long long i = threadIdx.x; i < (long long)R * nb; i += blockDim.x) cp[st * R * nb + i] = T(0);
+      }
+    }
+  }
+  if (threadIdx.x == 0) *sh_have = is_root;
+  __syncthreads();
+  ring_hops(r, sh_have, sh_hin, sh_ok);
+}
+
+Ring make_ring(const void* y, void* acc, void* land, void* land_h, void* entry, void* rflag,
+               void* aflag, void* err, long long total, long long w, int slots, long long seg,
+               int P, int me, u64 epoch, u64 timeout_ns) {
+  Ring r;
+  r.y = static_cast<const u32*>(y);
+  r.acc = static_cast<u32*>(acc);
+  r.land = static_cast<u32*>(land);
+  r.land_h = static_cast<int*>(land_h);
+  r.entry = static_cast<u64*>(entry);
+  r.rflag = static_cast<u64*>(rflag);
+  r.aflag = static_cast<u64*>(aflag);
+  r.err = static_cast<int*>(err);
+  r.total = total;
+  r.w = w;
+  r.seg = seg;
+  r.slots = slots;
+  r.P = P;
+  r.me = me;
+  r.epoch = epoch;
+  r.timeout_ns = timeout_ns;
+  return r;
+}
+
+template <typename T, int R>
+int launch_fused(const void* d, const void* xc, const void* below, void* lkk, void* cp, int nb,
+                 long long rows, int is_root, void* ready, void* land, void* land_h, void* entry,
+                 void* rflag, void* aflag, void* err, int P, int me, int G, u64 epoch,
+                 u64 timeout_ns, void* stream) {
+  const int pw = dlaf_potrf::panel_width<T>(nb);
+  if (pw == 0 || nb % dlaf_panel_trsm::kW || rows % nb || G <= 0) return (int)cudaErrorInvalidValue;
+  size_t work = dlaf_potrf::smem_bytes<T>(nb);
+  const size_t trsm = dlaf_panel_trsm::smem_bytes<T, R>(nb);
+  if (trsm > work) work = trsm;
+  work = (work + 15) / 16 * 16;
+  const size_t smem = work + 16;
+  if (smem > dlaf_potrf::kSmemLimit) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(fused_kernel<T, R>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long total = rows * nb * (long long)sizeof(T) / 4;
+  const long long seg = (long long)R * nb * sizeof(T) / 4;  // one strip
+  Ring r = make_ring(cp, cp, land, land_h, entry, rflag, aflag, err, total, total, 1, seg, P, me,
+                     epoch, timeout_ns);
+  fused_kernel<T, R><<<G, kFusedThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      r, static_cast<const T*>(d), static_cast<const T*>(xc), static_cast<const int*>(below),
+      static_cast<T*>(lkk), nb, pw, is_root, static_cast<u64*>(ready), work);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// B4: one hop merge on the wire layout; payload as 32-bit words.
+int dlaf_merge_hop(const void* y, const void* y_in, const void* h, const void* h_in, void* oy,
+                   void* oh, long long total, long long w, int slots, void* stream) {
+  if (total <= 0 || w <= 0 || slots <= 0) return 0;
+  long long blocks = (total + kMergeThreads - 1) / kMergeThreads;
+  if (blocks > 65535) blocks = 65535;
+  merge_kernel<<<(unsigned)blocks, kMergeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u32*>(y), static_cast<const u32*>(y_in), static_cast<const int*>(h),
+      static_cast<const int*>(h_in), static_cast<u32*>(oy), static_cast<int*>(oh), total, w,
+      slots);
+  return (int)cudaGetLastError();
+}
+
+// B5: this rank's launch of a ring exchange of `total` words in `slots`
+// have-slots of `w` words, in G blocks of `seg`-word segments.
+int dlaf_ring_exchange(const void* y, const void* h, void* out, void* oh, void* land, void* land_h,
+                       void* entry, void* rflag, void* aflag, void* err, long long total,
+                       long long w, int slots, long long seg, int G, int P, int me,
+                       unsigned long long epoch, unsigned long long timeout_ns, void* stream) {
+  if (total <= 0 || slots <= 0 || G <= 0 || P < 2 || total != w * slots) return (int)cudaErrorInvalidValue;
+  const size_t smem = (2 * (size_t)slots + 1) * sizeof(int);
+  if (smem > dlaf_potrf::kSmemLimit) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  Ring r = make_ring(y, out, land, land_h, entry, rflag, aflag, err, total, w, slots, seg, P, me,
+                     epoch, timeout_ns);
+  ring_kernel<<<G, kRingThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      r, static_cast<const int*>(h), static_cast<int*>(oh));
+  return (int)cudaGetLastError();
+}
+
+int dlaf_fused_factor_bcast_f32(const void* d, const void* xc, const void* below, void* lkk,
+                                void* cp, int nb, long long rows, int is_root, void* ready,
+                                void* land, void* land_h, void* entry, void* rflag, void* aflag,
+                                void* err, int P, int me, int G, unsigned long long epoch,
+                                unsigned long long timeout_ns, void* stream) {
+  return launch_fused<float, 32>(d, xc, below, lkk, cp, nb, rows, is_root, ready, land, land_h,
+                                 entry, rflag, aflag, err, P, me, G, epoch, timeout_ns, stream);
+}
+
+int dlaf_fused_factor_bcast_f64(const void* d, const void* xc, const void* below, void* lkk,
+                                void* cp, int nb, long long rows, int is_root, void* ready,
+                                void* land, void* land_h, void* entry, void* rflag, void* aflag,
+                                void* err, int P, int me, int G, unsigned long long epoch,
+                                unsigned long long timeout_ns, void* stream) {
+  return launch_fused<double, 16>(d, xc, below, lkk, cp, nb, rows, is_root, ready, land, land_h,
+                                  entry, rflag, aflag, err, P, me, G, epoch, timeout_ns, stream);
+}
+
+}  // extern "C"

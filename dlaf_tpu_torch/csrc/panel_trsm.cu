@@ -15,80 +15,26 @@
 //   for each 32-wide column block:
 //     GEMM: x[r, blk] -= x[r, <c0] @ L[blk, <c0]^T  (warp = rows, lane = column)
 //     substitution inside the block, one thread per row.
-// Only the lower triangle of L is read.  The caller owns X.
+// Only the lower triangle of L is read.  The caller owns X.  The strip
+// body lives in panel_trsm.cuh, which the fused factor-and-send kernel
+// (panel_exchange.cu, B7) shares.
 
 #include <cuda_runtime.h>
+
+#include "panel_trsm.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kW = 32;
-constexpr int kLd = kW + 1;
+using dlaf_panel_trsm::kW;
 
 template <typename T, int R>
 __global__ void __launch_bounds__(kThreads)
 panel_trsm_kernel(const T* __restrict__ ell, const T* __restrict__ b, T* __restrict__ x,
                   long long rows, int nb) {
   extern __shared__ unsigned char smem_raw[];
-  const int ldx = nb + 1;
-  T* xs = reinterpret_cast<T*>(smem_raw);  // [R][nb + 1]: the strip, b then x
-  T* ls = xs + R * ldx;                    // [32][33]: a staged block of L
-  constexpr int kRowsPerWarp = R / (kThreads / 32);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long r0 = (long long)blockIdx.x * R;
-  const int nrows = (int)min((long long)R, rows - r0);
-
-  for (int idx = tid; idx < R * nb; idx += kThreads) {
-    const int r = idx / nb, c = idx % nb;
-    xs[r * ldx + c] = r < nrows ? b[(r0 + r) * nb + c] : T(0);
-  }
-  __syncthreads();
-
-  for (int c0 = 0; c0 < nb; c0 += kW) {
-    // GEMM update of column block c0 from the solved columns s < c0
-    T acc[kRowsPerWarp];
-#pragma unroll
-    for (int q = 0; q < kRowsPerWarp; ++q) acc[q] = T(0);
-    for (int s0 = 0; s0 < c0; s0 += kW) {
-      for (int idx = tid; idx < kW * kW; idx += kThreads) {
-        const int t = idx / kW, s = idx % kW;
-        ls[t * kLd + s] = ell[(long long)(c0 + t) * nb + s0 + s];
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int s = 0; s < kW; ++s) {
-        const T l = ls[lane * kLd + s];
-#pragma unroll
-        for (int q = 0; q < kRowsPerWarp; ++q)
-          acc[q] += xs[(warp * kRowsPerWarp + q) * ldx + s0 + s] * l;
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int q = 0; q < kRowsPerWarp; ++q)
-      xs[(warp * kRowsPerWarp + q) * ldx + c0 + lane] -= acc[q];
-
-    // diagonal block of L, then the substitution within it
-    for (int idx = tid; idx < kW * kW; idx += kThreads) {
-      const int t = idx / kW, s = idx % kW;
-      ls[t * kLd + s] = ell[(long long)(c0 + t) * nb + c0 + s];
-    }
-    __syncthreads();
-    if (tid < R) {
-      T* xr = xs + tid * ldx + c0;
-      for (int t = 0; t < kW; ++t) {
-        T contrib = T(0);
-        for (int s = 0; s < t; ++s) contrib += xr[s] * ls[t * kLd + s];
-        xr[t] = (xr[t] - contrib) / ls[t * kLd + t];
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int idx = tid; idx < nrows * nb; idx += kThreads) {
-    const int r = idx / nb, c = idx % nb;
-    x[(r0 + r) * nb + c] = xs[r * ldx + c];
-  }
+  dlaf_panel_trsm::solve_strip<T, R, kThreads>(ell, b, x, rows, nb, blockIdx.x,
+                                               reinterpret_cast<T*>(smem_raw));
 }
 
 template <typename T, int R>
@@ -96,7 +42,7 @@ int launch_panel_trsm(const void* ell, const void* b, void* x, long long rows, i
                       void* stream) {
   if (rows <= 0) return 0;
   if (nb <= 0 || nb % kW) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)R * (nb + 1) + (size_t)kW * kLd) * sizeof(T);
+  const size_t smem = dlaf_panel_trsm::smem_bytes<T, R>(nb);
   cudaError_t e = cudaFuncSetAttribute(panel_trsm_kernel<T, R>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;

@@ -17,84 +17,31 @@
 //     factor it there column by column (one __syncthreads() per step),
 //     write it back, and subtract its rank-pw product from the trailing
 //     lower triangle, which stays in device memory (L2-resident).
-// The caller owns the output buffer; nothing is allocated here.
+// The block body lives in potrf.cuh, which the fused factor-and-send
+// kernel (panel_exchange.cu, B7) shares.  The caller owns the output
+// buffer; nothing is allocated here.
 
 #include <cuda_runtime.h>
+
+#include "potrf.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
-constexpr size_t kSmemLimit = 232448;  // 227 KB per block on Hopper
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 potrf_kernel(const T* __restrict__ a, T* __restrict__ out, int n, int pw) {
   extern __shared__ unsigned char smem_raw[];
-  T* ps = reinterpret_cast<T*>(smem_raw);  // panel [n - c0][pw + 1]
-  const int ld = pw + 1;                   // +1: conflict-free column reads
-  const int tid = threadIdx.x;
-  const long long nn = (long long)n * n;
-
-  // lower triangle of a into out, upper triangle zero
-  for (long long idx = tid; idx < nn; idx += kThreads) {
-    const int r = (int)(idx / n), c = (int)(idx % n);
-    out[idx] = (c <= r) ? a[idx] : T(0);
-  }
-  __syncthreads();
-
-  for (int c0 = 0; c0 < n; c0 += pw) {
-    const int w = min(pw, n - c0);  // panel width
-    const int m = n - c0;           // panel rows (c0 .. n-1)
-    for (int idx = tid; idx < m * w; idx += kThreads) {
-      const int r = idx / w, c = idx % w;
-      ps[r * ld + c] = out[(long long)(c0 + r) * n + c0 + c];
-    }
-    __syncthreads();
-
-    // unblocked right-looking factor of the panel
-    for (int t = 0; t < w; ++t) {
-      const T inv = T(1) / sqrt(ps[t * ld + t]);
-      __syncthreads();  // every thread has read the pivot before it is scaled
-      for (int r = t + tid; r < m; r += kThreads) ps[r * ld + t] *= inv;
-      __syncthreads();
-      const int cols = w - t - 1;
-      const int rows = m - t - 1;
-      for (int idx = tid; idx < rows * cols; idx += kThreads) {
-        const int r = t + 1 + idx / cols, u = t + 1 + idx % cols;
-        if (r >= u) ps[r * ld + u] -= ps[r * ld + t] * ps[u * ld + t];
-      }
-      __syncthreads();
-    }
-
-    // write the factored panel back (upper part of its diagonal block zero)
-    for (int idx = tid; idx < m * w; idx += kThreads) {
-      const int r = idx / w, c = idx % w;
-      out[(long long)(c0 + r) * n + c0 + c] = (r >= c) ? ps[r * ld + c] : T(0);
-    }
-
-    // trailing lower triangle: out[i][j] -= sum_t P[i][t] * P[j][t]
-    const int mt = m - w;
-    const long long mm = (long long)mt * mt;
-    for (long long idx = tid; idx < mm; idx += kThreads) {
-      const int i = (int)(idx / mt), j = (int)(idx % mt);
-      if (j > i) continue;
-      const T* pi = ps + (w + i) * ld;
-      const T* pj = ps + (w + j) * ld;
-      T acc = T(0);
-      for (int t = 0; t < w; ++t) acc += pi[t] * pj[t];
-      out[(long long)(c0 + w + i) * n + c0 + w + j] -= acc;
-    }
-    __syncthreads();
-  }
+  dlaf_potrf::factor_tile<T, kThreads>(a, out, n, pw, reinterpret_cast<T*>(smem_raw));
 }
 
 template <typename T>
 int launch_potrf(const void* a, void* out, int n, void* stream) {
   if (n <= 0) return 0;
-  int pw = 32;
-  while (pw > 8 && (size_t)n * (pw + 1) * sizeof(T) > kSmemLimit) pw /= 2;
-  const size_t smem = (size_t)n * (pw + 1) * sizeof(T);
-  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  const int pw = dlaf_potrf::panel_width<T>(n);
+  if (pw == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = dlaf_potrf::smem_bytes<T>(n);
   cudaError_t e = cudaFuncSetAttribute(potrf_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;

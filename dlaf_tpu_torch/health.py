@@ -53,6 +53,25 @@ class ConvergenceError(DlafError, RuntimeError):
         super().__init__(message)
 
 
+class DeadlineExceededError(DlafError, TimeoutError):
+    """A bounded wait did not complete within its budget
+    (``dlaf_tpu/health.py:98``).  In the port every wait of the rank
+    runtime (``comm/_ranks.py``) and of the ring kernels
+    (``ops/panel_exchange.py``) is bounded and raises this instead of
+    hanging.  ``budget_s`` is the bound that ran out; ``label`` names the
+    bounded operation.  Subclasses ``TimeoutError`` so generic timeout
+    handlers keep working."""
+
+    def __init__(self, budget_s: float, label: str | None = None,
+                 message: str | None = None):
+        self.budget_s = float(budget_s)
+        self.label = label
+        if message is None:
+            what = f" ({label})" if label else ""
+            message = f"operation{what} exceeded its deadline of {self.budget_s:g} s"
+        super().__init__(message)
+
+
 class NonFiniteError(DlafError, ArithmeticError):
     """A stage-boundary sentinel found NaN/Inf.  ``stage`` names the first
     pipeline stage whose output went non-finite."""

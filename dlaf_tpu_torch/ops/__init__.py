@@ -1,18 +1,27 @@
-"""Tile ops and the hand-written kernels (one module per kernel, each with
-its plain PyTorch version and a launch counter)."""
+"""Tile ops and the hand-written kernels (one module per kernel, or per
+family of kernels, each with its plain PyTorch version and launch
+counters)."""
 from __future__ import annotations
 
-from dlaf_tpu_torch.ops import panel_trsm, potrf, secular, trailing_update
+from dlaf_tpu_torch.ops import panel_exchange, panel_trsm, potrf, secular, trailing_update
 
-#: the kernel modules, by the name chip_smoke.py and PERF.md use
-KERNELS = {"potrf": potrf, "panel_trsm": panel_trsm, "trailing_update": trailing_update,
-           "secular_bisect": secular}
+#: the kernels, by the name chip_smoke.py and PERF.md use: (module, name of
+#: its launch counter)
+KERNELS = {
+    "potrf": (potrf, "launches"),
+    "panel_trsm": (panel_trsm, "launches"),
+    "trailing_update": (trailing_update, "launches"),
+    "secular_bisect": (secular, "launches"),
+    "merge_hop": (panel_exchange, "merge_launches"),
+    "ring_exchange": (panel_exchange, "ring_launches"),
+    "fused_factor_bcast": (panel_exchange, "fused_launches"),
+}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    for mod, attr in KERNELS.values():
+        setattr(mod, attr, 0)
 
 
 def launch_counts() -> dict:
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}

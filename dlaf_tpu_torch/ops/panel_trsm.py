@@ -55,7 +55,8 @@ def supported(side, uplo, op, diag, a, b) -> bool:
 def panel_trsm_plain(ell: torch.Tensor, b: torch.Tensor, conj: bool = False) -> torch.Tensor:
     """The TPU kernel's W=32 column-blocked schedule in PyTorch: per column
     block, a GEMM update from the solved blocks, then a W-step
-    substitution against the diagonal block of U = tril(L)^T."""
+    substitution against the diagonal block of U = tril(L)^T (a last
+    block narrower than W when nb is not a multiple of W)."""
     nb = ell.shape[-1]
     if conj:
         ell = ell.conj()
@@ -67,7 +68,7 @@ def panel_trsm_plain(ell: torch.Tensor, b: torch.Tensor, conj: bool = False) -> 
             bj = bj - x[:, :c0] @ u[:c0, c0:c0 + W]
         ujj = u[c0:c0 + W, c0:c0 + W]
         xj = torch.zeros_like(bj)
-        for t in range(W):
+        for t in range(bj.shape[1]):
             contrib = xj[:, :t] @ ujj[:t, t]
             xj[:, t] = (bj[:, t] - contrib) / ujj[t, t]
         x[:, c0:c0 + W] = xj
@@ -101,5 +102,6 @@ def panel_trsm_right_lower_t(ell: torch.Tensor, b: torch.Tensor, conj: bool = Fa
     fn = lib.dlaf_panel_trsm_f32 if b.dtype == torch.float32 else lib.dlaf_panel_trsm_f64
     rc = fn(ell.data_ptr(), b.data_ptr(), x.data_ptr(), b.shape[0], nb, _build.stream_of(b))
     _build.check(rc, "panel_trsm")
-    launches += 1
+    with _build.COUNT_LOCK:  # rank threads launch concurrently
+        launches += 1
     return x

@@ -85,5 +85,6 @@ def potrf_tile(a: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(a)
     fn = _build.lib().dlaf_potrf_f32 if a.dtype == torch.float32 else _build.lib().dlaf_potrf_f64
     _build.check(fn(a.data_ptr(), out.data_ptr(), n, _build.stream_of(a)), "potrf_tile")
-    launches += 1
+    with _build.COUNT_LOCK:  # rank threads launch concurrently
+        launches += 1
     return out

@@ -76,5 +76,6 @@ def secular_bisect(dw, z2w, rho, anchor, lo0, hi0, iters: int):
         dw.data_ptr(), z2w.data_ptr(), rho.data_ptr(), anchor.data_ptr(), lo0.data_ptr(),
         hi0.data_ptr(), out.data_ptr(), K, S, int(iters), _build.stream_of(dw))
     _build.check(rc, "secular_bisect")
-    launches += 1
+    with _build.COUNT_LOCK:  # rank threads launch concurrently
+        launches += 1
     return out

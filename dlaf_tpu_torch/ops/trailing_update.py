@@ -88,7 +88,8 @@ def trailing_update(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS):
     rc = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), L, C, M, N, K, int(b_is_nk),
             _build.stream_of(x))
     _build.check(rc, "trailing_update")
-    launches += 1
+    with _build.COUNT_LOCK:  # rank threads launch concurrently
+        launches += 1
     return x
 
 

@@ -1,9 +1,24 @@
 """Test utilities: copies of ``dlaf_tpu/testing/__init__.py:24-58``, so the
 port's tests and ``chip_smoke.py`` build the same inputs and budgets as
-the JAX package's."""
+the JAX package's, and grids of the shapes the JAX package's tests use."""
 from __future__ import annotations
 
 import numpy as np
+
+#: the grid shapes of the JAX package's test fixture (``tests/conftest.py``:
+#: square-ish, degenerate and non-divisible grids on 8 devices)
+GRID_SHAPES = [(2, 4), (4, 2), (2, 2), (1, 2), (2, 1), (1, 1)]
+
+
+def grid_like(grid_or_shape, device="cpu"):
+    """A port grid of the same shape as a JAX package grid (anything with a
+    ``grid_size``) or a ``(rows, cols)`` pair; on the CPU by default, where
+    every kernel wrapper takes its plain version."""
+    from dlaf_tpu_torch.comm.grid import Grid
+
+    shape = getattr(grid_or_shape, "grid_size", grid_or_shape)
+    return Grid.create(tuple(shape), device=device)
+
 
 
 def random_hermitian_pd(n: int, dtype, seed: int = 0) -> np.ndarray:

@@ -18,6 +18,13 @@ explicit :meth:`TuneParameters.update` calls.
   the hand-written panel-TRSM kernel (``ops/panel_trsm.py``).  The name is
   the JAX package's (where it selects the Pallas kernel) so that one
   environment variable, ``DLAF_TPU_PANEL_TRSM_PALLAS``, configures both.
+- ``collectives_impl``: the tier of the one-contributor collectives on a
+  grid axis of size > 1 (``comm/collectives.py``): 'psum' (a masked
+  all-reduce), 'v2' (the doubling forward chain), 'pallas' (the ring
+  kernels of ``ops/panel_exchange.py``: B5 and B7 on the card, their
+  plain protocol twin on the CPU) or 'auto', which resolves as the JAX
+  package's rule does: 'v2' on the card, 'psum' on the CPU, never
+  'pallas'.
 - ``gemm_precision``: only 'default' (full operand precision) is ported;
   the bf16 split tiers wait in ROADMAP (queue A, item 4).
 - ``bucket_segment_ratio``: window-shrink factor per bucketed segment
@@ -55,6 +62,7 @@ from dataclasses import dataclass, field, fields
 from dlaf_tpu_torch.health import ConfigurationError
 
 TRAILING_UPDATE_IMPLS = ("xla", "fused", "auto")
+COLLECTIVES_IMPLS = ("psum", "v2", "pallas", "auto")
 #: the JAX package's domains; values outside the ported subset raise
 BAND_CHASE_BACKENDS = ("native", "device", "auto")
 #: the values that mean full float32 products, the only ones ported
@@ -80,6 +88,7 @@ class TuneParameters:
     )
     cholesky_lookahead: bool = field(default_factory=lambda: _env("cholesky_lookahead", False, bool))
     trsm_lookahead: bool = field(default_factory=lambda: _env("trsm_lookahead", False, bool))
+    collectives_impl: str = field(default_factory=lambda: _env("collectives_impl", "auto", str))
     trailing_update_impl: str = field(
         default_factory=lambda: _env("trailing_update_impl", "auto", str)
     )
@@ -105,6 +114,8 @@ class TuneParameters:
                 raise ValueError(f"unknown tune parameter {k!r}")
             if k == "trailing_update_impl":
                 validate_trailing_update_impl(v)
+            elif k == "collectives_impl":
+                validate_collectives_impl(v)
             elif k == "gemm_precision":
                 validate_gemm_precision(v)
             elif k == "eigensolver_matmul_precision":
@@ -124,6 +135,28 @@ def validate_trailing_update_impl(value) -> str:
             f"got {value!r} (env DLAF_TPU_TRAILING_UPDATE_IMPL)"
         )
     return value
+
+
+def validate_collectives_impl(value) -> str:
+    """Checked on ``update(collectives_impl=...)`` and again when the
+    collectives resolve the knob, which catches a typo in
+    ``DLAF_TPU_COLLECTIVES_IMPL`` (``dlaf_tpu/tune.py:569``)."""
+    if value not in COLLECTIVES_IMPLS:
+        raise ConfigurationError(
+            f"collectives_impl must be one of {COLLECTIVES_IMPLS}, "
+            f"got {value!r} (env DLAF_TPU_COLLECTIVES_IMPL)"
+        )
+    return value
+
+
+def collectives_tier(device) -> str:
+    """The resolved collectives tier on ``device``: 'psum', 'v2' or
+    'pallas'; 'auto' is 'v2' on the card and 'psum' on the CPU
+    (``dlaf_tpu/plan/autotune.py:143`` without a loaded profile)."""
+    impl = validate_collectives_impl(get_tune_parameters().collectives_impl)
+    if impl == "auto":
+        return "v2" if on_accelerator(device) else "psum"
+    return impl
 
 
 def validate_gemm_precision(value) -> str:

@@ -3,14 +3,17 @@
 
     python3 scripts/port_profile.py
 
-Runs the two factorization paths of chip_smoke.py (A: bucketed, panel-TRSM
-kernel on; B: lookahead, fused trailing-update tier), on its inputs and its
-knobs (chip_smoke.N, NB, make_inputs, PATH_A, PATH_B), once as warm-up and
-once under torch.profiler, then prints one JSON line per path: wall time,
-device time summed over kernels, the device's idle share of the wall time
-(one stream, so kernels do not overlap), and device time by kernel group
-(the port's three kernels, library GEMMs, everything else) and by the
-top kernel names.  Needs a CUDA device.
+Runs the factorization paths of chip_smoke.py (A: bucketed, panel-TRSM
+kernel on; B: lookahead, fused trailing-update tier; M1: A's knobs on a
+2x4 grid of rank threads under collectives_impl=pallas), on its inputs
+and its knobs (chip_smoke.N, NB, make_inputs, PATH_A, PATH_B, GRID_M,
+PATH_M1), once as warm-up and once under torch.profiler, then prints one
+JSON line per path: wall time, device time summed over kernels, the
+union of the kernels' intervals on the card's timeline (on M1 the ranks'
+streams overlap, and a ring kernel that spins on a late neighbour counts
+as busy), the device's idle share of the wall time (1 - union / wall),
+and device time by kernel group (the port's kernels, library GEMMs,
+everything else) and by the top kernel names.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 GROUPS = (
+    ("ring_exchange", "ring_kernel"),
+    ("fused_factor_bcast", "fused_kernel"),
     ("potrf", "potrf_kernel"),
     ("panel_trsm", "panel_trsm_kernel"),
     ("trailing_update", "trailing_update_kernel"),
@@ -37,27 +42,48 @@ def group_of(name: str) -> str:
     return "other"
 
 
+def busy_ms(prof) -> float:
+    """Length of the union of the CUDA kernels' intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and e.time_range.end > e.time_range.start)
+    total, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3  # us -> ms
+
+
 def main() -> int:
+    sys.path.insert(0, ROOT)
+    import dlaf_tpu_torch as dtt  # before torch touches the card (its CUDA settings)
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("port_profile: no CUDA device", flush=True)
         return 2
-    sys.path.insert(0, ROOT)
     import chip_smoke
-    import dlaf_tpu_torch as dtt
     from dlaf_tpu_torch import tune
 
     card = chip_smoke.card_line()
     n, nb = chip_smoke.N, chip_smoke.NB
     a, _ = chip_smoke.make_inputs(torch.device("cuda"))
 
-    for name, knobs in (("A", chip_smoke.PATH_A), ("B", chip_smoke.PATH_B)):
+    paths = (("A", chip_smoke.PATH_A, (1, 1)), ("B", chip_smoke.PATH_B, (1, 1)),
+             ("M1", chip_smoke.PATH_M1, chip_smoke.GRID_M))
+    for name, knobs, shape in paths:
         tune.initialize(**knobs)
+        grid = dtt.Grid.create(shape)
 
         def run():
-            mat = dtt.DistributedMatrix.from_global(dtt.Grid.create(), a, (nb, nb))
+            mat = dtt.DistributedMatrix.from_global(grid, a, (nb, nb))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             dtt.cholesky_factorization("L", mat, backend="distributed")
@@ -76,11 +102,12 @@ def main() -> int:
         for k, ms in by_name.items():
             groups[group_of(k)] = groups.get(group_of(k), 0.0) + ms
         device_ms = sum(by_name.values())
+        union_ms = busy_ms(prof)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         print(json.dumps({
-            "path": name, "config": knobs, "n": n, "nb": nb, "card": card,
-            "wall_ms_profiled": wall * 1e3, "device_ms": device_ms,
-            "idle_share": (1 - device_ms / (wall * 1e3)) if device_ms else None,
+            "path": name, "config": knobs, "grid": list(shape), "n": n, "nb": nb, "card": card,
+            "wall_ms_profiled": wall * 1e3, "device_ms": device_ms, "busy_union_ms": union_ms,
+            "idle_share": (1 - union_ms / (wall * 1e3)) if union_ms else None,
             "groups_ms": groups,
             "top_kernels_ms": [[k[:90], ms] for k, ms in top],
         }), flush=True)

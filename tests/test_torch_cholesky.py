@@ -126,3 +126,104 @@ def test_left_out_options_raise():
         uplo = kw.pop("uplo", "L")
         with pytest.raises(NotImplementedError):
             cholesky_factorization(uplo, tm, **kw)
+
+
+# ------------------------------------------------------- multi-rank grids
+
+MULTI_SHAPES = [(2, 2), (2, 4), (4, 2)]
+TIERS = ["psum", "v2", "pallas"]
+MULTI_VARIANTS = {
+    "bucketed": dict(cholesky_lookahead=False, trailing_update_impl="auto"),
+    "lookahead_xla": dict(cholesky_lookahead=True, trailing_update_impl="xla"),
+}
+_JAX_MULTI: dict = {}
+
+
+def _jax_grid(comm_grids, shape):
+    return next(g for g in comm_grids if tuple(g.grid_size) == shape)
+
+
+def _multi_pair(comm_grids, shape, a, mb):
+    jm = dt.DistributedMatrix.from_global(_jax_grid(comm_grids, shape), a, (mb, mb))
+    tm = DistributedMatrix.from_stacked(np.asarray(jm.data), jm.dist, Grid.create(shape, device="cpu"))
+    return jm, tm
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("variant", list(MULTI_VARIANTS))
+@pytest.mark.parametrize("shape", MULTI_SHAPES)
+def test_cholesky_multi_rank_matches_jax(comm_grids, shape, variant, tier):
+    """Bucketed and lookahead Cholesky on rank threads of a 2x2, 2x4 and 4x2
+    grid, in each collectives tier (under 'pallas' the lookahead panel is
+    B7's twin), against the JAX package on its 8-device mesh."""
+    n, mb, dtype = 60, 8, np.float32
+    a = tu.random_hermitian_pd(n, dtype, seed=21)
+    a = np.tril(a) + np.triu(tu.random_matrix(n, n, dtype, seed=22), 1)  # upper not read
+    key = (shape, variant)
+    if key not in _JAX_MULTI:
+        jm, _ = _multi_pair(comm_grids, shape, a, mb)
+        with knobs(**MULTI_VARIANTS[variant]):
+            _JAX_MULTI[key] = np.tril(dt.cholesky_factorization("L", jm).to_global())
+    _, tm = _multi_pair(comm_grids, shape, a, mb)
+    with knobs(collectives_impl=tier, **MULTI_VARIANTS[variant]):
+        out, info = cholesky_factorization("L", tm, return_info=True)
+    assert out.data is tm.data and int(info) == 0
+    got = np.tril(out.to_global())
+    assert np.isfinite(got).all()
+    assert _rel_err(got, _JAX_MULTI[key]) <= tu.tol_for(dtype, n)
+
+
+@pytest.mark.parametrize("lookahead", [False, True])
+@pytest.mark.parametrize("shape", MULTI_SHAPES)
+def test_cholesky_tiers_bitwise(shape, lookahead):
+    """psum, v2 and pallas give the same bits for a whole factorization.
+    With the panel-TRSM kernel on (nb = 32), the unfused lookahead panel runs
+    the same potrf and panel-TRSM arithmetic as B7's twin."""
+    n, mb = 96, 32
+    a = np.tril(tu.random_hermitian_pd(n, np.float64, seed=23))
+    out = {}
+    for tier in TIERS:
+        mat = DistributedMatrix.from_global(Grid.create(shape, device="cpu"), a, (mb, mb))
+        with knobs(collectives_impl=tier, cholesky_lookahead=lookahead,
+                   trailing_update_impl="xla", panel_trsm_pallas=True):
+            out[tier] = cholesky_factorization("L", mat, backend="distributed").to_stacked()
+    np.testing.assert_array_equal(out["psum"], out["v2"])
+    np.testing.assert_array_equal(out["pallas"], out["v2"])
+
+
+@pytest.mark.parametrize("shape", MULTI_SHAPES)
+def test_info_multi_rank_matches_jax(comm_grids, shape):
+    n, mb = 56, 8
+    a = tu.random_hermitian_pd(n, np.float64, seed=24)
+    a[37, 37] = -40.0  # the leading minor of order 38 fails
+    jm, tm = _multi_pair(comm_grids, shape, a, mb)
+    with knobs(collectives_impl="pallas", cholesky_lookahead=True, trailing_update_impl="xla"):
+        _, jinfo = dt.cholesky_factorization("L", jm, return_info=True)
+        _, tinfo = cholesky_factorization("L", tm, return_info=True)
+    assert int(tinfo) == int(jinfo) == 38
+
+
+@pytest.mark.parametrize("variant", list(MULTI_VARIANTS))
+@pytest.mark.parametrize("shape", [(2, 4), (4, 2)])
+def test_info_from_a_tile_owned_off_rank_00_matches_jax(comm_grids, shape, variant):
+    """Each rank scans the diagonal tiles it owns: a first failure in tile 3
+    (owned by rank (1, 3) on 2x4, (3, 1) on 4x2) and a later one in tile 5
+    (rank (1, 1)) give the least, as the JAX package's every-rank scan."""
+    n, mb = 56, 8
+    a = tu.random_hermitian_pd(n, np.float64, seed=25)
+    a[27, 27] = a[45, 45] = -40.0  # the leading minors of order 28 and 46 fail
+    jm, tm = _multi_pair(comm_grids, shape, a, mb)
+    with knobs(collectives_impl="pallas", **MULTI_VARIANTS[variant]):
+        _, jinfo = dt.cholesky_factorization("L", jm, return_info=True)
+        _, tinfo = cholesky_factorization("L", tm, return_info=True)
+    assert int(tinfo) == int(jinfo) == 28
+
+
+def test_fused_tier_on_multi_rank_grids_raises():
+    """The lookahead kernel's fused trailing-update tier needs B6 and B8 on
+    a grid with an axis > 1: it raises instead of taking the 'xla' body."""
+    tm = DistributedMatrix.from_global(Grid.create((2, 4), device="cpu"), np.eye(32), (8, 8))
+    with knobs(cholesky_lookahead=True, trailing_update_impl="fused"):
+        with pytest.raises(NotImplementedError, match="B6.*B8"):
+            cholesky_factorization("L", tm)
+    np.testing.assert_array_equal(tm.to_global(), np.eye(32))  # untouched

@@ -1,0 +1,398 @@
+"""The ring kernels of the 'pallas' tier (``dlaf_tpu_torch/ops/panel_exchange.py``):
+B4 (hop merge), B5 (ring exchange) and B7 (fused factor-and-send).
+
+On the CPU: B4's plain version against the JAX package's merge kernel in
+Pallas interpret mode (bitwise: a pure select), the wire layout, the
+collective-class table, B5's protocol twin on a 2x4 grid of rank threads
+(bitwise against the v2 tier, with a rank that sleeps at every ring entry),
+and B7's twin against the JAX package's unfused composition (its potrf and
+panel-TRSM kernels in interpret mode, the mask, the broadcast), within
+``tol_for(dtype, nb)``.
+
+On a card only (``-m cuda``, skipped here): each kernel against its twin
+on the same inputs, bitwise, B5 with a skewed rank too, a ring whose
+partner launches past the kernels' bound raising ``DeadlineExceededError``,
+and a whole factorization under the 'pallas' tier against 'v2', bitwise.
+
+The JAX side is imported inside the tests that use it, so that on a
+machine with a card and no JAX the CUDA tests still run:
+``python -m pytest tests/test_torch_exchange.py --noconftest -m cuda``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from dlaf_tpu_torch import tune
+from dlaf_tpu_torch.comm import _ranks
+from dlaf_tpu_torch.comm import collectives as coll
+from dlaf_tpu_torch.comm.grid import Grid
+from dlaf_tpu_torch.health import DeadlineExceededError
+from dlaf_tpu_torch.ops import panel_exchange as px
+from dlaf_tpu_torch.ops import panel_trsm, potrf
+from dlaf_tpu_torch.testing import random_hermitian_pd, random_matrix, tol_for
+
+
+def _rel_err(got, ref) -> float:
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1.0))
+
+
+def _wire_case(slots, w, dtype, seed):
+    rng = np.random.default_rng(seed)
+    y = rng.standard_normal((slots, w)).astype(dtype)
+    y_in = rng.standard_normal((slots, w)).astype(dtype)
+    h = rng.integers(0, 2, (slots, 1)).astype(np.int32)
+    h_in = rng.integers(0, 3, (slots, 1)).astype(np.int32)  # any non-zero counts as held
+    return y, y_in, h, h_in
+
+
+class _Knobs:
+    def __init__(self, **kw):
+        self.kw = kw
+
+    def __enter__(self):
+        tp = tune.get_tune_parameters()
+        self.old = {k: getattr(tp, k) for k in self.kw}
+        tp.update(**self.kw)
+
+    def __exit__(self, *exc):
+        tune.get_tune_parameters().update(**self.old)
+
+
+# ------------------------------------------------------------------ CPU: B4
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_merge_plain_matches_pallas_bitwise(dtype):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from dlaf_tpu.ops import pallas_panel_exchange as ppe
+
+    y, y_in, h, h_in = _wire_case(6, 10, dtype, seed=1)
+    ry, rh = ppe.merge_hop(jnp.asarray(y), jnp.asarray(y_in), jnp.asarray(h), jnp.asarray(h_in),
+                           True)
+    gy, gh = px.merge_hop(*map(torch.from_numpy, (y, y_in, h, h_in)))
+    np.testing.assert_array_equal(gy.numpy(), np.asarray(ry))
+    np.testing.assert_array_equal(gh.numpy(), np.asarray(rh))
+
+
+@pytest.mark.parametrize("have_shape", [(), (3,), (3, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64, torch.float64])
+def test_wire_layout_round_trip(dtype, have_shape):
+    g = torch.Generator().manual_seed(2)
+    y = torch.randn(3, 2, 4, 5, generator=g, dtype=dtype)
+    have = torch.rand(have_shape, generator=g) > 0.5 if have_shape else True
+    yf, h = px._to_wire(y, have)
+    assert not yf.is_complex() and yf.dim() == 2 and h.dtype == torch.int32
+    assert h.shape == (yf.shape[0], 1)
+    back, hb = px._from_wire(yf, h, y, have)
+    assert back.dtype == y.dtype and torch.equal(back, y)
+    assert torch.equal(hb, torch.as_tensor(have))
+
+
+def test_collective_ids_distinct_and_stable():
+    classes = [(k, a) for k in ("bcast", "exchange") for a in ("r", "c")]
+    ids = [px.collective_id_for(k, a) for k, a in classes] + [px.FUSED_COLLECTIVE_ID]
+    assert len(set(ids)) == len(ids)
+    assert px.collective_id_for("other", "c") == px.collective_id_for("other", "c") >= 8
+
+
+def test_cpu_wrappers_count_nothing():
+    before = (px.merge_launches, px.ring_launches, px.fused_launches)
+    px.merge_hop(*map(torch.from_numpy, _wire_case(2, 4, np.float32, 3)))
+    grid = Grid.create((1, 2), device="cpu")
+    x = torch.arange(16.0).reshape(1, 2, 8)
+    with _Knobs(collectives_impl="pallas"):
+        coll.spmd(grid, lambda v: coll.bcast(v, 1, "c"), x)
+    assert (px.merge_launches, px.ring_launches, px.fused_launches) == before
+
+
+# ------------------------------------------------------------- CPU: B5 twin
+
+
+def _ring_case(pr, pc, slots, w, seed):
+    rng = np.random.default_rng(seed)
+    y = torch.from_numpy(rng.standard_normal((pr, pc, slots, w)).astype(np.float32))
+    # one contributor per slot on each ring along 'c': position slot % pc
+    have = torch.zeros(pr, pc, slots, dtype=torch.bool)
+    for s in range(slots - 1):  # the last slot has no contributor
+        have[:, s % pc, s] = True
+    return y, have
+
+
+def _exchange_all(grid, y, have, axis):
+    out = torch.empty_like(y)
+    got_h = torch.zeros_like(have)
+
+    def body(yl, hl, ol, ohl):
+        yy, hh = px.ring_exchange(yl, hl, axis)
+        ol.copy_(yy)
+        ohl.copy_(hh)
+
+    coll.spmd(grid, body, y, have, out, got_h)
+    return out, got_h
+
+
+@pytest.mark.parametrize("skew", [False, True])
+def test_ring_twin_matches_v2_bitwise(skew, monkeypatch):
+    """B5's twin on each ring of 'c' of a 2x4 grid against the v2 forward
+    chain; with ``skew`` rank (0, 2) sleeps 20 ms before every ring entry
+    (a delayed rank stalls its neighbours, never a cycle)."""
+    grid = Grid.create((2, 4), device="cpu")
+    y, have = _ring_case(2, 4, 7, 6, seed=4)
+    if skew:
+        monkeypatch.setitem(px.launch_delay_s, (0, 2), 0.02)
+    out, got_h = _exchange_all(grid, y, have, "c")
+    ref, ref_h = torch.empty_like(y), torch.zeros_like(have)
+
+    def v2(yl, hl, ol, ohl):
+        yy, hh = coll._forward_chain(yl, hl, "c")
+        ol.copy_(yy)
+        ohl.copy_(hh)
+
+    coll.spmd(grid, v2, y, have, ref, ref_h)
+    assert torch.equal(out, ref) and torch.equal(got_h, ref_h)
+    for s in range(6):  # every contributed slot holds its contributor's bytes
+        assert torch.equal(out[:, :, s], y[:, s % 4, s][:, None].expand(2, 4, 6))
+    assert not got_h[:, :, 6].any()
+
+
+def test_ring_twin_reuses_its_state_across_calls():
+    """Epoch counters, not resets: many calls on one ring state keep giving
+    the right bits (slots are double-buffered and the flags only grow)."""
+    grid = Grid.create((1, 4), device="cpu")
+    for i in range(5):
+        y, have = _ring_case(1, 4, 5, 3, seed=10 + i)
+        out, _ = _exchange_all(grid, y, have, "c")
+        for s in range(4):
+            assert torch.equal(out[0, :, s], y[0, s % 4, s][None].expand(4, 3))
+    states = [k for k in grid.runtime.rings if k[0] == px.collective_id_for("exchange", "c")]
+    assert len(states) == 1
+
+
+def test_ring_twin_wait_is_bounded(monkeypatch):
+    """A ring whose partner never comes raises DeadlineExceededError within
+    the runtime's bound instead of hanging."""
+    grid = Grid.create((1, 2), device="cpu")
+    monkeypatch.setattr(_ranks, "WAIT_S", 0.5)
+
+    def body(yl):
+        if coll.my_rank()[1] == 1:
+            return None
+        return px.ring_bcast(yl, True, "c")
+
+    with pytest.raises(DeadlineExceededError):
+        coll.spmd(grid, body, torch.zeros(1, 2, 4))
+
+
+# ------------------------------------------------------------- CPU: B7 twin
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_fused_twin_matches_jax_composition(dtype):
+    """B7's twin on every rank of a 2x4 grid against the JAX package's
+    unfused composition (its potrf and panel-TRSM kernels in interpret
+    mode, the mask); every rank of each column ring ends with the root's
+    masked panel."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    from dlaf_tpu.ops import pallas_potrf
+    from dlaf_tpu.ops.pallas_panel_trsm import panel_trsm_right_lower_t
+
+    nb, ltr, root = 32, 3, 2
+    d = random_hermitian_pd(nb, dtype, seed=5)
+    d_low = np.tril(d) + np.triu(random_matrix(nb, nb, dtype, seed=6), 1)  # upper not read
+    xc = random_matrix(2 * 4 * ltr * nb, nb, dtype, seed=7).reshape(2, 4, ltr, nb, nb)
+    below = np.array([False, True, True])
+    herm = jnp.tril(d_low) + jnp.tril(d_low, -1).T
+    lkk_ref = pl.pallas_call(pallas_potrf._potrf_kernel,
+                             out_shape=jax.ShapeDtypeStruct(herm.shape, herm.dtype),
+                             interpret=True)(herm)
+    grid = Grid.create((2, 4), device="cpu")
+    dt = torch.from_numpy(np.broadcast_to(d_low, (2, 4, nb, nb)).copy())
+    lkk = torch.empty_like(dt)
+    cp = torch.empty(2, 4, ltr, nb, nb, dtype=dt.dtype)
+
+    def body(dl, xl, lo, co):
+        a, b = px.fused_factor_bcast(dl, xl, torch.from_numpy(below), root, "c")
+        lo.copy_(a)
+        co.copy_(b)
+
+    coll.spmd(grid, body, dt, torch.from_numpy(xc), lkk, cp)
+    tol = tol_for(dtype, nb)
+    for r in range(2):
+        pan = panel_trsm_right_lower_t(lkk_ref, jnp.asarray(xc[r, root].reshape(-1, nb)), False,
+                                       True)
+        want = np.where(below[:, None, None], np.asarray(pan).reshape(ltr, nb, nb), 0)
+        for c in range(4):
+            assert _rel_err(lkk[r, c].numpy(), np.asarray(lkk_ref)) <= tol
+            assert _rel_err(cp[r, c].numpy(), want) <= tol
+            assert torch.equal(cp[r, c], cp[r, root])
+        assert not cp[r, :, 0].any()
+
+
+def test_fusion_gate():
+    f32 = torch.zeros(32, 32)
+    assert px.fusion_supported(f32, torch.zeros(3, 32, 32))
+    assert px.fusion_supported(torch.zeros(8, 8), torch.zeros(2, 8, 8))  # the CPU twin: % 8
+    assert not px.fusion_supported(torch.zeros(12, 12), torch.zeros(2, 12, 12))
+    assert not px.fusion_supported(f32.to(torch.complex64), torch.zeros(3, 32, 32,
+                                                                        dtype=torch.complex64))
+    assert not px.fusion_supported(f32, torch.zeros(3, 32, 16))
+
+
+# ------------------------------------------------------ card only: B4, B5, B7
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_merge_matches_twin_bitwise(dtype):
+    dev = _cuda()
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    case = [torch.from_numpy(a) for a in _wire_case(37, 129, np_dtype, seed=8)]
+    ref = px.merge_hop_plain(*case)
+    before = px.merge_launches
+    got = px.merge_hop(*[t.to(dev) for t in case])
+    torch.cuda.synchronize()
+    assert px.merge_launches == before + 1
+    assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+
+
+def _on(grid_dev, tensors, fn):
+    out = [torch.empty_like(t) for t in tensors]
+
+    def body(*views):
+        k = len(tensors)
+        res = fn(*views[:k])
+        for o, r in zip(views[k:], res):
+            o.copy_(r)
+
+    coll.spmd(grid_dev, body, *tensors, *out)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("axis", ["c", "r"])
+def test_cuda_ring_matches_twin_bitwise(axis, skew, monkeypatch):
+    dev = _cuda()
+    pr, pc, slots, w = 2, 4, 9, 1000
+    gen = torch.Generator().manual_seed(9)
+    y = torch.randn(pr, pc, slots, w, generator=gen)
+    pos = torch.arange(pc if axis == "c" else pr)
+    have = torch.zeros(pr, pc, slots, dtype=torch.bool)
+    for s in range(slots - 1):
+        p = s % len(pos)
+        if axis == "c":
+            have[:, p, s] = True
+        else:
+            have[p, :, s] = True
+    x = torch.randn(pr, pc, 3, 700, generator=gen, dtype=torch.float64)
+    root = 1
+
+    def fn(yl, hl, xl):
+        yy, hh = px.ring_exchange(yl, hl, axis)
+        return yy, hh, px.ring_bcast(xl, coll._ranks.current().axis(axis)[0] == root, axis)
+
+    ref = _on(Grid.create((pr, pc), device="cpu"), [y, have, x], fn)
+    if skew:
+        monkeypatch.setitem(px.launch_delay_s, (0, 1), 0.05)
+    before = px.ring_launches
+    got = _on(Grid.create((pr, pc), device=dev), [y.to(dev), have.to(dev), x.to(dev)], fn)
+    torch.cuda.synchronize()
+    assert px.ring_launches == before + 2 * pr * pc
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.cuda
+def test_cuda_ring_deadline_raises(monkeypatch):
+    """Ranks whose ring partner launches 1 s late time out in the kernel
+    after 0.2 s; the error word makes spmd raise DeadlineExceededError, and
+    the grid's rings work again afterwards."""
+    dev = _cuda()
+    monkeypatch.setattr(px, "RING_TIMEOUT_S", 0.2)
+    monkeypatch.setitem(px.launch_delay_s, (0, 3), 1.0)
+    grid = Grid.create((1, 4), device=dev)
+    x = torch.ones(1, 4, 1000, device=dev)
+
+    with pytest.raises(DeadlineExceededError, match="ring kernel"):
+        coll.spmd(grid, lambda xl: px.ring_bcast(xl, coll.my_rank()[1] == 0, "c"), x)
+    px.launch_delay_s.clear()
+    out = _on(grid, [x], lambda xl: (px.ring_bcast(xl * coll.my_rank()[1], coll.my_rank()[1] == 2,
+                                                   "c"),))[0]
+    assert torch.all(out == 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_fused_matches_unfused(dtype):
+    """B7 on a 2x4 grid against the unfused composition on the card (B1,
+    B2 on the root column, the mask, B5 over 'c'), bitwise, as B7 runs B1's
+    and B2's block bodies; and against its plain twin on a CPU grid within
+    tol_for(dtype, nb)."""
+    dev = _cuda()
+    nb, ltr, root = 64, 5, 3
+    d = torch.from_numpy(random_hermitian_pd(nb, np.float64, 10)).to(dtype)
+    gen = torch.Generator().manual_seed(11)
+    xc = torch.randn(2, 4, ltr, nb, nb, generator=gen, dtype=dtype)
+    below = torch.tensor([False, False, True, True, True])
+    dd = d.expand(2, 4, nb, nb).contiguous()
+
+    def fused(dl, xl):
+        return px.fused_factor_bcast(dl, xl, below.to(dl.device), root, "c")
+
+    def unfused(dl, xl):
+        lkk = potrf.potrf_tile(dl)
+        pan = panel_trsm.panel_trsm_right_lower_t(lkk, xl.reshape(-1, nb)).reshape(xl.shape)
+        cp = torch.where(below.to(dl.device)[:, None, None], pan, torch.zeros_like(pan))
+        return lkk, px.ring_bcast(cp, coll.my_rank()[1] == root, "c")
+
+    grid = Grid.create((2, 4), device=dev)
+    before = px.fused_launches
+    got = _on(grid, [dd.to(dev), xc.to(dev)], fused)
+    ref = _on(grid, [dd.to(dev), xc.to(dev)], unfused)
+    torch.cuda.synchronize()
+    assert px.fused_launches == before + 8
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    plain = _on(Grid.create((2, 4), device="cpu"), [dd, xc], fused)
+    for g, p in zip(got, plain):
+        err = torch.linalg.vector_norm((g.cpu() - p).double()) / torch.linalg.vector_norm(p.double())
+        assert err <= tol_for(np.float32 if dtype == torch.float32 else np.float64, nb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lookahead", [False, True])
+def test_cuda_cholesky_pallas_matches_v2_bitwise(lookahead):
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import ops
+
+    dev = _cuda()
+    n, nb = 320, 32
+    a = torch.from_numpy(np.tril(random_hermitian_pd(n, np.float32, 12))).to(dev)
+    out = {}
+    counts = {}
+    for impl in ("v2", "pallas"):
+        with _Knobs(collectives_impl=impl, cholesky_lookahead=lookahead,
+                    trailing_update_impl="xla", panel_trsm_pallas=True):
+            grid = Grid.create((2, 4), device=dev)
+            mat = dtt.DistributedMatrix.from_global(grid, a.clone(), (nb, nb))
+            ops.reset_launch_counts()
+            fac, info = dtt.cholesky_factorization("L", mat, return_info=True)
+            out[impl] = fac.data.clone()
+            counts[impl] = ops.launch_counts()
+            assert int(info) == 0
+    assert torch.equal(out["v2"], out["pallas"])
+    assert counts["v2"]["ring_exchange"] == counts["v2"]["fused_factor_bcast"] == 0
+    assert counts["pallas"]["ring_exchange"] > 0
+    assert (counts["pallas"]["fused_factor_bcast"] > 0) == lookahead

@@ -1,14 +1,15 @@
 """The port stands alone: no module of dlaf_tpu_torch, and not
 chip_smoke.py, imports JAX or the JAX package; importing the port leaves
-JAX unloaded; the card is the default device; the slice runs 1x1 grids
-only; and the tune knobs keep the JAX package's names, environment and
-domains."""
+JAX unloaded; the card is the default device; what multi-rank grids do
+not run yet raises; and the tune knobs keep the JAX package's names,
+environment and domains."""
 import ast
 import os
 import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -62,8 +63,20 @@ def test_grid_defaults_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 2), (2, 1)])
 def test_multi_rank_grids_wait_for_the_next_slice(shape):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dtt.Grid.create(shape, device="cpu")
+    """Multi-rank grids are rank threads now; what waits for the next slice
+    on them is the lookahead kernel's fused trailing-update tier (B6, B8),
+    which raises naming ROADMAP instead of taking the 'xla' body."""
+    grid = dtt.Grid.create(shape, device="cpu")
+    assert tuple(grid.grid_size) == shape
+    mat = dtt.DistributedMatrix.from_global(grid, np.eye(16), (4, 4))
+    tp = tune.get_tune_parameters()
+    old = {k: getattr(tp, k) for k in ("cholesky_lookahead", "trailing_update_impl")}
+    try:
+        tp.update(cholesky_lookahead=True, trailing_update_impl="fused")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            dtt.cholesky_factorization("L", mat)
+    finally:
+        tp.update(**old)
 
 
 def test_tune_env_names_precedence_and_domains(monkeypatch):

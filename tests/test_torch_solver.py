@@ -115,3 +115,60 @@ def test_left_out_options_raise():
         triangular_solver("Left", "L", "N", "N", 1.0, ta, tb, refine_to="input")
     with pytest.raises(NotImplementedError):
         positive_definite_solver("L", ta, tb, refine_to="input")
+
+
+# ------------------------------------------------------- multi-rank grids
+
+MULTI_SHAPES = [(2, 2), (2, 4), (4, 2)]
+MULTI_VARIANTS = {
+    "bucketed": dict(trsm_lookahead=False, cholesky_lookahead=False, trailing_update_impl="auto"),
+    "lookahead": dict(trsm_lookahead=True, cholesky_lookahead=True, trailing_update_impl="xla"),
+}
+_JAX_POSV: dict = {}
+
+
+def _multi_pair(comm_grids, shape, a, block):
+    jgrid = next(g for g in comm_grids if tuple(g.grid_size) == shape)
+    jm = dt.DistributedMatrix.from_global(jgrid, a, block)
+    tm = DistributedMatrix.from_stacked(np.asarray(jm.data), jm.dist,
+                                        Grid.create(shape, device="cpu"))
+    return jm, tm
+
+
+@pytest.mark.parametrize("tier", ["psum", "v2", "pallas"])
+@pytest.mark.parametrize("variant", list(MULTI_VARIANTS))
+@pytest.mark.parametrize("shape", MULTI_SHAPES)
+def test_posv_multi_rank_matches_jax(comm_grids, shape, variant, tier):
+    """POSV (the factorization, then both Left/Lower solves) on rank threads
+    of a 2x2, 2x4 and 4x2 grid, in each collectives tier, against the JAX
+    package on its 8-device mesh; ``return_info`` as path M3 calls it."""
+    n, mb, dtype = 52, 8, np.float32
+    a = tu.random_hermitian_pd(n, dtype, seed=31)
+    b = tu.random_matrix(n, 12, dtype, seed=32)
+    key = (shape, variant)
+    if key not in _JAX_POSV:
+        ja, _ = _multi_pair(comm_grids, shape, a, (mb, mb))
+        jb, _ = _multi_pair(comm_grids, shape, b, (mb, mb))
+        with knobs(**MULTI_VARIANTS[variant]):
+            _JAX_POSV[key] = dt.positive_definite_solver("L", ja, jb).to_global()
+    _, ta = _multi_pair(comm_grids, shape, a, (mb, mb))
+    _, tb = _multi_pair(comm_grids, shape, b, (mb, mb))
+    with knobs(collectives_impl=tier, **MULTI_VARIANTS[variant]):
+        out, info = positive_definite_solver("L", ta, tb, return_info=True)
+    assert int(info) == 0
+    assert _rel_err(out.to_global(), _JAX_POSV[key]) <= tu.tol_for(dtype, n)
+    assert _rel_err(a.astype(np.float64) @ out.to_global(), b) <= tu.tol_for(dtype, n) * 10
+
+
+@pytest.mark.parametrize("op", ["N", "C"])
+def test_triangular_solver_2x4_matches_jax(comm_grids, op):
+    n, mb = 44, 8
+    a = tu.random_triangular(n, np.float64, lower=True, seed=33)
+    b = tu.random_matrix(n, 20, np.float64, seed=34)
+    ja, ta = _multi_pair(comm_grids, (2, 4), a, (mb, mb))
+    jb, tb = _multi_pair(comm_grids, (2, 4), b, (mb, mb // 2))
+    with knobs(collectives_impl="pallas", trsm_lookahead=True, trailing_update_impl="fused"):
+        ref = dt.triangular_solver("Left", "L", op, "N", 2.0, ja, jb).to_global()
+        out = triangular_solver("Left", "L", op, "N", 2.0, ta, tb)
+    np.testing.assert_array_equal(ta.to_global(), a)  # A untouched
+    assert _rel_err(out.to_global(), ref) <= tu.tol_for(np.float64, n)
