@@ -28,7 +28,16 @@ on failure:
    launch) and B7 (fused factor-and-send) at path M's shapes on a 2x4 grid
    of rank threads, B4 and B5 bitwise against their plain twins (on a CPU
    grid), B7 against its plain twin within tol_for(f32, nb) and bitwise
-   against the unfused B1 -> B2 -> mask -> B5; then a small
+   against the unfused B1 -> B2 -> mask -> B5; then B6 (the consume
+   ring) on step 0 of path M5, the path that launches it (nb=192 on its
+   padded geometry), and of path M4 as B8's consume part, and B8 (the
+   one-launch lookahead step) on step 0 of M4 (the main path's matrix on
+   the 2x4 grid, panel 0 by B7), B6 also on a ring of 4 and in a skewed
+   run at each step 0, B8 also against the card's two-piece step (B6 ->
+   narrow update -> bcast_diag_tile -> B7), and B9 (the panel contraction)
+   in both forms at path I's widest step, each against its plain twin on
+   a CPU grid (merged panels bitwise, the rest within tol_for(f32, nb));
+   then a small
    ragged input factored by the port and by torch.linalg.cholesky;
 3. path A, the headline configuration: cholesky_factorization(backend=
    "distributed"), panel TRSM kernel on (DLAF_TPU_PANEL_TRSM_PALLAS=1);
@@ -46,6 +55,15 @@ on failure:
    positive_definite_solver(..., return_info=True); residuals as in A, B
    and POSV, wall time, GFlop/s, launch counts (B7 once per rank and
    panel on M2);
+5d. the fused trailing-update tier on the same grid: M4, lookahead
+   Cholesky with trailing_update_impl=fused (B8 once per step and rank, B7
+   for panel 0), its factor held to M2's and, at N=4096, its info on a
+   non-SPD input (a negative pivot in tile 3, owned by rank (1, 3)) to the
+   'xla' tier's; M5, the same knobs at nb=192 (B6 per step, B7 per panel);
+   path I, triangular_inverse("L", "N") of M4's factor (B9 once per step
+   and rank) held by ||tril(X) L - I||_F / (||X||_F ||L||_F) and by
+   ||tril(X) L - I||_F / ||I||_F (the first alone does not reject X = L at
+   this N), and the upper form on the leading N=4096 block of L^T;
 6. path H: hermitian_eigensolver("L", A, backend="pipeline") with
    dc_secular_pallas=1, trailing_update_impl=fused, band_chase_backend=
    native: one warm-up, one timed run (wall, GFlop/s at 4/3 N^3 as bench.py
@@ -60,7 +78,8 @@ Solutions are held to a float64 reference solve on the card (relative
 forward error); the script first checks that this test rejects X = B.
 Exits non-zero without a result when no CUDA device is present or the
 package is missing beside this file.  Needs one card.  scripts/
-port_profile.py imports N, NB, PATH_A, PATH_B and make_inputs from here.
+port_profile.py imports N, NB, the path knobs and make_inputs from here,
+and scripts/planted_faults.py the kernel phases.
 """
 from __future__ import annotations
 
@@ -94,7 +113,20 @@ GRID_M = (2, 4)
 PATH_M1 = {"collectives_impl": "pallas", "panel_trsm_pallas": True}
 PATH_M2 = {"collectives_impl": "pallas", "panel_trsm_pallas": True,
            "cholesky_lookahead": True, "trailing_update_impl": "xla"}
-# the tier-equality phase: the factor under psum, v2 and pallas, bitwise
+# path M4: lookahead Cholesky under the fused trailing-update tier on the
+# same grid (B8, the one-launch step, per step and rank; B7 for panel 0);
+# path M5: the same knobs at nb=192, which B8's gate (nb % 128 == 0)
+# refuses and B1, B2, B7 take (nb % 32 == 0): the two-piece path, B6 per
+# step and B7 per panel
+PATH_M4 = {"collectives_impl": "pallas", "panel_trsm_pallas": True,
+           "cholesky_lookahead": True, "trailing_update_impl": "fused"}
+NB_M5 = 192
+# path I: triangular_inverse of M4's factor under the fused tier (B9 per
+# step and rank, the consume ring's transport), then the upper form on the
+# leading N_TIERS block of its transpose
+PATH_I = {"collectives_impl": "pallas", "trailing_update_impl": "fused"}
+# the tier-equality phase: the factor under psum, v2 and pallas, bitwise;
+# also the size of the non-SPD info check of M4 and of the upper inverse
 N_TIERS = 4096
 # B10 phase: (K, S) secular tables at path H's merge levels (leaf 512:
 # one compiled instantiation of the kernel per S), f32 bisection rounds
@@ -134,6 +166,14 @@ def card_line() -> str:
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def worst(values) -> float:
+    """The largest of ``values``, NaN if any is NaN (Python's max() keeps
+    whichever of a NaN and a number comes first, so a check built on it
+    could pass a NaN)."""
+    values = list(values)
+    return float("nan") if any(v != v for v in values) else max(values)
 
 
 def path_h(stamp: dict) -> dict:
@@ -446,8 +486,8 @@ def ring_phases(stamp: dict, bound, kgen) -> dict:
         """Max abs error and relative (Frobenius) error, the worse of lkk, cp."""
         outs = [o.cpu().double() for o in outs]
         refs = [r_.cpu().double() for r_ in refs]
-        return (max((o - r_).abs().max().item() for o, r_ in zip(outs, refs)),
-                max((torch.linalg.vector_norm(o - r_) / torch.linalg.vector_norm(r_)).item()
+        return (worst((o - r_).abs().max().item() for o, r_ in zip(outs, refs)),
+                worst((torch.linalg.vector_norm(o - r_) / torch.linalg.vector_norm(r_)).item()
                     for o, r_ in zip(outs, refs)))
 
     got = on_ranks(gpu, fused, [d, xc])
@@ -521,9 +561,10 @@ def tier_equality(stamp: dict, a_glob) -> None:
         fail(f"the collectives tiers disagree on the factor: {out}")
 
 
-def path_m(stamp: dict, a_glob, rhs, factor_residual, solve_err, res_tol) -> dict:
+def path_m(stamp: dict, a_glob, rhs, factor_residual, solve_err, res_tol, kept: dict) -> dict:
     """Phase 5c: path M, M1 / M2 / M3 on the 2x4 grid of rank threads at
-    N, NB.  Returns each run's launch counts."""
+    N, NB.  Returns each run's launch counts; M2's lower factor goes into
+    ``kept['M2']``."""
     import torch
 
     import dlaf_tpu_torch as dtt
@@ -551,6 +592,8 @@ def path_m(stamp: dict, a_glob, rhs, factor_residual, solve_err, res_tol) -> dic
         factor_run()  # warm-up: the ring states (landing slots, flags) are made here
         fac, wall, counts = factor_run()
         res = factor_residual(fac)
+        if label == "M2":
+            kept["M2"] = torch.tril(layout.unpack(fac.data, fac.dist)[:n, :n])
         del fac
         torch.cuda.empty_cache()
         counts_by[label] = counts
@@ -593,6 +636,470 @@ def path_m(stamp: dict, a_glob, rhs, factor_residual, solve_err, res_tol) -> dic
         fail(f"path M3 info {info}, solve error {serr:.3e}")
     if min(counts[k] for k in ("potrf", "panel_trsm", "ring_exchange")) <= 0:
         fail(f"path M3 did not launch B1, B2 and B5: {counts}")
+    return counts_by
+
+
+def _rel_frob(got, want) -> tuple[float, float]:
+    """Max abs error and relative Frobenius error of ``got`` against ``want``
+    (both moved to the CPU, in float64)."""
+    import torch
+
+    g, w = got.cpu().double(), want.cpu().double()
+    d = g - w
+    den = torch.linalg.vector_norm(w).item()
+    return d.abs().max().item(), torch.linalg.vector_norm(d).item() / (den if den > 0 else 1.0)
+
+
+CONSUME_KERNELS = ("dma_ring_consume", "fused_step", "panel_contract")
+
+
+def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS) -> dict:
+    """Phase 2c: B6, B8 and B9 against their twins at the paths' shapes
+    (f32, a 2x4 grid of rank threads on the card; the twins run on a CPU
+    grid of the same shape), with their times.  The inputs of B6 and B8 are
+    step 0 of the paths that launch them, on the main path's matrix (panel
+    0 made by B7): B6 at M5's nb=192 on its padded geometry, and again at
+    M4's nb=512 as B8's consume part; B8 on M4's, so that it factors a
+    positive definite tile.  B9's are standard normal, at path I's widest
+    step.  ``only`` picks the kernels to check (the planted-fault runs of
+    scripts/planted_faults.py take one).  Returns their report entries."""
+    import torch
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import tune
+    from dlaf_tpu_torch.algorithms import _spmd
+    from dlaf_tpu_torch.algorithms import cholesky as chol
+    from dlaf_tpu_torch.comm import collectives as coll
+    from dlaf_tpu_torch.comm.grid import Grid
+    from dlaf_tpu_torch.ops import panel_exchange as px
+    from dlaf_tpu_torch.ops import trailing_update as tu
+    from dlaf_tpu_torch.testing import tol_for
+
+    dev = torch.device("cuda")
+    pr, pc = GRID_M
+    ranks = pr * pc
+    gpu, cpu = Grid.create(GRID_M, device=dev), Grid.create(GRID_M, device="cpu")
+    report, bad = {}, []
+    tune.initialize(**PATH_M4)
+    k, k1 = 0, 1
+    to_cpu = lambda ts: [t.cpu() for t in ts]  # noqa: E731
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def step0(nb):
+        """Step 0 at block size nb: the geometry, the stacked local matrix,
+        panel 0 (B7) and its row-panel parts on every rank."""
+        mat = dtt.DistributedMatrix.from_global(gpu, a_glob, (nb, nb))
+        g = _spmd.Geometry.of(mat.dist)
+
+        def panel0(x):
+            myr, myc = coll.my_rank()
+            gi = _spmd.local_row_tiles(g, myr, x.device)
+            gj = _spmd.local_col_tiles(g, myc, x.device)
+            d = _spmd.bcast_diag_tile(x, k, g, myr, myc)
+            _, cp = px.fused_factor_bcast(d, x[:, k // g.pc].contiguous(), gi > k, k % g.pc, "c")
+            taken, have = coll.transpose_panel_parts(cp, g.mt, g.ltc)
+            return cp, taken, have, gj == k1, gi > k1
+
+        return (g, mat.data) + tuple(on_ranks(gpu, panel0, [mat.data]))
+
+    def b6_work(g, nb, have, supp):
+        """B6's work at step 0: the slots held somewhere on each rank's ring
+        over 'r', without the suppressed one, every rank; its bytes."""
+        tile = nb * nb * 4
+        applied = int((have.any(dim=0, keepdim=True).expand_as(have) & ~supp).sum())
+        flops = 2.0 * nb ** 3 * g.ltr * applied
+        nbytes = ranks * (2 * g.ltr * g.ltc * tile + g.ltr * tile + 2 * g.ltc * tile)
+        return applied, flops, nbytes
+
+    def b6(x, tk, hv, c, z):
+        _, y, h = tu.dma_ring_consume(x, tk, hv.to(torch.int32).reshape(-1, 1), c,
+                                      z.to(torch.int32).reshape(-1, 1), "r")
+        return y, h
+
+    def b6_check(path, role, nb, g, x0, cp, taken, have, supp):
+        """B6 over 'r' on step 0 of ``path``: yf and h bitwise and the
+        applied update within tol_for(f32, nb) against the twin on a CPU
+        grid, a skewed run bitwise the unskewed one, its time, bound and
+        yardstick.  Emits and returns its record."""
+        tol = tol_for("float32", nb)
+        applied, flops, nbytes = b6_work(g, nb, have, supp)
+        x_cpu0 = x0.to("cpu", copy=True)
+        xk = x0.clone()
+        got = on_ranks(gpu, b6, [xk, taken, have, cp, supp])
+        torch.cuda.synchronize()
+        xt = x0.to("cpu", copy=True)
+        t0 = time.perf_counter()
+        ref = on_ranks(cpu, lambda x, tk, hv, c, z: tu.dma_ring_consume_plain(
+            x, tk, hv.to(torch.int32).reshape(-1, 1), c, z.to(torch.int32).reshape(-1, 1), "r")[1:],
+            [xt] + to_cpu([taken, have, cp, supp]))
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
+        err_abs, rel = _rel_frob(xk.cpu() - x_cpu0, xt - x_cpu0)
+        del xt, ref, x_cpu0
+        # skewed run: rank (0, 1) sleeps 50 ms before each launch; the kernel's
+        # result is deterministic, so its x must be the unskewed run's, bitwise
+        xs = x0.clone()
+        px.launch_delay_s[(0, 1)] = 0.05
+        try:
+            got_s = on_ranks(gpu, b6, [xs, taken, have, cp, supp])
+            torch.cuda.synchronize()
+        finally:
+            px.launch_delay_s.clear()
+        skew_ok = torch.equal(xs, xk) and all(torch.equal(a, b) for a, b in zip(got_s, got))
+        del xs, got_s
+        same = same and torch.equal(got[1].reshape(pr, pc, -1) != 0,
+                                    have.any(dim=0, keepdim=True).expand_as(have))
+        b_ms, b_by = bound(flops, nbytes)
+        span_ms, enq_ms = grid_span_ms(gpu, b6, [xk, taken, have, cp, supp], 3)
+        # yardstick: B5's copy_ of the exchanged panel into every rank's buffer,
+        # and one baddbmm_ per rank over the same tile pairs
+        union = got[0].reshape(ranks, -1)
+        src = union[0].clone()
+        a_exp = cp[0, 0].unsqueeze(1).expand(g.ltr, g.ltc, nb, nb).reshape(-1, nb, nb)
+        b_exp = taken[0, 0].transpose(-1, -2).unsqueeze(0).expand(g.ltr, g.ltc, nb, nb).reshape(
+            -1, nb, nb)
+        xv = xk[0, 0].reshape(-1, nb, nb)
+
+        def library():
+            union.copy_(src.expand_as(union))
+            for _ in range(ranks):
+                xv.baddbmm_(a_exp, b_exp, alpha=-1)
+
+        lib_ms = timed_ms(library, 3)
+        del union, src, a_exp, b_exp, xv, xk, got
+        torch.cuda.empty_cache()
+        rec = {"kernel": "dma_ring_consume", "step0_of": path, "role": role, "nb": nb,
+               "mt": g.mt, "shape": {"x": [g.ltr, g.ltc, nb, nb], "yf": [g.ltc, nb, nb]},
+               "ranks": ranks, "ring": "r", "ring_length": pr, "applied_slots": applied,
+               "bitwise_vs_plain_yf_h": same, "max_abs_err": err_abs, "rel_err": rel, "tol": tol,
+               "vs": "the plain twin on a CPU grid (the applied update x' - x)",
+               "skewed_run_bitwise": skew_ok, "kernel_ms": span_ms, "enqueue_ms_of_3_calls": enq_ms,
+               "plain_ms": plain_ms, "plain_on": "cpu (the twin's ring is host objects)",
+               "library_ms": lib_ms,
+               "library_call": "B5's copy_ of the panel to every rank plus one baddbmm_ per rank",
+               "bound_ms": b_ms, "bound_by": b_by,
+               "bound_counts": "2 nb^3 per applied (i, j) pair; bytes: x read and written, cp, "
+                               "the panel read and the merged panel written, every rank", **stamp}
+        emit(rec)
+        if not (same and rel <= tol and skew_ok):
+            bad.append(f"dma_ring_consume on step 0 of {path}: yf/h bitwise {same}, rel err "
+                       f"{rel:.3e} (tol {tol:.3e}), skewed run bitwise {skew_ok}")
+        return rec
+
+    if "dma_ring_consume" in only:
+        # ---- B6 on step 0 of M5, the path that launches it (nb=192, padded)
+        g5, *s5 = step0(NB_M5)
+        report["dma_ring_consume"] = b6_check("M5", "the two-piece path's update", NB_M5, g5,
+                                              *s5[:5])
+        del g5, s5
+        torch.cuda.empty_cache()
+
+        # ---- B6 on a ring of 4 ('c', 3 hops: the capacity acks are in use)
+        nb, tol = NB, tol_for("float32", NB)
+        ltr4, slots4 = 4, 8
+        xc = torch.randn(pr, pc, ltr4, slots4, nb, nb, generator=gen, device=dev)
+        cc = torch.randn(pr, pc, ltr4, nb, nb, generator=gen, device=dev)
+        yc = torch.randn(pr, pc, slots4, nb, nb, generator=gen, device=dev)
+        hc = torch.zeros(pr, pc, slots4, dtype=torch.bool, device=dev)
+        for s_ in range(slots4 - 1):  # one contributor per slot, the last slot none
+            hc[:, s_ % pc, s_] = True
+        zc = torch.zeros_like(hc)
+        zc[:, 2, 6] = True
+
+        def b6c(x, tk, hv, c, z):
+            _, y, h = tu.dma_ring_consume(x, tk, hv.to(torch.int32).reshape(-1, 1), c,
+                                          z.to(torch.int32).reshape(-1, 1), "c")
+            return y, h
+
+        xk = xc.clone()
+        got = on_ranks(gpu, b6c, [xk, yc, hc, cc, zc])
+        xt = xc.to("cpu", copy=True)
+        ref = on_ranks(cpu, lambda x, tk, hv, c, z: tu.dma_ring_consume_plain(
+            x, tk, hv.to(torch.int32).reshape(-1, 1), c, z.to(torch.int32).reshape(-1, 1), "c")[1:],
+            [xt] + to_cpu([yc, hc, cc, zc]))
+        torch.cuda.synchronize()
+        same4 = all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
+        err4, rel4 = _rel_frob(xk.cpu() - xc.cpu(), xt - xc.cpu())
+        ring4 = {"axis": "c", "x": [ltr4, slots4, nb, nb], "bitwise_vs_plain_yf_h": same4,
+                 "max_abs_err": err4, "rel_err": rel4}
+        report["dma_ring_consume"]["ring_of_4"] = ring4
+        emit({"kernel": "dma_ring_consume", "ring_of_4": ring4, **stamp})
+        if not (same4 and rel4 <= tol):
+            bad.append(f"dma_ring_consume on a ring of 4: yf/h bitwise {same4}, rel err {rel4:.3e}")
+        del xc, cc, yc, hc, zc, xk, xt, got, ref
+        torch.cuda.empty_cache()
+
+    if "dma_ring_consume" in only or "fused_step" in only:
+        # ---- step 0 of M4: B6 as B8's consume part, then B8
+        nb, tol = NB, tol_for("float32", NB)
+        g, x0, cp, taken, have, supp, below1 = step0(nb)
+        params = (k1 % g.pc, k1 % g.pr, k1 // g.pc, k1 // g.pr, k1 // g.pc)
+        if "dma_ring_consume" in only:
+            report["dma_ring_consume"]["at_M4"] = b6_check(
+                "M4", "B8's consume part (M4 runs B6's body inside B8)", nb, g, x0, cp, taken,
+                have, supp)
+
+        # ---- B8: step 0 of M4, against its twin and the card's two-piece step
+        if "fused_step" in only:
+            def b8(x, tk, hv, c, z, bl):
+                return tu.fused_step(x, tk, hv, z, c, bl, params)[1:]
+
+            def two_piece(x, tk, hv, c, z, bl):
+                myr, myc = coll.my_rank()
+                gi = _spmd.local_row_tiles(g, myr, x.device)
+                _, rp = tu.fused_transpose_update(x, c, tk, hv, z, "r")
+                l_next = params[2]
+                if myc == params[0]:
+                    xc1 = x[:, l_next]
+                    xc1 -= torch.einsum("iab,cb->iac", c, rp[l_next])
+                d1 = _spmd.bcast_diag_tile(x, k1, g, myr, myc)
+                lkk1, cp1 = chol._fused_panel_bcast(d1, x[:, l_next], gi > k1, params[0])
+                return rp, lkk1, cp1, d1
+
+            _, flops, nbytes = b6_work(g, nb, have, supp)
+            tile = nb * nb * 4
+            x_cpu0 = x0.to("cpu", copy=True)
+            args = [taken, have, cp, supp, below1]
+            xk, xu = x0.clone(), x0.clone()
+            got = on_ranks(gpu, b8, [xk] + args)
+            unf = on_ranks(gpu, two_piece, [xu] + args)
+            torch.cuda.synchronize()
+            xt = x0.to("cpu", copy=True)
+            t0 = time.perf_counter()
+            ref = on_ranks(cpu, b8, [xt] + to_cpu(args))
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            names = ("rp", "lkk1", "cp1", "d1")
+            errs = {"x": _rel_frob(xk.cpu() - x_cpu0, xt - x_cpu0)}
+            errs.update({nm: _rel_frob(a, b) for nm, a, b in zip(names, got, ref)})
+            errs_unf = {"x": _rel_frob(xk - x0, xu - x0)}
+            errs_unf.update({nm: _rel_frob(a, b) for nm, a, b in zip(names, got, unf)})
+            rp_same = torch.equal(got[0].cpu(), ref[0])
+            worst_twin = worst(e[1] for e in errs.values())
+            worst_unf = worst(e[1] for e in errs_unf.values())
+            rows_solved = int(below1[:, params[0]].sum()) * nb  # the root column's ranks solve
+            flops8 = flops + ranks * nb ** 3 / 3 + rows_solved * nb * nb
+            nbytes8 = nbytes + ranks * 3 * tile + pr * g.ltr * tile + ranks * g.ltr * tile
+            b_ms8, b_by8 = bound(flops8, nbytes8)
+            span8, enq8 = grid_span_ms(gpu, b8, [xk] + args, 3)
+            span_unf, enq_unf = grid_span_ms(gpu, two_piece, [xu] + args, 3)
+            rec = {"kernel": "fused_step",
+                   "shape": {"x": [g.ltr, g.ltc, nb, nb], "cp": [g.ltr, nb, nb]},
+                   "ranks": ranks, "step": k, "rel_err": {nm: e[1] for nm, e in errs.items()},
+                   "max_abs_err": worst(e[0] for e in errs.values()),
+                   "rp_bitwise_vs_plain": rp_same,
+                   "tol": tol, "vs": "the plain twin on a CPU grid (x as the applied update)",
+                   "rel_err_vs_two_piece": {nm: e[1] for nm, e in errs_unf.items()},
+                   "two_piece": "dma_ring_consume -> narrow einsum -> bcast_diag_tile -> "
+                                "fused_factor_bcast (B6, B5, B7) on the card",
+                   "kernel_ms": span8, "two_piece_ms": span_unf,
+                   "enqueue_ms_of_3_calls": {"fused_step": enq8, "two_piece": enq_unf},
+                   "plain_ms": plain_ms, "plain_on": "cpu (the twin's rings are host objects)",
+                   "library_ms": None, "library_call": "none: no single PyTorch call computes it",
+                   "bound_ms": b_ms8, "bound_by": b_by8,
+                   "bound_counts": "B6's, plus potrf nb^3/3 on every rank and the solve "
+                                   "rows*nb^2 on the root column; bytes: B6's, d, lkk and the "
+                                   "diagonal tile per rank, the panel column on the root, cp1 "
+                                   "per rank", **stamp}
+            emit(rec)
+            if not (worst_twin <= tol and rp_same and worst_unf <= tol):
+                bad.append(f"fused_step: rel err vs twin {worst_twin:.3e}, vs the two-piece step "
+                           f"{worst_unf:.3e} (tol {tol:.3e}), rp bitwise {rp_same}")
+            report["fused_step"] = rec
+            del xk, xu, xt, got, unf, ref
+        del x0, cp, taken, have, supp, below1
+    torch.cuda.empty_cache()
+
+    # ---- B9: path I's widest step, both forms, all ranks at once
+    if "panel_contract" in only:
+        nb, tol = NB, tol_for("float32", NB)
+        big = torch.randn(pr, pc, 16, 8, nb, nb, generator=gen, device=dev)
+        small_l = torch.randn(pr, pc, 8, nb, nb, generator=gen, device=dev)
+        small_u = torch.randn(pr, pc, 16, nb, nb, generator=gen, device=dev)
+        forms = {}
+        for sub, ops_ in ((tu.TRTRI_LOWER_SUBSCRIPTS, [big, small_l]),
+                          (tu.TRTRI_UPPER_SUBSCRIPTS, [small_u, big])):
+            fn = lambda a, b, sub=sub: (tu.panel_contract(a, b, sub),)  # noqa: E731
+            got = on_ranks(gpu, fn, ops_)[0]
+            t0 = time.perf_counter()
+            ref = on_ranks(cpu, fn, to_cpu(ops_))[0]
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err_abs, rel = _rel_frob(got, ref)
+            span, enq = grid_span_ms(gpu, fn, ops_, 5)
+            a0, b0 = ops_[0][0, 0], ops_[1][0, 0]
+            lib_ms = timed_ms(lambda: [torch.einsum(sub, a0, b0) for _ in range(ranks)], 3)
+            flops9 = ranks * 2.0 * 16 * 8 * nb ** 3
+            small = ops_[1 if sub == tu.TRTRI_LOWER_SUBSCRIPTS else 0]
+            nbytes9 = ranks * (big[0, 0].numel() + small[0, 0].numel() + got[0, 0].numel()) * 4
+            b9, by9 = bound(flops9, nbytes9)
+            forms[sub] = {"shape": {"a": list(ops_[0].shape[2:]), "b": list(ops_[1].shape[2:])},
+                          "max_abs_err": err_abs, "rel_err": rel, "tol": tol, "kernel_ms": span,
+                          "enqueue_ms_of_5_calls": enq, "plain_ms": plain_ms, "library_ms": lib_ms,
+                          "bound_ms": b9, "bound_by": by9}
+            emit({"kernel": "panel_contract", "subscripts": sub, "ranks": ranks, **forms[sub],
+                  "plain_on": "cpu (torch.einsum per rank)",
+                  "library_call": "torch.einsum, one per rank", **stamp})
+            if not rel <= tol:
+                bad.append(f"panel_contract[{sub}]: rel err {rel:.3e} > {tol:.3e}")
+            del got, ref
+        report["panel_contract"] = {**forms[tu.TRTRI_LOWER_SUBSCRIPTS], "forms": forms}
+        del big, small_l, small_u
+        torch.cuda.empty_cache()
+    if bad:
+        fail("ring consumers and panel contraction vs their plain versions: " + "; ".join(bad))
+    return report
+
+
+def path_fused(stamp: dict, a_glob, factor_residual, res_tol, kept: dict) -> dict:
+    """Phase 5d: the fused trailing-update tier on the 2x4 grid: M4
+    (lookahead Cholesky, B8 per step), its info on a non-SPD input against
+    the 'xla' tier's, M5 (nb=192: B6 per step, B7 per panel) and path I
+    (triangular_inverse of M4's factor: B9 per step), each residual first
+    shown to reject a wrong answer.  Returns each run's launch counts."""
+    import torch
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import ops, tune
+    from dlaf_tpu_torch.matrix import layout
+    from dlaf_tpu_torch.testing import tol_for
+
+    n = N
+    grid = dtt.Grid.create(GRID_M)
+    ranks = grid.size
+    gflop = n ** 3 / 3 / 1e9
+    counts_by = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, ops.launch_counts()
+
+    def factor(a, nb, **kw):
+        mat = dtt.DistributedMatrix.from_global(grid, a, (nb, nb))
+        return dtt.cholesky_factorization("L", mat, backend="distributed", **kw)
+
+    def rel_f(got, want):
+        d = torch.linalg.matrix_norm(got.double() - want.double())
+        return (d / torch.linalg.matrix_norm(want.double())).item()
+
+    # ---- M4: lookahead Cholesky, fused tier, nb = NB
+    tune.initialize(**PATH_M4)
+    factor(a_glob, NB)  # warm-up: the ring states are made here
+    fac4, wall, counts = timed(lambda: factor(a_glob, NB))
+    res = factor_residual(fac4)
+    low4 = torch.tril(layout.unpack(fac4.data, fac4.dist)[:n, :n])
+    vs_m2 = rel_f(low4, kept["M2"])
+    wrong = rel_f(torch.tril(a_glob), kept["M2"])  # the check rejects A's own lower triangle
+    del kept["M2"]
+    mt = -(-n // NB)
+    counts_by["M4"] = counts
+    emit({"phase": "path_M4", "config": "lookahead, trailing_update_impl=fused, "
+          "collectives_impl=pallas, panel_trsm_pallas=1", "grid": list(GRID_M), "n": n, "nb": NB,
+          "mt": mt, "wall_s": wall, "gflops": gflop / wall, "factor_residual": res,
+          "rel_err_vs_M2_factor": vs_m2, "rel_err_vs_M2_of_tril_A": wrong, "tol": res_tol,
+          "launches": counts, "launches_per_rank": {k_: v / ranks for k_, v in counts.items()},
+          **stamp})
+    if not (res <= res_tol and vs_m2 <= res_tol < wrong):
+        fail(f"path M4 residual {res:.3e}, vs M2 {vs_m2:.3e}, wrong answer {wrong:.3e} "
+             f"(tol {res_tol:.3e})")
+    if counts["fused_step"] != ranks * (mt - 1) or counts["fused_factor_bcast"] != ranks \
+            or counts["trailing_update"] or counts["dma_ring_consume"]:
+        fail(f"path M4 launched B8 {counts['fused_step']} times (want {ranks * (mt - 1)}), "
+             f"B7 {counts['fused_factor_bcast']} (want {ranks}): {counts}")
+    del low4
+    torch.cuda.empty_cache()
+
+    # ---- the info of a non-SPD input at N_TIERS: a negative pivot in tile
+    # 3, owned by rank (1, 3), as the 'xla' tier finds it
+    bad = a_glob[:N_TIERS, :N_TIERS].clone()
+    piv = 3 * NB + 5
+    bad[piv, piv] = -50.0
+    infos = {}
+    for label, knobs in (("xla", PATH_M2), ("fused", PATH_M4)):
+        tune.initialize(**knobs)
+        infos[label] = int(factor(bad, NB, return_info=True)[1])
+    spd_info = int(factor(a_glob[:N_TIERS, :N_TIERS].clone(), NB, return_info=True)[1])
+    emit({"phase": "path_M4_info", "n": N_TIERS, "nb": NB, "planted_pivot": piv + 1,
+          "info": infos, "info_of_the_spd_input": spd_info, **stamp})
+    if not (infos["fused"] == infos["xla"] == piv + 1 and spd_info != infos["xla"]):
+        fail(f"path M4 info on a non-SPD input {infos}, want {piv + 1} (SPD input: {spd_info})")
+    del bad
+
+    # ---- M5: the same knobs at nb = NB_M5 (the two-piece path: B6, B7)
+    factor(a_glob, NB_M5)  # warm-up
+    fac5, wall, counts = timed(lambda: factor(a_glob, NB_M5))
+    res = factor_residual(fac5)
+    del fac5
+    torch.cuda.empty_cache()
+    mt5 = -(-n // NB_M5)
+    counts_by["M5"] = counts
+    emit({"phase": "path_M5", "config": "lookahead, trailing_update_impl=fused, "
+          "collectives_impl=pallas, panel_trsm_pallas=1", "grid": list(GRID_M), "n": n,
+          "nb": NB_M5, "mt": mt5, "padded_n": mt5 * NB_M5, "wall_s": wall, "gflops": gflop / wall,
+          "factor_residual": res, "tol": res_tol, "launches": counts,
+          "launches_per_rank": {k_: v / ranks for k_, v in counts.items()}, **stamp})
+    if not res <= res_tol:
+        fail(f"path M5 residual {res:.3e} > {res_tol:.3e}")
+    if counts["dma_ring_consume"] != ranks * (mt5 - 1) or counts["fused_step"] \
+            or counts["fused_factor_bcast"] != ranks * mt5:
+        fail(f"path M5 launched B6 {counts['dma_ring_consume']} times (want "
+             f"{ranks * (mt5 - 1)}), B8 {counts['fused_step']}, B7 "
+             f"{counts['fused_factor_bcast']} (want {ranks * mt5}): {counts}")
+
+    # ---- path I: triangular_inverse of M4's factor, then the upper form
+    tune.initialize(**PATH_I)
+
+    def inverse(uplo, src):
+        return dtt.triangular_inverse(uplo, "N", dtt.DistributedMatrix(src.dist, grid,
+                                                                       src.data.clone()))
+
+    def inv_residual(x, f):
+        """||X F - I||_F / (||X||_F ||F||_F), and ||X F - I||_F / ||I||_F: the
+        first shrinks like 1 / sqrt(N) for any X of F's scale (X = L gives
+        6e-3 at N=16384, under tol_for(f32, N)), so both are held."""
+        eye = torch.eye(x.shape[0], dtype=torch.float64, device=x.device)
+        r = torch.linalg.matrix_norm(x @ f - eye)
+        del eye
+        scaled = r / (torch.linalg.matrix_norm(x) * torch.linalg.matrix_norm(f))
+        return {"scaled": scaled.item(), "vs_identity": (r / x.shape[0] ** 0.5).item()}
+
+    inverse("L", fac4)  # warm-up
+    inv, wall, counts = timed(lambda: inverse("L", fac4))
+    ell = torch.tril(layout.unpack(fac4.data, fac4.dist)[:n, :n]).double()
+    x = torch.tril(layout.unpack(inv.data, inv.dist)[:n, :n]).double()
+    del inv
+    got, wrong = inv_residual(x, ell), inv_residual(ell, ell)
+    del x
+    torch.cuda.empty_cache()
+    counts_by["I"] = counts
+    emit({"phase": "path_I", "config": "triangular_inverse(L, N), trailing_update_impl=fused, "
+          "collectives_impl=pallas", "grid": list(GRID_M), "n": n, "nb": NB, "wall_s": wall,
+          "inverse_residual": got, "inverse_residual_of_x_eq_l": wrong, "tol": res_tol,
+          "launches": counts, "launches_per_rank": {k_: v / ranks for k_, v in counts.items()},
+          **stamp})
+    if not worst(got.values()) <= res_tol < worst(wrong.values()):
+        fail(f"path I residuals {got}, of X = L {wrong} (tol {res_tol:.3e})")
+    if counts["panel_contract"] != ranks * mt or counts["trailing_update"]:
+        fail(f"path I launched B9 {counts['panel_contract']} times (want {ranks * mt}), "
+             f"B3 {counts['trailing_update']}: {counts}")
+    up = ell[:N_TIERS, :N_TIERS].T.float().contiguous()
+    del ell, fac4
+    torch.cuda.empty_cache()
+    mat_u = dtt.DistributedMatrix.from_global(grid, up, (NB, NB))
+    inv, wall, counts = timed(lambda: inverse("U", mat_u))
+    x = torch.triu(layout.unpack(inv.data, inv.dist)[:N_TIERS, :N_TIERS]).double()
+    tol_u = tol_for("float32", N_TIERS)
+    got, wrong = inv_residual(x, up.double()), inv_residual(up.double(), up.double())
+    counts_by["I_upper"] = counts
+    emit({"phase": "path_I_upper", "config": "triangular_inverse(U, N) of L^T's leading block",
+          "n": N_TIERS, "nb": NB, "wall_s": wall, "inverse_residual": got,
+          "inverse_residual_of_x_eq_u": wrong, "tol": tol_u, "launches": counts, **stamp})
+    if not worst(got.values()) <= tol_u < worst(wrong.values()):
+        fail(f"path I (upper) residuals {got}, of X = U {wrong} (tol {tol_u:.3e})")
+    if counts["panel_contract"] != ranks * (N_TIERS // NB):
+        fail(f"path I (upper) launched B9 {counts['panel_contract']} times: {counts}")
     return counts_by
 
 
@@ -848,6 +1355,9 @@ def main() -> int:
     a_glob, rhs = make_inputs(dev)
     torch.cuda.synchronize()
 
+    # B6, B8 and B9 at the fused paths' shapes (B8 on step 0 of M4)
+    report.update(consume_phases(stamp, bound, timed_ms, a_glob))
+
     # small ragged input: the port's factor (kernels on) vs torch.linalg.cholesky
     ns = 2 * nb + nb // 2 + 8
     tune.initialize(cholesky_lookahead=True, trailing_update_impl="fused", panel_trsm_pallas=True)
@@ -973,7 +1483,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 5c. path M: 2x4 grid of rank threads, the 'pallas' tier
-    by_path.update(path_m(stamp, a_glob, rhs, factor_residual, solve_err, res_tol))
+    kept = {}
+    by_path.update(path_m(stamp, a_glob, rhs, factor_residual, solve_err, res_tol, kept))
+
+    # ---- 5d. the fused tier on the 2x4 grid: M4, M5, path I
+    by_path.update(path_fused(stamp, a_glob, factor_residual, res_tol, kept))
 
     del a_glob, rhs, x_ref
     torch.cuda.empty_cache()
@@ -994,6 +1508,12 @@ def main() -> int:
                           "dlaf_tpu/ops/pallas_panel_exchange.py:380"),
         "fused_factor_bcast": ("dlaf_tpu_torch/csrc/panel_exchange.cu",
                                "dlaf_tpu/ops/pallas_panel_exchange.py:533"),
+        "dma_ring_consume": ("dlaf_tpu_torch/csrc/consume.cu",
+                             "dlaf_tpu/ops/pallas_trailing_update.py:407"),
+        "fused_step": ("dlaf_tpu_torch/csrc/consume.cu",
+                       "dlaf_tpu/ops/pallas_trailing_update.py:651"),
+        "panel_contract": ("dlaf_tpu_torch/csrc/trailing_update.cu",
+                           "dlaf_tpu/ops/pallas_trailing_update.py:226"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
@@ -1011,11 +1531,12 @@ def main() -> int:
                                                     "bound_ms", "max_abs_err")}
                               for s, f in r["forms"].items()}
         if name == "merge_hop":
-            # B4's body runs inside every B5 and B7 hop; its own entry point
-            # is launched by its kernel phase only, as the JAX package
-            # launches merge_hop only on its ring without remote copies
+            # B4's body runs inside every hop of B5, B6, B7 and B8; its own
+            # entry point is launched by its kernel phase only, as the JAX
+            # package launches merge_hop only on its ring without remote copies
             entry["body_runs_in_launches"] = sum(
-                c.get("ring_exchange", 0) + c.get("fused_factor_bcast", 0) for c in by_path.values())
+                c.get(k, 0) for c in by_path.values()
+                for k in ("ring_exchange", "fused_factor_bcast", "dma_ring_consume", "fused_step"))
         if name == "ring_exchange":
             entry["max_abs_err"] = max(f["max_abs_err"] for f in r["shapes"].values())
             entry["shapes"] = {s: {k: f[k] for k in ("kernel_ms", "plain_ms", "library_ms",
@@ -1023,6 +1544,20 @@ def main() -> int:
                                for s, f in r["shapes"].items()}
         if name == "fused_factor_bcast":
             entry["unfused_ms"] = r["unfused_ms"]
+        if name == "dma_ring_consume":
+            # the record of the path that launches B6 (step 0 of M5) gives the
+            # entry's numbers; step 0 of M4 is B8's consume part
+            entry["shapes"] = {f"{q['step0_of']}_step0": {k: q[k] for k in (
+                "nb", "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+                for q in (r, r["at_M4"])}
+        if name == "fused_step":
+            entry["max_abs_err"] = r["max_abs_err"]
+            entry["two_piece_ms"] = r["two_piece_ms"]
+        if name == "panel_contract":
+            entry["max_abs_err"] = max(f["max_abs_err"] for f in r["forms"].values())
+            entry["forms"] = {s: {k: f[k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                                                    "bound_ms", "max_abs_err")}
+                              for s, f in r["forms"].items()}
         if name == "secular_bisect":
             entry["max_abs_err"] = max(f["max_abs_err"] for f in r["shapes"].values())
             entry["shapes"] = {f"{K_B10}x{s}": {k: f[k] for k in (

@@ -5,10 +5,12 @@ held against): the same 2D block-cyclic data model
 (``X[Pr, Pc, ltr, ltc, mb, nb]``), the same algorithms, and hand-written
 CUDA kernels for Hopper where the JAX package has Pallas kernels.  This
 package runs distributed Cholesky, the Left triangular solves and
-POTRS/POSV on any ``Pr x Pc`` grid of ranks on one card, with the potrf,
-panel-TRSM and trailing-update kernels and, under the 'pallas'
-collectives tier, the ring kernels (hop merge, ring exchange, fused
-factor-and-send); and, on a 1x1 grid, the Hermitian eigensolver
+POTRS/POSV and the triangular inverse on any ``Pr x Pc`` grid of ranks on
+one card, with the potrf, panel-TRSM and trailing-update kernels, under
+the 'pallas' collectives tier the ring kernels (hop merge, ring exchange,
+fused factor-and-send), and under the 'fused' trailing-update tier the
+ring consumers (the consume ring and the one-launch lookahead step) and
+the panel contraction; and, on a 1x1 grid, the Hermitian eigensolver
 pipeline (reduction to band, SBR, the host bulge chase, the distributed
 D&C tridiagonal solver with the secular-bisection kernel, and the three
 back-transforms).  Kernels live in
@@ -36,6 +38,7 @@ from dlaf_tpu_torch.comm import _ranks as _ranks
 _ranks.request_cuda_env()
 from dlaf_tpu_torch.algorithms.cholesky import cholesky_factorization  # noqa: E402
 from dlaf_tpu_torch.algorithms.eigensolver import EigResult, hermitian_eigensolver
+from dlaf_tpu_torch.algorithms.inverse import triangular_inverse
 from dlaf_tpu_torch.algorithms.solver import cholesky_solver, positive_definite_solver
 from dlaf_tpu_torch.algorithms.triangular_solver import triangular_solver
 from dlaf_tpu_torch.comm.grid import Grid
@@ -48,6 +51,7 @@ __all__ = [
     "triangular_solver",
     "cholesky_solver",
     "positive_definite_solver",
+    "triangular_inverse",
     "hermitian_eigensolver",
     "EigResult",
 ]

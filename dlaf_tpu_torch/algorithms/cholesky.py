@@ -13,10 +13,15 @@ local stack ``x[ltr, ltc, mb, nb]``, which the kernels update in place.
 Two kernels, as in the JAX package: the bucketed kernel (default), whose
 trailing update runs on a window that shrinks by segment, and the
 lookahead kernel (``tune.cholesky_lookahead``), which factors panel k+1
-before the bulk trailing update of step k.  Under
-``tune.trailing_update_impl='fused'`` the lookahead bulk update is the
-hand-written trailing-update kernel (``ops/trailing_update.py``); under
-'xla' it is a ``torch.einsum``.
+before the bulk trailing update of step k.  Under 'xla' the lookahead bulk
+update is a ``torch.einsum``; under ``tune.trailing_update_impl='fused'``
+it is the fused tier of ``ops/trailing_update.py``: on the card, on a grid
+larger than 1x1, the whole step is one launch per rank (B8,
+``fused_step``) where the JAX package's gate takes it (tiles a multiple of
+128), else the consume ring (B6) applies the bulk update as the row panel
+lands, then the narrow update and the panel of step k+1 follow; on a 1x1
+grid and on the CPU it is the transport plus one update (B3 on the card,
+its plain version on the CPU), with the 'xla' tier's bits.
 
 On a ``Pr x Pc`` grid the kernel body runs once per rank thread
 (``comm/_ranks.py``), on that rank's view of the stacked tensor, and the
@@ -25,9 +30,7 @@ a column axis > 1 the lookahead panel is the fused factor-and-send
 (``ops/panel_exchange.fused_factor_bcast``, B7; its plain twin on the CPU).
 
 Not in this slice (they raise ``NotImplementedError``, see ROADMAP.md):
-the U path, ``shift_recovery``, checkpointing, and the fused trailing-
-update tier of the lookahead kernel on a grid with an axis > 1 (its ring
-consumers B6 and B8 are the next slice).
+the U path, ``shift_recovery`` and checkpointing.
 """
 from __future__ import annotations
 
@@ -69,6 +72,23 @@ def _fused_panel_bcast(d, xc, below, root: int):
             or not _px.fusion_supported(d, xc)):
         return None
     return _px.fused_factor_bcast(d.contiguous(), xc.contiguous(), below, root, COL_AXIS)
+
+
+def _fused_lookahead_step(x, cp, k: int, g: _spmd.Geometry, gi, gj):
+    """The whole lookahead body of step k as one launch per rank (B8,
+    ``ops/trailing_update.fused_step``; ``dlaf_tpu/algorithms/cholesky.py:
+    128``): the consume update of panel k, the narrow update, the diagonal
+    tile of step k+1 to every rank, its factor, the panel solve and the ring
+    of panel k+1.  It engages under the JAX package's rule, with "a TPU"
+    read as "the card": a CUDA tensor, a grid larger than 1x1 and
+    ``fused_step_supported``, whatever the collectives tier; it returns
+    None otherwise (the two-piece path, the same math)."""
+    if x.device.type != "cuda" or g.pr * g.pc == 1 or not _tu.fused_step_supported(x, cp):
+        return None
+    taken, have = coll.transpose_panel_parts(cp, g.mt, g.ltc)
+    k1 = k + 1
+    params = (k1 % g.pc, k1 % g.pr, k1 // g.pc, k1 // g.pr, k1 // g.pc)
+    return _tu.fused_step(x, taken, have, gj == k1, cp, gi > k1, params)
 
 
 def _pivot_scan(d):
@@ -158,9 +178,9 @@ def _chol_L_lookahead(x, g: _spmd.Geometry, want_info: bool):
     """Lookahead kernel: each step k writes back panel k, applies the
     narrow update to column k+1, factors panel k+1, and applies the bulk
     trailing update (column k+1 excluded).  Under the fused tier the bulk
-    update is the trailing-update kernel, issued before the narrow update
-    as in the JAX package (the reorder is exact: the bulk excludes column
-    k+1)."""
+    update comes first, as in the JAX package (the reorder is exact: the
+    bulk excludes column k+1), or the whole step is B8's one launch; the
+    pivot scan stays on the owner of each diagonal tile."""
     myr, myc = coll.my_rank()
     dev = x.device
     gi = _spmd.local_row_tiles(g, myr, dev)
@@ -198,18 +218,20 @@ def _chol_L_lookahead(x, g: _spmd.Geometry, want_info: bool):
         info = _update_info(info, bad, 0)
     for k in range(g.mt - 1):
         write_back(k, lkk, cp)
+        stepped = _fused_lookahead_step(x, cp, k, g, gi, gj) if fused_tier else None
+        if stepped is not None:
+            # the single-launch step: the pivot scan reads its broadcast
+            # diagonal tile, on the tile's owner
+            _, _, lkk, cp, d1 = stepped
+            if want_info and myr == (k + 1) % g.pr and myc == (k + 1) % g.pc:
+                info = _update_info(info, _pivot_scan(d1), (k + 1) * g.mb)
+            continue
         suppress = (gj == k + 1)[:, None, None]
         if fused_tier:
-            # one-rank branch of the JAX fused_transpose_update: the ring
-            # exchange of a size-1 axis is the identity, then the bulk
-            # update with column k+1 suppressed
+            # the exchange-and-consume of the row panel, bulk update first
+            # (column k+1 suppressed)
             taken, have = coll.transpose_panel_parts(cp, g.mt, g.ltc)
-            rp = coll._panel_exchange(taken, have, ROW_AXIS)
-            rp_bulk = torch.where(suppress, torch.zeros_like(rp), rp).conj()
-            if _tu.update_kernel_ok(x.dtype):
-                _tu.trailing_update(x, cp, rp_bulk, _tu.CHOLESKY_SUBSCRIPTS)
-            else:
-                x -= t.contract(_tu.CHOLESKY_SUBSCRIPTS, cp, rp_bulk)
+            x, rp = _tu.fused_transpose_update(x, cp, taken, have, gj == k + 1, ROW_AXIS)
         else:
             rp = coll.transpose_panel(cp, g.mt, g.ltc)
         # narrow update: column k+1 only, so its panel starts now
@@ -234,13 +256,6 @@ def _factor_distributed(mat_a: DistributedMatrix, g: _spmd.Geometry, want_info: 
     rank (``coll.spmd``); returns the info (a device int32 scalar,
     identical on every rank) or None."""
     lookahead = tune.get_tune_parameters().cholesky_lookahead
-    if lookahead and tune.trailing_update_tier() == "fused" and mat_a.grid.size > 1:
-        raise NotImplementedError(
-            f"cholesky_factorization: the lookahead kernel's fused trailing-update tier on a "
-            f"{g.pr}x{g.pc} grid needs the ring consumers B6 (dma_ring_consume) and B8 "
-            "(fused_step), which are not ported yet (ROADMAP.md, port queue: the next slice); "
-            "use trailing_update_impl='xla' or the bucketed kernel"
-        )
     kern = _chol_L_lookahead if lookahead else _chol_L_bucketed
 
     def body(x):

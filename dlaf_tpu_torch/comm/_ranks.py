@@ -164,6 +164,15 @@ class Runtime:
                 self.side = torch.cuda.Stream(grid.device)
             if grid.size > 1:
                 _check_cuda_settings(grid.size, self.streams + [self.side])
+                # PyTorch loads its CUDA linear-algebra library at the first
+                # linalg call, and two threads making that call at once fail
+                # ("lazy wrapper should be called at most once", seen on an
+                # H100 with eight rank threads' first solve_triangular): load
+                # it here, before any rank thread exists
+                with torch.cuda.stream(self.side):
+                    one = torch.ones(1, 1, device=grid.device)
+                    torch.linalg.solve_triangular(one, one, upper=False)
+                self.side.synchronize()
 
     def error_word(self) -> torch.Tensor:
         """The ring kernels' sticky error word (int32 on the card, zero until
@@ -301,17 +310,17 @@ def exchange(axis: str, value: torch.Tensor, sources) -> dict:
     return out
 
 
-def rendezvous(axis: str, label: str) -> None:
-    """Wait until every rank of this rank's ring on ``axis`` has reached the
-    same ring call on the host.  The ring kernels call it before they are
-    launched: rank threads launch asynchronously, and without it a thread
-    could run a whole factorization ahead of a slower one, leaving its ring
-    kernels spinning on the card past their bound for a partner that has
-    not been launched yet.  It bounds the host skew within a ring to one
-    call."""
+def rendezvous(axis: str | None, label: str) -> None:
+    """Wait until every rank of this rank's ring on ``axis`` (of the whole
+    grid when ``axis`` is None) has reached the same ring call on the host.
+    The ring kernels call it before they are launched: rank threads launch
+    asynchronously, and without it a thread could run a whole factorization
+    ahead of a slower one, leaving its ring kernels spinning on the card
+    past their bound for a partner that has not been launched yet.  It
+    bounds the host skew within a ring to one call."""
     ctx = current()
     world, rt = ctx.world, ctx.world.rt
-    _, n, ring = ctx.axis(axis)
+    _, n, ring = ctx.axis(axis) if axis is not None else (0, ctx.pr * ctx.pc, 0)
     counter = ("rendezvous", axis)
     seq = ctx.seq.get(counter, 0)
     ctx.seq[counter] = seq + 1

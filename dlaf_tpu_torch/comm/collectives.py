@@ -162,17 +162,19 @@ def all_gather_axis(x, axis: str):
     return torch.stack([vals[s] for s in range(n)])
 
 
-def _panel_exchange(taken, have, axis: str):
+def _panel_exchange(taken, have, axis: str, kind: str = "exchange"):
     """Shared tail of the ``transpose_panel*`` family: slot ``s`` ends with
     the one contributor's ``taken[s]`` (``have[s]`` set there), or zero
-    where no rank of the axis contributes it."""
+    where no rank of the axis contributes it.  ``kind`` names the ring's
+    collective class under the 'pallas' tier (the fused tier's transport is
+    ``'consume'``)."""
     if axis_size(axis) == 1:
         return torch.where(_expand(have, taken), taken, torch.zeros_like(taken))
     impl = _impl()
     if impl == "pallas":
         from dlaf_tpu_torch.ops import panel_exchange as px
 
-        y, have_all = px.ring_exchange(taken, have, axis)
+        y, have_all = px.ring_exchange(taken, have, axis, kind=kind)
         return torch.where(_expand(have_all, y), y, torch.zeros_like(y))
     if impl == "v2":
         y, have_all = _forward_chain(taken, have, axis)

@@ -1,0 +1,449 @@
+// The ring consumers of the fused trailing-update tier: the consume ring
+// (B6) and the one-launch lookahead Cholesky step (B8).
+//
+// Replaces dlaf_tpu/ops/pallas_trailing_update.py: dma_ring_consume
+// [_dma_ring_consume_kernel, _consume_hops, _apply_update] and fused_step
+// [_fused_step_kernel].
+//
+// B6.  The B5 ring (csrc/ring.cuh) over a row panel [slots][N][K] with
+// the trailing update spliced in, the TPU's consume schedule: after the
+// entry barrier the rank applies its own slots, and after merging hop s
+// out of landing slot s % 2 it applies that hop's fresh slots straight out
+// of the landing slot, and only then acks the slot.  The contraction is
+// 'iab,jcb->ijac', x[i, j] -= cp[i] @ y[j]^T: output columns c of tile
+// (i, j) read rows c of slot j only, so each block updates, for every i,
+// the columns of the rows it carries on the ring (a segment is `sr` rows
+// of one slot, sr the widest of 64, 32, 16, 8 dividing N), and the only
+// dependency between the blocks of a launch is the ring itself.  Each
+// output element takes one slot, so applying slots as they land is the sum
+// the one-shot update computes; slots suppressed by z (the lookahead's
+// narrow column) and slots no rank holds are not applied at all (the TPU's
+// first cut multiplies a masked full panel at every hop; for finite cp the
+// results are the same, where cp holds Inf or NaN the masked product would
+// spread NaN into columns that take no slot).
+//
+// B8.  The whole lookahead body in one launch per rank, spanning both grid
+// axes: (1) the consume ring over 'r' as B6, the narrow column k+1
+// included (on the ranks of column k+1 its slot is the suppressed one, so
+// the bulk and the narrow update together are every slot); (2) the
+// diagonal tile of step k+1 from its owner over 'c', then over 'r' (the
+// bcast_diag_tile order); (3) B1's body on it in block 0; (4) on the ranks
+// of column k+1 the panel solve of that column with B2's body, masked to
+// the tiles below the diagonal, and the ring of the new panel over 'c'
+// (the B7 tail).  The phases hand over through device-scope flags of this
+// rank's launch, as B7 hands over its factor: column k+1 is complete when
+// every block has published the end of its consume phase; block 0 factors
+// once every block has published its part of the landed diagonal tile; the
+// solving blocks wait for the factor's flag.  Each of the four rings has
+// its own landing slots, flags and entry barrier (the TPU kernel's four
+// semaphore sets), so a rank ahead in phase p + 1 never signals into a
+// neighbour still in phase p.
+//
+// Both launch 512 threads per block: the update runs two 64 x 64 output
+// tiles at a time, one per 256-thread group, with B3's tile body
+// (csrc/trailing_update.cuh), reading operands through L2 (landing slots are
+// rewritten by other ranks during the launch).  Each rank takes at most
+// SMs / ranks blocks, as every ring kernel, so all ranks' launches are
+// resident at once.
+//
+// What bounds them on the H100: operations.  At N=16384, nb=512 on a 2x4
+// grid one rank's consume update is 16 x 8 tiles of 2 * 512^3 flops (34
+// GFlop; 275 GFlop over the grid) against 2 x 128 MiB of trailing matrix.
+// No tensor cores yet, and 16 blocks per rank: the first cut is slow.
+
+#include <cuda_runtime.h>
+
+#include <string>
+
+#include "panel_trsm.cuh"
+#include "potrf.cuh"
+#include "ring.cuh"
+#include "trailing_update.cuh"
+
+namespace {
+
+using namespace dlaf_ring;
+
+constexpr int kThreads = 512;
+constexpr int kGroups = kThreads / dlaf_tu::kThreads;  // GEMM tiles in flight per block
+
+// rows of one ring segment of a [slots][n][k] panel: the widest of 64,
+// 32, 16, 8 that divides n, so that no segment crosses a slot (0: none)
+__host__ __device__ inline int segment_rows(int n) {
+  for (int sr = 64; sr >= 8; sr /= 2)
+    if (n % sr == 0) return sr;
+  return 0;
+}
+
+// the consume geometry: x[i, j] (M x N) -= cp[i] (M x K) @ y[j]^T, y[j] N x K
+template <typename T>
+struct Panel {
+  T* x;          // the trailing stack [ltr][ltc][M][N], updated in place
+  const T* cp;   // the column panel [ltr][M][K]
+  int ltr, ltc, M, N, K, sr;
+};
+
+// x[i, j][:, r0 : r0 + sr] -= cp[i] @ src[0 : sr, :]^T for every i: the
+// trailing contribution of rows [r0, r0 + sr) of panel slot j, `src`
+// pointing at row r0 of the slot.  Called by every thread of the block.
+template <typename T>
+__device__ void apply_rows(const Panel<T>& p, const T* src, int j, int r0, T* sm) {
+  const int group = threadIdx.x / dlaf_tu::kThreads, tid = threadIdx.x % dlaf_tu::kThreads;
+  T* gsm = sm + group * dlaf_tu::kSmemElems;
+  const int mtiles = (p.M + dlaf_tu::kBM - 1) / dlaf_tu::kBM;
+  const int ntiles = p.ltr * mtiles;
+  for (int t0 = 0; t0 < ntiles; t0 += kGroups) {
+    const int t = t0 + group;
+    const bool valid = t < ntiles;  // a group without a tile runs the loop on no rows
+    const int i = valid ? t / mtiles : 0;
+    const int m0 = valid ? (t % mtiles) * dlaf_tu::kBM : 0;
+    T acc[dlaf_tu::kTM][dlaf_tu::kTN];
+    dlaf_tu::tile_gemm<T, true, true>(acc, p.cp + (long long)i * p.M * p.K, 0, p.K, src, 0, p.K,
+                                      1, valid ? p.M : 0, p.sr, p.K, m0, 0, tid, gsm);
+    if (valid)
+      dlaf_tu::tile_store<T, true>(p.x + ((long long)i * p.ltc + j) * p.M * p.N + r0, p.N, p.M,
+                                   p.sr, m0, 0, acc, tid);
+  }
+}
+
+// The consume schedule's updates, spliced into ring_hops: this block's
+// segments of the slots this rank holds on entry (out of its own payload
+// y), then after each hop's merge its segments of the fresh slots (out of
+// the landing slot), each only where sh_apply[slot] is set.
+template <typename T>
+struct ConsumeHooks {
+  Panel<T> p;
+  const u32* y;        // this rank's payload
+  const u32* land;     // landing slots [P][2][total] of this ring
+  long long total, seg;
+  int me;
+  const int* sh_have;  // have before the hop's merge
+  const int* sh_hin;   // the hop's incoming have
+  const int* sh_apply;
+  T* sm;
+
+  template <bool kFresh>
+  __device__ void apply(const u32* base) {
+    const long long per_word = sizeof(T) / sizeof(u32);
+    const long long slot_elems = (long long)p.N * p.K;
+    for (long long lo = (long long)blockIdx.x * seg; lo < total; lo += (long long)gridDim.x * seg) {
+      const long long e = lo / per_word;  // first element of the segment
+      const int j = (int)(e / slot_elems);
+      const int r0 = (int)((e % slot_elems) / p.K);
+      const bool take = kFresh ? hop_take(sh_have[j], sh_hin[j]) : sh_have[j] != 0;
+      if (take && sh_apply[j]) apply_rows(p, reinterpret_cast<const T*>(base + lo), j, r0, sm);
+    }
+    __syncthreads();  // the caller may change sh_have next
+  }
+  __device__ void on_entry() { apply<false>(y); }
+  __device__ void after_merge(int, int slot) {
+    apply<true>(land + ((long long)me * 2 + slot) * total);
+  }
+};
+
+// ---------------------------------------------------------------- B6
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+consume_kernel(Ring r, Panel<T> p, const int* __restrict__ h, const int* __restrict__ z,
+               int* __restrict__ oh) {
+  extern __shared__ __align__(16) unsigned char dlaf_smem[];
+  T* sm = reinterpret_cast<T*>(dlaf_smem);
+  int* sh_have = reinterpret_cast<int*>(sm + kGroups * dlaf_tu::kSmemElems);
+  int* sh_hin = sh_have + r.slots;
+  int* sh_apply = sh_hin + r.slots;
+  int* sh_ok = sh_apply + r.slots;
+  for (int i = threadIdx.x; i < r.slots; i += blockDim.x) {
+    sh_have[i] = h[i];
+    sh_apply[i] = z[i] == 0;
+  }
+  copy_segments(r.acc, r.y, r);  // the merged panel starts as this rank's payload
+  __syncthreads();
+  ConsumeHooks<T> hooks{p, r.y, r.land, r.total, r.seg, r.me, sh_have, sh_hin, sh_apply, sm};
+  if (!ring_hops(r, sh_have, sh_hin, sh_ok, hooks)) return;
+  if (blockIdx.x == 0)
+    for (int i = threadIdx.x; i < r.slots; i += blockDim.x) oh[i] = sh_have[i];
+}
+
+// ---------------------------------------------------------------- B8
+
+template <typename T>
+struct Step {
+  Ring rc;    // 1: the consume ring over 'r' (y = the row-panel parts, acc = rp)
+  Ring rdc;   // 2: the diagonal tile over 'c' (acc = od)
+  Ring rdr;   // 2: the diagonal tile over 'r' (acc = od)
+  Ring rs;    // 4: the next panel over 'c' (acc = cp1)
+  Panel<T> p;
+  const int* h;
+  const int* z;
+  int* oh;
+  const int* below;  // [ltr]: tiles of column k+1 strictly below the diagonal
+  T* od;             // the diagonal tile of step k+1 [mb][mb]
+  T* lkk;            // its factor
+  T* cp1;            // the next column panel [ltr][mb][mb]
+  u64* p1done;       // [G] of this rank: the block's consume phase is over
+  u64* ddone;        // [G] of this rank: the block's part of od has landed
+  u64* ready;        // this rank's factor is written
+  u64 epoch;         // this rank's step count << 16
+  int kc1, kr1, l_next, lkr1, lkc1, me_r, me_c, pw;
+  size_t work;       // bytes of the shared work area before the int scratch
+};
+
+// thread 0: wait for every block's flag of this rank's launch
+__device__ bool wait_all(u64* flags, u64 target, const Ring& r) {
+  for (int q = 0; q < (int)gridDim.x; ++q)
+    if (!wait_flag(flags + q, target, r, kErrPhase)) return false;
+  __threadfence();
+  return true;
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads)
+fused_step_kernel(Step<T> a) {
+  extern __shared__ __align__(16) unsigned char dlaf_smem[];
+  T* work = reinterpret_cast<T*>(dlaf_smem);
+  const int ltc = a.p.ltc, mb = a.p.M, b = blockIdx.x, G = gridDim.x, tid = threadIdx.x;
+  int* sh_have = reinterpret_cast<int*>(dlaf_smem + a.work);
+  int* sh_hin = sh_have + ltc;
+  int* sh_apply = sh_hin + ltc;
+  int* sh_ok = sh_apply + ltc;
+  int* sh_h1 = sh_ok + 1;  // have of the one-slot rings
+  int* sh_hin1 = sh_h1 + 1;
+  const bool col1 = a.me_c == a.kc1;          // this rank holds column k+1
+  const bool own = col1 && a.me_r == a.kr1;   // ... and its diagonal tile
+  bool ok = true;
+
+  // -- 1. consume ring over 'r', the narrow column k+1 included
+  for (int i = tid; i < ltc; i += blockDim.x) {
+    sh_have[i] = a.h[i];
+    sh_apply[i] = a.z[i] == 0 || (col1 && i == a.l_next);
+  }
+  copy_segments(a.rc.acc, a.rc.y, a.rc);
+  __syncthreads();
+  ConsumeHooks<T> hooks{a.p, a.rc.y, a.rc.land, a.rc.total, a.rc.seg, a.rc.me,
+                        sh_have, sh_hin, sh_apply, work};
+  if (!ring_hops(a.rc, sh_have, sh_hin, sh_ok, hooks)) return;
+  if (b == 0)
+    for (int i = tid; i < ltc; i += blockDim.x) a.oh[i] = sh_have[i];
+  __syncthreads();
+  if (tid == 0) publish(a.p1done + b, a.epoch);
+
+  // -- 2. the diagonal tile of step k+1 to every rank: 'c' ring, then 'r'
+  // (column k+1 is complete once every block of this rank ended phase 1)
+  if (col1 && tid == 0) ok = wait_all(a.p1done, a.epoch, a.rc);
+  if (!block_ok(ok, sh_ok)) return;
+  const u32* dsrc = reinterpret_cast<const u32*>(
+      a.p.x + ((long long)a.lkr1 * ltc + a.lkc1) * mb * mb);
+  for (long long lo = (long long)b * a.rdc.seg; lo < a.rdc.total; lo += (long long)G * a.rdc.seg) {
+    const long long hi = min(lo + a.rdc.seg, a.rdc.total);
+    for (long long i = lo + tid; i < hi; i += blockDim.x) a.rdc.acc[i] = own ? __ldcg(dsrc + i) : 0u;
+  }
+  if (tid == 0) *sh_h1 = own;
+  __syncthreads();
+  if (!ring_hops(a.rdc, sh_h1, sh_hin1, sh_ok)) return;
+  if (!ring_hops(a.rdr, sh_h1, sh_hin1, sh_ok)) return;
+  if (tid == 0) publish(a.ddone + b, a.epoch);
+
+  // -- 3. B1 in block 0, once every block's part of the tile has landed
+  if (b == 0) {
+    if (tid == 0) ok = wait_all(a.ddone, a.epoch, a.rc);
+    if (!block_ok(ok, sh_ok)) return;
+    dlaf_potrf::factor_tile<T, kThreads>(a.od, a.lkk, mb, a.pw, work);
+    __syncthreads();
+    if (tid == 0) publish(a.ready, a.epoch);
+  }
+
+  // -- 4. column k+1's panel solve (B2's body) on its ranks, masked to the
+  // tiles below the diagonal, then the ring of the new panel over 'c'
+  if (col1) {
+    ok = b == 0 || tid != 0 || wait_flag(a.ready, a.epoch, a.rc, kErrFactor);
+    if (tid == 0) __threadfence();
+    if (!block_ok(ok, sh_ok)) return;
+    const long long strips = (long long)a.p.ltr * mb / R;
+    for (long long st = b; st < strips; st += G) {
+      const int i = (int)(st * R / mb);
+      const long long in_tile = st - (long long)i * (mb / R);
+      T* out = a.cp1 + (long long)i * mb * mb;
+      if (a.below[i]) {
+        const T* xc = a.p.x + ((long long)i * ltc + a.l_next) * mb * mb;
+        dlaf_panel_trsm::solve_strip<T, R, kThreads>(a.lkk, xc, out, mb, mb, in_tile, work);
+      } else {
+        for (long long e = tid; e < (long long)R * mb; e += blockDim.x) out[in_tile * R * mb + e] = T(0);
+      }
+    }
+  }
+  if (tid == 0) *sh_h1 = col1;
+  __syncthreads();
+  ring_hops(a.rs, sh_h1, sh_hin1, sh_ok);
+}
+
+// -------------------------------------------------------------- launchers
+
+template <typename T>
+int launch_consume(const void* y, const void* h, const void* z, void* out, void* oh, void* x,
+                   const void* cp, void* land, void* land_h, void* entry, void* rflag, void* aflag,
+                   void* err, int ltr, int ltc, int M, int N, int K, int G, int P, int me,
+                   u64 epoch, u64 timeout_ns, void* stream) {
+  const int sr = segment_rows(N);
+  if (sr == 0 || ltr <= 0 || ltc <= 0 || M <= 0 || K <= 0 || G <= 0 || P < 1 ||
+      ((long long)sr * K * sizeof(T)) % 16)
+    return (int)cudaErrorInvalidValue;
+  const long long words_per_slot = (long long)N * K * sizeof(T) / 4;
+  const long long total = ltc * words_per_slot;
+  const long long seg = (long long)sr * K * sizeof(T) / 4;
+  Ring r = make_ring(y, out, land, land_h, entry, rflag, aflag, err, total, words_per_slot, ltc,
+                     seg, P, me, epoch, timeout_ns);
+  Panel<T> p{static_cast<T*>(x), static_cast<const T*>(cp), ltr, ltc, M, N, K, sr};
+  const size_t smem = kGroups * dlaf_tu::kSmemElems * sizeof(T) + (3 * (size_t)ltc + 1) * sizeof(int);
+  if (smem > dlaf_potrf::kSmemLimit) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(consume_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  consume_kernel<T><<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      r, p, static_cast<const int*>(h), static_cast<const int*>(z), static_cast<int*>(oh));
+  return (int)cudaGetLastError();
+}
+
+// The fused step's arguments as one int64 array: the head, four rings of
+// DLAF_RING_FIELDS (rc, rdc, rdr, rs: ring q's field f is named ring<q>_f)
+// and the tail.  Each X-macro entry is (index, name); the library exports
+// the names in this order (dlaf_fused_step_fields) and the wrapper in
+// ops/trailing_update.py fills the array by name.
+#define DLAF_STEP_HEAD(X) X(kCount, count) X(kErr, err) X(kTimeout, timeout) X(kG, G)
+#define DLAF_RING_FIELDS(X)                                                             \
+  X(kLand, land) X(kLandH, land_h) X(kEntry, entry) X(kRflag, rflag) X(kAflag, aflag) \
+  X(kP, P) X(kMe, me) X(kRingEpoch, epoch)
+#define DLAF_STEP_TAIL(X)                                                               \
+  X(kX, x) X(kCp, cp) X(kY, y) X(kH, h) X(kZ, z) X(kRp, rp) X(kOh, oh) X(kBelow, below) \
+  X(kOd, od) X(kLkk, lkk) X(kCp1, cp1) X(kP1done, p1done) X(kDdone, ddone)              \
+  X(kReady, ready) X(kEpoch, epoch) X(kLtr, ltr) X(kLtc, ltc) X(kMb, mb) X(kKc1, kc1)    \
+  X(kKr1, kr1) X(kLnext, l_next) X(kLkr1, lkr1) X(kLkc1, lkc1) X(kMeR, me_r) X(kMeC, me_c)
+#define DLAF_ENUM(e, name) e,
+constexpr int kRingCount = 4;
+// one ring: landing slots, their have, entry, recv and ack flags, ring
+// length, position, epoch << 16
+enum : int { DLAF_RING_FIELDS(DLAF_ENUM) kRingLen };
+enum Desc : int {
+  DLAF_STEP_HEAD(DLAF_ENUM)  // kCount: the number of entries, checked
+  kRings,
+  kLastRing = kRings + kRingCount * kRingLen - 1,
+  DLAF_STEP_TAIL(DLAF_ENUM)
+  kDescLen
+};
+#undef DLAF_ENUM
+
+template <typename T>
+Ring ring_of(const long long* d, int which, const void* y, void* acc, long long total, long long w,
+             int slots, long long seg) {
+  const long long* q = d + kRings + which * kRingLen;
+  auto ptr = [](long long v) { return reinterpret_cast<void*>(v); };
+  return make_ring(y, acc, ptr(q[kLand]), ptr(q[kLandH]), ptr(q[kEntry]), ptr(q[kRflag]),
+                   ptr(q[kAflag]), ptr(d[kErr]), total, w, slots, seg, (int)q[kP], (int)q[kMe],
+                   (u64)q[kRingEpoch], (u64)d[kTimeout]);
+}
+
+template <typename T, int R>
+int launch_fused_step(const long long* d, void* stream) {
+  if (d[kCount] != kDescLen) return (int)cudaErrorInvalidValue;
+  auto ptr = [](long long v) { return reinterpret_cast<void*>(v); };
+  const int G = (int)d[kG], ltr = (int)d[kLtr], ltc = (int)d[kLtc], mb = (int)d[kMb];
+  const int pw = dlaf_potrf::panel_width<T>(mb);
+  const int sr = segment_rows(mb);
+  if (G <= 0 || ltr <= 0 || ltc <= 0 || pw == 0 || sr == 0 || mb % dlaf_panel_trsm::kW || mb % R)
+    return (int)cudaErrorInvalidValue;
+  const long long tile_words = (long long)mb * mb * sizeof(T) / 4;
+  Step<T> a;
+  a.rc = ring_of<T>(d, 0, ptr(d[kY]), ptr(d[kRp]), ltc * tile_words, tile_words, ltc,
+                    (long long)sr * mb * sizeof(T) / 4);
+  const long long dseg = (tile_words + 4LL * G - 1) / (4LL * G) * 4;
+  a.rdc = ring_of<T>(d, 1, ptr(d[kOd]), ptr(d[kOd]), tile_words, tile_words, 1, dseg);
+  a.rdr = ring_of<T>(d, 2, ptr(d[kOd]), ptr(d[kOd]), tile_words, tile_words, 1, dseg);
+  a.rs = ring_of<T>(d, 3, ptr(d[kCp1]), ptr(d[kCp1]), ltr * tile_words, ltr * tile_words, 1,
+                    (long long)R * mb * sizeof(T) / 4);
+  a.p = Panel<T>{static_cast<T*>(ptr(d[kX])), static_cast<const T*>(ptr(d[kCp])), ltr, ltc, mb,
+                 mb, mb, sr};
+  a.h = static_cast<const int*>(ptr(d[kH]));
+  a.z = static_cast<const int*>(ptr(d[kZ]));
+  a.oh = static_cast<int*>(ptr(d[kOh]));
+  a.below = static_cast<const int*>(ptr(d[kBelow]));
+  a.od = static_cast<T*>(ptr(d[kOd]));
+  a.lkk = static_cast<T*>(ptr(d[kLkk]));
+  a.cp1 = static_cast<T*>(ptr(d[kCp1]));
+  a.p1done = static_cast<u64*>(ptr(d[kP1done]));
+  a.ddone = static_cast<u64*>(ptr(d[kDdone]));
+  a.ready = static_cast<u64*>(ptr(d[kReady]));
+  a.epoch = (u64)d[kEpoch];
+  a.kc1 = (int)d[kKc1];
+  a.kr1 = (int)d[kKr1];
+  a.l_next = (int)d[kLnext];
+  a.lkr1 = (int)d[kLkr1];
+  a.lkc1 = (int)d[kLkc1];
+  a.me_r = (int)d[kMeR];
+  a.me_c = (int)d[kMeC];
+  a.pw = pw;
+  size_t work = dlaf_potrf::smem_bytes<T>(mb);
+  const size_t trsm = dlaf_panel_trsm::smem_bytes<T, R>(mb);
+  const size_t gemm = kGroups * dlaf_tu::kSmemElems * sizeof(T);
+  if (trsm > work) work = trsm;
+  if (gemm > work) work = gemm;
+  work = (work + 15) / 16 * 16;
+  a.work = work;
+  const size_t smem = work + (3 * (size_t)ltc + 3) * sizeof(int);
+  if (smem > dlaf_potrf::kSmemLimit) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(fused_step_kernel<T, R>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  fused_step_kernel<T, R><<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// B6: this rank's launch of the consume ring over a [ltc][N][K] row panel.
+int dlaf_dma_ring_consume_f32(const void* y, const void* h, const void* z, void* out, void* oh,
+                              void* x, const void* cp, void* land, void* land_h, void* entry,
+                              void* rflag, void* aflag, void* err, int ltr, int ltc, int M, int N,
+                              int K, int G, int P, int me, unsigned long long epoch,
+                              unsigned long long timeout_ns, void* stream) {
+  return launch_consume<float>(y, h, z, out, oh, x, cp, land, land_h, entry, rflag, aflag, err,
+                               ltr, ltc, M, N, K, G, P, me, epoch, timeout_ns, stream);
+}
+
+int dlaf_dma_ring_consume_f64(const void* y, const void* h, const void* z, void* out, void* oh,
+                              void* x, const void* cp, void* land, void* land_h, void* entry,
+                              void* rflag, void* aflag, void* err, int ltr, int ltc, int M, int N,
+                              int K, int G, int P, int me, unsigned long long epoch,
+                              unsigned long long timeout_ns, void* stream) {
+  return launch_consume<double>(y, h, z, out, oh, x, cp, land, land_h, entry, rflag, aflag, err,
+                                ltr, ltc, M, N, K, G, P, me, epoch, timeout_ns, stream);
+}
+
+// B8: the names of the Desc array's entries, in order, comma-separated.
+const char* dlaf_fused_step_fields() {
+  static const std::string names = [] {
+    std::string out;
+#define DLAF_NAME(e, name) out += #name ",";
+#define DLAF_RING_NAME(e, name) out += "ring" + std::to_string(q) + "_" #name ",";
+    DLAF_STEP_HEAD(DLAF_NAME)
+    for (int q = 0; q < kRingCount; ++q) { DLAF_RING_FIELDS(DLAF_RING_NAME) }
+    DLAF_STEP_TAIL(DLAF_NAME)
+#undef DLAF_NAME
+#undef DLAF_RING_NAME
+    out.pop_back();
+    return out;
+  }();
+  return names.c_str();
+}
+
+// B8: this rank's launch of the fused lookahead step (the Desc array above).
+int dlaf_fused_step_f32(const long long* desc, void* stream) {
+  return launch_fused_step<float, 32>(desc, stream);
+}
+
+int dlaf_fused_step_f64(const long long* desc, void* stream) {
+  return launch_fused_step<double, 16>(desc, stream);
+}
+
+}  // extern "C"

@@ -54,6 +54,9 @@
 // ring spread over several cards needs thread_scope_system flags and peer
 // access to the landing slots, nothing else.
 //
+// The protocol's code (the Ring, its waits and ring_hops) is csrc/ring.cuh,
+// which the ring consumers of csrc/consume.cu (B6, B8) share.
+//
 // What bounds them on the H100: bytes.  A hop moves the accumulator into
 // the neighbour's slot and merges it back, so a ring moves about
 // 2 (P - 1) + 2 times the payload per rank through HBM, against the
@@ -62,179 +65,19 @@
 // block bodies (potrf.cuh, panel_trsm.cuh), so its factor and panel carry
 // B1's and B2's bits.
 
-#include <cuda/atomic>
 #include <cuda_runtime.h>
 
 #include "panel_trsm.cuh"
 #include "potrf.cuh"
+#include "ring.cuh"
 
 namespace {
 
-using u32 = unsigned int;
-using u64 = unsigned long long;
-using flag_ref = cuda::atomic_ref<u64, cuda::thread_scope_device>;
-using err_ref = cuda::atomic_ref<int, cuda::thread_scope_device>;
+using namespace dlaf_ring;
 
 constexpr int kMergeThreads = 256;
 constexpr int kRingThreads = 256;
 constexpr int kFusedThreads = 512;
-
-// which wait ran out (the error word's value; -1 is set by the host)
-enum : int { kErrEntry = 1, kErrAck = 2, kErrRecv = 3, kErrFactor = 4 };
-
-__device__ __forceinline__ u64 globaltimer() {
-  u64 t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// The hop merge of one slot: take the incoming word only where this rank
-// has no contribution yet and the sender has one (B4's body; B5 and B7 call
-// it in every hop).
-__device__ __forceinline__ bool hop_take(int have, int have_in) {
-  return have == 0 && have_in != 0;
-}
-
-struct Ring {
-  const u32* y;        // this rank's payload (input), total words
-  u32* acc;            // the accumulator, which is the output
-  u32* land;           // landing slots [P][2][total]
-  int* land_h;         // have of the landing slots [P][2][G][slots]
-  u64* entry;          // [P][G]
-  u64* rflag;          // [P][2][G]
-  u64* aflag;          // [P][2][G]
-  int* err;            // the grid's sticky error word
-  long long total;     // payload words
-  long long w;         // words per have slot (total = slots * w)
-  long long seg;       // words per segment
-  int slots;
-  int P, me;
-  u64 epoch;           // this call's epoch << 16
-  u64 timeout_ns;
-};
-
-// Thread 0: wait until *flag >= target; false when the bound ran out (the
-// error word is then set to `code`) or another block set the error word.
-__device__ bool wait_flag(u64* flag, u64 target, const Ring& r, int code) {
-  flag_ref f(*flag);
-  err_ref e(*r.err);
-  const u64 t0 = globaltimer();
-  while (f.load(cuda::memory_order_acquire) < target) {
-    if (e.load(cuda::memory_order_relaxed) != 0) return false;
-    if (globaltimer() - t0 > r.timeout_ns) {
-      int zero = 0;
-      e.compare_exchange_strong(zero, code, cuda::memory_order_relaxed);
-      return false;
-    }
-    __nanosleep(128);
-  }
-  return true;
-}
-
-__device__ __forceinline__ void publish(u64* flag, u64 value) {
-  __threadfence();
-  flag_ref(*flag).store(value, cuda::memory_order_release);
-}
-
-// Block-uniform result of a wait done by thread 0.
-__device__ bool block_ok(bool ok_thread0, int* sh_ok) {
-  if (threadIdx.x == 0) *sh_ok = ok_thread0;
-  __syncthreads();
-  const bool ok = *sh_ok;
-  __syncthreads();
-  return ok;
-}
-
-// dst[i] = src[i] over this block's segments (16-byte accesses when the
-// segment layout allows them).
-__device__ void copy_segments(u32* __restrict__ dst, const u32* __restrict__ src, const Ring& r) {
-  const bool vec = (r.seg % 4 == 0) && (r.total % 4 == 0);
-  for (long long lo = (long long)blockIdx.x * r.seg; lo < r.total; lo += (long long)gridDim.x * r.seg) {
-    const long long hi = min(lo + r.seg, r.total);
-    if (vec) {
-      const uint4* s4 = reinterpret_cast<const uint4*>(src + lo);
-      uint4* d4 = reinterpret_cast<uint4*>(dst + lo);
-      for (long long i = threadIdx.x; i < (hi - lo) / 4; i += blockDim.x) d4[i] = __ldcg(s4 + i);
-    } else {
-      for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) dst[i] = __ldcg(src + i);
-    }
-  }
-}
-
-// acc[i] = land[i] where hop_take(have[slot(i)], have_in[slot(i)]).
-__device__ void merge_segments(u32* __restrict__ acc, const u32* __restrict__ land,
-                               const int* sh_have, const int* sh_hin, const Ring& r) {
-  const bool vec = (r.seg % 4 == 0) && (r.total % 4 == 0) && (r.w % 4 == 0);
-  for (long long lo = (long long)blockIdx.x * r.seg; lo < r.total; lo += (long long)gridDim.x * r.seg) {
-    const long long hi = min(lo + r.seg, r.total);
-    if (vec) {
-      const uint4* l4 = reinterpret_cast<const uint4*>(land + lo);
-      uint4* a4 = reinterpret_cast<uint4*>(acc + lo);
-      for (long long i = threadIdx.x; i < (hi - lo) / 4; i += blockDim.x) {
-        const long long slot = (lo + 4 * i) / r.w;
-        if (hop_take(sh_have[slot], sh_hin[slot])) a4[i] = __ldcg(l4 + i);
-      }
-    } else {
-      for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-        const long long slot = i / r.w;
-        if (hop_take(sh_have[slot], sh_hin[slot])) acc[i] = __ldcg(land + i);
-      }
-    }
-  }
-}
-
-// The P - 1 hops of one block's ring (the TPU kernel's _ring_hops).
-// sh_have holds this rank's have on entry and the merged have on exit;
-// sh_hin and sh_ok are scratch.  False when a wait failed.
-__device__ bool ring_hops(const Ring& r, int* sh_have, int* sh_hin, int* sh_ok) {
-  const int b = blockIdx.x, G = gridDim.x, tid = threadIdx.x, nt = blockDim.x;
-  const int dst = (r.me + 1) % r.P, src = (r.me + r.P - 1) % r.P;
-  const int nhops = r.P - 1;
-
-  bool ok = true;
-  if (tid == 0) {
-    publish(&r.entry[(long long)r.me * G + b], r.epoch);
-    ok = wait_flag(&r.entry[(long long)dst * G + b], r.epoch, r, kErrEntry) &&
-         wait_flag(&r.entry[(long long)src * G + b], r.epoch, r, kErrEntry);
-  }
-  if (!block_ok(ok, sh_ok)) return false;
-
-  for (int s = 0; s < nhops; ++s) {
-    const int j = s & 1;
-    if (s >= 2) {
-      // the downstream rank has merged my hop s - 2 copy out of slot j
-      ok = tid != 0 || wait_flag(&r.aflag[((long long)dst * 2 + j) * G + b],
-                                 r.epoch | (u64)(s - 1), r, kErrAck);
-      if (!block_ok(ok, sh_ok)) return false;
-    }
-    // send: the accumulator into the downstream rank's slot j
-    copy_segments(r.land + ((long long)dst * 2 + j) * r.total, r.acc, r);
-    int* dh = r.land_h + (((long long)dst * 2 + j) * G + b) * r.slots;
-    for (int i = tid; i < r.slots; i += nt) dh[i] = sh_have[i];
-    __syncthreads();
-    ok = true;
-    if (tid == 0) {
-      publish(&r.rflag[((long long)dst * 2 + j) * G + b], r.epoch | (u64)(s + 1));
-      ok = wait_flag(&r.rflag[((long long)r.me * 2 + j) * G + b], r.epoch | (u64)(s + 1), r,
-                     kErrRecv);
-      __threadfence();
-    }
-    if (!block_ok(ok, sh_ok)) return false;
-    // merge my slot j
-    const int* mh = r.land_h + (((long long)r.me * 2 + j) * G + b) * r.slots;
-    for (int i = tid; i < r.slots; i += nt) sh_hin[i] = __ldcg(mh + i);
-    __syncthreads();
-    merge_segments(r.acc, r.land + ((long long)r.me * 2 + j) * r.total, sh_have, sh_hin, r);
-    __syncthreads();
-    for (int i = tid; i < r.slots; i += nt) sh_have[i] |= sh_hin[i];
-    __syncthreads();
-    if (s + 2 < nhops && tid == 0) {
-      // slot j consumed: the upstream writer may reuse it at hop s + 2
-      publish(&r.aflag[((long long)r.me * 2 + j) * G + b], r.epoch | (u64)(s + 1));
-    }
-  }
-  return true;
-}
 
 // ---------------------------------------------------------------- B4
 
@@ -314,28 +157,6 @@ fused_kernel(Ring r, const T* __restrict__ d, const T* __restrict__ xc,
   ring_hops(r, sh_have, sh_hin, sh_ok);
 }
 
-Ring make_ring(const void* y, void* acc, void* land, void* land_h, void* entry, void* rflag,
-               void* aflag, void* err, long long total, long long w, int slots, long long seg,
-               int P, int me, u64 epoch, u64 timeout_ns) {
-  Ring r;
-  r.y = static_cast<const u32*>(y);
-  r.acc = static_cast<u32*>(acc);
-  r.land = static_cast<u32*>(land);
-  r.land_h = static_cast<int*>(land_h);
-  r.entry = static_cast<u64*>(entry);
-  r.rflag = static_cast<u64*>(rflag);
-  r.aflag = static_cast<u64*>(aflag);
-  r.err = static_cast<int*>(err);
-  r.total = total;
-  r.w = w;
-  r.seg = seg;
-  r.slots = slots;
-  r.P = P;
-  r.me = me;
-  r.epoch = epoch;
-  r.timeout_ns = timeout_ns;
-  return r;
-}
 
 template <typename T, int R>
 int launch_fused(const void* d, const void* xc, const void* below, void* lkk, void* cp, int nb,

@@ -1,5 +1,5 @@
 // Trailing update x[i, j] -= a[i] @ op(b[j]) over a batch of tile pairs,
-// written in place.
+// written in place (B3), and the one-shot panel contraction (B9).
 //
 // Replaces dlaf_tpu/ops/pallas_trailing_update.py (trailing_update /
 // _update_kernel, tier 'default'; the one-rank branch of
@@ -16,21 +16,36 @@
 // The grid is one-dimensional, L*C*ceil(M/64)*ceil(N/64) blocks (65536 at
 // N=16384), so it never meets the 65535 limit of gridDim.y and gridDim.z.
 // Masked zero slots are computed like any other, as the TPU kernel does.
+// The tile body is csrc/trailing_update.cuh, shared with B6, B8 and B9.
+//
+// B9 replaces dlaf_tpu/ops/pallas_trailing_update.py (panel_contract /
+// _contract_kernel): out = contract(subscripts, a, b) for the two TRTRI
+// forms, a sum across panel slots that is written, not subtracted (the
+// caller negates: 0 - x and -x differ at signed zeros):
+//   form 0, 'ijab,jbc->iac': out[i] = sum_j a[i, j] @ b[j]
+//     (a [L, C, M, K], b [C, K, N], out [L, M, N]);
+//   form 1, 'iab,ijbc->jac': out[j] = sum_i a[i] @ b[i, j]
+//     (a [L, M, K], b [L, C, K, N], out [C, M, N]).
+// The same tile body, its slot loop summing over j (or i) in one fixed
+// order, never per hop: the sum crosses slots.  Bound by operations, as B3:
+// at TRTRI's widest step on a 2x4 grid at N=16384 (a [16, 8, 512, 512]) one
+// rank's contraction is 34 GFlop over 0.5 GB.
 
 #include <cuda_runtime.h>
 
+#include "trailing_update.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 64, kBN = 64, kBK = 16;
-constexpr int kTM = 4, kTN = 4;  // 16 x 16 threads, each a 4 x 4 tile
+using dlaf_tu::kBM;
+using dlaf_tu::kBN;
+using dlaf_tu::kThreads;
 
 template <typename T, bool kBIsNK>
 __global__ void __launch_bounds__(kThreads)
 trailing_update_kernel(T* __restrict__ x, const T* __restrict__ a, const T* __restrict__ b,
                        int C, int M, int N, int K) {
-  __shared__ T as[kBK][kBM + 4];  // as[k][m]
-  __shared__ T bs[kBK][kBN + 4];  // bs[k][n]
+  __shared__ __align__(16) T sm[dlaf_tu::kSmemElems];
   const int tiles_n = (N + kBN - 1) / kBN, tiles_m = (M + kBM - 1) / kBM;
   long long bid = blockIdx.x;
   const int tn = (int)(bid % tiles_n);
@@ -40,65 +55,37 @@ trailing_update_kernel(T* __restrict__ x, const T* __restrict__ a, const T* __re
   const int j = (int)(bid % C);
   const long long i = bid / C;
 
-  const T* ai = a + i * M * (long long)K;
-  const T* bj = b + (long long)j * N * K;
-  T* xij = x + (i * C + j) * (long long)M * N;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = tm * kBM, n0 = tn * kBN;
+  T acc[dlaf_tu::kTM][dlaf_tu::kTN];
+  dlaf_tu::tile_gemm<T, kBIsNK, false>(acc, a + i * M * (long long)K, 0, K,
+                                       b + (long long)j * N * K, 0, kBIsNK ? K : N, 1, M, N, K,
+                                       tm * kBM, tn * kBN, threadIdx.x, sm);
+  dlaf_tu::tile_store<T, true>(x + (i * C + j) * (long long)M * N, N, M, N, tm * kBM, tn * kBN,
+                               acc, threadIdx.x);
+}
 
-  T acc[kTM][kTN];
-#pragma unroll
-  for (int u = 0; u < kTM; ++u)
-#pragma unroll
-    for (int v = 0; v < kTN; ++v) acc[u][v] = T(0);
+// B9: one 64 x 64 tile of one output slot per block (see the header).
+template <typename T, int kForm>
+__global__ void __launch_bounds__(kThreads)
+panel_contract_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
+                      int L, int C, int M, int N, int K) {
+  __shared__ __align__(16) T sm[dlaf_tu::kSmemElems];
+  const int tiles_n = (N + kBN - 1) / kBN, tiles_m = (M + kBM - 1) / kBM;
+  long long bid = blockIdx.x;
+  const int tn = (int)(bid % tiles_n);
+  bid /= tiles_n;
+  const int tm = (int)(bid % tiles_m);
+  const long long o = bid / tiles_m;  // the output slot: i (form 0) or j (form 1)
+  const long long mk = (long long)M * K, kn = (long long)K * N;
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-#pragma unroll
-    for (int q = 0; q < kBM * kBK / kThreads; ++q) {
-      const int idx = tid + q * kThreads;
-      const int mm = idx / kBK, kk = idx % kBK;
-      const int gm = m0 + mm, gk = k0 + kk;
-      as[kk][mm] = (gm < M && gk < K) ? ai[(long long)gm * K + gk] : T(0);
-    }
-#pragma unroll
-    for (int q = 0; q < kBN * kBK / kThreads; ++q) {
-      const int idx = tid + q * kThreads;
-      if (kBIsNK) {
-        const int nn = idx / kBK, kk = idx % kBK;
-        const int gn = n0 + nn, gk = k0 + kk;
-        bs[kk][nn] = (gn < N && gk < K) ? bj[(long long)gn * K + gk] : T(0);
-      } else {
-        const int kk = idx / kBN, nn = idx % kBN;
-        const int gn = n0 + nn, gk = k0 + kk;
-        bs[kk][nn] = (gn < N && gk < K) ? bj[(long long)gk * N + gn] : T(0);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      T av[kTM], bv[kTN];
-#pragma unroll
-      for (int u = 0; u < kTM; ++u) av[u] = as[kk][ty + 16 * u];
-#pragma unroll
-      for (int v = 0; v < kTN; ++v) bv[v] = bs[kk][tx + 16 * v];
-#pragma unroll
-      for (int u = 0; u < kTM; ++u)
-#pragma unroll
-        for (int v = 0; v < kTN; ++v) acc[u][v] += av[u] * bv[v];
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int u = 0; u < kTM; ++u) {
-    const int gm = m0 + ty + 16 * u;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int v = 0; v < kTN; ++v) {
-      const int gn = n0 + tx + 16 * v;
-      if (gn < N) xij[(long long)gm * N + gn] -= acc[u][v];
-    }
-  }
+  T acc[dlaf_tu::kTM][dlaf_tu::kTN];
+  if (kForm == 0)  // sum over j of a[i, j] @ b[j]
+    dlaf_tu::tile_gemm<T, false, false>(acc, a + o * C * mk, mk, K, b, kn, N, C, M, N, K,
+                                        tm * kBM, tn * kBN, threadIdx.x, sm);
+  else  // sum over i of a[i] @ b[i, j]
+    dlaf_tu::tile_gemm<T, false, false>(acc, a, mk, K, b + o * kn, C * kn, N, L, M, N, K,
+                                        tm * kBM, tn * kBN, threadIdx.x, sm);
+  dlaf_tu::tile_store<T, false>(out + o * M * (long long)N, N, M, N, tm * kBM, tn * kBN, acc,
+                                threadIdx.x);
 }
 
 template <typename T>
@@ -118,6 +105,24 @@ int launch_trailing_update(void* x, const void* a, const void* b, int L, int C, 
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_panel_contract(const void* a, const void* b, void* out, int form, int L, int C, int M,
+                          int N, int K, void* stream) {
+  if (L <= 0 || C <= 0 || M <= 0 || N <= 0) return 0;
+  if (form != 0 && form != 1) return (int)cudaErrorInvalidValue;
+  const long long blocks =
+      (long long)(form == 0 ? L : C) * ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (form == 0)
+    panel_contract_kernel<T, 0><<<(unsigned)blocks, kThreads, 0, s>>>(
+        static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(out), L, C, M, N, K);
+  else
+    panel_contract_kernel<T, 1><<<(unsigned)blocks, kThreads, 0, s>>>(
+        static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(out), L, C, M, N, K);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -130,6 +135,17 @@ int dlaf_trailing_update_f32(void* x, const void* a, const void* b, int L, int C
 int dlaf_trailing_update_f64(void* x, const void* a, const void* b, int L, int C, int M, int N,
                              int K, int b_is_nk, void* stream) {
   return launch_trailing_update<double>(x, a, b, L, C, M, N, K, b_is_nk, stream);
+}
+
+// B9: form 0 'ijab,jbc->iac', form 1 'iab,ijbc->jac'
+int dlaf_panel_contract_f32(const void* a, const void* b, void* out, int form, int L, int C, int M,
+                            int N, int K, void* stream) {
+  return launch_panel_contract<float>(a, b, out, form, L, C, M, N, K, stream);
+}
+
+int dlaf_panel_contract_f64(const void* a, const void* b, void* out, int form, int L, int C, int M,
+                            int N, int K, void* stream) {
+  return launch_panel_contract<double>(a, b, out, form, L, C, M, N, K, stream);
 }
 
 }  // extern "C"

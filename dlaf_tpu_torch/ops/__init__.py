@@ -15,6 +15,9 @@ KERNELS = {
     "merge_hop": (panel_exchange, "merge_launches"),
     "ring_exchange": (panel_exchange, "ring_launches"),
     "fused_factor_bcast": (panel_exchange, "fused_launches"),
+    "dma_ring_consume": (trailing_update, "consume_launches"),
+    "fused_step": (trailing_update, "step_launches"),
+    "panel_contract": (trailing_update, "contract_launches"),
 }
 
 

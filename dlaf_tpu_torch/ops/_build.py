@@ -45,6 +45,16 @@ SIGNATURES = {
     # (x, a, b, L, C, M, N, K, b_is_nk, stream)
     "dlaf_trailing_update_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dlaf_trailing_update_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (a, b, out, form, L, C, M, N, K, stream)
+    "dlaf_panel_contract_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dlaf_panel_contract_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (y, h, z, out, oh, x, cp, land, land_h, entry, rflag, aflag, err, ltr, ltc, M, N, K,
+    #  G, P, me, epoch, timeout_ns, stream)
+    "dlaf_dma_ring_consume_f32": [_P] * 13 + [_I] * 8 + [_ULL, _ULL, _P],
+    "dlaf_dma_ring_consume_f64": [_P] * 13 + [_I] * 8 + [_ULL, _ULL, _P],
+    # (the int64 argument array named by dlaf_fused_step_fields, stream)
+    "dlaf_fused_step_f32": [_P, _P],
+    "dlaf_fused_step_f64": [_P, _P],
     # (dw, z2, rho, anchor, lo0, hi0, out, K, S, iters, stream)
     "dlaf_secular_bisect_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (y, y_in, h, h_in, oy, oh, total, w, slots, stream)
@@ -147,6 +157,8 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             handle.dlaf_error_string.argtypes = [ctypes.c_int]
             handle.dlaf_error_string.restype = ctypes.c_char_p
+            handle.dlaf_fused_step_fields.argtypes = []
+            handle.dlaf_fused_step_fields.restype = ctypes.c_char_p
             _lib = handle
     return _lib
 

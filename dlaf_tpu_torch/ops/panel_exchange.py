@@ -104,7 +104,8 @@ def describe_error(code: int) -> str:
         1: "ring kernel: entry barrier (a neighbour's launch never came)",
         2: "ring kernel: capacity ack of a landing slot",
         3: "ring kernel: recv flag of a landing slot",
-        4: "fused factor-and-send kernel: the diagonal factor",
+        4: "fused kernel: the diagonal factor",
+        5: "fused step kernel: a phase flag of its own launch",
     }.get(code, f"ring kernel error {code}")
 
 

@@ -1,53 +1,95 @@
-"""Trailing update ``x - contract(subscripts, a, b)``: the hand-written CUDA
-kernel ``csrc/trailing_update.cu`` and its plain PyTorch version.
+"""The trailing-update kernels of the 'fused' tier and their plain PyTorch
+versions: ``csrc/trailing_update.cu`` (B3, B9) and ``csrc/consume.cu`` (B6,
+B8), with the tile body they share in ``csrc/trailing_update.cuh``.
 
-Replaces ``dlaf_tpu/ops/pallas_trailing_update.py`` (``trailing_update`` /
-``_update_kernel``, and the one-rank branch of ``fused_transpose_update``),
-tier 'default' only: the in-kernel bf16x3/bf16x6 split of the TPU kernel
-waits in ROADMAP with ``gemm_precision``.  Two contractions, as the slice
-uses them:
+Replaces ``dlaf_tpu/ops/pallas_trailing_update.py``, tier 'default' only
+(the in-kernel bf16x3/bf16x6 split waits in ROADMAP with ``gemm_precision``):
 
-* ``iab,jcb->ijac``: ``x[i, j] -= a[i] @ b[j]^T`` (a [L, M, K], b [C, N, K]),
-  the lookahead Cholesky bulk update;
-* ``iab,jbc->ijac``: ``x[i, j] -= a[i] @ b[j]`` (b [C, K, N]), the lookahead
-  triangular-solve bulk update.
+* B3, :func:`trailing_update` (``trailing_update`` / ``_update_kernel``):
+  ``x - contract(subscripts, a, b)`` written into ``x``, in two forms,
+  ``iab,jcb->ijac`` (``x[i, j] -= a[i] @ b[j]^T``, the lookahead Cholesky
+  bulk update and red2band's, there at K = band) and ``iab,jbc->ijac``
+  (``x[i, j] -= a[i] @ b[j]``, the lookahead triangular solve's);
+* B6, :func:`dma_ring_consume` (``dma_ring_consume`` /
+  ``_dma_ring_consume_kernel``, ``_consume_hops``): the ring exchange of a
+  row panel with each slot's trailing contribution applied as the slot
+  lands, before its landing slot is acked (:func:`consume_schedule`);
+* B8, :func:`fused_step` (``fused_step`` / ``_fused_step_kernel``): the
+  whole lookahead Cholesky body of one step in one launch per rank;
+* B9, :func:`panel_contract` (``panel_contract`` / ``_contract_kernel``):
+  the one-shot contraction of the TRTRI column and row updates, whose sum
+  crosses slots and so is not applied per hop.
 
-* the same ``iab,jcb->ijac`` form at K = band (128 at nb=512) twice per
-  panel of ``reduction_to_band`` under the fused tier, on a contiguous copy
-  of the trailing window.
+:func:`fused_transpose_update` routes the fused tier's exchange-and-consume
+as the JAX package does: B6 for a CUDA tensor of a real dtype on an axis
+longer than 1, otherwise the transport (:func:`consume_exchange`) plus one
+update, B3 on the card and its plain version on the CPU, so that the CPU's
+'fused' tier gives the 'xla' tier's bits.
 
-Both write into ``x`` in place (the JAX kernel returns a new array): on the
-1x1 lookahead path ``x`` is the whole local tile stack, 1 GiB at N=16384 f32,
-and a second copy buys nothing.
-
-On the H100 the update at N=16384, nb=512 is 275 GFlop over 2.2 GB, so it is
-bound by operations.  The kernel is a shared-memory-tiled FMA GEMM over the
-tile batch: each 256-thread block computes one 64 x 64 output tile of one
-(i, j) pair, 16-deep k slices staged in shared memory, a 4 x 4 register
-tile per thread.  Its grid is one-dimensional (L*C*ceil(M/64)*ceil(N/64)
-blocks, 65536 at N=16384) so it never meets the 65535 limit of ``gridDim.y``
-and ``gridDim.z``.  It computes the masked zero slots too, as the TPU kernel
-does.  No tensor cores yet: ``wgmma`` and TMA are later work.  See
-``PERF.md`` for its measured time.
+The updates write into ``x`` in place (the JAX kernels return new arrays):
+``x`` is the whole local tile stack, 1 GiB at N=16384 f32, and a second
+copy buys nothing.  On CPU tensors every wrapper runs its plain version;
+on CUDA tensors it launches its kernel or raises.  Every kernel here is
+bound by operations on the H100: at N=16384, nb=512 the Cholesky update is
+275 GFlop over 2.2 GB.  The kernels are plain shared-memory-tiled FMA GEMMs
+(64 x 64 output tiles, 16-deep k slices), no tensor cores yet; see
+``PERF.md`` for their measured times.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from dlaf_tpu_torch.comm import _ranks
+from dlaf_tpu_torch.comm import collectives as coll
 from dlaf_tpu_torch.ops import _build
+from dlaf_tpu_torch.ops import panel_exchange as _px
+from dlaf_tpu_torch.ops import panel_trsm as _ptrsm
 
-#: launches of the CUDA kernel since the last reset
+#: launches since the last reset (one per rank and call; the plain versions
+#: count nothing): B3, B6, B8, B9
 launches = 0
+consume_launches = 0
+step_launches = 0
+contract_launches = 0
 
 CHOLESKY_SUBSCRIPTS = "iab,jcb->ijac"
 TRSM_SUBSCRIPTS = "iab,jbc->ijac"
 _B_IS_NK = {CHOLESKY_SUBSCRIPTS: True, TRSM_SUBSCRIPTS: False}
+#: the TRTRI column update and its upper mirror (B9's two forms)
+TRTRI_LOWER_SUBSCRIPTS = "ijab,jbc->iac"
+TRTRI_UPPER_SUBSCRIPTS = "iab,ijbc->jac"
+_CONTRACT_FORM = {TRTRI_LOWER_SUBSCRIPTS: 0, TRTRI_UPPER_SUBSCRIPTS: 1}
 
 
 def update_kernel_ok(dtype) -> bool:
-    """Whether the kernel takes this dtype (real only; complex payloads go
+    """Whether the kernels take this dtype (real only; complex payloads go
     to ``x - contract(...)``, as on the JAX package's compiled TPU path)."""
     return dtype in (torch.float32, torch.float64)
+
+
+def _expand(mask, t):
+    return mask.reshape(mask.shape + (1,) * (t.dim() - mask.dim()))
+
+
+def _check_cuda(what: str, *tensors) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{what}: operands on {[str(t.device) for t in tensors]}; need one "
+                         f"CUDA device (CPU tensors take the plain version)")
+    if not update_kernel_ok(tensors[0].dtype) or any(t.dtype != tensors[0].dtype for t in tensors):
+        raise TypeError(f"{what}: dtypes {[t.dtype for t in tensors]}; need one real dtype")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: operands must be contiguous")
+
+
+def _count(name: str) -> None:
+    with _build.COUNT_LOCK:  # rank threads launch concurrently
+        globals()[name] += 1
+
+
+# ------------------------------------------------------------------------ B3
 
 
 def trailing_update_plain(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS):
@@ -57,17 +99,13 @@ def trailing_update_plain(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS):
 
 def trailing_update(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS):
     """``x - contract(subscripts, a, b)`` written into ``x``; returns ``x``.
-    CPU tensors take :func:`trailing_update_plain`; CUDA tensors launch the
-    kernel or raise."""
-    global launches
+    CPU tensors take :func:`trailing_update_plain`; CUDA tensors launch B3
+    or raise."""
     if subscripts not in _B_IS_NK:
         raise ValueError(f"trailing_update: subscripts {subscripts!r} not in {tuple(_B_IS_NK)}")
     if all(t.device.type == "cpu" for t in (x, a, b)):
         return trailing_update_plain(x, a, b, subscripts)
-    if x.device.type != "cuda" or a.device != x.device or b.device != x.device:
-        raise ValueError(f"trailing_update: operands on {x.device}, {a.device}, {b.device}")
-    if not update_kernel_ok(x.dtype) or a.dtype != x.dtype or b.dtype != x.dtype:
-        raise TypeError(f"trailing_update: dtypes {x.dtype}, {a.dtype}, {b.dtype}; need one real dtype")
+    _check_cuda("trailing_update", x, a, b)
     b_is_nk = _B_IS_NK[subscripts]
     if x.dim() != 4 or a.dim() != 3 or b.dim() != 3:
         raise ValueError("trailing_update: need x [L, C, M, N], a [L, M, K], b 3-D")
@@ -79,8 +117,6 @@ def trailing_update(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS):
             f"trailing_update[{subscripts}]: x {tuple(x.shape)}, a {tuple(a.shape)}, "
             f"b {tuple(b.shape)} (b must be {want_b})"
         )
-    if not (x.is_contiguous() and a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("trailing_update: operands must be contiguous")
     if x.numel() == 0:
         return x
     lib = _build.lib()
@@ -88,30 +124,392 @@ def trailing_update(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS):
     rc = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), L, C, M, N, K, int(b_is_nk),
             _build.stream_of(x))
     _build.check(rc, "trailing_update")
-    with _build.COUNT_LOCK:  # rank threads launch concurrently
-        launches += 1
+    _count("launches")
     return x
 
 
-def fused_transpose_update(x, cp, taken, have, suppress):
-    """The fused tier's exchange-and-consume of one panel
-    (``dlaf_tpu/ops/pallas_trailing_update.py:425``), one-rank branch:
-    ``(taken, have)`` are the ``_parts`` of a ``transpose_panel*`` call, and
-    on a size-1 axis the exchange moves nothing, so the row panel is
-    ``rp = where(have, taken, 0)``.  ``suppress`` masks the slots whose
-    update the caller applies elsewhere.  Applies
-    ``x -= contract('iab,jcb->ijac', cp, rp_bulk.conj())`` through
-    :func:`trailing_update` (the kernel on the card) and returns
-    ``(x, rp)``; ``x`` is updated in place."""
-    def expand(mask, t):
-        return mask.reshape(mask.shape + (1,) * (t.dim() - mask.dim()))
+# ------------------------------------------------------------ the protocol
 
-    zero = torch.zeros((), dtype=taken.dtype, device=taken.device)
-    rp = torch.where(expand(have, taken), taken, zero)
-    rp_bulk = torch.where(expand(suppress, rp), zero, rp)
+
+def consume_schedule(nhops: int) -> list:
+    """The per-hop event order of the consume ring, as data (the JAX
+    package's ``consume_schedule``): ``(event, hop, slot)`` triples, event
+    one of ``cap_wait | dma_start | recv_wait | send_wait | update |
+    cap_signal``.  The update of hop ``s`` precedes the ``cap_signal`` that
+    lets the upstream writer reuse the landing slot at hop ``s + 2``.  The
+    plain twin of B6 runs its hop loop from this list; the kernel follows
+    the same order (``csrc/ring.cuh``, ``csrc/consume.cu``)."""
+    events = []
+    for s in range(nhops):
+        slot = s % 2
+        if s >= 2:
+            events.append(("cap_wait", s, slot))
+        events.append(("dma_start", s, slot))
+        events.append(("recv_wait", s, slot))
+        events.append(("send_wait", s, slot))
+        events.append(("update", s, slot))
+        if s + 2 < nhops:
+            events.append(("cap_signal", s, slot))
+    return events
+
+
+def consume_exchange(taken, have, axis: str):
+    """The consume ring's transport alone: the one-contributor exchange of
+    ``(taken, have)`` along ``axis``, zero where no rank contributes
+    (``consume_exchange``, :238).  It is ``coll._panel_exchange`` under the
+    active tier, with the ring of the 'pallas' tier in its own class
+    (``kind='consume'``); callers whose contraction sums across slots
+    (TRTRI) pair it with :func:`panel_contract`."""
+    return coll._panel_exchange(taken, have, axis, kind="consume")
+
+
+# ------------------------------------------------------------------------ B6
+
+
+def dma_ring_consume_plain(x, yf, h, cp, z, axis: str, *, events: list | None = None):
+    """B6's twin: the ring protocol of B5's twin (CPU landing slots, recv
+    and ack counters, every wait bounded) run from :func:`consume_schedule`,
+    with the update spliced in.  After the entry barrier the rank applies
+    its own slots (``h`` set, ``z`` clear), and at each hop's ``update``
+    event it merges the landing slot (B4's twin) and applies the slots that
+    were fresh in it, straight out of the landing slot, before the
+    ``cap_signal`` acks it.  Each application is the masked full-panel
+    contraction of the TPU kernel (slots not applied are exact zeros), so
+    summed over the hops it is the one-shot update's arithmetic.  ``x`` is
+    updated in place; returns ``(x, yf', h')``, the merged panel and have
+    unmasked.  ``events``, when given, receives the schedule's events in
+    the order they ran."""
+    ctx = _ranks.current()
+    slots = yf.shape[0]
+    apply_ok = z.reshape(slots) == 0
+    zero = torch.zeros((), dtype=yf.dtype)
+
+    def apply(y, mask):
+        x.sub_(torch.einsum(CHOLESKY_SUBSCRIPTS, cp, torch.where(_expand(mask, y), y, zero)))
+
+    pos, n, ring = ctx.axis(axis)
+    if n == 1:  # no ring: the local contribution is the whole update
+        apply(yf, (h.reshape(slots) != 0) & apply_ok)
+        return x, yf.clone(), h.clone()
+    world, rt = ctx.world, ctx.world.rt
+    yw = yf.reshape(slots, -1)
+    st = rt.ring((_px.collective_id_for("consume", axis), ring, tuple(yw.shape), yw.dtype,
+                  "host-consume"), lambda: _px._HostRing(rt, n, yw, h))
+    st.epoch[pos] += 1
+    e = st.epoch[pos] << 16
+    dst = (pos + 1) % n
+    label = f"consume ring on {axis!r}"
+    acc_y, acc_h = yw.clone(), h.clone()
+    _px._skew(ctx)
+    with rt.lock:
+        st.entry[pos] = e
+        st.cond.notify_all()
+        world.wait(st.cond, lambda: st.entry[dst] >= e and st.entry[(pos - 1) % n] >= e,
+                   f"{label}: entry barrier")
+    apply(yf, (h.reshape(slots) != 0) & apply_ok)
+    for event, s, j in consume_schedule(n - 1):
+        if event == "cap_wait":
+            with rt.lock:
+                world.wait(st.cond, lambda j=j, s=s: st.ack[dst][j] >= e | (s - 1),
+                           f"{label}: ack of slot {j}")
+        elif event == "dma_start":
+            st.land_y[dst][j].copy_(acc_y)
+            st.land_h[dst][j].copy_(acc_h)
+            with rt.lock:
+                st.recv[dst][j] = e | (s + 1)
+                st.cond.notify_all()
+        elif event == "recv_wait":
+            with rt.lock:
+                world.wait(st.cond, lambda j=j, s=s: st.recv[pos][j] >= e | (s + 1),
+                           f"{label}: recv of slot {j}")
+        elif event == "update":  # send_wait: the copy above is complete already
+            land_y, land_h = st.land_y[pos][j], st.land_h[pos][j]
+            fresh = ((acc_h == 0) & (land_h != 0)).reshape(slots)
+            acc_y, acc_h = _px.merge_hop(acc_y, land_y, acc_h, land_h)
+            apply(land_y.reshape(yf.shape), fresh & apply_ok)
+        elif event == "cap_signal":
+            with rt.lock:
+                st.ack[pos][j] = e | (s + 1)
+                st.cond.notify_all()
+        if events is not None:
+            events.append((event, s, j))
+    return x, acc_y.reshape(yf.shape), acc_h
+
+
+def dma_ring_consume(x, yf, h, cp, z, axis: str):
+    """The consume ring inside a rank of ``spmd``: exchange the
+    one-contributor row panel ``(yf[slots, N, K], h[slots, 1])`` along
+    ``axis`` and apply each slot's contribution ``x[:, j] -= cp @ slot^T``
+    (``iab,jcb->ijac``) as the slot lands; ``z[slots, 1]`` suppresses slots
+    whose update the caller applies elsewhere (the lookahead's narrow
+    column).  ``x [ltr, slots, M, N]`` is updated in place; returns ``(x,
+    yf', h')`` with the merged panel and have unmasked, as the JAX kernel
+    does.  CPU tensors take :func:`dma_ring_consume_plain`; CUDA tensors
+    launch B6 (real dtypes, on an axis longer than 1) or raise."""
+    if all(t.device.type == "cpu" for t in (x, yf, h, cp, z)):
+        return dma_ring_consume_plain(x, yf, h, cp, z, axis)
+    _check_cuda("dma_ring_consume", x, yf, cp)
+    ctx = _ranks.current()
+    pos, n, ring = ctx.axis(axis)
+    if ctx.world is None or n == 1:
+        raise ValueError("dma_ring_consume: needs a rank of spmd on an axis longer than 1 "
+                         "(fused_transpose_update takes the one-shot update otherwise)")
+    if x.dim() != 4 or yf.dim() != 3 or cp.dim() != 3:
+        raise ValueError("dma_ring_consume: need x [ltr, slots, M, N], yf [slots, N, K], cp [ltr, M, K]")
+    ltr, slots, M, N = x.shape
+    K = yf.shape[2]
+    if tuple(yf.shape) != (slots, N, K) or tuple(cp.shape) != (ltr, M, K):
+        raise ValueError(f"dma_ring_consume: x {tuple(x.shape)}, yf {tuple(yf.shape)}, "
+                         f"cp {tuple(cp.shape)}")
+    for name, m in (("h", h), ("z", z)):
+        if m.dtype != torch.int32 or tuple(m.shape) != (slots, 1) or m.device != x.device:
+            raise ValueError(f"dma_ring_consume: {name} must be int32 ({slots}, 1) on {x.device}")
+    if N % 8 or K % 8:
+        raise ValueError(f"dma_ring_consume: slots of {N} x {K}; need multiples of 8")
+    rt = ctx.world.rt
+    G = _px._max_blocks(rt)
+    total = yf.numel() * yf.element_size() // 4
+    st = rt.ring((_px.collective_id_for("consume", axis), ring, total, slots, "card-consume"),
+                 lambda: _px._DeviceRing(rt, n, total, slots, G))
+    st.epoch[pos] += 1
+    out, oh = torch.empty_like(yf), torch.empty_like(h)
+    hc, zc = h.contiguous(), z.contiguous()
+    _px._before_launch(ctx, axis, "consume")
+    lib = _build.lib()
+    fn = lib.dlaf_dma_ring_consume_f32 if x.dtype == torch.float32 \
+        else lib.dlaf_dma_ring_consume_f64
+    rc = fn(yf.data_ptr(), hc.data_ptr(), zc.data_ptr(), out.data_ptr(), oh.data_ptr(),
+            x.data_ptr(), cp.data_ptr(), st.land.data_ptr(), st.land_h.data_ptr(), st.entry,
+            st.rflag, st.aflag, rt.error_word().data_ptr(), ltr, slots, M, N, K, st.blocks, n,
+            pos, st.epoch[pos] << 16, int(_px.RING_TIMEOUT_S * 1e9), _build.stream_of(x))
+    _build.check(rc, "dma_ring_consume")
+    ctx.world.ring_launched = True
+    _count("consume_launches")
+    return x, out, oh
+
+
+def fused_transpose_update(x, cp, taken, have, suppress, axis: str = "r"):
+    """The fused tier's exchange-and-consume of one panel step
+    (``fused_transpose_update``, :425).  ``(taken, have)`` are the
+    ``_parts`` of a ``transpose_panel*`` call of the column panel ``cp``;
+    ``suppress`` masks the slots whose update the caller applies narrowly.
+    Applies ``x -= contract('iab,jcb->ijac', cp, rp_bulk.conj())`` in place
+    and returns ``(x, rp)``, ``rp`` the exchanged row panel (zero where no
+    rank contributes), as ``transpose_panel`` gives it.
+
+    A CUDA tensor of a real dtype on an axis longer than 1 goes to B6
+    (:func:`dma_ring_consume`); everything else to :func:`consume_exchange`
+    and one update, B3 on the card and its plain version on the CPU (the
+    JAX package's path off the TPU)."""
+    _, n, _ = _ranks.current().axis(axis)
+    real = update_kernel_ok(x.dtype)
+    if x.device.type == "cuda" and n > 1 and real:
+        slots = taken.shape[0]
+        h = have.to(torch.int32).reshape(slots, 1)
+        z = suppress.to(torch.int32).reshape(slots, 1)
+        x, y, hh = dma_ring_consume(x, taken.contiguous(), h, cp.contiguous(), z, axis)
+        return x, torch.where(_expand(hh.reshape(slots) != 0, y), y, torch.zeros((), dtype=y.dtype,
+                                                                                   device=y.device))
+    rp = consume_exchange(taken, have, axis)
+    zero = torch.zeros((), dtype=rp.dtype, device=rp.device)
+    rp_bulk = torch.where(_expand(suppress.reshape(suppress.shape[:1]), rp), zero, rp)
     b = rp_bulk.conj().contiguous()
-    if update_kernel_ok(x.dtype):
+    if real:
         trailing_update(x, cp.contiguous(), b, CHOLESKY_SUBSCRIPTS)
     else:
         x.sub_(torch.einsum(CHOLESKY_SUBSCRIPTS, cp, b))
     return x, rp
+
+
+# ------------------------------------------------------------------------ B8
+
+
+def fused_step_supported(x, cp) -> bool:
+    """The JAX package's gate of the one-launch lookahead step
+    (``fused_step_supported``, :477), kept as it is so that the same inputs
+    take the same route: a real floating dtype, square tiles, a side that
+    is a multiple of 128 and at most ``panel_trsm.MAX_NB``."""
+    mb = x.shape[-1]
+    return (
+        x.dtype.is_floating_point
+        and not x.dtype.is_complex
+        and x.dim() == 4
+        and x.shape[-2] == mb
+        and cp.dim() == 3
+        and tuple(cp.shape[-2:]) == (mb, mb)
+        and mb % 128 == 0
+        and mb <= _ptrsm.MAX_NB
+    )
+
+
+def fused_step_plain(x, taken, have, suppress, cp, below1, params):
+    """B8's twin, the composition the JAX kernel's docstring lists: B6's
+    twin over 'r', the narrow update of column k+1, the diagonal tile of
+    step k+1 over 'c' then 'r' (the ring twin), and B7's twin (B1's and B2's
+    plain versions, the mask to ``below1`` on the root column, the ring over
+    'c').  ``x`` is updated in place; returns ``(x, rp, lkk1, cp1, d1)``."""
+    kc1, kr1, l_next, lkr1, lkc1 = (int(v) for v in params[:5])
+    ctx = _ranks.current()
+    ltc = x.shape[1]
+    h = have.to(torch.int32).reshape(ltc, 1)
+    z = suppress.to(torch.int32).reshape(ltc, 1)
+    x, y, hh = dma_ring_consume_plain(x, taken, h, cp, z, "r")
+    zero = torch.zeros((), dtype=y.dtype)
+    rp = torch.where(_expand(hh.reshape(ltc) != 0, y), y, zero)
+    if ctx.myc == kc1:
+        xc1 = x[:, l_next]
+        xc1 -= torch.einsum("iab,cb->iac", cp, rp[l_next])
+    own = ctx.myr == kr1 and ctx.myc == kc1
+    d = x[lkr1, lkc1].clone() if own else torch.zeros_like(x[0, 0])
+    d1, h1 = _px.ring_exchange(d, own, "c", kind="fused_step_diag")
+    d1, _ = _px.ring_exchange(d1, h1, "r", kind="fused_step_diag")
+    lkk1, cp1 = _px.fused_factor_bcast_plain(d1, x[:, l_next], below1, kc1, "c")
+    return x, rp, lkk1, cp1, d1
+
+
+class _StepFlags:
+    """The fused step's flags between the blocks of one rank's launch:
+    per rank [G] consume-done, [G] diagonal-tile-landed and the factor's
+    ready flag, 64-bit, never reset (valued ``epoch << 16``)."""
+
+    def __init__(self, rt, blocks: int):
+        self.blocks = blocks
+        self.epoch = [0] * rt.size
+        self.words = 2 * blocks + 1
+        self.flags = rt.zeros(rt.size * self.words, torch.int64)
+
+    def of(self, rank: int):
+        base = self.flags.data_ptr() + 8 * rank * self.words
+        return base, base + 8 * self.blocks, base + 16 * self.blocks
+
+
+def fused_step(x, taken, have, suppress, cp, below1, params):
+    """One lookahead Cholesky step in one launch per rank (B8), inside a
+    rank of ``spmd``: the consume of row panel ``(taken, have)`` of the
+    column panel ``cp`` into ``x`` (column k+1's narrow update included),
+    the diagonal tile of step k+1 to every rank, its factor, and on column
+    k+1's ranks the panel solve masked by ``below1`` and the ring of the new
+    panel over 'c'.  ``suppress`` is the narrow column's slot mask,
+    ``params`` the ints ``(kc1, kr1, l_next, lkr1, lkc1)`` of step k+1.
+    ``x`` is updated in place; returns ``(x, rp, lkk1, cp1, d1)``, ``d1``
+    the broadcast diagonal tile for the owner's pivot scan.  CPU tensors
+    take :func:`fused_step_plain`; CUDA tensors launch B8 or raise."""
+    if x.device.type == "cpu":
+        return fused_step_plain(x, taken, have, suppress, cp, below1, params)
+    _check_cuda("fused_step", x, taken, cp)
+    if not fused_step_supported(x, cp):
+        raise ValueError(f"fused_step: x {tuple(x.shape)} {x.dtype}, cp {tuple(cp.shape)} fail "
+                         "fused_step_supported")
+    ctx = _ranks.current()
+    if ctx.world is None:
+        raise ValueError("fused_step: runs inside a rank of spmd on a grid larger than 1x1")
+    ltr, ltc, mb = x.shape[0], x.shape[1], x.shape[-1]
+    if tuple(taken.shape) != (ltc, mb, mb) or tuple(cp.shape) != (ltr, mb, mb):
+        raise ValueError(f"fused_step: x {tuple(x.shape)}, taken {tuple(taken.shape)}, "
+                         f"cp {tuple(cp.shape)}")
+    kc1, kr1, l_next, lkr1, lkc1 = (int(v) for v in params[:5])
+    rt = ctx.world.rt
+    G = _px._max_blocks(rt)
+    tile = mb * mb * x.element_size() // 4
+    rings = []
+    for kind, axis, total, slots in (("fused_step", "r", ltc * tile, ltc),
+                                     ("fused_step_diag", "c", tile, 1),
+                                     ("fused_step_diag", "r", tile, 1),
+                                     ("fused_step", "c", ltr * tile, 1)):
+        pos, n, ring = ctx.axis(axis)
+        st = rt.ring((_px.collective_id_for(kind, axis), ring, total, slots, "card"),
+                     lambda n=n, total=total, slots=slots: _px._DeviceRing(rt, n, total, slots, G))
+        st.epoch[pos] += 1
+        rings.append((st, pos, n))
+    flags = rt.ring(("fused_step_flags", G), lambda: _StepFlags(rt, G))
+    me = ctx.myr * ctx.pc + ctx.myc
+    flags.epoch[me] += 1
+    p1done, ddone, ready = flags.of(me)
+    rp, oh = torch.empty_like(taken), torch.empty((ltc, 1), dtype=torch.int32, device=x.device)
+    od, lkk1 = torch.empty_like(x[0, 0]), torch.empty_like(x[0, 0])
+    cp1 = torch.empty_like(cp)
+    h = have.to(torch.int32).reshape(ltc, 1).contiguous()
+    z = suppress.to(torch.int32).reshape(ltc, 1).contiguous()
+    below = below1.to(torch.int32).reshape(ltr).contiguous()
+    vals = {"err": rt.error_word().data_ptr(),
+            "timeout": int(_px.RING_TIMEOUT_S * 1e9), "G": G,
+            "x": x.data_ptr(), "cp": cp.data_ptr(), "y": taken.data_ptr(), "h": h.data_ptr(),
+            "z": z.data_ptr(), "rp": rp.data_ptr(), "oh": oh.data_ptr(),
+            "below": below.data_ptr(), "od": od.data_ptr(), "lkk": lkk1.data_ptr(),
+            "cp1": cp1.data_ptr(), "p1done": p1done, "ddone": ddone, "ready": ready,
+            "epoch": flags.epoch[me] << 16, "ltr": ltr, "ltc": ltc, "mb": mb, "kc1": kc1,
+            "kr1": kr1, "l_next": l_next, "lkr1": lkr1, "lkc1": lkc1, "me_r": ctx.myr,
+            "me_c": ctx.myc}
+    for q, (st, pos, n) in enumerate(rings):
+        vals.update({f"ring{q}_land": st.land.data_ptr(), f"ring{q}_land_h": st.land_h.data_ptr(),
+                     f"ring{q}_entry": st.entry, f"ring{q}_rflag": st.rflag,
+                     f"ring{q}_aflag": st.aflag, f"ring{q}_P": n, f"ring{q}_me": pos,
+                     f"ring{q}_epoch": st.epoch[pos] << 16})
+    # the int64 argument array, filled by name in the order the library
+    # states (csrc/consume.cu's DLAF_STEP_* lists)
+    lib = _build.lib()
+    fields = lib.dlaf_fused_step_fields().decode().split(",")
+    vals["count"] = len(fields)
+    if set(fields) != set(vals):
+        raise RuntimeError("fused_step: the library's argument names and the wrapper's differ: "
+                           f"{sorted(set(fields) ^ set(vals))}")
+    desc = (ctypes.c_longlong * len(fields))(*(vals[f] for f in fields))
+    # the launch spans both axes: meet every rank of the grid first
+    _ranks.rendezvous(None, "fused step: launch")
+    _px._skew(ctx)
+    fn = lib.dlaf_fused_step_f32 if x.dtype == torch.float32 else lib.dlaf_fused_step_f64
+    rc = fn(ctypes.addressof(desc), _build.stream_of(x))
+    _build.check(rc, "fused_step")
+    ctx.world.ring_launched = True
+    _count("step_launches")
+    rp = torch.where(_expand(oh.reshape(ltc) != 0, rp), rp, torch.zeros((), dtype=rp.dtype,
+                                                                         device=rp.device))
+    return x, rp, lkk1, cp1, od
+
+
+# ------------------------------------------------------------------------ B9
+
+
+def panel_contract_plain(a, b, subscripts: str):
+    """``contract(subscripts, a, b)``: ``torch.einsum``."""
+    return torch.einsum(subscripts, a, b)
+
+
+def panel_contract(a, b, subscripts: str):
+    """The one-shot TRTRI contraction (``panel_contract``, :198), returning
+    ``contract``, not ``0 - contract`` (the caller negates: the two differ
+    at signed zeros).  Two forms: ``ijab,jbc->iac`` (a [L, C, M, K], b
+    [C, K, N]) and ``iab,ijbc->jac`` (a [L, M, K], b [L, C, K, N]); the sum
+    over the slot axis runs in one fixed order.  CPU tensors take
+    :func:`panel_contract_plain`; CUDA tensors launch B9 or raise."""
+    if subscripts not in _CONTRACT_FORM:
+        raise ValueError(f"panel_contract: subscripts {subscripts!r} not in {tuple(_CONTRACT_FORM)}")
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return panel_contract_plain(a, b, subscripts)
+    _check_cuda("panel_contract", a, b)
+    form = _CONTRACT_FORM[subscripts]
+    if form == 0:
+        if a.dim() != 4 or b.dim() != 3:
+            raise ValueError("panel_contract[ijab,jbc->iac]: need a [L, C, M, K], b [C, K, N]")
+        L, C, M, K = a.shape
+        N = b.shape[2]
+        ok, out_shape = tuple(b.shape) == (C, K, N), (L, M, N)
+    else:
+        if a.dim() != 3 or b.dim() != 4:
+            raise ValueError("panel_contract[iab,ijbc->jac]: need a [L, M, K], b [L, C, K, N]")
+        L, M, K = a.shape
+        C, N = b.shape[1], b.shape[3]
+        ok, out_shape = tuple(b.shape) == (L, C, K, N), (C, M, N)
+    if not ok:
+        raise ValueError(f"panel_contract[{subscripts}]: a {tuple(a.shape)}, b {tuple(b.shape)}")
+    out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
+    if out.numel() == 0:
+        return out
+    if K == 0:
+        return out.zero_()
+    lib = _build.lib()
+    fn = lib.dlaf_panel_contract_f32 if a.dtype == torch.float32 else lib.dlaf_panel_contract_f64
+    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), form, L, C, M, N, K, _build.stream_of(a))
+    _build.check(rc, "panel_contract")
+    _count("contract_launches")
+    return out

@@ -1,0 +1,168 @@
+#!/usr/bin/env python3
+"""Plant one fault at a time in a copy of the port's CUDA sources and show
+that chip_smoke.py's kernel phase of that kernel fails on it.
+
+    python3 scripts/planted_faults.py [NAME ...]   # all faults by default
+
+Each fault is an edit of one file of dlaf_tpu_torch/csrc/, made in a copy
+of dlaf_tpu_torch/ and chip_smoke.py under _faults/<name>/ (listed in
+.gitignore; the repository's own files are never edited).  The copy builds
+its kernels at first use as the repository does, then runs
+chip_smoke.consume_phases for the one kernel the fault is in, on the main
+path's inputs, in a process of its own.  The script prints one JSON line
+per fault: whether the phase failed, as it must, and the errors the phase
+measured.  Needs a CUDA device; it exits non-zero if a fault that must
+fail went unseen (faults marked latent are run and reported, with the
+reason no output check can see them).
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORK = os.path.join(ROOT, "_faults")
+
+#: name -> (file under dlaf_tpu_torch/csrc/, [(text, its replacement)],
+#: kernel of chip_smoke.consume_phases to run, what must happen).  A fault
+#: marked "latent" cannot change what the phase compares (the reason is
+#: given); it is run and reported all the same, and does not count as
+#: unseen.
+FAULTS = {
+    # B6: the capacity ack of landing slot s % 2 goes out before the hop's
+    # update has read the slot (the ack is sent again after it, harmlessly)
+    "b6_ack_before_update": (
+        "ring.cuh",
+        [("    hooks.after_merge(s, j);\n",
+          "    if (s + 2 < nhops && tid == 0)\n"
+          "      publish(&r.aflag[((long long)r.me * 2 + j) * G + b], r.epoch | (u64)(s + 1));\n"
+          "    hooks.after_merge(s, j);\n")],
+        "dma_ring_consume",
+        "latent: in a one-contributor ring a slot's bytes never change once a rank holds it, "
+        "so the writer's hop s + 2 copy rewrites the bytes being read with the same bytes"),
+    # B6 (and every ring): a hop is merged and consumed without waiting for
+    # its recv flag
+    "b6_no_recv_wait": (
+        "ring.cuh",
+        [("      ok = wait_flag(&r.rflag[((long long)r.me * 2 + j) * G + b], r.epoch | (u64)(s + 1), r,\n"
+          "                     kErrRecv);\n",
+          "      ok = true;\n")],
+        "dma_ring_consume", "fails"),
+    # B8: block 0 factors the diagonal tile before the tile's rings have
+    # landed it (on every rank but its owner, before any byte of it came)
+    "b8_factor_before_ring": (
+        "consume.cu",
+        [("    dlaf_potrf::factor_tile<T, kThreads>(a.od, a.lkk, mb, a.pw, work);\n"
+          "    __syncthreads();\n    if (tid == 0) publish(a.ready, a.epoch);\n",
+          "    __syncthreads();\n    if (tid == 0) publish(a.ready, a.epoch);\n"),
+         ("  if (!ring_hops(a.rdc, sh_h1, sh_hin1, sh_ok)) return;\n",
+          "  if (b == 0) dlaf_potrf::factor_tile<T, kThreads>(a.od, a.lkk, mb, a.pw, work);\n"
+          "  __syncthreads();\n  if (!ring_hops(a.rdc, sh_h1, sh_hin1, sh_ok)) return;\n")],
+        "fused_step", "fails"),
+    # B8: block 0 factors without waiting for the other blocks' parts of the
+    # landed tile.  The blocks ring equal segments in step, so the race's
+    # window is short; the other blocks start the tile's ring over 'r' 20 ms
+    # late, which opens it on every rank off the tile's process row
+    "b8_factor_before_tile_landed": (
+        "consume.cu",
+        [("    if (tid == 0) ok = wait_all(a.ddone, a.epoch, a.rc);\n", "    ok = true;\n"),
+         ("  if (!ring_hops(a.rdr, sh_h1, sh_hin1, sh_ok)) return;\n",
+          "  if (b != 0 && tid == 0) {\n"
+          "    const u64 t0 = globaltimer();\n"
+          "    while (globaltimer() - t0 < 20000000ull) __nanosleep(1000);\n"
+          "  }\n"
+          "  __syncthreads();\n"
+          "  if (!ring_hops(a.rdr, sh_h1, sh_hin1, sh_ok)) return;\n")],
+        "fused_step", "fails"),
+    # B8: the root column solves without waiting for the factor of the
+    # landed diagonal tile
+    "b8_solve_before_factor": (
+        "consume.cu",
+        [("    ok = b == 0 || tid != 0 || wait_flag(a.ready, a.epoch, a.rc, kErrFactor);\n",
+          "    ok = true;\n")],
+        "fused_step", "fails"),
+    # B9: the lower form's sum over j drops the last slot
+    "b9_drop_one_j": (
+        "trailing_update.cu",
+        [("a + o * C * mk, mk, K, b, kn, N, C, M, N, K,",
+          "a + o * C * mk, mk, K, b, kn, N, C - 1, M, N, K,")],
+        "panel_contract", "fails"),
+}
+
+_RUN = """
+import sys, json
+sys.path.insert(0, {copy!r})
+import dlaf_tpu_torch  # before torch touches the card
+import torch
+import chip_smoke as cs
+
+def bound(flops, nbytes):
+    t_ops, t_bytes = flops / cs.FP32_PEAK * 1e3, nbytes / cs.HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+def timed_ms(fn, iters, warmup=1):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+a_glob, _ = cs.make_inputs(torch.device("cuda"))
+cs.consume_phases({{"card": cs.card_line()}}, bound, timed_ms, a_glob, only=({kernel!r},))
+print("PHASE PASSED")
+"""
+
+
+def plant(name: str) -> dict:
+    fname, edits, kernel, expect = FAULTS[name]
+    copy = os.path.join(WORK, name)
+    shutil.rmtree(copy, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, "dlaf_tpu_torch"), os.path.join(copy, "dlaf_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), copy)
+    src = os.path.join(copy, "dlaf_tpu_torch", "csrc", fname)
+    text = open(src).read()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: a text to replace occurs {text.count(old)} times in {fname}")
+        text = text.replace(old, new)
+    open(src, "w").write(text)
+    proc = subprocess.run([sys.executable, "-c", _RUN.format(copy=copy, kernel=kernel)],
+                          capture_output=True, text=True, timeout=900, cwd=copy)
+    lines = proc.stdout.splitlines()
+    measured = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    failed = [ln for ln in lines if "FAILED" in ln]
+    return {"fault": name, "file": f"dlaf_tpu_torch/csrc/{fname}", "kernel_phase": kernel,
+            "expect": expect, "phase_failed": proc.returncode != 0 and bool(failed),
+            "rc": proc.returncode, "failure": failed[0] if failed else None,
+            "measured": [{k: v for k, v in m.items() if k in (
+                "kernel", "subscripts", "rel_err", "max_abs_err", "bitwise_vs_plain_yf_h",
+                "skewed_run_bitwise", "rp_bitwise_vs_plain", "rel_err_vs_two_piece",
+                "ring_of_4", "tol")} for m in measured],
+            "stderr_tail": proc.stderr[-600:] if proc.returncode and not failed else ""}
+
+
+def main() -> int:
+    names = sys.argv[1:] or list(FAULTS)
+    unseen, latent_passed = [], []
+    for name in names:
+        res = plant(name)
+        print(json.dumps(res), flush=True)
+        if not res["phase_failed"]:
+            (unseen if res["expect"] == "fails" else latent_passed).append(name)
+    shutil.rmtree(WORK, ignore_errors=True)
+    print(json.dumps({"faults": len(names), "unseen": unseen,
+                      "latent_and_not_seen": latent_passed}), flush=True)
+    return 1 if unseen else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch/CUDA port's main path goes, on one GPU.
 
-    python3 scripts/port_profile.py
+    python3 scripts/port_profile.py [PATH ...]   # A B M1 M4 M5; all by default
 
 Runs the factorization paths of chip_smoke.py (A: bucketed, panel-TRSM
 kernel on; B: lookahead, fused trailing-update tier; M1: A's knobs on a
-2x4 grid of rank threads under collectives_impl=pallas), on its inputs
-and its knobs (chip_smoke.N, NB, make_inputs, PATH_A, PATH_B, GRID_M,
-PATH_M1), once as warm-up and once under torch.profiler, then prints one
+2x4 grid of rank threads under collectives_impl=pallas; M4 and M5: the
+lookahead kernel under the fused tier on that grid, at nb=512 and 192),
+on its inputs and its knobs (chip_smoke.N, NB, NB_M5, make_inputs,
+PATH_A, PATH_B, GRID_M, PATH_M1, PATH_M4), once as warm-up and once
+under torch.profiler, then prints one
 JSON line per path: wall time, device time summed over kernels, the
 union of the kernels' intervals on the card's timeline (on M1 the ranks'
 streams overlap, and a ring kernel that spins on a late neighbour counts
@@ -25,6 +27,9 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 GROUPS = (
+    ("fused_step", "fused_step_kernel"),
+    ("dma_ring_consume", "consume_kernel"),
+    ("panel_contract", "panel_contract_kernel"),
     ("ring_exchange", "ring_kernel"),
     ("fused_factor_bcast", "fused_kernel"),
     ("potrf", "potrf_kernel"),
@@ -76,9 +81,14 @@ def main() -> int:
     n, nb = chip_smoke.N, chip_smoke.NB
     a, _ = chip_smoke.make_inputs(torch.device("cuda"))
 
-    paths = (("A", chip_smoke.PATH_A, (1, 1)), ("B", chip_smoke.PATH_B, (1, 1)),
-             ("M1", chip_smoke.PATH_M1, chip_smoke.GRID_M))
-    for name, knobs, shape in paths:
+    paths = (("A", chip_smoke.PATH_A, (1, 1), nb), ("B", chip_smoke.PATH_B, (1, 1), nb),
+             ("M1", chip_smoke.PATH_M1, chip_smoke.GRID_M, nb),
+             ("M4", chip_smoke.PATH_M4, chip_smoke.GRID_M, nb),
+             ("M5", chip_smoke.PATH_M4, chip_smoke.GRID_M, chip_smoke.NB_M5))
+    wanted = set(sys.argv[1:]) or {p[0] for p in paths}
+    for name, knobs, shape, nb in paths:
+        if name not in wanted:
+            continue
         tune.initialize(**knobs)
         grid = dtt.Grid.create(shape)
 

@@ -220,10 +220,16 @@ def test_info_from_a_tile_owned_off_rank_00_matches_jax(comm_grids, shape, varia
 
 
 def test_fused_tier_on_multi_rank_grids_raises():
-    """The lookahead kernel's fused trailing-update tier needs B6 and B8 on
-    a grid with an axis > 1: it raises instead of taking the 'xla' body."""
-    tm = DistributedMatrix.from_global(Grid.create((2, 4), device="cpu"), np.eye(32), (8, 8))
-    with knobs(cholesky_lookahead=True, trailing_update_impl="fused"):
-        with pytest.raises(NotImplementedError, match="B6.*B8"):
-            cholesky_factorization("L", tm)
-    np.testing.assert_array_equal(tm.to_global(), np.eye(32))  # untouched
+    """The lookahead kernel's fused trailing-update tier runs on a grid with
+    an axis > 1 now (B6 and B8 on the card; on the CPU the transport plus
+    one update) and gives the 'xla' tier's bits there."""
+    a = np.tril(tu.random_hermitian_pd(32, np.float64, seed=26))
+    out = {}
+    for impl in ("xla", "fused"):
+        tm = DistributedMatrix.from_global(Grid.create((2, 4), device="cpu"), a, (8, 8))
+        with knobs(cholesky_lookahead=True, trailing_update_impl=impl):
+            out[impl] = cholesky_factorization("L", tm).to_stacked()
+    np.testing.assert_array_equal(out["fused"], out["xla"])
+    np.testing.assert_allclose(np.tril(DistributedMatrix.from_stacked(
+        out["fused"], tm.dist, tm.grid).to_global()), np.linalg.cholesky(a + np.tril(a, -1).T),
+        atol=tu.tol_for(np.float64, 32))

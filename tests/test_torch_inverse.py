@@ -1,0 +1,226 @@
+"""The port's triangular_inverse (``dlaf_tpu_torch/algorithms/inverse.py``)
+and its panel contraction (B9, ``ops/trailing_update.panel_contract``).
+
+On the CPU: B9's plain version against the JAX kernel in Pallas interpret
+mode, both TRTRI forms, f32 and f64, and its signed zeros;
+``triangular_inverse`` for L and U, non-unit and unit diagonal, on the 1x1
+grid and on 2x2, 2x4 and 4x2 grids of rank threads, under the 'xla' and
+'fused' trailing-update tiers, against the JAX package within
+``tol_for(dtype, n)`` and 'fused' against 'xla' bitwise;
+``inverse_from_cholesky_factor`` raising until ``multiplication.py`` is
+ported.
+
+On a card only (``-m cuda``, skipped here): B9 against its plain version,
+and the fused tier's inverse on a 2x4 grid against 'xla'.  The JAX side is
+imported inside the tests that use it:
+``python -m pytest tests/test_torch_inverse.py --noconftest -m cuda``.
+"""
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+import dlaf_tpu_torch as dtt
+from dlaf_tpu_torch import ops, tune
+from dlaf_tpu_torch.algorithms.inverse import inverse_from_cholesky_factor
+from dlaf_tpu_torch.comm.grid import Grid
+from dlaf_tpu_torch.ops import trailing_update as tu
+from dlaf_tpu_torch.testing import random_hermitian_pd, tol_for
+
+FORMS = [tu.TRTRI_LOWER_SUBSCRIPTS, tu.TRTRI_UPPER_SUBSCRIPTS]
+SHAPES = [(1, 1), (2, 2), (2, 4), (4, 2)]
+
+
+@contextlib.contextmanager
+def knobs(**kw):
+    tp = tune.get_tune_parameters()
+    old = {k: getattr(tp, k) for k in kw}
+    tp.update(**kw)
+    try:
+        yield
+    finally:
+        tp.update(**old)
+
+
+def _rel_err(got, ref) -> float:
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1.0))
+
+
+def _operands(subscripts, dtype, seed, L=3, C=4, mb=8):
+    rng = np.random.default_rng(seed)
+    big = rng.standard_normal((L, C, mb, mb)).astype(dtype)
+    if subscripts == tu.TRTRI_LOWER_SUBSCRIPTS:
+        return big, rng.standard_normal((C, mb, mb)).astype(dtype)
+    return rng.standard_normal((L, mb, mb)).astype(dtype), big
+
+
+# ------------------------------------------------------------------ B9
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("subscripts", FORMS)
+def test_panel_contract_plain_matches_pallas(subscripts, dtype):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from dlaf_tpu.ops import pallas_trailing_update as ptu
+
+    a, b = _operands(subscripts, dtype, seed=61)
+    ref = np.asarray(ptu.panel_contract(jnp.asarray(a), jnp.asarray(b), subscripts,
+                                        interpret=True))
+    out = tu.panel_contract(torch.from_numpy(a), torch.from_numpy(b), subscripts)
+    assert out.shape == ref.shape and out.dtype == torch.from_numpy(a).dtype
+    assert _rel_err(out.numpy(), ref) <= tol_for(dtype, 4 * 8)
+
+
+def test_panel_contract_signed_zero():
+    """``contract``, not ``0 - contract``: zero operands give +0.0, which the
+    caller's negation turns into -0.0 exactly as the 'xla' tier's does."""
+    for sub in FORMS:
+        a, b = _operands(sub, np.float32, seed=1)
+        out = tu.panel_contract(torch.zeros_like(torch.from_numpy(a)),
+                                torch.zeros_like(torch.from_numpy(b)), sub)
+        assert not torch.signbit(out).any()
+        assert torch.signbit(-out).all()
+
+
+def test_panel_contract_rejects_other_forms():
+    with pytest.raises(ValueError):
+        tu.panel_contract(torch.zeros(2, 2, 2), torch.zeros(2, 2, 2), "iab,jcb->ijac")
+
+
+# --------------------------------------------------- triangular_inverse
+
+_JAX_REF: dict = {}
+
+
+def _factor(uplo, diag, n=60, dtype=np.float64):
+    ell = np.linalg.cholesky(random_hermitian_pd(n, np.float64, 79)).astype(dtype)
+    f = ell if uplo == "L" else ell.T.copy()
+    if diag == "U":
+        np.fill_diagonal(f, 1.0)
+    # the triangle not referenced holds garbage
+    other = np.triu(np.full((n, n), 7.0, dtype), 1)
+    return f + (other if uplo == "L" else other.T)
+
+
+def _jax_inverse(comm_grids, grid_1x1, shape, uplo, diag, f):
+    import dlaf_tpu as dt
+
+    key = (shape, uplo, diag)
+    if key not in _JAX_REF:
+        jgrid = grid_1x1 if shape == (1, 1) else next(
+            g for g in comm_grids if tuple(g.grid_size) == shape)
+        m = dt.DistributedMatrix.from_global(jgrid, f, (8, 8))
+        _JAX_REF[key] = dt.triangular_inverse(uplo, diag, m).to_global()
+    return _JAX_REF[key]
+
+
+@pytest.mark.parametrize("tier", ["xla", "fused"])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("diag", ["N", "U"])
+@pytest.mark.parametrize("uplo", ["L", "U"])
+def test_triangular_inverse_matches_jax(comm_grids, grid_1x1, uplo, diag, shape, tier):
+    """The inverse's ``uplo`` triangle within tol_for(f64, n) of the JAX
+    package's, the other triangle as the JAX package leaves it, 'fused'
+    bitwise 'xla' (the JAX references in its default tier: its own tests
+    hold fused == xla)."""
+    pytest.importorskip("jax")
+    n = 60
+    f = _factor(uplo, diag, n)
+    ref = _jax_inverse(comm_grids, grid_1x1, shape, uplo, diag, f)
+    out = {}
+    for impl in ("xla", tier):
+        with knobs(trailing_update_impl=impl, collectives_impl="pallas"):
+            m = dtt.DistributedMatrix.from_global(Grid.create(shape, device="cpu"), f, (8, 8))
+            res = dtt.triangular_inverse(uplo, diag, m)
+            assert res.data is m.data
+            out[impl] = res.to_global()
+    tri = np.tril if uplo == "L" else np.triu
+    strict = (lambda v: np.triu(v, 1)) if uplo == "L" else (lambda v: np.tril(v, -1))
+    np.testing.assert_array_equal(out[tier], out["xla"])
+    # outside the diagonal tiles the other triangle is untouched; inside them
+    # both packages write the inverted tile, zeros above (below) its diagonal
+    np.testing.assert_array_equal(strict(out[tier]), strict(ref))
+    assert _rel_err(tri(out[tier]), tri(ref)) <= tol_for(np.float64, n)
+
+
+def test_triangular_inverse_is_an_inverse():
+    """On a 2x4 grid under 'fused', ragged (n = 61, nb = 8), f32: tril(X) L
+    is the identity to tol_for(f32, n), and the check rejects X = L."""
+    n = 61
+    ell = np.linalg.cholesky(random_hermitian_pd(n, np.float64, 5)).astype(np.float32)
+    with knobs(trailing_update_impl="fused", collectives_impl="pallas"):
+        m = dtt.DistributedMatrix.from_global(Grid.create((2, 4), device="cpu"), ell, (8, 8))
+        x = np.tril(dtt.triangular_inverse("L", "N", m).to_global()).astype(np.float64)
+
+    def resid(inv):
+        return np.linalg.norm(inv @ ell - np.eye(n)) / (np.linalg.norm(inv) * np.linalg.norm(ell))
+
+    assert resid(x) <= tol_for(np.float32, n) < resid(ell.astype(np.float64))
+
+
+def test_cpu_inverse_launches_nothing():
+    ops.reset_launch_counts()
+    with knobs(trailing_update_impl="fused"):
+        m = dtt.DistributedMatrix.from_global(Grid.create((2, 2), device="cpu"),
+                                              np.eye(32) * 2, (8, 8))
+        out = dtt.triangular_inverse("L", "N", m).to_global()
+    np.testing.assert_array_equal(np.tril(out), np.eye(32) / 2)
+    assert set(ops.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 4)])
+def test_inverse_from_cholesky_factor_raises(shape):
+    m = dtt.DistributedMatrix.from_global(Grid.create(shape, device="cpu"), np.eye(16), (8, 8))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        inverse_from_cholesky_factor("L", m)
+    np.testing.assert_array_equal(m.to_global(), np.eye(16))
+
+
+# ------------------------------------------------------------ card only
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("subscripts", FORMS)
+def test_cuda_panel_contract_matches_plain(subscripts, dtype):
+    dev = _cuda()
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    a, b = (torch.from_numpy(v) for v in _operands(subscripts, np_dtype, seed=3, L=5, C=3, mb=72))
+    ref = tu.panel_contract_plain(a, b, subscripts)
+    before = tu.contract_launches
+    got = tu.panel_contract(a.to(dev), b.to(dev), subscripts)
+    torch.cuda.synchronize()
+    assert tu.contract_launches == before + 1
+    assert _rel_err(got.cpu().numpy(), ref.numpy()) <= tol_for(np_dtype, 5 * 72)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("uplo", ["L", "U"])
+def test_cuda_triangular_inverse_fused_matches_xla(uplo):
+    """On a 2x4 grid of the card: 'fused' launches B9 once per step and
+    rank, and its inverse is the 'xla' tier's within tol_for(f32, n)."""
+    dev = _cuda()
+    n, nb = 1280, 128
+    f = torch.from_numpy(_factor(uplo, "N", n, np.float32)).to(dev)
+    out = {}
+    for impl in ("xla", "fused"):
+        with knobs(trailing_update_impl=impl, collectives_impl="pallas"):
+            ops.reset_launch_counts()
+            m = dtt.DistributedMatrix.from_global(Grid.create((2, 4), device=dev), f.clone(),
+                                                  (nb, nb))
+            out[impl] = (dtt.triangular_inverse(uplo, "N", m).to_global(), ops.launch_counts())
+    tri = np.tril if uplo == "L" else np.triu
+    assert _rel_err(tri(out["fused"][0]), tri(out["xla"][0])) <= tol_for(np.float32, n)
+    assert out["fused"][1]["panel_contract"] == 8 * (n // nb)
+    assert out["xla"][1]["panel_contract"] == 0
+    assert out["fused"][1]["trailing_update"] == 0

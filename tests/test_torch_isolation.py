@@ -38,6 +38,8 @@ def _imported_roots(path):
 def test_no_port_module_imports_jax_or_the_jax_package():
     srcs = _port_sources()
     assert len(srcs) > 10
+    for mod in ("algorithms/inverse.py", "ops/trailing_update.py", "ops/panel_exchange.py"):
+        assert ROOT / "dlaf_tpu_torch" / mod in srcs
     bad = [(str(p.relative_to(ROOT)), m) for p in srcs for m in _imported_roots(p)
            if m in FORBIDDEN]
     assert bad == []
@@ -63,20 +65,29 @@ def test_grid_defaults_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 2), (2, 1)])
 def test_multi_rank_grids_wait_for_the_next_slice(shape):
-    """Multi-rank grids are rank threads now; what waits for the next slice
-    on them is the lookahead kernel's fused trailing-update tier (B6, B8),
-    which raises naming ROADMAP instead of taking the 'xla' body."""
+    """Multi-rank grids are rank threads, and the lookahead kernel's fused
+    trailing-update tier runs on them (the 'xla' tier's bits on the CPU);
+    what waits for a later slice there is POTRI
+    (``inverse_from_cholesky_factor``, which needs ``multiplication.py``),
+    which raises naming ROADMAP."""
+    from dlaf_tpu_torch.algorithms.inverse import inverse_from_cholesky_factor
+
     grid = dtt.Grid.create(shape, device="cpu")
     assert tuple(grid.grid_size) == shape
-    mat = dtt.DistributedMatrix.from_global(grid, np.eye(16), (4, 4))
+    a = np.eye(16) * 4 + np.tril(np.full((16, 16), 0.5), -1)
     tp = tune.get_tune_parameters()
     old = {k: getattr(tp, k) for k in ("cholesky_lookahead", "trailing_update_impl")}
+    out = {}
     try:
-        tp.update(cholesky_lookahead=True, trailing_update_impl="fused")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dtt.cholesky_factorization("L", mat)
+        for impl in ("xla", "fused"):
+            tp.update(cholesky_lookahead=True, trailing_update_impl=impl)
+            mat = dtt.DistributedMatrix.from_global(grid, a, (4, 4))
+            out[impl] = dtt.cholesky_factorization("L", mat).to_stacked()
     finally:
         tp.update(**old)
+    np.testing.assert_array_equal(out["fused"], out["xla"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        inverse_from_cholesky_factor("L", dtt.DistributedMatrix.from_global(grid, a, (4, 4)))
 
 
 def test_tune_env_names_precedence_and_domains(monkeypatch):

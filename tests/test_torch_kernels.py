@@ -111,7 +111,8 @@ def test_cpu_wrappers_take_plain_versions_and_count_nothing():
                                   torch.ones(1), torch.zeros(1), torch.zeros(1), torch.ones(1), 30)
     assert ops.launch_counts() == {"potrf": 0, "panel_trsm": 0, "trailing_update": 0,
                                    "secular_bisect": 0, "merge_hop": 0, "ring_exchange": 0,
-                                   "fused_factor_bcast": 0}
+                                   "fused_factor_bcast": 0, "dma_ring_consume": 0,
+                                   "fused_step": 0, "panel_contract": 0}
     assert torch.all(x == -2)
     # 1 - 0.5/x + 0.5/(1 - x) = 0 at x = 1 - sqrt(1/2)
     assert abs(root.item() - (1 - 0.5 ** 0.5)) < 1e-6
