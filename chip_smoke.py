@@ -19,16 +19,20 @@ on failure:
    on seeded inputs whose off-diagonal coupling is not small (so a kernel
    that drops terms disagrees), each within a stated tolerance, with
    kernel / plain / library-call times (CUDA events) and the card's bound
-   for the same work: B1, B2, B3 in both lookahead forms and at
-   red2band's shapes (K = band = 128), and B10, the secular bisection, at
-   each of path H's shapes (8192, S), S = 1024, 2048, 4096, 8192, on true
-   secular equations; then B4 (hop merge), B5 (ring exchange: M1's panel
-   broadcast, slotted exchanges on both axes, the diagonal tile on both
-   axes, and a skewed run in which one rank sleeps 50 ms before each
-   launch) and B7 (fused factor-and-send) at path M's shapes on a 2x4 grid
-   of rank threads, B4 and B5 bitwise against their plain twins (on a CPU
-   grid), B7 against its plain twin within tol_for(f32, nb) and bitwise
-   against the unfused B1 -> B2 -> mask -> B5; then B6 (the consume
+   for the same work: B1 (the cluster kernel, also bit for bit the
+   one-block kernel it replaced at 512 f32 and in float64, and timed in
+   turns with it: old, new, new, old), B2, B3 in both lookahead forms and
+   at red2band's shapes (K = band = 128), and B10, the secular bisection,
+   at each of path H's shapes (8192, S), S = 1024, 2048, 4096, 8192, on
+   true secular equations; then B4 (hop merge), B5 (the pull exchange:
+   M1's panel broadcast, slotted exchanges on both axes, the diagonal tile
+   on both axes, a skewed run in which one rank sleeps 50 ms before each
+   launch, and the inputs' lifetime with a late source and late readers;
+   bit for bit its twin and the hop ring it replaced, timed in turns with
+   the hop ring) and B7 (fused factor-and-send) at path M's shapes on a
+   2x4 grid of rank threads, B4 and B5 bitwise against their plain twins
+   (on a CPU grid), B7 against its plain twin within tol_for(f32, nb) and
+   bitwise against the unfused B1 -> B2 -> mask -> B5; then B6 (the consume
    ring) on step 0 of path M5, the path that launches it (nb=192 on its
    padded geometry), and of path M4 as B8's consume part, and B8 (the
    one-launch lookahead step) on step 0 of M4 (the main path's matrix on
@@ -42,7 +46,7 @@ on failure:
 3. path A, the headline configuration: cholesky_factorization(backend=
    "distributed"), panel TRSM kernel on (DLAF_TPU_PANEL_TRSM_PALLAS=1);
    residual, wall time, GFlop/s (N^3/3 flops, as bench.py counts them),
-   launch counts;
+   launch counts (every path that runs B1 must run it on the cluster);
 4. path B, the fused tier: lookahead Cholesky and lookahead triangular
    solves (Left/Lower/N then Left/Lower/C, i.e. cholesky_solver with the
    distributed kernel forced) with trailing_update_impl=fused;
@@ -176,6 +180,15 @@ def worst(values) -> float:
     return float("nan") if any(v != v for v in values) else max(values)
 
 
+def launch_counts() -> dict:
+    """The kernels' launch counts since the last ``ops.reset_launch_counts``
+    and, as "potrf_cluster", how many of B1's went to its cluster kernel."""
+    from dlaf_tpu_torch import ops
+    from dlaf_tpu_torch.ops import potrf
+
+    return {**ops.launch_counts(), "potrf_cluster": potrf.cluster_launches}
+
+
 def path_h(stamp: dict) -> dict:
     """Phase 6: hermitian_eigensolver("L", A, backend="pipeline") at NH,
     NBH.  Returns the timed run's launch counts."""
@@ -212,7 +225,7 @@ def path_h(stamp: dict) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         times = stagetimer.stop() if instrumented else None
-        return res, wall, ops.launch_counts(), times
+        return res, wall, launch_counts(), times
 
     band = get_band_size(nb, dev)
     run()  # warm-up (allocator, library handles, the chase's threads), discarded
@@ -274,6 +287,71 @@ def path_h(stamp: dict) -> dict:
     return counts
 
 
+def potrf_phase(stamp: dict, bound, timed_ms, kgen):
+    """Phase 2a: B1 at the main path's tile, 512 x 512 f32: the cluster
+    kernel within tol_for(f32, nb) of its plain version and bit for bit the
+    one-block kernel it replaced (whose body B7 and B8 run), timed in turns
+    with it (one block, cluster, cluster, one block); then float64 at 512
+    (which the gate routes to one block) and at 352 (the largest float64
+    tile the cluster takes), bit for bit the one-block kernel.  The f32
+    tile is a Wishart G G^T / (2 nb), G (nb, 2 nb) (cond about 34; later
+    rows of the factor carry half their weight off the diagonal).  Returns
+    the report entry and the plain factor (B2's operand)."""
+    import torch
+
+    from dlaf_tpu_torch.ops import potrf
+    from dlaf_tpu_torch.testing import tol_for
+
+    dev = torch.device("cuda")
+    nb = NB
+    g = torch.randn(nb, 2 * nb, generator=kgen, device=dev, dtype=torch.float32)
+    d = (g @ g.T / (2 * nb)).contiguous()
+    del g
+    k_out, p_out = potrf.potrf_tile(d), potrf.potrf_tile_plain(d)
+    o_out = potrf.potrf_tile_one_block(d)
+    torch.cuda.synchronize()
+    diff = k_out.double() - p_out.double()
+    err_abs = diff.abs().max().item()
+    err = (torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(p_out.double())).item()
+    tol = tol_for("float32", nb)
+    bitwise = {"f32_512_cluster": torch.equal(k_out, o_out)}
+    del k_out, o_out, diff
+    herm = torch.tril(d) + torch.tril(d, -1).T
+    turns = [timed_ms(lambda: potrf.potrf_tile_one_block(d), 20),
+             timed_ms(lambda: potrf.potrf_tile(d), 20),
+             timed_ms(lambda: potrf.potrf_tile(d), 20),
+             timed_ms(lambda: potrf.potrf_tile_one_block(d), 20)]
+    routes = {"f32_512": "cluster" if potrf.cluster_fits(d) else "one block"}
+    gen64 = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for n64 in (nb, 352):
+        g = torch.randn(n64, 2 * n64, generator=gen64, device=dev, dtype=torch.float64)
+        d64 = (g @ g.T / (2 * n64)).contiguous()
+        routes[f"f64_{n64}"] = "cluster" if potrf.cluster_fits(d64) else "one block"
+        bitwise[f"f64_{n64}_{routes[f'f64_{n64}'].replace(' ', '_')}"] = torch.equal(
+            potrf.potrf_tile(d64), potrf.potrf_tile_one_block(d64))
+        del g, d64
+    b_ms, b_by = bound(nb ** 3 / 3, 2 * nb * nb * 4)
+    rec = {"kernel": "potrf", "shape": [nb, nb], "max_abs_err": err_abs, "rel_err": err,
+           "tol": tol, "kernel_ms": (turns[1] + turns[2]) / 2,
+           "one_block_ms": (turns[0] + turns[3]) / 2,
+           "turns_ms": {"one_block": [turns[0], turns[3]], "cluster": [turns[1], turns[2]]},
+           "design": f"a cluster of {potrf.CLUSTER_BLOCKS} blocks holding the tile in distributed "
+                     "shared memory (before: one block, the trailing triangle in device memory)",
+           "routes": routes, "bitwise_vs_one_block": bitwise,
+           "plain_ms": timed_ms(lambda: potrf.potrf_tile_plain(d), 2),
+           "library_ms": timed_ms(lambda: torch.linalg.cholesky(herm), 20),
+           "library_call": "torch.linalg.cholesky", "bound_ms": b_ms, "bound_by": b_by, **stamp}
+    emit(rec)
+    del d, herm
+    if not err <= tol:
+        fail(f"potrf kernel vs plain: rel err {err:.3e} > tol {tol:.3e}")
+    if not all(bitwise.values()):
+        fail(f"potrf cluster kernel vs the one-block kernel: not bitwise equal {bitwise}")
+    if routes["f32_512"] != "cluster":
+        fail(f"potrf: the main path's tile does not take the cluster kernel: {routes}")
+    return rec, p_out
+
+
 def grid_span_ms(grid, fn, stacked, iters: int, gate_s: float = 1.0):
     """Device time of one call of ``fn`` on every rank of ``grid``, and the
     slowest rank thread's host time to queue its calls (both in ms).  The
@@ -327,6 +405,169 @@ def on_ranks(grid, fn, stacked):
     pr, pc = grid.grid_size
     return [torch.stack([torch.stack([got[(r, c)][i] for c in range(pc)]) for r in range(pr)])
             for i in range(len(got[(0, 0)]))]
+
+
+def pull_phase(stamp: dict, bound, kgen, gpu, cpu, timed_ms) -> dict:
+    """B5 at path M's shapes (f32, a 2x4 grid of rank threads on the card,
+    every ring of the grid at once): the pull bit for bit its twin (a CPU
+    grid of the same shape) and the hop ring it replaced, on five cases and
+    a skewed run (rank (0, 1) sleeps 50 ms before each launch), timed in
+    turns with the hop ring; then the inputs' lifetime on M1's broadcast,
+    every rank overwriting its input with NaN right after its launch: a
+    late source (its stream fills a fresh input with NaN, sleeps 100 ms on
+    the card, then writes it, so a reader that does not wait for the
+    source's entry flag reads NaN) and late readers (their streams sleep
+    100 ms before their launches, so the source's kernel waits at its
+    entry barrier while its host thread queues the overwrite behind it:
+    the overwrite runs the moment the source's kernel ends, and a source
+    that does not wait for its readers' done flags loses their reads),
+    each bit for bit the twin.
+    Returns the report entry (the bcast_c case, with every case under
+    "shapes")."""
+    import torch
+
+    from dlaf_tpu_torch.comm import collectives as coll
+    from dlaf_tpu_torch.ops import panel_exchange as px
+
+    dev = torch.device("cuda")
+    nb, ltr, ltc = NB, N // NB // GRID_M[0], N // NB // GRID_M[1]
+    pr, pc = GRID_M
+    root = 1
+
+    def slotted(axis, n_slots):
+        have = torch.zeros(pr, pc, n_slots, dtype=torch.bool)
+        for s_ in range(n_slots - 1):  # one contributor per slot, the last slot none
+            if axis == "c":
+                have[:, s_ % pc, s_] = True
+            else:
+                have[s_ % pr, :, s_] = True
+        return have
+
+    cases = {
+        # M1's panel broadcast over 'c' (16 MiB)
+        "bcast_c": ("c", (ltr, nb, nb), None),
+        # a slotted exchange over 'c' (16 slots of 1 MiB)
+        "exchange_c": ("c", (ltr, nb, nb), slotted("c", ltr)),
+        # M2's transpose_panel over 'r' (8 slots of 1 MiB)
+        "exchange_r": ("r", (ltc, nb, nb), slotted("r", ltc)),
+        # bcast_diag_tile: 1 MiB over 'c', then over 'r'
+        "diag_c": ("c", (nb, nb), None),
+        "diag_r": ("r", (nb, nb), None),
+    }
+    shapes, bad = {}, []
+    for name, (axis, shape, have) in cases.items():
+        x = torch.randn(pr, pc, *shape, generator=kgen, device=dev)
+
+        def make(exchange, axis=axis):
+            def fn(xl, hl=None):
+                if hl is None:
+                    is_root = coll._ranks.current().axis(axis)[0] == root
+                    return (exchange(xl, is_root, axis, kind="bcast")[0],)
+                return exchange(xl, hl, axis)
+            return fn
+
+        pull, hops = make(px.ring_exchange), make(px.ring_exchange_hops)
+        args_gpu = [x] if have is None else [x, have.to(dev)]
+        args_cpu = [x.cpu()] if have is None else [x.cpu(), have]
+        got = on_ranks(gpu, pull, args_gpu)
+        old = on_ranks(gpu, hops, args_gpu)
+        t0 = time.perf_counter()
+        ref = on_ranks(cpu, pull, args_cpu)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        same = all(torch.equal(g.cpu(), r_) for g, r_ in zip(got, ref))
+        same_old = all(torch.equal(o.cpu(), r_) for o, r_ in zip(old, ref))
+        err = worst((g.cpu().double() - r_.double()).abs().max().item() for g, r_ in zip(got, ref))
+        payload = x[0, 0].numel() * 4
+        # every rank reads its contribution and writes its result once
+        b_ms, b_by = bound(0.0, 2 * pr * pc * payload)
+        union = got[0].reshape(pr * pc, -1)
+        src = union[0].clone()
+        turns = [grid_span_ms(gpu, hops, args_gpu, 10), grid_span_ms(gpu, pull, args_gpu, 10),
+                 grid_span_ms(gpu, pull, args_gpu, 10), grid_span_ms(gpu, hops, args_gpu, 10)]
+        rec = {"kernel": "ring_exchange", "case": name, "axis": axis,
+               "payload_shape": list(shape), "ranks": pr * pc, "bitwise_vs_plain": same,
+               "bitwise_hop_ring_vs_plain": same_old, "max_abs_err": err,
+               "kernel_ms": (turns[1][0] + turns[2][0]) / 2,
+               "hop_ring_ms": (turns[0][0] + turns[3][0]) / 2,
+               "turns_ms": {"hop_ring": [turns[0][0], turns[3][0]],
+                            "pull": [turns[1][0], turns[2][0]]},
+               "enqueue_ms_of_10_calls": {"pull": turns[1][1], "hop_ring": turns[0][1]},
+               "plain_ms": plain_ms, "plain_on": "cpu (the twin's state is host objects)",
+               "library_ms": timed_ms(lambda: union.copy_(src.expand_as(union)), 20),
+               "library_call": "one copy_ writing a payload into every rank's buffer",
+               "bound_ms": b_ms, "bound_by": b_by, **stamp}
+        emit(rec)
+        shapes[name] = rec
+        if not (same and same_old):
+            bad.append(f"{name}: pull bitwise the plain ring {same}, hop ring {same_old} "
+                       f"(max err {err:.3e})")
+        del x, got, old, ref, union, src
+
+    # skewed run: rank (0, 1) sleeps 50 ms before each launch
+    x = torch.randn(pr, pc, ltr, nb, nb, generator=kgen, device=dev)
+
+    def bc(exchange):
+        return lambda xl: (exchange(xl, coll.my_rank()[1] == root, "c", kind="bcast")[0],)
+
+    ref = on_ranks(cpu, bc(px.ring_exchange), [x.cpu()])[0]
+    px.launch_delay_s[(0, 1)] = 0.05
+    t0 = time.perf_counter()
+    try:
+        got = on_ranks(gpu, bc(px.ring_exchange), [x])[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        old = on_ranks(gpu, bc(px.ring_exchange_hops), [x])[0]
+        torch.cuda.synchronize()
+    finally:
+        px.launch_delay_s.clear()
+    skew = {"case": "bcast_c, rank (0, 1) sleeps 50 ms before launching",
+            "bitwise_vs_plain": torch.equal(got.cpu(), ref),
+            "hop_ring_bitwise_vs_plain": torch.equal(old.cpu(), ref), "wall_s": wall}
+    emit({"kernel": "ring_exchange", "skewed_run": skew, **stamp})
+    if not (skew["bitwise_vs_plain"] and skew["hop_ring_bitwise_vs_plain"]):
+        bad.append(f"skewed bcast_c: pull {skew['bitwise_vs_plain']}, hop ring "
+                   f"{skew['hop_ring_bitwise_vs_plain']} bitwise the plain ring")
+    del got, old
+
+    # the inputs' lifetime: a late source and late readers, every rank
+    # overwriting its input right after its launch.  The inputs are held
+    # until the run is over: freed, their memory would go to the next
+    # allocation on the same stream (the copy of the result), which could
+    # write the right bytes back before a late read
+    held = []
+
+    def lifetime(late_source: bool):
+        def body(xl):
+            myc = coll.my_rank()[1]
+            mine = torch.full_like(xl, float("nan"))
+            held.append(mine)
+            if (myc == root) == late_source:
+                torch.cuda._sleep(int(100e-3 * 2e9))  # cycles; the H100's clock is below 2 GHz
+            mine.copy_(xl)
+            out = px.ring_bcast(mine, myc == root, "c")
+            mine.fill_(float("nan"))  # on this rank's stream, right after the launch
+            return (out,)
+        return body
+
+    life, wrong = {}, {}
+    for label, late in (("late_source", True), ("late_readers", False)):
+        got = on_ranks(gpu, lifetime(late), [x])[0].cpu()
+        torch.cuda.synchronize()
+        life[label] = torch.equal(got, ref)
+        # bitwise equal or not, NaN counting as a difference
+        wrong[label] = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        del got
+        held.clear()
+    emit({"kernel": "ring_exchange", "input_lifetime_bitwise_vs_plain": life,
+          "input_lifetime_wrong_elements": wrong, "elements": ref.numel(), **stamp})
+    if not all(life.values()):
+        bad.append(f"input lifetime: {life}, wrong elements {wrong} of {ref.numel()}")
+    del x, ref
+    if bad:
+        fail("ring_exchange (pull) vs plain ring and hop ring: " + "; ".join(bad))
+    torch.cuda.empty_cache()
+    return {**shapes["bcast_c"], "shapes": shapes, "skewed_run": skew, "input_lifetime": life}
 
 
 def ring_phases(stamp: dict, bound, kgen) -> dict:
@@ -384,87 +625,10 @@ def ring_phases(stamp: dict, bound, kgen) -> dict:
     report["merge_hop"] = rec
     del y, y_in, take, ky
 
-    # ---- B5 at path M's shapes, on all rings of the grid at once
-    def slotted(axis, n_slots):
-        have = torch.zeros(pr, pc, n_slots, dtype=torch.bool)
-        for s_ in range(n_slots - 1):  # one contributor per slot, the last slot none
-            if axis == "c":
-                have[:, s_ % pc, s_] = True
-            else:
-                have[s_ % pr, :, s_] = True
-        return have
-
-    cases = {
-        # M1's panel broadcast over 'c' (16 MiB, 3 hops)
-        "bcast_c": ("c", (ltr, nb, nb), None),
-        # a slotted exchange over 'c' (16 slots of 1 MiB)
-        "exchange_c": ("c", (ltr, nb, nb), slotted("c", ltr)),
-        # M2's transpose_panel over 'r' (8 slots of 1 MiB, 1 hop)
-        "exchange_r": ("r", (ltc, nb, nb), slotted("r", ltc)),
-        # bcast_diag_tile: 1 MiB over 'c', then over 'r'
-        "diag_c": ("c", (nb, nb), None),
-        "diag_r": ("r", (nb, nb), None),
-    }
-    root = 1
-    shapes, bad = {}, []
-    for name, (axis, shape, have) in cases.items():
-        x = torch.randn(pr, pc, *shape, generator=kgen, device=dev)
-
-        def fn(xl, hl=None, axis=axis):
-            if hl is None:
-                is_root = coll._ranks.current().axis(axis)[0] == root
-                return (px.ring_bcast(xl, is_root, axis),)
-            return px.ring_exchange(xl, hl, axis)
-
-        args_gpu = [x] if have is None else [x, have.to(dev)]
-        args_cpu = [x.cpu()] if have is None else [x.cpu(), have]
-        got = on_ranks(gpu, fn, args_gpu)
-        t0 = time.perf_counter()
-        ref = on_ranks(cpu, fn, args_cpu)
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-        same = all(torch.equal(g.cpu(), r_) for g, r_ in zip(got, ref))
-        err = max((g.cpu().double() - r_.double()).abs().max().item() for g, r_ in zip(got, ref))
-        payload = x[0, 0].numel() * 4
-        # every rank reads its contribution and writes its result once
-        b_ms, b_by = bound(0.0, 2 * pr * pc * payload)
-        union = got[0].reshape(pr * pc, -1)
-        src = union[0].clone()
-        span_ms, enqueue_ms = grid_span_ms(gpu, fn, args_gpu, 10)
-        rec = {"kernel": "ring_exchange", "case": name, "axis": axis,
-               "payload_shape": list(shape), "ranks": pr * pc, "bitwise_vs_plain": same,
-               "max_abs_err": err, "kernel_ms": span_ms, "enqueue_ms_of_10_calls": enqueue_ms,
-               "plain_ms": plain_ms, "plain_on": "cpu (the twin's landing slots and flags are "
-                                                  "host objects)",
-               "library_ms": timed_ms(lambda: union.copy_(src.expand_as(union)), 20),
-               "library_call": "one copy_ writing a payload into every rank's buffer",
-               "bound_ms": b_ms, "bound_by": b_by, **stamp}
-        emit(rec)
-        shapes[name] = rec
-        if not same:
-            bad.append(f"{name}: not bitwise equal to the plain ring (max err {err:.3e})")
-        del x, got, ref, union, src
-    # skewed run: rank (0, 1) sleeps 50 ms before each launch
-    x = torch.randn(pr, pc, ltr, nb, nb, generator=kgen, device=dev)
-    bc = lambda xl: (px.ring_bcast(xl, coll.my_rank()[1] == root, "c"),)  # noqa: E731
-    ref = on_ranks(cpu, bc, [x.cpu()])[0]
-    px.launch_delay_s[(0, 1)] = 0.05
-    t0 = time.perf_counter()
-    try:
-        got = on_ranks(gpu, bc, [x])[0]
-        torch.cuda.synchronize()
-    finally:
-        px.launch_delay_s.clear()
-    skew = {"case": "bcast_c, rank (0, 1) sleeps 50 ms before launching",
-            "bitwise_vs_plain": torch.equal(got.cpu(), ref), "wall_s": time.perf_counter() - t0}
-    emit({"kernel": "ring_exchange", "skewed_run": skew, **stamp})
-    if not skew["bitwise_vs_plain"]:
-        bad.append("skewed bcast_c: not bitwise equal to the plain ring")
-    del x, got, ref
-    if bad:
-        fail("ring_exchange kernel vs plain ring: " + "; ".join(bad))
-    report["ring_exchange"] = {**shapes["bcast_c"], "shapes": shapes, "skewed_run": skew}
-    torch.cuda.empty_cache()
+    # ---- B5 at path M's shapes, on all rings of the grid at once: the pull
+    # against its twin and against the hop ring it replaced, timed in turns
+    # with it (hop ring, pull, pull, hop ring)
+    report["ring_exchange"] = pull_phase(stamp, bound, kgen, gpu, cpu, timed_ms)
 
     # ---- B7 at path M's shapes: d 512 x 512, xc [16, 512, 512], ring P = 4
     g = torch.randn(nb, 2 * nb, generator=kgen, device=dev)
@@ -584,7 +748,7 @@ def path_m(stamp: dict, a_glob, rhs, factor_residual, solve_err, res_tol, kept: 
         t0 = time.perf_counter()
         fac = dtt.cholesky_factorization("L", mat, backend="distributed")
         torch.cuda.synchronize()
-        return fac, time.perf_counter() - t0, ops.launch_counts()
+        return fac, time.perf_counter() - t0, launch_counts()
 
     for label, knobs, desc in (("M1", PATH_M1, "bucketed"),
                                ("M2", PATH_M2, "lookahead, trailing_update_impl=xla")):
@@ -606,8 +770,8 @@ def path_m(stamp: dict, a_glob, rhs, factor_residual, solve_err, res_tol, kept: 
             fail(f"path {label} residual {res:.3e} > {res_tol:.3e}")
         need = ("potrf", "panel_trsm", "ring_exchange") if label == "M1" \
             else ("fused_factor_bcast", "ring_exchange")
-        if min(counts[k] for k in need) <= 0:
-            fail(f"path {label} did not launch {need}: {counts}")
+        if min(counts[k] for k in need) <= 0 or counts["potrf_cluster"] != counts["potrf"]:
+            fail(f"path {label} did not launch {need} (B1 on the cluster): {counts}")
         if label == "M2" and counts["fused_factor_bcast"] != ranks * (n // nb):
             fail(f"path M2 launched B7 {counts['fused_factor_bcast']} times, not "
                  f"{ranks} ranks x {n // nb} panels")
@@ -622,7 +786,7 @@ def path_m(stamp: dict, a_glob, rhs, factor_residual, solve_err, res_tol, kept: 
     info = int(info)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = launch_counts()
     counts_by["M3"] = counts
     serr = solve_err(layout.unpack(x.data, x.dist)[:n, :nb])
     del mat_a, mat_b, x
@@ -634,8 +798,9 @@ def path_m(stamp: dict, a_glob, rhs, factor_residual, solve_err, res_tol, kept: 
           **stamp})
     if info != 0 or not serr <= res_tol:
         fail(f"path M3 info {info}, solve error {serr:.3e}")
-    if min(counts[k] for k in ("potrf", "panel_trsm", "ring_exchange")) <= 0:
-        fail(f"path M3 did not launch B1, B2 and B5: {counts}")
+    if min(counts[k] for k in ("potrf", "panel_trsm", "ring_exchange")) <= 0 \
+            or counts["potrf_cluster"] != counts["potrf"]:
+        fail(f"path M3 did not launch B1 (on the cluster), B2 and B5: {counts}")
     return counts_by
 
 
@@ -974,7 +1139,7 @@ def path_fused(stamp: dict, a_glob, factor_residual, res_tol, kept: dict) -> dic
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, ops.launch_counts()
+        return out, time.perf_counter() - t0, launch_counts()
 
     def factor(a, nb, **kw):
         mat = dtt.DistributedMatrix.from_global(grid, a, (nb, nb))
@@ -1178,27 +1343,9 @@ def main() -> int:
     kgen = torch.Generator(device=dev).manual_seed(SEED + 1)
     report = {}
 
-    # B1 potrf: a Wishart tile G G^T / (2 nb), G (nb, 2 nb) (cond about 34;
-    # later rows of the factor carry half their weight off the diagonal)
-    g = torch.randn(nb, 2 * nb, generator=kgen, device=dev, dtype=f32)
-    d = (g @ g.T / (2 * nb)).contiguous()
-    del g
-    k_out, p_out = potrf.potrf_tile(d), potrf.potrf_tile_plain(d)
-    torch.cuda.synchronize()
-    err_abs, err = rel_err(k_out, p_out)
-    tol = tol_for("float32", nb)
-    herm = torch.tril(d) + torch.tril(d, -1).T
-    b_ms, b_by = bound(nb ** 3 / 3, 2 * nb * nb * 4)
-    rec = {"kernel": "potrf", "shape": [nb, nb], "max_abs_err": err_abs, "rel_err": err,
-           "tol": tol, "kernel_ms": timed_ms(lambda: potrf.potrf_tile(d), 20),
-           "plain_ms": timed_ms(lambda: potrf.potrf_tile_plain(d), 2),
-           "library_ms": timed_ms(lambda: torch.linalg.cholesky(herm), 20),
-           "library_call": "torch.linalg.cholesky", "bound_ms": b_ms, "bound_by": b_by, **stamp}
-    emit(rec)
-    if not err <= tol:
-        fail(f"potrf kernel vs plain: rel err {err:.3e} > tol {tol:.3e}")
-    report["potrf"] = rec
-    ell = p_out
+    # B1 potrf: the cluster kernel against its plain version and against the
+    # one-block kernel it replaced, timed in turns with it
+    report["potrf"], ell = potrf_phase(stamp, bound, timed_ms, kgen)
 
     # B2 panel TRSM: that factor against a standard normal panel of the
     # main path's height
@@ -1222,7 +1369,7 @@ def main() -> int:
     if not err <= tol:
         fail(f"panel_trsm kernel vs plain: rel err {err:.3e} > tol {tol:.3e}")
     report["panel_trsm"] = rec
-    del d, herm, ell, ell_t, pb, k_out, p_out
+    del ell, ell_t, pb, k_out, p_out
 
     # B3 trailing update, both forms at their lookahead shapes, standard
     # normal operands; the applied updates (x - x0) are compared
@@ -1407,7 +1554,7 @@ def main() -> int:
         t0 = time.perf_counter()
         fac = dtt.cholesky_factorization("L", mat, backend=backend)
         torch.cuda.synchronize()
-        return fac, time.perf_counter() - t0, ops.launch_counts()
+        return fac, time.perf_counter() - t0, launch_counts()
 
     gflop = n ** 3 / 3 / 1e9
     by_path = {}
@@ -1425,8 +1572,9 @@ def main() -> int:
     by_path["A_factor"] = counts
     if not res <= res_tol:
         fail(f"path A residual {res:.3e} > {res_tol:.3e}")
-    if counts["potrf"] <= 0 or counts["panel_trsm"] <= 0:
-        fail(f"path A did not launch potrf and panel_trsm: {counts}")
+    if counts["potrf"] <= 0 or counts["panel_trsm"] <= 0 \
+            or counts["potrf_cluster"] != counts["potrf"]:
+        fail(f"path A did not launch potrf (all on the cluster) and panel_trsm: {counts}")
     torch.cuda.empty_cache()
 
     # ---- 4. path B: lookahead, fused trailing-update tier
@@ -1442,7 +1590,7 @@ def main() -> int:
     x = dtt.cholesky_solver("L", fac, mat_b, backend="distributed")
     torch.cuda.synchronize()
     wall_solve = time.perf_counter() - t0
-    solve_counts = ops.launch_counts()
+    solve_counts = launch_counts()
     by_path["B_solve"] = solve_counts
     serr = solve_err(layout.unpack(x.data, x.dist)[:n, :nb])
     del fac, mat_b, x
@@ -1453,7 +1601,7 @@ def main() -> int:
     if not (res <= res_tol and serr <= res_tol):
         fail(f"path B factor residual {res:.3e} / solve error {serr:.3e} > {res_tol:.3e}")
     if min(counts["potrf"], counts["panel_trsm"], counts["trailing_update"]) <= 0 \
-            or solve_counts["trailing_update"] <= 0:
+            or counts["potrf_cluster"] != counts["potrf"] or solve_counts["trailing_update"] <= 0:
         fail(f"path B did not launch every kernel: factor {counts}, solve {solve_counts}")
     torch.cuda.empty_cache()
 
@@ -1468,7 +1616,7 @@ def main() -> int:
     info = int(info)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = launch_counts()
     by_path["posv"] = counts
     serr = solve_err(layout.unpack(x.data, x.dist)[:n, :nb])
     del mat_a, mat_b, x
@@ -1477,6 +1625,8 @@ def main() -> int:
           "tol": res_tol, "launches": counts, **stamp})
     if info != 0 or not serr <= res_tol:
         fail(f"POSV info {info}, solve error {serr:.3e}")
+    if counts["potrf"] <= 0 or counts["potrf_cluster"] != counts["potrf"]:
+        fail(f"POSV did not launch potrf on the cluster: {counts}")
 
     # ---- 5b. the three collectives tiers on the 2x4 grid, bitwise
     tier_equality(stamp, a_glob)
@@ -1531,16 +1681,24 @@ def main() -> int:
                                                     "bound_ms", "max_abs_err")}
                               for s, f in r["forms"].items()}
         if name == "merge_hop":
-            # B4's body runs inside every hop of B5, B6, B7 and B8; its own
+            # B4's select runs inside every B5 pull and every hop of B6, B7 and B8; its own
             # entry point is launched by its kernel phase only, as the JAX
             # package launches merge_hop only on its ring without remote copies
             entry["body_runs_in_launches"] = sum(
                 c.get(k, 0) for c in by_path.values()
                 for k in ("ring_exchange", "fused_factor_bcast", "dma_ring_consume", "fused_step"))
+        if name == "potrf":
+            # the one-block kernel the cluster kernel replaced, timed in turns
+            # with it in this run
+            entry["one_block_ms"] = r["one_block_ms"]
+            entry["launches_on_the_cluster"] = sum(c.get("potrf_cluster", 0)
+                                                   for c in by_path.values())
         if name == "ring_exchange":
-            entry["max_abs_err"] = max(f["max_abs_err"] for f in r["shapes"].values())
-            entry["shapes"] = {s: {k: f[k] for k in ("kernel_ms", "plain_ms", "library_ms",
-                                                     "bound_ms", "max_abs_err")}
+            # the hop ring the pull replaced, timed in turns with it in this run
+            entry["hop_ring_ms"] = r["hop_ring_ms"]
+            entry["max_abs_err"] = worst(f["max_abs_err"] for f in r["shapes"].values())
+            entry["shapes"] = {s: {k: f[k] for k in ("kernel_ms", "hop_ring_ms", "plain_ms",
+                                                     "library_ms", "bound_ms", "max_abs_err")}
                                for s, f in r["shapes"].items()}
         if name == "fused_factor_bcast":
             entry["unfused_ms"] = r["unfused_ms"]

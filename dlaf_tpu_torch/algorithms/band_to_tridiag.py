@@ -30,8 +30,8 @@ def extract_band_storage(mat: DistributedMatrix, band: int) -> torch.Tensor:
     package gathers (1x1 grids)."""
     if mat.grid.size != 1:
         raise NotImplementedError(
-            "extract_band_storage on a multi-rank grid waits for the "
-            "torch.distributed slice (ROADMAP.md, queue A item 3)"
+            "extract_band_storage on a multi-rank grid is not ported yet "
+            "(ROADMAP.md §A, item 3: the HEEV stages on Pr×Pc)"
         )
     m = mat.size.rows
     mb, nb = mat.block_size

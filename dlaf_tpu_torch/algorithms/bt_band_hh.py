@@ -126,8 +126,8 @@ def bt_band_to_tridiagonal_hh_dist(hh, mat_e: DistributedMatrix, group_size: int
     grid, dist = mat_e.grid, mat_e.dist
     if grid.size != 1:
         raise NotImplementedError(
-            "bt_band_to_tridiagonal_hh_dist on a multi-rank grid waits for the "
-            "torch.distributed slice (ROADMAP.md, queue A item 3)")
+            "bt_band_to_tridiagonal_hh_dist on a multi-rank grid is not ported yet "
+            "(ROADMAP.md §A, item 3: the HEEV stages on Pr×Pc)")
     n, k = dist.size
     dt = mat_e.dtype
     if dt.is_complex:

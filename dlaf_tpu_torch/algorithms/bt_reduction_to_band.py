@@ -62,8 +62,8 @@ def bt_reduction_to_band(mat_e, mat_band: DistributedMatrix, taus: torch.Tensor)
         raise ValueError("bt_reduction_to_band: E row distribution must match A")
     if mat_band.grid.size != 1:
         raise NotImplementedError(
-            "bt_reduction_to_band on a multi-rank grid waits for the "
-            "torch.distributed slice (ROADMAP.md, queue A item 3)")
+            "bt_reduction_to_band on a multi-rank grid is not ported yet "
+            "(ROADMAP.md §A, item 3: the HEEV stages on Pr×Pc)")
     n_panels, band = int(taus.shape[0]), int(taus.shape[1])
     if n_panels == 0 or g_e.nt == 0:
         return cpan.pack_to_matrix(mat_e) if in_cols else mat_e

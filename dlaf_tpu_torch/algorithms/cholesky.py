@@ -304,12 +304,13 @@ def cholesky_factorization(
     if uplo != t.LOWER:
         raise NotImplementedError(
             f"cholesky_factorization(uplo={uplo!r}): only 'L' is ported; the U "
-            "mirror waits in ROADMAP.md (port queue, left out of slice 1)"
+            "mirror is not ported yet (ROADMAP.md §A, item 2: the rest of the main path)"
         )
     if shift_recovery or checkpoint_every or checkpoint_path is not None or resume_from is not None:
         raise NotImplementedError(
             "cholesky_factorization: shift_recovery and checkpointing are not "
-            "ported yet (ROADMAP.md, port queue, left out of slice 1)"
+            "ported yet (ROADMAP.md §A, item 2: the rest of the main path; the "
+            "checkpoints are item 7: robustness, observability, plan)"
         )
     if mat_a.size.rows != mat_a.size.cols:
         raise DistributionError("cholesky: matrix must be square")

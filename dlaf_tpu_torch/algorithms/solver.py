@@ -45,7 +45,8 @@ def cholesky_solver(uplo: str, mat_l: DistributedMatrix, mat_b: DistributedMatri
     _check_solve_geometry("cholesky_solver", uplo, mat_l, mat_b)
     if uplo != t.LOWER:
         raise NotImplementedError(
-            "cholesky_solver: only uplo='L' is ported (ROADMAP.md, port queue)"
+            "cholesky_solver: only uplo='L' is ported "
+            "(ROADMAP.md §A, item 2: the rest of the main path)"
         )
     y = triangular_solver(t.LEFT, t.LOWER, t.NO_TRANS, t.NON_UNIT, 1.0, mat_l, mat_b,
                           backend=backend)
@@ -64,7 +65,8 @@ def positive_definite_solver(uplo: str, mat_a: DistributedMatrix, mat_b: Distrib
     letting NaNs flow into the triangular solves."""
     if refine_to is not None:
         raise NotImplementedError(
-            "positive_definite_solver: refine_to is not ported yet (ROADMAP.md, port queue)"
+            "positive_definite_solver: refine_to is not ported yet "
+            "(ROADMAP.md §A, item 4: split-GEMM tiers, refinement, mixed precision)"
         )
     _check_solve_geometry("positive_definite_solver", uplo, mat_a, mat_b)
     if return_info or raise_on_failure:

@@ -159,13 +159,13 @@ def triangular_solver(side: str, uplo: str, op: str, diag: str, alpha,
     forces the tiled kernel."""
     if side != t.LEFT:
         raise NotImplementedError(
-            "triangular_solver: the Right side is not ported yet (ROADMAP.md, "
-            "port queue, left out of slice 1)"
+            "triangular_solver: the Right side is not ported yet "
+            "(ROADMAP.md §A, item 2: the rest of the main path)"
         )
     if refine_to is not None:
         raise NotImplementedError(
-            "triangular_solver: refine_to is not ported yet (ROADMAP.md, port "
-            "queue, left out of slice 1)"
+            "triangular_solver: refine_to is not ported yet "
+            "(ROADMAP.md §A, item 4: split-GEMM tiers, refinement, mixed precision)"
         )
     if mat_a.size.rows != mat_a.size.cols:
         raise ValueError("trsm: A must be square")

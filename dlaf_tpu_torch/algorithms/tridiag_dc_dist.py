@@ -430,8 +430,8 @@ def tridiag_dc_distributed(
             "tridiag_dc_distributed: partial spectra are not ported yet (ROADMAP.md)")
     if grid.size != 1:
         raise NotImplementedError(
-            "tridiag_dc_distributed on a multi-rank grid waits for the "
-            "torch.distributed slice (ROADMAP.md, queue A item 3)")
+            "tridiag_dc_distributed on a multi-rank grid is not ported yet "
+            "(ROADMAP.md §A, item 3: the HEEV stages on Pr×Pc)")
     dtype = np.dtype(dtype)
     if dtype.kind == "c":
         raise NotImplementedError("tridiag_dc_distributed: complex dtypes are not ported")

@@ -310,17 +310,21 @@ def exchange(axis: str, value: torch.Tensor, sources) -> dict:
     return out
 
 
-def rendezvous(axis: str | None, label: str) -> None:
+def rendezvous(axis: str | None, label: str, value=None) -> list:
     """Wait until every rank of this rank's ring on ``axis`` (of the whole
     grid when ``axis`` is None) has reached the same ring call on the host.
     The ring kernels call it before they are launched: rank threads launch
     asynchronously, and without it a thread could run a whole factorization
     ahead of a slower one, leaving its ring kernels spinning on the card
     past their bound for a partner that has not been launched yet.  It
-    bounds the host skew within a ring to one call."""
+    bounds the host skew within a ring to one call.  Returns the ``value``
+    each rank brought, by ring position (row-major rank on the whole grid):
+    the pull exchange hands its ranks the device pointers of their inputs
+    this way."""
     ctx = current()
     world, rt = ctx.world, ctx.world.rt
-    _, n, ring = ctx.axis(axis) if axis is not None else (0, ctx.pr * ctx.pc, 0)
+    pos, n, ring = ctx.axis(axis) if axis is not None else \
+        (ctx.myr * ctx.pc + ctx.myc, ctx.pr * ctx.pc, 0)
     counter = ("rendezvous", axis)
     seq = ctx.seq.get(counter, 0)
     ctx.seq[counter] = seq + 1
@@ -328,13 +332,17 @@ def rendezvous(axis: str | None, label: str) -> None:
     with rt.lock:
         slot = world.board.get(key)
         if slot is None:
-            slot = world.board[key] = {"arrived": 0, "done": 0, "cond": rt.condition()}
+            slot = world.board[key] = {"arrived": 0, "done": 0, "vals": [None] * n,
+                                       "cond": rt.condition()}
+        slot["vals"][pos] = value
         slot["arrived"] += 1
         slot["cond"].notify_all()
         world.wait(slot["cond"], lambda: slot["arrived"] == n, label)
+        vals = list(slot["vals"])
         slot["done"] += 1
         if slot["done"] == n:
             del world.board[key]
+    return vals
 
 
 def _as_caller_result(res, stream):

@@ -260,8 +260,8 @@ def local(x):
     if x.shape[0] * x.shape[1] != 1:
         raise NotImplementedError(
             f"this algorithm runs on 1x1 grids only in the port (got a "
-            f"{x.shape[0]}x{x.shape[1]} stack); its multi-rank kernels wait in "
-            "ROADMAP.md (port queue)"
+            f"{x.shape[0]}x{x.shape[1]} stack); its multi-rank kernels are not ported "
+            "yet (ROADMAP.md §A, item 3: the HEEV stages on Pr×Pc)"
         )
     return x.reshape(x.shape[2:])
 

@@ -65,8 +65,8 @@ def sub_matrix(mat: DistributedMatrix, origin, size) -> DistributedMatrix:
         raise ValueError(f"sub-matrix {origin}+{size} out of bounds {tuple(mat.size)}")
     if mat.grid.size != 1:
         raise NotImplementedError(
-            "sub_matrix on a multi-rank grid waits for the torch.distributed "
-            "slice (ROADMAP.md, queue A item 3)"
+            "sub_matrix on a multi-rank grid is not ported yet "
+            "(ROADMAP.md §A, item 3: the HEEV stages on Pr×Pc)"
         )
     out_dist = Distribution(size, mat.dist.block_size, mat.dist.grid_size)
     if not all(DistributedMatrix.stacked_shape(out_dist)):

@@ -21,8 +21,12 @@ KERNELS = {
 }
 
 
+#: counters beside KERNELS': the cluster kernel's share of B1's launches
+SUB_COUNTS = {"potrf_cluster": (potrf, "cluster_launches")}
+
+
 def reset_launch_counts() -> None:
-    for mod, attr in KERNELS.values():
+    for mod, attr in (*KERNELS.values(), *SUB_COUNTS.values()):
         setattr(mod, attr, 0)
 
 

@@ -36,9 +36,12 @@ _ULL = ctypes.c_ulonglong
 #: C entry points and their argument types; every one returns the
 #: ``cudaGetLastError()`` of its launch as an int
 SIGNATURES = {
-    # (a, out, n, stream)
+    # (a, out, n, stream): B1 on one block
     "dlaf_potrf_f32": [_P, _P, _I, _P],
     "dlaf_potrf_f64": [_P, _P, _I, _P],
+    # (a, out, n, cluster_blocks, stream): B1 on a thread-block cluster
+    "dlaf_potrf_cluster_f32": [_P, _P, _I, _I, _P],
+    "dlaf_potrf_cluster_f64": [_P, _P, _I, _I, _P],
     # (ell, b, x, rows, nb, stream)
     "dlaf_panel_trsm_f32": [_P, _P, _P, _LL, _I, _P],
     "dlaf_panel_trsm_f64": [_P, _P, _P, _LL, _I, _P],
@@ -59,8 +62,11 @@ SIGNATURES = {
     "dlaf_secular_bisect_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (y, y_in, h, h_in, oy, oh, total, w, slots, stream)
     "dlaf_merge_hop": [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P],
+    # (ys, hs, out, oh, entry, done, err, total, w, slots, seg, G, P, me, epoch,
+    #  timeout_ns, stream): B5, the pull; ys and hs host arrays of P device pointers
+    "dlaf_pull_exchange": [_P] * 7 + [_LL, _LL, _I, _LL, _I, _I, _I, _ULL, _ULL, _P],
     # (y, h, out, oh, land, land_h, entry, rflag, aflag, err, total, w, slots, seg,
-    #  G, P, me, epoch, timeout_ns, stream)
+    #  G, P, me, epoch, timeout_ns, stream): B5 as the hop ring
     "dlaf_ring_exchange": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _LL,
                            _I, _I, _I, _ULL, _ULL, _P],
     # (d, xc, below, lkk, cp, nb, rows, is_root, ready, land, land_h, entry, rflag,

@@ -7,12 +7,20 @@ Replaces ``dlaf_tpu/ops/pallas_panel_exchange.py``:
   the wire layout, ``take = ~have & have_in; y = take ? y_in : y;
   have |= have_in``.  A pure select.  As in the JAX package, B4's own
   launch is the merge of the ring that has no remote copy: here the CPU
-  twin of the ring; on the card B4's body runs inside every B5 and B7 hop.
+  twin of the exchange; on the card B4's select picks every slot's source
+  in each B5 pull and merges every hop of B6, B7 and B8.
 - B5, :func:`ring_exchange` / :func:`ring_bcast` (``dma_ring_exchange`` /
   ``_dma_ring_kernel``, ``_ring_hops``): a one-contributor ``(payload,
-  have)`` exchange over the P - 1 hops of a unidirectional ring along a
-  grid axis, with an entry barrier, two landing slots per rank, recv flags
-  and capacity acks.  One launch per rank, on its stream.
+  have)`` exchange along a grid axis, with the result of the TPU's ring:
+  per slot this rank's bytes where it has the slot, else those of its
+  nearest upstream rank that has it.  On the card it is a pull: the ranks
+  are threads of one process on one card, so each rank copies the chosen
+  bytes straight out of its peers' inputs (their device pointers are
+  exchanged at the host rendezvous before the launch), between an entry
+  and an exit barrier over every rank of the ring.  One launch per rank,
+  on its stream.  The hop ring it replaced (P - 1 hops through landing
+  slots) stays as :func:`ring_exchange_hops`, the reference of the pull's
+  before/after check; no path calls it.
 - B7, :func:`fused_factor_bcast` (``fused_factor_bcast`` / ``_fused_kernel``):
   potrf of the broadcast diagonal tile, the panel solve of this rank's
   column, the mask to the rows below the diagonal on the root column, and
@@ -28,10 +36,12 @@ together.  Calls of one state follow each other on every rank's stream in
 the same SPMD order, so the epochs agree without a reset.
 
 On CPU tensors every wrapper runs its plain twin, which is the same
-protocol, not a shortcut: the ring twin keeps CPU landing slots, recv and
-ack counters under the runtime's lock (one condition per ring), sends
-before it waits and double-buffers, and merges with B4's twin.  On CUDA tensors the
-wrappers launch the kernels or raise; no path falls back.
+protocol, not a shortcut: the exchange's twin posts its input and meets
+every rank of the ring at an entry barrier (counters under the runtime's
+lock, one condition per ring), folds B4's twin over the upstream ranks'
+inputs in ring order (me - 1, me - 2, ...), and meets them again at an
+exit barrier.  On CUDA tensors the wrappers launch the kernels or raise;
+no path falls back.
 
 Every wait is bounded: the twin's by ``_ranks.WAIT_S``, the kernels' spins
 by :data:`RING_TIMEOUT_S`, after which a kernel sets the grid's sticky
@@ -41,6 +51,7 @@ the kernels' design and ``PERF.md`` for their times.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 import time
 
@@ -51,11 +62,16 @@ from dlaf_tpu_torch.ops import _build
 from dlaf_tpu_torch.ops import panel_trsm as _ptrsm
 from dlaf_tpu_torch.ops import potrf as _potrf
 
-#: launches of B4, B5 and B7 since the last reset (one per rank and call;
-#: the plain twins count nothing)
+#: launches of B4, B5 (the pull) and B7 since the last reset (one per rank
+#: and call; the plain twins count nothing), and of the hop ring that B5's
+#: before/after check launches
 merge_launches = 0
 ring_launches = 0
 fused_launches = 0
+hop_launches = 0
+
+#: bytes of payload per block of a pull launch (at most SMs / ranks blocks)
+PULL_BYTES_PER_BLOCK = 64 * 1024
 
 #: bound of every spin in the ring kernels, seconds
 RING_TIMEOUT_S = 5.0
@@ -101,11 +117,12 @@ def describe_error(code: int) -> str:
     """What the ring kernels' error word says."""
     return {
         -1: "ring kernels released because a rank thread failed",
-        1: "ring kernel: entry barrier (a neighbour's launch never came)",
+        1: "ring kernel: entry barrier (a partner's launch never came)",
         2: "ring kernel: capacity ack of a landing slot",
         3: "ring kernel: recv flag of a landing slot",
         4: "fused kernel: the diagonal factor",
         5: "fused step kernel: a phase flag of its own launch",
+        6: "ring kernel (pull): exit barrier (a reader's done flag never came)",
     }.get(code, f"ring kernel error {code}")
 
 
@@ -211,6 +228,31 @@ class _DeviceRing:
         self.ready = self.aflag + w * n * 2 * blocks
 
 
+class _PullRing:
+    """The pull exchange's state on the card: its entry and done flags
+    [2][P][G] as 64-bit words, zero at first and never reset.  No landing
+    slots: the ranks read each other's inputs."""
+
+    def __init__(self, rt, n: int, blocks: int):
+        self.epoch = [0] * n
+        self.blocks = blocks
+        self.flags = rt.zeros(2 * n * blocks, torch.int64)
+        self.entry = self.flags.data_ptr()
+        self.done = self.entry + 8 * n * blocks
+
+
+class _HostPull:
+    """The pull twin's state: every rank's posted input and its entry and
+    done counters."""
+
+    def __init__(self, rt, n: int):
+        self.cond = rt.condition()  # on rt.lock; wakes this ring's ranks only
+        self.epoch = [0] * n
+        self.posted = [None] * n
+        self.entry = [0] * n
+        self.done = [0] * n
+
+
 def _max_blocks(rt) -> int:
     """Blocks per ring launch: every rank of the grid may have one launch
     live at once, and all of them must fit the card's SMs together."""
@@ -224,55 +266,49 @@ def _skew(ctx) -> None:
         time.sleep(delay)
 
 
-def _before_launch(ctx, axis: str, kind: str) -> None:
+def _before_launch(ctx, axis: str, kind: str, value=None) -> list:
     """Meet the ring's other ranks on the host (``_ranks.rendezvous``), so
     that a ring kernel never waits on the card for a partner whose thread
     is far behind; the skew tests' delay comes after, so that the kernels
-    of the punctual ranks do spin for the late one."""
-    _ranks.rendezvous(axis, f"{kind} ring on {axis!r}: launch")
+    of the punctual ranks do spin for the late one.  Returns the ``value``
+    of every rank of the ring, by position."""
+    vals = _ranks.rendezvous(axis, f"{kind} ring on {axis!r}: launch", value)
     _skew(ctx)
+    return vals
 
 
 # ------------------------------------------------------------------ B5 twin
 
 
 def _ring_plain(yf, h, axis: str, kind: str):
-    """The ring protocol with CPU landing slots (``_ring_hops``), every
-    wait bounded; the merge is B4's twin."""
+    """The pull protocol with CPU state: post this rank's input, an entry
+    barrier over every rank of the ring, B4's twin folded over the upstream
+    ranks' inputs in ring order (me - 1, me - 2, ...: the nearest
+    contributor wins, as in the ring), an exit barrier.  Every wait is
+    bounded by ``_ranks.WAIT_S``."""
     ctx = _ranks.current()
     world, rt = ctx.world, ctx.world.rt
     pos, n, ring = ctx.axis(axis)
-    st = rt.ring((_class_id(kind, axis), ring, tuple(yf.shape), yf.dtype, "host"),
-                 lambda: _HostRing(rt, n, yf, h))
+    st = rt.ring((_class_id(kind, axis), ring, tuple(yf.shape), yf.dtype, "host-pull"),
+                 lambda: _HostPull(rt, n))
     st.epoch[pos] += 1
     e = st.epoch[pos] << 16
-    dst, src = (pos + 1) % n, (pos - 1) % n
-    nhops = n - 1
-    acc_y, acc_h = yf.clone(), h.clone()
+    label = f"{kind} ring on {axis!r}"
     _skew(ctx)
     with rt.lock:
-        st.entry[pos] = e
+        st.posted[pos] = (yf, h)
+        st.entry[pos] = e | 1
         st.cond.notify_all()
-        world.wait(st.cond, lambda: st.entry[dst] >= e and st.entry[src] >= e,
-                   f"{kind} ring on {axis!r}: entry barrier")
-    for s in range(nhops):
-        j = s % 2
-        if s >= 2:
-            with rt.lock:
-                world.wait(st.cond, lambda j=j, s=s: st.ack[dst][j] >= e | (s - 1),
-                           f"{kind} ring on {axis!r}: ack of slot {j}")
-        st.land_y[dst][j].copy_(acc_y)
-        st.land_h[dst][j].copy_(acc_h)
-        with rt.lock:
-            st.recv[dst][j] = e | (s + 1)
-            st.cond.notify_all()
-            world.wait(st.cond, lambda j=j, s=s: st.recv[pos][j] >= e | (s + 1),
-                       f"{kind} ring on {axis!r}: recv of slot {j}")
-        acc_y, acc_h = merge_hop(acc_y, st.land_y[pos][j], acc_h, st.land_h[pos][j])
-        if s + 2 < nhops:
-            with rt.lock:
-                st.ack[pos][j] = e | (s + 1)
-                st.cond.notify_all()
+        world.wait(st.cond, lambda: all(v >= e | 1 for v in st.entry), f"{label}: entry barrier")
+        upstream = [st.posted[(pos - q) % n] for q in range(1, n)]
+    acc_y, acc_h = yf, h
+    for y_in, h_in in upstream:
+        acc_y, acc_h = merge_hop(acc_y, y_in, acc_h, h_in)
+    with rt.lock:
+        st.done[pos] = e | 2
+        st.cond.notify_all()
+        world.wait(st.cond, lambda: all(v >= e | 2 for v in st.done), f"{label}: exit barrier")
+        st.posted[pos] = None
     return acc_y, acc_h
 
 
@@ -280,7 +316,10 @@ def _ring_plain(yf, h, axis: str, kind: str):
 
 
 def _ring_cuda(yf, h, axis: str, kind: str):
-    """This rank's launch of B5 on its stream."""
+    """This rank's launch of B5, the pull, on its stream.  ``words`` and
+    ``h`` stay referenced until the launch is queued; the kernel's exit
+    barrier keeps every peer's reads ahead of this rank's next use of
+    them."""
     global ring_launches
     ctx = _ranks.current()
     world, rt = ctx.world, ctx.world.rt
@@ -289,24 +328,74 @@ def _ring_cuda(yf, h, axis: str, kind: str):
     total, slots = words.numel(), h.shape[0]
     if total % slots:
         raise ValueError("ring_exchange: the payload does not split into its have-slots")
-    blocks = min(_max_blocks(rt), max(1, math.ceil(total * 4 / (256 * 1024))))
+    blocks = min(_max_blocks(rt), max(1, math.ceil(total * 4 / PULL_BYTES_PER_BLOCK)))
     seg = math.ceil(total / blocks / 4) * 4
-    st = rt.ring((_class_id(kind, axis), ring, total, slots, "card"),
-                 lambda: _DeviceRing(rt, n, total, slots, blocks))
+    st = rt.ring((_class_id(kind, axis), ring, total, slots, "pull"),
+                 lambda: _PullRing(rt, n, blocks))
     st.epoch[pos] += 1
     out, oh = torch.empty_like(words), torch.empty_like(h)
-    _before_launch(ctx, axis, kind)
-    lib = _build.lib()
-    rc = lib.dlaf_ring_exchange(
-        words.data_ptr(), h.data_ptr(), out.data_ptr(), oh.data_ptr(), st.land.data_ptr(),
-        st.land_h.data_ptr(), st.entry, st.rflag, st.aflag, rt.error_word().data_ptr(),
-        total, total // slots, slots, seg, st.blocks, n, pos, st.epoch[pos] << 16,
-        int(RING_TIMEOUT_S * 1e9), _build.stream_of(words))
+    hc = h.contiguous()
+    ptrs = _before_launch(ctx, axis, kind, (words.data_ptr(), hc.data_ptr()))
+    ys = (ctypes.c_void_p * n)(*[p[0] for p in ptrs])
+    hs = (ctypes.c_void_p * n)(*[p[1] for p in ptrs])
+    rc = _build.lib().dlaf_pull_exchange(
+        ctypes.addressof(ys), ctypes.addressof(hs), out.data_ptr(), oh.data_ptr(), st.entry,
+        st.done, rt.error_word().data_ptr(), total, total // slots, slots, seg, st.blocks, n, pos,
+        st.epoch[pos] << 16, int(RING_TIMEOUT_S * 1e9), _build.stream_of(words))
     _build.check(rc, "ring_exchange")
     world.ring_launched = True
     with _build.COUNT_LOCK:
         ring_launches += 1
     return out.view(yf.dtype), oh
+
+
+def _ring_hops_cuda(yf, h, axis: str, kind: str):
+    """This rank's launch of the hop ring on its stream (its landing slots
+    in a ring state of their own)."""
+    global hop_launches
+    ctx = _ranks.current()
+    world, rt = ctx.world, ctx.world.rt
+    pos, n, ring = ctx.axis(axis)
+    words = _words(yf)
+    total, slots = words.numel(), h.shape[0]
+    if total % slots:
+        raise ValueError("ring_exchange_hops: the payload does not split into its have-slots")
+    blocks = min(_max_blocks(rt), max(1, math.ceil(total * 4 / (256 * 1024))))
+    seg = math.ceil(total / blocks / 4) * 4
+    st = rt.ring((_class_id(kind, axis), ring, total, slots, "card-hops"),
+                 lambda: _DeviceRing(rt, n, total, slots, blocks))
+    st.epoch[pos] += 1
+    out, oh = torch.empty_like(words), torch.empty_like(h)
+    _before_launch(ctx, axis, kind)
+    rc = _build.lib().dlaf_ring_exchange(
+        words.data_ptr(), h.data_ptr(), out.data_ptr(), oh.data_ptr(), st.land.data_ptr(),
+        st.land_h.data_ptr(), st.entry, st.rflag, st.aflag, rt.error_word().data_ptr(),
+        total, total // slots, slots, seg, st.blocks, n, pos, st.epoch[pos] << 16,
+        int(RING_TIMEOUT_S * 1e9), _build.stream_of(words))
+    _build.check(rc, "ring_exchange_hops")
+    world.ring_launched = True
+    with _build.COUNT_LOCK:
+        hop_launches += 1
+    return out.view(yf.dtype), oh
+
+
+def ring_exchange_hops(y, have, axis: str, *, kind: str = "exchange"):
+    """:func:`ring_exchange` through the hop ring that the pull replaced (P -
+    1 hops through double-buffered landing slots, ``csrc/ring.cuh``): the
+    "before" of B5's before/after check and a second bitwise reference of
+    the pull.  No path calls it.  CPU tensors take the twin of
+    :func:`ring_exchange` (the same result)."""
+    _, n, _ = _ranks.current().axis(axis)
+    if n == 1:
+        return y, have
+    yf, h = _to_wire(y, have)
+    if yf.device.type == "cpu":
+        yf, h = _ring_plain(yf, h, axis, kind)
+    elif yf.device.type == "cuda":
+        yf, h = _ring_hops_cuda(yf, h, axis, kind)
+    else:
+        raise ValueError(f"ring_exchange_hops: unsupported device {yf.device}")
+    return _from_wire(yf, h, y, have)
 
 
 def ring_exchange(y, have, axis: str, *, kind: str = "exchange"):

@@ -7,9 +7,10 @@ that chip_smoke.py's kernel phase of that kernel fails on it.
 Each fault is an edit of one file of dlaf_tpu_torch/csrc/, made in a copy
 of dlaf_tpu_torch/ and chip_smoke.py under _faults/<name>/ (listed in
 .gitignore; the repository's own files are never edited).  The copy builds
-its kernels at first use as the repository does, then runs
-chip_smoke.consume_phases for the one kernel the fault is in, on the main
-path's inputs, in a process of its own.  The script prints one JSON line
+its kernels at first use as the repository does, then runs chip_smoke.py's
+kernel phase of the one kernel the fault is in (consume_phases for B6, B8
+and B9, pull_phase for B5, potrf_phase for B1), on the main path's shapes,
+in a process of its own.  The script prints one JSON line
 per fault: whether the phase failed, as it must, and the errors the phase
 measured.  Needs a CUDA device; it exits non-zero if a fault that must
 fail went unseen (faults marked latent are run and reported, with the
@@ -27,7 +28,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORK = os.path.join(ROOT, "_faults")
 
 #: name -> (file under dlaf_tpu_torch/csrc/, [(text, its replacement)],
-#: kernel of chip_smoke.consume_phases to run, what must happen).  A fault
+#: kernel whose chip_smoke.py phase runs, what must happen).  A fault
 #: marked "latent" cannot change what the phase compares (the reason is
 #: given); it is run and reported all the same, and does not count as
 #: unseen.
@@ -84,6 +85,38 @@ FAULTS = {
         [("    ok = b == 0 || tid != 0 || wait_flag(a.ready, a.epoch, a.rc, kErrFactor);\n",
           "    ok = true;\n")],
         "fused_step", "fails"),
+    # B5 (the pull): a reader copies from its peers without waiting for
+    # their entry flags; the phase's late source fills its fresh input with
+    # NaN and writes it only after a 100 ms sleep on its stream
+    "b5_read_before_entry": (
+        "panel_exchange.cu",
+        [("    ok = barrier_all(p.entry, 1, p, kErrEntry);\n",
+          "    publish(&p.entry[(long long)p.me * G + b], p.epoch | 1);\n")],
+        "ring_exchange", "fails"),
+    # B5 (the pull): a rank's kernel exits without waiting for its readers'
+    # done flags, so its stream overwrites its input (with late readers, the
+    # phase's source has its NaN fill queued behind its launch) while
+    # readers still read it; the readers are made slow (2 ms between their
+    # entry barrier and their copy), which opens the race on every run
+    "b5_exit_before_readers_done": (
+        "panel_exchange.cu",
+        [("  if (threadIdx.x == 0) barrier_all(p.done, 2, p, kErrDone);\n",
+          "  if (threadIdx.x == 0) publish(&p.done[(long long)p.me * G + b], p.epoch | 2);\n"),
+         ("    if (b == 0) p.oh[s] = any;\n  }\n  __syncthreads();\n",
+          "    if (b == 0) p.oh[s] = any;\n  }\n  __syncthreads();\n"
+          "  if (threadIdx.x == 0 && sh_src[0] != p.me) {\n"
+          "    const u64 t0 = globaltimer();\n"
+          "    while (globaltimer() - t0 < 2000000ull) __nanosleep(1000);\n"
+          "  }\n"
+          "  __syncthreads();\n")],
+        "ring_exchange", "fails"),
+    # B1 (the cluster): the other blocks copy the diagonal block's factor
+    # from block 0 without the cluster.sync() that follows its factoring
+    "b1_drop_cluster_sync": (
+        "potrf.cu",
+        [("      __syncthreads();\n    }\n    cluster.sync();\n    // 2. the factor",
+          "      __syncthreads();\n    }\n    // 2. the factor")],
+        "potrf", "fails"),
     # B9: the lower form's sum over j drops the last slot
     "b9_drop_one_j": (
         "trailing_update.cu",
@@ -115,8 +148,19 @@ def timed_ms(fn, iters, warmup=1):
     b.synchronize()
     return a.elapsed_time(b) / iters
 
-a_glob, _ = cs.make_inputs(torch.device("cuda"))
-cs.consume_phases({{"card": cs.card_line()}}, bound, timed_ms, a_glob, only=({kernel!r},))
+dev = torch.device("cuda")
+stamp = {{"card": cs.card_line()}}
+kernel = {kernel!r}
+if kernel == "ring_exchange":
+    from dlaf_tpu_torch.comm.grid import Grid
+    kgen = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
+    cs.pull_phase(stamp, bound, kgen, Grid.create(cs.GRID_M, device=dev),
+                  Grid.create(cs.GRID_M, device="cpu"), timed_ms)
+elif kernel == "potrf":
+    cs.potrf_phase(stamp, bound, timed_ms, torch.Generator(device=dev).manual_seed(cs.SEED + 1))
+else:
+    a_glob, _ = cs.make_inputs(dev)
+    cs.consume_phases(stamp, bound, timed_ms, a_glob, only=(kernel,))
 print("PHASE PASSED")
 """
 
@@ -146,7 +190,9 @@ def plant(name: str) -> dict:
             "measured": [{k: v for k, v in m.items() if k in (
                 "kernel", "subscripts", "rel_err", "max_abs_err", "bitwise_vs_plain_yf_h",
                 "skewed_run_bitwise", "rp_bitwise_vs_plain", "rel_err_vs_two_piece",
-                "ring_of_4", "tol")} for m in measured],
+                "ring_of_4", "tol", "case", "bitwise_vs_plain", "bitwise_hop_ring_vs_plain",
+                "skewed_run", "input_lifetime_bitwise_vs_plain", "input_lifetime_wrong_elements",
+                "elements", "bitwise_vs_one_block")} for m in measured],
             "stderr_tail": proc.stderr[-600:] if proc.returncode and not failed else ""}
 
 

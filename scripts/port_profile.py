@@ -30,8 +30,10 @@ GROUPS = (
     ("fused_step", "fused_step_kernel"),
     ("dma_ring_consume", "consume_kernel"),
     ("panel_contract", "panel_contract_kernel"),
+    ("ring_exchange", "pull_kernel"),
     ("ring_exchange", "ring_kernel"),
     ("fused_factor_bcast", "fused_kernel"),
+    ("potrf", "potrf_cluster_kernel"),
     ("potrf", "potrf_kernel"),
     ("panel_trsm", "panel_trsm_kernel"),
     ("trailing_update", "trailing_update_kernel"),

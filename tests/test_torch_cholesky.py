@@ -41,6 +41,9 @@ def _cases():
         # per dtype runs with the kernel off
         panel = mb == 32 and not (variant == "bucketed" and dtype == np.float64)
         out.append((n, mb, dtype, variant, panel))
+    # complex tiles go to the library behind the kernels' real-only gates
+    out += [(64, 8, dtype, variant, False)
+            for dtype in (np.complex64, np.complex128) for variant in VARIANTS]
     return out
 
 
@@ -131,6 +134,13 @@ def test_left_out_options_raise():
 # ------------------------------------------------------- multi-rank grids
 
 MULTI_SHAPES = [(2, 2), (2, 4), (4, 2)]
+# the real case of every shape, and a complex case on one shape each (the
+# real cases keep the ids they had before the complex ones came)
+MULTI_CASES = [
+    *(pytest.param(s, np.float32, id=f"shape{i}") for i, s in enumerate(MULTI_SHAPES)),
+    pytest.param((2, 4), np.complex64, id="shape1-complex64"),
+    pytest.param((4, 2), np.complex128, id="shape2-complex128"),
+]
 TIERS = ["psum", "v2", "pallas"]
 MULTI_VARIANTS = {
     "bucketed": dict(cholesky_lookahead=False, trailing_update_impl="auto"),
@@ -151,15 +161,16 @@ def _multi_pair(comm_grids, shape, a, mb):
 
 @pytest.mark.parametrize("tier", TIERS)
 @pytest.mark.parametrize("variant", list(MULTI_VARIANTS))
-@pytest.mark.parametrize("shape", MULTI_SHAPES)
-def test_cholesky_multi_rank_matches_jax(comm_grids, shape, variant, tier):
+@pytest.mark.parametrize("shape,dtype", MULTI_CASES)
+def test_cholesky_multi_rank_matches_jax(comm_grids, shape, dtype, variant, tier):
     """Bucketed and lookahead Cholesky on rank threads of a 2x2, 2x4 and 4x2
     grid, in each collectives tier (under 'pallas' the lookahead panel is
-    B7's twin), against the JAX package on its 8-device mesh."""
-    n, mb, dtype = 60, 8, np.float32
+    B7's twin), against the JAX package on its 8-device mesh; f32, and c64
+    and c128 on one shape each (complex panels travel as their real views)."""
+    n, mb = 60, 8
     a = tu.random_hermitian_pd(n, dtype, seed=21)
     a = np.tril(a) + np.triu(tu.random_matrix(n, n, dtype, seed=22), 1)  # upper not read
-    key = (shape, variant)
+    key = (shape, np.dtype(dtype).str, variant)
     if key not in _JAX_MULTI:
         jm, _ = _multi_pair(comm_grids, shape, a, mb)
         with knobs(**MULTI_VARIANTS[variant]):

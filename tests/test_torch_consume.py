@@ -57,7 +57,8 @@ def knobs(jax_too: bool = True, **kw):
 
 
 def _rel_err(got, ref) -> float:
-    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    wide = np.result_type(np.asarray(got).dtype, np.float64)  # complex stays complex
+    got, ref = np.asarray(got, wide), np.asarray(ref, wide)
     return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1.0))
 
 
@@ -305,14 +306,16 @@ def _port_factor(shape, a, mb, **kw):
 
 
 @pytest.mark.parametrize("tier", ["psum", "v2", "pallas"])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_lookahead_fused_matches_xla_and_jax(comm_grids, shape, tier):
+@pytest.mark.parametrize("shape,dtype", [pytest.param(s, np.float32, id=f"shape{i}")
+                                         for i, s in enumerate(SHAPES)]
+                         + [pytest.param((2, 4), np.complex64, id="shape1-complex64")])
+def test_lookahead_fused_matches_xla_and_jax(comm_grids, shape, dtype, tier):
     """Lookahead Cholesky under 'fused' on rank threads: bitwise the 'xla'
     tier's factor in the port, and within tol_for of the JAX package's
-    fused tier."""
+    fused tier; f32 on every shape, c64 on 2x4."""
     pytest.importorskip("jax")
     n, mb = 60, 8
-    a = np.tril(random_hermitian_pd(n, np.float32, 41)) + np.triu(random_matrix(n, n, np.float32, 42), 1)
+    a = np.tril(random_hermitian_pd(n, dtype, 41)) + np.triu(random_matrix(n, n, dtype, 42), 1)
     ref, jinfo = _jax_factor(comm_grids, shape, a, mb, cholesky_lookahead=True,
                              trailing_update_impl="fused")
     out = {}
@@ -322,7 +325,7 @@ def test_lookahead_fused_matches_xla_and_jax(comm_grids, shape, tier):
     np.testing.assert_array_equal(out["fused"][0], out["xla"][0])
     assert out["fused"][2] == out["xla"][2] == jinfo == 0
     assert np.isfinite(out["fused"][1]).all()
-    assert _rel_err(out["fused"][1], ref) <= tol_for(np.float32, n)
+    assert _rel_err(out["fused"][1], ref) <= tol_for(dtype, n)
 
 
 @pytest.mark.parametrize("shape", [(2, 4), (4, 2)])

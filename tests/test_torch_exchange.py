@@ -18,6 +18,8 @@ The JAX side is imported inside the tests that use it, so that on a
 machine with a card and no JAX the CUDA tests still run:
 ``python -m pytest tests/test_torch_exchange.py --noconftest -m cuda``.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -186,6 +188,125 @@ def test_ring_twin_wait_is_bounded(monkeypatch):
         coll.spmd(grid, body, torch.zeros(1, 2, 4))
 
 
+FIXTURE_SHAPES = [(2, 4), (4, 2), (2, 2), (1, 2), (2, 1), (1, 1)]
+
+
+def _nearest_upstream(y, have, axis):
+    """What every rank must end with, from numpy-free loops: per slot its own
+    bytes where it has the slot, else those of the nearest upstream rank of
+    its ring that has it, else its own; have is the OR over the ring."""
+    pr, pc = have.shape[:2]
+    out, out_h = y.clone(), have.clone()
+    for r in range(pr):
+        for c in range(pc):
+            pos, n = (c, pc) if axis == "c" else (r, pr)
+            at = (lambda p: (r, p)) if axis == "c" else (lambda p: (p, c))
+            for s in range(have.shape[2]):
+                for q in range(n):
+                    src = at((pos - q) % n)
+                    if have[src][s]:
+                        out[r, c, s] = y[src][s]
+                        break
+                out_h[r, c, s] = any(have[at(p)][s] for p in range(n))
+    return out, out_h
+
+
+def _v2_all(grid, y, have, axis):
+    ref, ref_h = torch.empty_like(y), torch.zeros_like(have)
+
+    def v2(yl, hl, ol, ohl):
+        yy, hh = coll._forward_chain(yl, hl, axis)
+        ol.copy_(yy)
+        ohl.copy_(hh)
+
+    coll.spmd(grid, v2, y, have, ref, ref_h)
+    return ref, ref_h
+
+
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("axis", ["c", "r"])
+@pytest.mark.parametrize("shape", FIXTURE_SHAPES)
+def test_pull_twin_matches_v2_bitwise_on_fixture_shapes(shape, axis, skew, monkeypatch):
+    """B5's twin (the pull protocol with CPU state) against the v2 doubling
+    chain on each fixture grid shape and axis, one contributor per slot and
+    a slot with none; with ``skew`` the last rank sleeps 20 ms before every
+    ring entry, so the others wait for it at the entry barrier."""
+    pr, pc = shape
+    n = pc if axis == "c" else pr
+    rng = np.random.default_rng(40 + pr * 8 + pc)
+    y = torch.from_numpy(rng.standard_normal((pr, pc, 5, 3)).astype(np.float32))
+    have = torch.zeros(pr, pc, 5, dtype=torch.bool)
+    for s in range(4):  # the last slot has no contributor
+        if axis == "c":
+            have[:, s % n, s] = True
+        else:
+            have[s % n, :, s] = True
+    if skew:
+        monkeypatch.setitem(px.launch_delay_s, (pr - 1, pc - 1), 0.02)
+    grid = Grid.create(shape, device="cpu")
+    out, got_h = _exchange_all(grid, y, have, axis)
+    ref, ref_h = _v2_all(grid, y, have, axis)
+    assert torch.equal(out, ref) and torch.equal(got_h, ref_h)
+    want, want_h = _nearest_upstream(y, have, axis)
+    assert torch.equal(out, want) and torch.equal(got_h, want_h)
+
+
+@pytest.mark.parametrize("axis", ["c", "r"])
+def test_pull_twin_takes_the_nearest_upstream_contributor(axis):
+    """Several contributors per slot, and slots with none: every rank ends
+    with its own bytes where it has the slot, else the nearest upstream
+    contributor's (the select of every hop of the ring), bitwise the v2
+    chain's; have is the OR over the ring."""
+    shape = (2, 4) if axis == "c" else (4, 2)
+    rng = np.random.default_rng(44)
+    y = torch.from_numpy(rng.standard_normal((*shape, 12, 4)).astype(np.float32))
+    have = torch.from_numpy(rng.random((*shape, 12)) < 0.4)
+    have[..., 0] = False  # a slot that nobody has
+    have[..., 1] = True   # a slot that everybody has
+    grid = Grid.create(shape, device="cpu")
+    out, got_h = _exchange_all(grid, y, have, axis)
+    want, want_h = _nearest_upstream(y, have, axis)
+    assert torch.equal(out, want) and torch.equal(got_h, want_h)
+    ref, ref_h = _v2_all(grid, y, have, axis)
+    assert torch.equal(out, ref) and torch.equal(got_h, ref_h)
+    assert torch.equal(out[..., 0, :], y[..., 0, :]) and torch.equal(out[..., 1, :], y[..., 1, :])
+
+
+def test_pull_twin_exit_barrier_is_bounded(monkeypatch):
+    """A rank that stalls between its entry and its done flag holds its
+    readers at the exit barrier for at most the runtime's bound, which
+    raises DeadlineExceededError naming that barrier."""
+    grid = Grid.create((1, 2), device="cpu")
+    monkeypatch.setattr(_ranks, "WAIT_S", 0.3)
+    merge = px.merge_hop
+
+    def slow_merge(*args):
+        if coll.my_rank()[1] == 1:
+            time.sleep(1.0)
+        return merge(*args)
+
+    monkeypatch.setattr(px, "merge_hop", slow_merge)
+    with pytest.raises(DeadlineExceededError, match="exit barrier"):
+        coll.spmd(grid, lambda yl: px.ring_bcast(yl, coll.my_rank()[1] == 0, "c"),
+                  torch.zeros(1, 2, 4))
+
+
+def test_pull_twin_state_is_reused_and_holds_no_inputs():
+    """One pull state per ring and payload, reused call after call: its
+    epochs count the calls, and no rank's input stays posted once a call is
+    over."""
+    grid = Grid.create((2, 2), device="cpu")
+    for i in range(3):
+        y, have = _ring_case(2, 2, 3, 4, seed=50 + i)
+        _exchange_all(grid, y, have, "c")
+    states = [st for k, st in grid.runtime.rings.items()
+              if k[0] == px.collective_id_for("exchange", "c") and k[-1] == "host-pull"]
+    assert len(states) == 2  # one per ring of 'c'
+    for st in states:
+        assert st.epoch == [3, 3] and st.posted == [None, None]
+        assert st.entry == [(3 << 16) | 1] * 2 and st.done == [(3 << 16) | 2] * 2
+
+
 # ------------------------------------------------------------- CPU: B7 twin
 
 
@@ -313,6 +434,83 @@ def test_cuda_ring_matches_twin_bitwise(axis, skew, monkeypatch):
     assert px.ring_launches == before + 2 * pr * pc
     for g, r in zip(got, ref):
         assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("axis", ["c", "r"])
+def test_cuda_pull_matches_hop_ring_and_twin_bitwise(axis, skew, monkeypatch):
+    """B5's pull on a 2x4 grid against the hop ring it replaced (on the card)
+    and its twin (on a CPU grid), bit for bit, with several contributors per
+    slot, slots with none and slots of every rank; a payload that is not a
+    whole number of 16-byte pieces per slot takes the word copy."""
+    dev = _cuda()
+    pr, pc = 2, 4
+    gen = torch.Generator().manual_seed(13)
+    y = torch.randn(pr, pc, 11, 2048, generator=gen)
+    have = torch.rand(pr, pc, 11, generator=gen) < 0.4
+    have[..., 0], have[..., 1] = False, True
+    odd = torch.randn(pr, pc, 5, 33, generator=gen, dtype=torch.float64).to(torch.complex64)
+    odd_have = torch.rand(pr, pc, 5, generator=gen) < 0.5
+
+    def pull(yl, hl, ol, ohl):
+        yy, hh = px.ring_exchange(yl, hl, axis)
+        oo, oh = px.ring_exchange(ol, ohl, axis)
+        return yy, hh, oo, oh
+
+    def hops(yl, hl, ol, ohl):
+        yy, hh = px.ring_exchange_hops(yl, hl, axis)
+        oo, oh = px.ring_exchange_hops(ol, ohl, axis)
+        return yy, hh, oo, oh
+
+    args = [y, have, odd, odd_have]
+    ref = _on(Grid.create((pr, pc), device="cpu"), args, pull)
+    if skew:
+        monkeypatch.setitem(px.launch_delay_s, (0, 1), 0.05)
+    grid = Grid.create((pr, pc), device=dev)
+    before = (px.ring_launches, px.hop_launches)
+    got = _on(grid, [a.to(dev) for a in args], pull)
+    old = _on(grid, [a.to(dev) for a in args], hops)
+    torch.cuda.synchronize()
+    assert (px.ring_launches, px.hop_launches) == (before[0] + 2 * pr * pc,
+                                                   before[1] + 2 * pr * pc)
+    for g, o, r in zip(got, old, ref):
+        assert torch.equal(g.cpu(), r) and torch.equal(o.cpu(), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("late", ["source", "reader"])
+def test_cuda_pull_input_lifetime(late):
+    """The pull reads a peer's input only once that peer's kernel has
+    started (its stream fills a fresh input with NaN, sleeps 100 ms on the
+    card, then writes it), and the source's stream overwrites its input
+    right after the launch without harm (its kernel ends only after every
+    reader's done flag; with a late source the overwrite is queued before
+    the kernel starts, so it runs the moment the kernel ends); with
+    ``late='reader'`` a reader's stream sleeps instead."""
+    dev = _cuda()
+    pr, pc, root = 2, 4, 2
+    gen = torch.Generator().manual_seed(14)
+    x = torch.randn(pr, pc, 4, 256, 256, generator=gen)
+    ref = _on(Grid.create((pr, pc), device="cpu"), [x],
+              lambda xl: (px.ring_bcast(xl, coll.my_rank()[1] == root, "c"),))[0]
+
+    held = []  # the inputs outlive the run: freed, the next allocation could reuse them
+
+    def body(xl):
+        myc = coll.my_rank()[1]
+        mine = torch.full_like(xl, float("nan"))
+        held.append(mine)
+        if myc == (root if late == "source" else (root + 1) % pc):
+            torch.cuda._sleep(int(100e-3 * 2e9))  # cycles; the H100's clock is below 2 GHz
+        mine.copy_(xl)  # on this rank's stream, after the sleep
+        out = px.ring_bcast(mine, myc == root, "c")
+        mine.fill_(float("nan"))  # right after the launch, on the same stream
+        return (out,)
+
+    got = _on(Grid.create((pr, pc), device=dev), [x.to(dev)], body)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
 
 
 @pytest.mark.cuda

@@ -44,7 +44,8 @@ def knobs(**kw):
 
 
 def _rel_err(got, ref) -> float:
-    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    wide = np.result_type(np.asarray(got).dtype, np.float64)  # complex stays complex
+    got, ref = np.asarray(got, wide), np.asarray(ref, wide)
     return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1.0))
 
 
@@ -97,7 +98,8 @@ _JAX_REF: dict = {}
 
 
 def _factor(uplo, diag, n=60, dtype=np.float64):
-    ell = np.linalg.cholesky(random_hermitian_pd(n, np.float64, 79)).astype(dtype)
+    src = np.complex128 if np.dtype(dtype).kind == "c" else np.float64
+    ell = np.linalg.cholesky(random_hermitian_pd(n, src, 79)).astype(dtype)
     f = ell if uplo == "L" else ell.T.copy()
     if diag == "U":
         np.fill_diagonal(f, 1.0)
@@ -109,7 +111,7 @@ def _factor(uplo, diag, n=60, dtype=np.float64):
 def _jax_inverse(comm_grids, grid_1x1, shape, uplo, diag, f):
     import dlaf_tpu as dt
 
-    key = (shape, uplo, diag)
+    key = (shape, uplo, diag, f.dtype.str)
     if key not in _JAX_REF:
         jgrid = grid_1x1 if shape == (1, 1) else next(
             g for g in comm_grids if tuple(g.grid_size) == shape)
@@ -119,17 +121,20 @@ def _jax_inverse(comm_grids, grid_1x1, shape, uplo, diag, f):
 
 
 @pytest.mark.parametrize("tier", ["xla", "fused"])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape,dtype", [pytest.param(s, np.float64, id=f"shape{i}")
+                                         for i, s in enumerate(SHAPES)]
+                         + [pytest.param((2, 4), np.complex64, id="shape2-complex64"),
+                            pytest.param((4, 2), np.complex128, id="shape3-complex128")])
 @pytest.mark.parametrize("diag", ["N", "U"])
 @pytest.mark.parametrize("uplo", ["L", "U"])
-def test_triangular_inverse_matches_jax(comm_grids, grid_1x1, uplo, diag, shape, tier):
-    """The inverse's ``uplo`` triangle within tol_for(f64, n) of the JAX
+def test_triangular_inverse_matches_jax(comm_grids, grid_1x1, uplo, diag, shape, dtype, tier):
+    """The inverse's ``uplo`` triangle within tol_for(dtype, n) of the JAX
     package's, the other triangle as the JAX package leaves it, 'fused'
     bitwise 'xla' (the JAX references in its default tier: its own tests
-    hold fused == xla)."""
+    hold fused == xla); f64 on every shape, c64 and c128 on one each."""
     pytest.importorskip("jax")
     n = 60
-    f = _factor(uplo, diag, n)
+    f = _factor(uplo, diag, n, dtype)
     ref = _jax_inverse(comm_grids, grid_1x1, shape, uplo, diag, f)
     out = {}
     for impl in ("xla", tier):
@@ -144,7 +149,7 @@ def test_triangular_inverse_matches_jax(comm_grids, grid_1x1, uplo, diag, shape,
     # outside the diagonal tiles the other triangle is untouched; inside them
     # both packages write the inverted tile, zeros above (below) its diagonal
     np.testing.assert_array_equal(strict(out[tier]), strict(ref))
-    assert _rel_err(tri(out[tier]), tri(ref)) <= tol_for(np.float64, n)
+    assert _rel_err(tri(out[tier]), tri(ref)) <= tol_for(dtype, n)
 
 
 def test_triangular_inverse_is_an_inverse():

@@ -186,6 +186,55 @@ def test_cuda_potrf_matches_plain(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 512), (torch.float32, 200),
+                                     (torch.float32, 40), (torch.float32, 24),
+                                     (torch.float64, 352), (torch.float64, 96)])
+def test_cuda_potrf_cluster_matches_one_block_bitwise(dtype, n):
+    """The cluster kernel against the one-block kernel it replaced (whose
+    body B7 and B8 run), bit for bit: every element sees the same
+    operations in the same order; n = 40 and 24 end on a narrower panel."""
+    dev = _cuda()
+    d = torch.from_numpy(random_hermitian_pd(n, np.float64, n)).to(dev, dtype)
+    d = torch.tril(d) + torch.triu(torch.full_like(d, 3.0), 1)  # the upper triangle is not read
+    assert potrf.cluster_fits(d)
+    before = (potrf.launches, potrf.cluster_launches)
+    got = potrf.potrf_tile(d)
+    ref = potrf.potrf_tile_one_block(d)
+    torch.cuda.synchronize()
+    assert (potrf.launches, potrf.cluster_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, ref)
+    assert not torch.triu(got, 1).any()
+
+
+@pytest.mark.cuda
+def test_cuda_potrf_routes_large_f64_tiles_to_one_block():
+    """A tile whose cluster does not fit the blocks' shared memory goes to
+    the one-block kernel, statically, by shape and dtype."""
+    dev = _cuda()
+    d = torch.from_numpy(random_hermitian_pd(512, np.float64, 15)).to(dev)
+    assert not potrf.cluster_fits(d)
+    before = (potrf.launches, potrf.cluster_launches)
+    got = potrf.potrf_tile(d)
+    assert (potrf.launches, potrf.cluster_launches) == (before[0] + 1, before[1])
+    assert torch.equal(got, potrf.potrf_tile_one_block(d))
+
+
+@pytest.mark.cuda
+def test_cuda_potrf_refuses_a_cluster_the_card_cannot_hold(monkeypatch):
+    """A cluster larger than Hopper's largest (16 blocks) cannot launch: the
+    wrapper raises, launches nothing and does not fall back to one block."""
+    dev = _cuda()
+    monkeypatch.setattr(potrf, "CLUSTER_BLOCKS", 32)
+    d = torch.from_numpy(random_hermitian_pd(512, np.float64, 16)).to(dev, torch.float32)
+    assert potrf.cluster_fits(d)
+    before = (potrf.launches, potrf.cluster_launches)
+    with pytest.raises(RuntimeError, match="cluster of 32 blocks"):
+        potrf.potrf_tile(d)
+    torch.cuda.synchronize()
+    assert (potrf.launches, potrf.cluster_launches) == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_panel_trsm_matches_plain(dtype):
     dev = _cuda()

@@ -88,7 +88,7 @@ def test_triangular_solver_dense_auto_path_matches_jax(grid_1x1, op):
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
 @pytest.mark.parametrize("return_info", [False, True])
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64, np.complex128])
 def test_positive_definite_solver_matches_jax(grid_1x1, dtype, return_info, variant):
     n, mb = 96, 32
     a = tu.random_hermitian_pd(n, dtype, seed=7)
@@ -102,7 +102,8 @@ def test_positive_definite_solver_matches_jax(grid_1x1, dtype, return_info, vari
         (ref, jinfo), (out, tinfo) = ref, out
         assert int(tinfo) == int(jinfo) == 0
     assert _rel_err(out.to_global(), ref.to_global()) <= tu.tol_for(dtype, n)
-    assert _rel_err(a.astype(np.float64) @ out.to_global(), b) <= tu.tol_for(dtype, n) * 10
+    assert _rel_err(a.astype(np.result_type(dtype, np.float64)) @ out.to_global(), b) \
+        <= tu.tol_for(dtype, n) * 10
 
 
 def test_left_out_options_raise():
@@ -120,6 +121,12 @@ def test_left_out_options_raise():
 # ------------------------------------------------------- multi-rank grids
 
 MULTI_SHAPES = [(2, 2), (2, 4), (4, 2)]
+# f32 on every shape (the ids of before), c64 and c128 on one shape each
+MULTI_CASES = [
+    *(pytest.param(s, np.float32, id=f"shape{i}") for i, s in enumerate(MULTI_SHAPES)),
+    pytest.param((2, 4), np.complex64, id="shape1-complex64"),
+    pytest.param((4, 2), np.complex128, id="shape2-complex128"),
+]
 MULTI_VARIANTS = {
     "bucketed": dict(trsm_lookahead=False, cholesky_lookahead=False, trailing_update_impl="auto"),
     "lookahead": dict(trsm_lookahead=True, cholesky_lookahead=True, trailing_update_impl="xla"),
@@ -137,15 +144,16 @@ def _multi_pair(comm_grids, shape, a, block):
 
 @pytest.mark.parametrize("tier", ["psum", "v2", "pallas"])
 @pytest.mark.parametrize("variant", list(MULTI_VARIANTS))
-@pytest.mark.parametrize("shape", MULTI_SHAPES)
-def test_posv_multi_rank_matches_jax(comm_grids, shape, variant, tier):
+@pytest.mark.parametrize("shape,dtype", MULTI_CASES)
+def test_posv_multi_rank_matches_jax(comm_grids, shape, dtype, variant, tier):
     """POSV (the factorization, then both Left/Lower solves) on rank threads
     of a 2x2, 2x4 and 4x2 grid, in each collectives tier, against the JAX
-    package on its 8-device mesh; ``return_info`` as path M3 calls it."""
-    n, mb, dtype = 52, 8, np.float32
+    package on its 8-device mesh; ``return_info`` as path M3 calls it.  f32,
+    and c64 and c128 on one shape each."""
+    n, mb = 52, 8
     a = tu.random_hermitian_pd(n, dtype, seed=31)
     b = tu.random_matrix(n, 12, dtype, seed=32)
-    key = (shape, variant)
+    key = (shape, np.dtype(dtype).str, variant)
     if key not in _JAX_POSV:
         ja, _ = _multi_pair(comm_grids, shape, a, (mb, mb))
         jb, _ = _multi_pair(comm_grids, shape, b, (mb, mb))
@@ -157,7 +165,8 @@ def test_posv_multi_rank_matches_jax(comm_grids, shape, variant, tier):
         out, info = positive_definite_solver("L", ta, tb, return_info=True)
     assert int(info) == 0
     assert _rel_err(out.to_global(), _JAX_POSV[key]) <= tu.tol_for(dtype, n)
-    assert _rel_err(a.astype(np.float64) @ out.to_global(), b) <= tu.tol_for(dtype, n) * 10
+    assert _rel_err(a.astype(np.result_type(dtype, np.float64)) @ out.to_global(), b) \
+        <= tu.tol_for(dtype, n) * 10
 
 
 @pytest.mark.parametrize("op", ["N", "C"])
