@@ -41,7 +41,14 @@ on failure:
    narrow update -> bcast_diag_tile -> B7), and B9 (the panel contraction)
    in both forms at path I's widest step, each against its plain twin on
    a CPU grid (merged panels bitwise, the rest within tol_for(f32, nb));
-   then a small
+   B3's and B9's split-tier bodies (gemm_precision bf16x3 / bf16x6; csrc/
+   split_gemm.cuh) at the same shapes as their default-tier checks (B3 f32
+   bf16x3 at path B's two shapes and red2band's, f64 bf16x6 at 16 x 16 x
+   512^2; B9 f32 bf16x3 in both forms at path I's widest step) against
+   their plain versions (tile.contract at the tier, on the card), within
+   tol_for(f32, K) and shown to be split (far from the 'default' product),
+   the check first shown to reject the default-tier kernel's output and a
+   dropped term; then a small
    ragged input factored by the port and by torch.linalg.cholesky;
 3. path A, the headline configuration: cholesky_factorization(backend=
    "distributed"), panel TRSM kernel on (DLAF_TPU_PANEL_TRSM_PALLAS=1);
@@ -67,7 +74,20 @@ on failure:
    path I, triangular_inverse("L", "N") of M4's factor (B9 once per step
    and rank) held by ||tril(X) L - I||_F / (||X||_F ||L||_F) and by
    ||tril(X) L - I||_F / ||I||_F (the first alone does not reject X = L at
-   this N), and the upper form on the leading N=4096 block of L^T;
+   this N), and the upper form on the leading N=4096 block of L^T; S4,
+   path I under gemm_precision=bf16x3 (B9's split body once per step and
+   rank), then POTRI (inverse_from_cholesky_factor) of the leading N=4096
+   block of M4's factor, held by ||A X - I||_F / ||I||_F;
+5e. the split-GEMM solvers: S1, positive_definite_solver(refine_to=
+   "input") on 1x1 under path B's knobs and bf16x3 (B1, B2, B3's split
+   body), its RefineInfo, forward and backward errors, and the unrefined
+   split-tier solve's error; S2, the same call on the 2x4 grid with the
+   'xla' bulk update (products split in tile.contract), the residual a
+   SUMMA hermitian_multiplication over B5 whose contractions are counted in
+   every rank thread: all at 'default' under the refinement's scope; S3,
+   positive_definite_solver_mixed of a float64 matrix on the 2x4 grid at the
+   default tier (the factor in float32: B1, B2, B5), converged without the
+   fallback, its forward error within tol_for(f64, N);
 6. path H: hermitian_eigensolver("L", A, backend="pipeline") with
    dc_secular_pallas=1, trailing_update_impl=fused, band_chase_backend=
    native: one warm-up, one timed run (wall, GFlop/s at 4/3 N^3 as bench.py
@@ -95,6 +115,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FP32_PEAK = 67e12   # H100 SXM float32 outside the tensor cores, FLOP/s
+BF16_PEAK = 989e12  # H100 SXM bf16 tensor cores, dense, FLOP/s
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
 
 # the headline workload, bench.py's potrf_gflops_nb512_f32_1chip_distributed
@@ -132,6 +153,17 @@ PATH_I = {"collectives_impl": "pallas", "trailing_update_impl": "fused"}
 # the tier-equality phase: the factor under psum, v2 and pallas, bitwise;
 # also the size of the non-SPD info check of M4 and of the upper inverse
 N_TIERS = 4096
+# the split-GEMM paths (gemm_precision bf16x3): S1 POSV with
+# refine_to='input' on 1x1 under path B's knobs (the factor's B3 through its
+# split-tier body); S2 the same call on the 2x4 grid, collectives 'pallas',
+# lookahead with the 'xla' bulk update (the products split in
+# tile.contract, the residual a SUMMA under the 'default' scope); S3
+# positive_definite_solver_mixed on the 2x4 grid at the default tier (an
+# f64 matrix factored in f32, M1's knobs); S4 path I's inverse under bf16x3
+# (B9's split body per step and rank), then POTRI at N_TIERS
+PATH_S1 = {**PATH_B, "gemm_precision": "bf16x3"}
+PATH_S2 = {**PATH_M2, "trsm_lookahead": True, "gemm_precision": "bf16x3"}
+PATH_S4 = {**PATH_I, "gemm_precision": "bf16x3"}
 # B10 phase: (K, S) secular tables at path H's merge levels (leaf 512:
 # one compiled instantiation of the kernel per S), f32 bisection rounds
 K_B10, S_B10, ITERS_B10 = 8192, (1024, 2048, 4096, 8192), 42
@@ -182,11 +214,13 @@ def worst(values) -> float:
 
 def launch_counts() -> dict:
     """The kernels' launch counts since the last ``ops.reset_launch_counts``
-    and, as "potrf_cluster", how many of B1's went to its cluster kernel."""
+    and their shares (``ops.SUB_COUNTS``): "potrf_cluster", how many of B1's
+    went to its cluster kernel, and "trailing_update_split" /
+    "panel_contract_split", how many of B3's and B9's ran their split-tier
+    body."""
     from dlaf_tpu_torch import ops
-    from dlaf_tpu_torch.ops import potrf
 
-    return {**ops.launch_counts(), "potrf_cluster": potrf.cluster_launches}
+    return {**ops.launch_counts(), **ops.sub_counts()}
 
 
 def path_h(stamp: dict) -> dict:
@@ -1117,9 +1151,11 @@ def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS) -
 def path_fused(stamp: dict, a_glob, factor_residual, res_tol, kept: dict) -> dict:
     """Phase 5d: the fused trailing-update tier on the 2x4 grid: M4
     (lookahead Cholesky, B8 per step), its info on a non-SPD input against
-    the 'xla' tier's, M5 (nb=192: B6 per step, B7 per panel) and path I
-    (triangular_inverse of M4's factor: B9 per step), each residual first
-    shown to reject a wrong answer.  Returns each run's launch counts."""
+    the 'xla' tier's, M5 (nb=192: B6 per step, B7 per panel), path I
+    (triangular_inverse of M4's factor: B9 per step) and S4 (path I under
+    bf16x3: B9's split body per step; then POTRI at N_TIERS), each residual
+    first shown to reject a wrong answer.  Returns each run's launch
+    counts."""
     import torch
 
     import dlaf_tpu_torch as dtt
@@ -1246,9 +1282,53 @@ def path_fused(stamp: dict, a_glob, factor_residual, res_tol, kept: dict) -> dic
           **stamp})
     if not worst(got.values()) <= res_tol < worst(wrong.values()):
         fail(f"path I residuals {got}, of X = L {wrong} (tol {res_tol:.3e})")
-    if counts["panel_contract"] != ranks * mt or counts["trailing_update"]:
-        fail(f"path I launched B9 {counts['panel_contract']} times (want {ranks * mt}), "
-             f"B3 {counts['trailing_update']}: {counts}")
+    if counts["panel_contract"] != ranks * mt or counts["trailing_update"] \
+            or counts["panel_contract_split"]:
+        fail(f"path I launched B9 {counts['panel_contract']} times (want {ranks * mt}, none "
+             f"split), B3 {counts['trailing_update']}: {counts}")
+
+    # ---- S4: path I's inverse under bf16x3 (B9's split body per step and
+    # rank), then POTRI of the leading N_TIERS block of M4's factor
+    tune.initialize(**PATH_S4)
+    inv, wall, counts = timed(lambda: inverse("L", fac4))
+    x = torch.tril(layout.unpack(inv.data, inv.dist)[:n, :n]).double()
+    del inv
+    got = inv_residual(x, ell)
+    del x
+    torch.cuda.empty_cache()
+    counts_by["S4_inverse"] = counts
+    l4 = dtt.DistributedMatrix.from_global(grid, ell[:N_TIERS, :N_TIERS].float().contiguous(),
+                                           (NB, NB))
+    ainv, wall_p, counts_p = timed(lambda: dtt.inverse_from_cholesky_factor("L", l4))
+    counts_by["S4_potri"] = counts_p
+    a4 = a_glob[:N_TIERS, :N_TIERS].double()
+    eye4 = torch.eye(N_TIERS, dtype=torch.float64, device=a4.device)
+
+    def potri_residual(xinv):
+        return (torch.linalg.matrix_norm(a4 @ xinv - eye4) / N_TIERS ** 0.5).item()
+
+    potri = potri_residual(layout.unpack(ainv.data, ainv.dist)[:N_TIERS, :N_TIERS].double())
+    potri_wrong = potri_residual(a4)  # the check rejects X = A
+    tol4 = tol_for("float32", N_TIERS)
+    del ainv, l4, a4, eye4
+    emit({"phase": "path_S4", "config": "triangular_inverse(L, N) of M4's factor, then "
+          "inverse_from_cholesky_factor(L) of its leading block; gemm_precision=bf16x3, "
+          "trailing_update_impl=fused, collectives_impl=pallas", "grid": list(GRID_M), "n": n,
+          "nb": NB, "inverse_wall_s": wall, "inverse_residual": got,
+          "inverse_residual_of_x_eq_l": wrong, "tol": res_tol, "inverse_launches": counts,
+          "potri_n": N_TIERS, "potri_wall_s": wall_p, "potri_residual": potri,
+          "potri_residual_of_x_eq_a": potri_wrong, "potri_tol": tol4,
+          "potri_launches": counts_p, **stamp})
+    if not (worst(got.values()) <= res_tol < worst(wrong.values())
+            and potri <= tol4 < potri_wrong):
+        fail(f"path S4: inverse residuals {got} (of X = L {wrong}; tol {res_tol:.3e}), POTRI "
+             f"{potri:.3e} (of X = A {potri_wrong:.3e}; tol {tol4:.3e})")
+    if counts["panel_contract_split"] != ranks * mt or counts["panel_contract"] != ranks * mt \
+            or counts_p["panel_contract_split"] != ranks * (N_TIERS // NB):
+        fail(f"path S4 launched B9's split body {counts['panel_contract_split']} times (want "
+             f"{ranks * mt}) and {counts_p['panel_contract_split']} in POTRI (want "
+             f"{ranks * (N_TIERS // NB)}): {counts}, {counts_p}")
+    tune.initialize(**PATH_I)
     up = ell[:N_TIERS, :N_TIERS].T.float().contiguous()
     del ell, fac4
     torch.cuda.empty_cache()
@@ -1265,6 +1345,455 @@ def path_fused(stamp: dict, a_glob, factor_residual, res_tol, kept: dict) -> dic
         fail(f"path I (upper) residuals {got}, of X = U {wrong} (tol {tol_u:.3e})")
     if counts["panel_contract"] != ranks * (N_TIERS // NB):
         fail(f"path I (upper) launched B9 {counts['panel_contract']} times: {counts}")
+    return counts_by
+
+SPLIT_KERNELS = ("trailing_update_split", "panel_contract_split")
+
+
+def _rel_dev(got, want) -> tuple[float, float]:
+    """Max abs error and relative Frobenius error of ``got`` against
+    ``want``, in float64 on the card (NaN propagates)."""
+    import torch
+
+    d = got.double() - want.double()
+    den = torch.linalg.vector_norm(want.double()).item()
+    return d.abs().max().item(), torch.linalg.vector_norm(d).item() / (den if den > 0 else 1.0)
+
+
+def split_phase(stamp: dict, timed_ms, kgen, only=SPLIT_KERNELS) -> dict:
+    """Phase 2d: B3 and B9 under the split tiers against their plain
+    versions (``tile.contract`` at the tier, on the card): B3 at path B's
+    two shapes and red2band's (K = 128) in f32 at bf16x3 and at 16 x 16 x
+    512^2 in f64 at bf16x6; B9 in both forms at path I's widest step on the
+    2x4 grid, f32 at bf16x3.  Two checks, each first shown to reject wrong
+    answers:
+
+    - standard normal operands: within tol_for(f32, K) of the plain split
+      (K: B3's depth; nb for B9, as its default-tier check), which rejects
+      the plain split with its (0, 1) product dropped;
+    - the split probe: the same shapes with b cut to one non-zero per
+      output column, so that every output is one product and float32
+      accumulation adds no rounding: the kernel must give the plain split's
+      bits and differ from the 'default' product by more than 1e-6
+      (f32; 1e-10 in f64, far above its rounding).  It rejects the
+      default-tier kernel's output and the dropped product.  (On normal
+      operands at B9's depth, 4096 products a sum, float32 accumulation
+      noise is as large as the split's own truncation, so distances there
+      cannot tell the two apart.)
+
+    Times: the kernel, the default-tier kernel (in the same call), the
+    plain version and the yardstick ``tile.contract`` at the tier (no
+    single PyTorch call computes a split product); bounds at the bf16
+    tensor cores' rate."""
+    import torch
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch.ops import tile
+    from dlaf_tpu_torch.ops import trailing_update as tu
+    from dlaf_tpu_torch.testing import tol_for
+
+    dev = kgen.device
+    report, bad = {}, []
+
+    def bound16(flops, nbytes):
+        t_ops, t_bytes = flops / BF16_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+    def term01(sub, a, b):
+        """The (0, 1) product of the split: a's head slice times b's first
+        residual slice, in float32."""
+        sa, sb = tile._bf16_slices(a, 2), tile._bf16_slices(b, 2)
+        return torch.einsum(sub, sa[0].float(), sb[1].float()).to(a.dtype)
+
+    def probe(sub, b):
+        """``b`` with one non-zero per output column of ``sub``: every output
+        element is then a single product."""
+        keep = torch.zeros(b.shape, dtype=torch.bool, device=b.device)
+        if sub in (tu.CHOLESKY_SUBSCRIPTS, tu.TRSM_SUBSCRIPTS):  # [C, N, K] / [C, K, N]
+            C, K = b.shape[0], (b.shape[2] if sub == tu.CHOLESKY_SUBSCRIPTS else b.shape[1])
+            n_ = b.shape[1] if sub == tu.CHOLESKY_SUBSCRIPTS else b.shape[2]
+            j = torch.arange(C, device=b.device)[:, None]
+            c = torch.arange(n_, device=b.device)[None, :]
+            k = (7 * c + j) % K
+            if sub == tu.CHOLESKY_SUBSCRIPTS:
+                keep[j, c, k] = True
+            else:
+                keep[j, k, c] = True
+        elif sub == tu.TRTRI_LOWER_SUBSCRIPTS:  # [C, K, N]: sum over (j, b) per c
+            C, K, n_ = b.shape
+            c = torch.arange(n_, device=b.device)
+            keep[c % C, (7 * c) % K, c] = True
+        else:  # [L, C, K, N]: sum over (i, b) per (j, c)
+            L, C, K, n_ = b.shape
+            j = torch.arange(C, device=b.device)[:, None]
+            c = torch.arange(n_, device=b.device)[None, :]
+            keep[(c + j) % L, j, (7 * c + j) % K, c] = True
+        return torch.where(keep, b, torch.zeros((), dtype=b.dtype, device=b.device))
+
+    def checked(label, got, plain, wrongs, ok):
+        """``ok(candidate) -> (passes, metrics)`` on every wrong answer (each
+        must fail), then on the kernel's output (which must pass)."""
+        rejected = {w: ok(c)[0] for w, c in wrongs.items()}
+        passes, metrics = ok(got)
+        if any(rejected.values()):
+            bad.append(f"{label}: the check accepts a wrong answer: {rejected}")
+        if not passes:
+            bad.append(f"{label}: {metrics}")
+        return metrics, rejected
+
+    def both_checks(label, sub, tol, f64, run, a, b, per_rank=lambda f, a, b: f(a, b)):
+        """``run(kernel, tier, b)`` gives an output or applied update (the
+        negated contraction for B3: ``sign`` = -1); both checks on it.
+        ``per_rank(f, a, b)`` applies ``f`` to each rank's operands (B9's
+        are stacked over the grid)."""
+        sign = -1.0 if sub in (tu.CHOLESKY_SUBSCRIPTS, tu.TRSM_SUBSCRIPTS) else 1.0
+        tier = "bf16x6" if f64 else "bf16x3"
+        got, plain = run(True, tier, b), run(False, tier, b)
+        default = run(False, "default", b)
+        err_abs, _ = _rel_dev(got, plain)
+        _, vs_default = _rel_dev(got, default)
+        del default
+
+        def within(c):
+            e = _rel_dev(c, plain)[1]
+            return e <= tol, {"rel_err_vs_plain": e, "tol": tol}
+
+        normal, rej_n = checked(f"{label} (normal operands)", got, plain,
+                                {"term_0_1_dropped": plain - sign * per_rank(
+                                    lambda a_, b_: term01(sub, a_, b_), a, b)}, within)
+        del got, plain
+        bp = per_rank(lambda a_, b_: probe(sub, b_), a, b)
+        got, plain = run(True, tier, bp), run(False, tier, bp)
+        default = run(False, "default", bp)
+        floor = 1e-10 if f64 else 1e-6
+
+        def split(c):
+            same, e = bool(torch.equal(c, plain)), _rel_dev(c, default)[1]
+            return same and e > floor, {"probe_bitwise_vs_plain": same,
+                                        "probe_rel_err_vs_default": e, "probe_floor": floor}
+
+        probed, rej_p = checked(f"{label} (split probe)", got, plain,
+                                {"default_tier_kernel": run(True, "default", bp),
+                                 "term_0_1_dropped": plain - sign * per_rank(
+                                     lambda a_, b_: term01(sub, a_, b_), a, bp)}, split)
+        return {"max_abs_err": err_abs, **normal, "rel_err_vs_default": vs_default, **probed,
+                "wrong_answers_pass": {"normal": rej_n, "split_probe": rej_p}}
+
+    if "trailing_update_split" in only:
+        f32, f64 = torch.float32, torch.float64
+        mt, hb = N // NB, NH // NBH
+        cases = (("iab,jcb->ijac", tu.CHOLESKY_SUBSCRIPTS, mt, mt, NB, f32, 5),
+                 ("iab,jbc->ijac", tu.TRSM_SUBSCRIPTS, mt, 1, NB, f32, 20),
+                 ("iab,jcb->ijac (red2band, K=128)", tu.CHOLESKY_SUBSCRIPTS, hb, hb, 128, f32, 10),
+                 ("iab,jcb->ijac (f64, bf16x6)", tu.CHOLESKY_SUBSCRIPTS, 16, 16, NB, f64, 5))
+        forms = {}
+        for label, sub, L, C, K, dt, iters in cases:
+            M = N_ = NB
+            tier = "bf16x6" if dt == f64 else "bf16x3"
+            b_shape = (C, N_, K) if sub == tu.CHOLESKY_SUBSCRIPTS else (C, K, N_)
+            x0 = torch.randn(L, C, M, N_, generator=kgen, device=dev, dtype=dt)
+            a = torch.randn(L, M, K, generator=kgen, device=dev, dtype=dt)
+            b = torch.randn(*b_shape, generator=kgen, device=dev, dtype=dt)
+
+            def update(kernel, t_, b_):
+                x = x0.clone()
+                (tu.trailing_update if kernel else tu.trailing_update_plain)(x, a, b_, sub, t_)
+                return x.sub_(x0)
+
+            before = tu.split_launches
+            rec = both_checks(f"trailing_update[{label}]", sub, tol_for("float32", K),
+                              dt == f64, update, a, b)
+            torch.cuda.synchronize()
+            if tu.split_launches - before != 2:
+                bad.append(f"trailing_update[{label}]: {tu.split_launches - before} split "
+                           "launches, want 2 (normal operands, probe)")
+            xk = x0.clone()
+            nterms = len(tile.split_terms(tile.SPLIT_SLICES[tier]))
+            b_ms, b_by = bound16(nterms * 2.0 * L * C * M * N_ * K,
+                                 (2 * L * C * M * N_ + L * M * K + C * N_ * K) * x0.element_size())
+            forms[label] = {
+                "shape": {"x": [L, C, M, N_], "a": list(a.shape), "b": list(b.shape)},
+                "dtype": str(dt).replace("torch.", ""), "tier": tier, "products": nterms, **rec,
+                "kernel_ms": timed_ms(lambda: tu.trailing_update(xk, a, b, sub, tier), iters),
+                "default_tier_kernel_ms": timed_ms(
+                    lambda: tu.trailing_update(xk, a, b, sub, "default"), iters),
+                "plain_ms": timed_ms(lambda: tu.trailing_update_plain(xk, a, b, sub, tier),
+                                     max(2, iters // 2)),
+                "yardstick_ms": timed_ms(lambda: tile.contract(sub, a, b, tier),
+                                         max(2, iters // 2)),
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            emit({"kernel": "trailing_update_split", "subscripts": label, **forms[label],
+                  "library_call": "none: no single PyTorch call computes a split product",
+                  "yardstick": "tile.contract at the tier (bf16 slices upcast, one float32 "
+                               "einsum per product)",
+                  "bound_counts": f"{nterms} bf16 products at {BF16_PEAK:.3g} FLOP/s; x read and "
+                                  "written, a and b read once", **stamp})
+            del x0, a, b, xk
+            torch.cuda.empty_cache()
+        first = forms[cases[0][0]]
+        report["trailing_update_split"] = {**first, "forms": forms,
+                                           "max_abs_err": worst(f["max_abs_err"]
+                                                                for f in forms.values())}
+
+    if "panel_contract_split" in only:
+        # path I's widest step on the 2x4 grid, all ranks at once
+        pr, pc = GRID_M
+        ranks, nb, tier = pr * pc, NB, "bf16x3"
+        gpu = dtt.Grid.create(GRID_M, device=dev)
+        big = torch.randn(pr, pc, 16, 8, nb, nb, generator=kgen, device=dev)
+        small_l = torch.randn(pr, pc, 8, nb, nb, generator=kgen, device=dev)
+        small_u = torch.randn(pr, pc, 16, nb, nb, generator=kgen, device=dev)
+        forms = {}
+        for sub, ops_ in ((tu.TRTRI_LOWER_SUBSCRIPTS, [big, small_l]),
+                          (tu.TRTRI_UPPER_SUBSCRIPTS, [small_u, big])):
+            def run(kernel, t_, sub=sub):
+                fn = tu.panel_contract if kernel else tu.panel_contract_plain
+                return lambda a, b: (fn(a, b, sub, t_),)
+
+            def on_grid(kernel, t_, b_, sub=sub, ops_=ops_):
+                return on_ranks(gpu, run(kernel, t_), [ops_[0], b_])[0]
+
+            before = tu.split_contract_launches
+            rec = both_checks(f"panel_contract[{sub}]", sub, tol_for("float32", nb), False,
+                              on_grid, ops_[0], ops_[1],
+                              lambda f, a, b: on_ranks(gpu, lambda a_, b_: (f(a_, b_),), [a, b])[0])
+            torch.cuda.synchronize()
+            if tu.split_contract_launches - before != 2 * ranks:
+                bad.append(f"panel_contract[{sub}]: {tu.split_contract_launches - before} split "
+                           f"launches, want {2 * ranks}")
+            small = ops_[1 if sub == tu.TRTRI_LOWER_SUBSCRIPTS else 0]
+            out_numel = (16 if sub == tu.TRTRI_LOWER_SUBSCRIPTS else 8) * nb * nb
+            b9, by9 = bound16(ranks * 3 * 2.0 * 16 * 8 * nb ** 3,
+                              ranks * (big[0, 0].numel() + small[0, 0].numel() + out_numel) * 4)
+            span, _ = grid_span_ms(gpu, run(True, tier), ops_, 5)
+            span_def, _ = grid_span_ms(gpu, run(True, "default"), ops_, 5)
+            span_plain, _ = grid_span_ms(gpu, run(False, tier), ops_, 2)
+            forms[sub] = {"shape": {"a": list(ops_[0].shape[2:]), "b": list(ops_[1].shape[2:])},
+                          "dtype": "float32", "tier": tier, "products": 3, **rec,
+                          "kernel_ms": span, "default_tier_kernel_ms": span_def,
+                          "plain_ms": span_plain, "yardstick_ms": span_plain, "library_ms": None,
+                          "bound_ms": b9, "bound_by": by9}
+            emit({"kernel": "panel_contract_split", "subscripts": sub, "ranks": ranks,
+                  **forms[sub], "plain_on": "the card, tile.contract at the tier per rank "
+                  "(which is also the yardstick)",
+                  "library_call": "none: no single PyTorch call computes a split product",
+                  **stamp})
+        report["panel_contract_split"] = {**forms[tu.TRTRI_LOWER_SUBSCRIPTS], "forms": forms,
+                                          "max_abs_err": worst(f["max_abs_err"]
+                                                               for f in forms.values())}
+        del big, small_l, small_u
+        torch.cuda.empty_cache()
+    if bad:
+        fail("split-tier kernels vs their plain versions: " + "; ".join(bad))
+    return report
+
+
+class _RefineProbe:
+    """Records the RefineInfo of every ``refine.residual_refine`` call made
+    while it is active (the solvers do not return it)."""
+
+    def __enter__(self):
+        from dlaf_tpu_torch.algorithms import refine
+
+        self.mod, self.inner, self.infos = refine, refine.residual_refine, []
+
+        def wrapped(*args, **kw):
+            x, info = self.inner(*args, **kw)
+            self.infos.append(info)
+            return x, info
+
+        refine.residual_refine = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.residual_refine = self.inner
+
+
+def _backward_err(a, x, b) -> float:
+    """||B - A X||_max / (||X||_max ||A||_max), float64 on the card."""
+    r = (b.double() - a.double() @ x.double()).abs().max()
+    return (r / (x.double().abs().max() * a.double().abs().max())).item()
+
+
+def path_split(stamp: dict, a_glob, rhs, solve_err, res_tol, by_path: dict) -> dict:
+    """Phase 5e: the split-GEMM solvers at N, NB.  S1, POSV with
+    refine_to='input' on 1x1 under path B's knobs and bf16x3 (B1, B2 and B3's
+    split body in the factor); S2, the same call on the 2x4 grid with the
+    'xla' bulk update (products split in tile.contract, the residual a
+    SUMMA hermitian_multiplication over B5 under the 'default' scope: every
+    rank thread's residual contractions at 'default', none split); S3,
+    positive_definite_solver_mixed on the 2x4 grid at the default tier, an
+    f64 matrix factored in f32.  Each check is first shown to reject a wrong
+    answer.  Returns each run's launch counts."""
+    import torch
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import ops, tune
+    from dlaf_tpu_torch.algorithms import solver
+    from dlaf_tpu_torch.matrix import layout
+    from dlaf_tpu_torch.ops import tile
+    from dlaf_tpu_torch.testing import tol_for
+
+    n, nb = N, NB
+    dev = a_glob.device
+    counts_by = {}
+
+    def posv(grid, refine):
+        mat_a = dtt.DistributedMatrix.from_global(grid, a_glob, (nb, nb))
+        mat_b = dtt.DistributedMatrix.from_global(grid, rhs.clone(), (nb, nb))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        tile.contract_counts.clear()
+        with _RefineProbe() as probe:
+            t0 = time.perf_counter()
+            x, info = dtt.positive_definite_solver("L", mat_a, mat_b, return_info=True,
+                                                   refine_to="input" if refine else None)
+            info = int(info)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        x = layout.unpack(x.data, x.dist)[:n, :nb]
+        return x, info, wall, launch_counts(), dict(tile.contract_counts), probe.infos
+
+    def refine_record(infos):
+        return [{"sweeps": i.sweeps, "converged": i.converged, "residual": i.residual,
+                 "backward_error": i.backward_error} for i in infos]
+
+    be_wrong = _backward_err(a_glob, rhs, rhs)  # the backward-error check rejects X = B
+
+    # ---- S1: 1x1, path B's knobs, bf16x3: the factor's B3 in its split body
+    tune.initialize(**PATH_S1)
+    grid1 = dtt.Grid.create()
+    x0, info0, wall0, _, _, _ = posv(grid1, False)
+    err0 = solve_err(x0)
+    del x0
+    x1, info1, wall1, counts, contracts, infos = posv(grid1, True)
+    err1, be1 = solve_err(x1), _backward_err(a_glob, x1, rhs)
+    del x1
+    torch.cuda.empty_cache()
+    counts_by["S1"] = counts
+    ri = refine_record(infos)
+    emit({"phase": "path_S1", "config": "positive_definite_solver(return_info=True, "
+          "refine_to='input'), gemm_precision=bf16x3, lookahead, trailing_update_impl=fused, "
+          "panel_trsm_pallas=1", "grid": [1, 1], "n": n, "nrhs": nb, "wall_s": wall1,
+          "info": info1, "refine": ri, "solve_forward_err": err1, "backward_err": be1,
+          "backward_err_of_x_eq_b": be_wrong, "unrefined": {"wall_s": wall0, "info": info0,
+                                                             "solve_forward_err": err0},
+          "tol": res_tol, "launches": counts,
+          "contracts_by_thread_and_tier": {f"{k[0]}:{k[1]}": v for k, v in contracts.items()},
+          "split_launches_of_path_B_factor": by_path["B_factor"]["trailing_update_split"],
+          **stamp})
+    if not (info0 == info1 == 0 and len(ri) == 1 and ri[0]["converged"]
+            and err1 <= res_tol and be1 <= res_tol < be_wrong):
+        fail(f"path S1: info {info1}, refine {ri}, forward error {err1:.3e}, backward error "
+             f"{be1:.3e} (of X = B {be_wrong:.3e}; tol {res_tol:.3e})")
+    if counts["trailing_update_split"] <= 0 or by_path["B_factor"]["trailing_update_split"] \
+            or min(counts["potrf"], counts["panel_trsm"]) <= 0:
+        fail(f"path S1 did not launch B3's split body (path B, default tier: "
+             f"{by_path['B_factor']['trailing_update_split']}), B1 and B2: {counts}")
+
+    # ---- S2: 2x4, the 'xla' update, bf16x3; the residual under 'default'
+    tune.initialize(**PATH_S2)
+    grid = dtt.Grid.create(GRID_M)
+    ranks = [f"dlaf-rank-{r}-{c}" for r in range(GRID_M[0]) for c in range(GRID_M[1])]
+    residual_counts = []
+    inner = solver.hermitian_multiplication
+
+    def counted(*args, **kw):
+        before = dict(tile.contract_counts)
+        out = inner(*args, **kw)
+        residual_counts.append({k: v - before.get(k, 0) for k, v in tile.contract_counts.items()
+                                if v != before.get(k, 0)})
+        return out
+
+    def unsplit_everywhere(diff) -> bool:
+        return all(diff.get((r, "default"), 0) > 0 and not any(
+            diff.get((r, s), 0) for s in tile.SPLIT_SLICES) for r in ranks)
+
+    solver.hermitian_multiplication = counted
+    try:
+        x2, info2, wall2, counts, contracts, infos = posv(grid, True)
+        # the same residual outside the scope, under the ambient bf16x3: the
+        # check must reject it
+        mat_a = dtt.DistributedMatrix.from_global(grid, a_glob, (nb, nb))
+        mat_x = dtt.DistributedMatrix.from_global(grid, x2.contiguous(), (nb, nb))
+        mat_c = dtt.DistributedMatrix.from_global(grid, rhs.clone(), (nb, nb))
+        solver.hermitian_multiplication("Left", "L", -1.0, mat_a, mat_x, 1.0, mat_c)
+        unscoped = residual_counts.pop()
+        del mat_a, mat_x, mat_c
+    finally:
+        solver.hermitian_multiplication = inner
+    err2, be2 = solve_err(x2), _backward_err(a_glob, x2, rhs)
+    del x2
+    torch.cuda.empty_cache()
+    counts_by["S2"] = counts
+    ri = refine_record(infos)
+    split_in_ranks = {r: sum(contracts.get((r, s), 0) for s in tile.SPLIT_SLICES) for r in ranks}
+    emit({"phase": "path_S2", "config": "positive_definite_solver(return_info=True, "
+          "refine_to='input'), gemm_precision=bf16x3, lookahead, trailing_update_impl=xla, "
+          "collectives_impl=pallas, panel_trsm_pallas=1", "grid": list(GRID_M), "n": n,
+          "nrhs": nb, "wall_s": wall2, "info": info2, "refine": ri,
+          "solve_forward_err": err2, "backward_err": be2, "tol": res_tol, "launches": counts,
+          "split_contracts_by_rank_thread": split_in_ranks,
+          "residual_contracts": [{f"{k[0]}:{k[1]}": v for k, v in d.items()}
+                                 for d in residual_counts],
+          "residual_unsplit_in_every_rank_thread": [unsplit_everywhere(d)
+                                                    for d in residual_counts],
+          "unscoped_residual_passes_the_check": unsplit_everywhere(unscoped), **stamp})
+    if not (info2 == 0 and len(ri) == 1 and ri[0]["converged"] and err2 <= res_tol
+            and be2 <= res_tol):
+        fail(f"path S2: info {info2}, refine {ri}, forward error {err2:.3e}, backward error "
+             f"{be2:.3e} (tol {res_tol:.3e})")
+    if unsplit_everywhere(unscoped) or not residual_counts \
+            or not all(unsplit_everywhere(d) for d in residual_counts):
+        fail(f"path S2: a residual was split in a rank thread, or the check does not reject "
+             f"an unscoped one: {residual_counts}, unscoped {unscoped}")
+    if min(split_in_ranks.values()) <= 0 or counts["ring_exchange"] <= 0:
+        fail(f"path S2: the factor and solves did not split in every rank thread "
+             f"({split_in_ranks}) or B5 did not run: {counts}")
+
+    # ---- S3: the mixed-precision solver, 2x4, default tier
+    tune.initialize(**PATH_M1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    g = torch.randn(n, n, generator=gen, device=dev, dtype=torch.float64)
+    a64 = g @ g.T / n
+    del g
+    a64.diagonal().add_(1.0)
+    b64 = torch.randn(n, nb, generator=gen, device=dev, dtype=torch.float64)
+    x_ref64 = torch.cholesky_solve(b64, torch.linalg.cholesky(a64))
+    torch.cuda.empty_cache()
+    mat_a = dtt.DistributedMatrix.from_global(grid, a64, (nb, nb))
+    mat_b = dtt.DistributedMatrix.from_global(grid, b64, (nb, nb))
+    del a64
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    x3, info3 = dtt.positive_definite_solver_mixed("L", mat_a, mat_b)
+    torch.cuda.synchronize()
+    wall3 = time.perf_counter() - t0
+    counts = launch_counts()
+    counts_by["S3"] = counts
+    x3 = layout.unpack(x3.data, x3.dist)[:n, :nb]
+
+    def err64(x):
+        return (torch.linalg.matrix_norm(x.double() - x_ref64)
+                / torch.linalg.matrix_norm(x_ref64)).item()
+
+    tol64 = tol_for("float64", n)
+    e3, e3_f32 = err64(x3), err64(x3.float())  # the check rejects an f32-class solution
+    del mat_a, mat_b, x3, x_ref64, b64
+    torch.cuda.empty_cache()
+    emit({"phase": "path_S3", "config": "positive_definite_solver_mixed, float64 A and B, "
+          "factor float32, collectives_impl=pallas, panel_trsm_pallas=1", "grid": list(GRID_M),
+          "n": n, "nrhs": nb, "wall_s": wall3, "iters": info3.iters,
+          "converged": info3.converged, "fallback": info3.fallback,
+          "backward_error": info3.backward_error, "forward_err_f64": e3,
+          "forward_err_of_the_solution_in_f32": e3_f32, "tol": tol64, "launches": counts,
+          **stamp})
+    if not (info3.converged and not info3.fallback and e3 <= tol64 < e3_f32):
+        fail(f"path S3: converged {info3.converged}, fallback {info3.fallback}, forward error "
+             f"{e3:.3e} (of its f32 rounding {e3_f32:.3e}; tol {tol64:.3e})")
+    if min(counts[k] for k in ("potrf", "panel_trsm", "ring_exchange")) <= 0:
+        fail(f"path S3 did not launch B1, B2 and B5: {counts}")
     return counts_by
 
 
@@ -1444,6 +1973,9 @@ def main() -> int:
         fail(f"trailing_update[{red2band_form}] kernel vs plain: rel err {err:.3e} > tol {tol:.3e}")
     report["trailing_update"] = {**forms[trailing_update.CHOLESKY_SUBSCRIPTS], "forms": forms}
     torch.cuda.empty_cache()
+
+    # B3 and B9 under the split tiers, at the same shapes
+    report.update(split_phase(stamp, timed_ms, kgen))
 
     # B10 secular bisection at path H's shapes: K rows of S poles, S one
     # merge level's subproblem size.  True secular equations shaped like
@@ -1636,8 +2168,12 @@ def main() -> int:
     kept = {}
     by_path.update(path_m(stamp, a_glob, rhs, factor_residual, solve_err, res_tol, kept))
 
-    # ---- 5d. the fused tier on the 2x4 grid: M4, M5, path I
+    # ---- 5d. the fused tier on the 2x4 grid: M4, M5, path I, S4
     by_path.update(path_fused(stamp, a_glob, factor_residual, res_tol, kept))
+    torch.cuda.empty_cache()
+
+    # ---- 5e. the split-GEMM solvers: S1, S2, S3
+    by_path.update(path_split(stamp, a_glob, rhs, solve_err, res_tol, by_path))
 
     del a_glob, rhs, x_ref
     torch.cuda.empty_cache()
@@ -1664,6 +2200,10 @@ def main() -> int:
                        "dlaf_tpu/ops/pallas_trailing_update.py:651"),
         "panel_contract": ("dlaf_tpu_torch/csrc/trailing_update.cu",
                            "dlaf_tpu/ops/pallas_trailing_update.py:226"),
+        "trailing_update_split": ("dlaf_tpu_torch/csrc/trailing_update.cu",
+                                  "dlaf_tpu/ops/pallas_trailing_update.py:163"),
+        "panel_contract_split": ("dlaf_tpu_torch/csrc/trailing_update.cu",
+                                 "dlaf_tpu/ops/pallas_trailing_update.py:226"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
@@ -1716,6 +2256,17 @@ def main() -> int:
             entry["forms"] = {s: {k: f[k] for k in ("kernel_ms", "plain_ms", "library_ms",
                                                     "bound_ms", "max_abs_err")}
                               for s, f in r["forms"].items()}
+        if name in SPLIT_KERNELS:
+            # B3's and B9's split-tier body (csrc/split_gemm.cuh), their launches a
+            # share of B3's and B9's; the yardstick is tile.contract at the tier
+            entry["body"] = "dlaf_tpu_torch/csrc/split_gemm.cuh"
+            entry["yardstick_ms"] = r["yardstick_ms"]
+            entry["default_tier_kernel_ms"] = r["default_tier_kernel_ms"]
+            entry["forms"] = {s: {k: f[k] for k in (
+                "tier", "kernel_ms", "default_tier_kernel_ms", "plain_ms", "yardstick_ms",
+                "bound_ms", "bound_by", "max_abs_err", "rel_err_vs_plain", "rel_err_vs_default",
+                "probe_bitwise_vs_plain", "probe_rel_err_vs_default")}
+                for s, f in r["forms"].items()}
         if name == "secular_bisect":
             entry["max_abs_err"] = max(f["max_abs_err"] for f in r["shapes"].values())
             entry["shapes"] = {f"{K_B10}x{s}": {k: f[k] for k in (

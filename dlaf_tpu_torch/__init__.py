@@ -4,9 +4,11 @@ A second package beside the JAX one (``dlaf_tpu/``, the reference it is
 held against): the same 2D block-cyclic data model
 (``X[Pr, Pc, ltr, ltc, mb, nb]``), the same algorithms, and hand-written
 CUDA kernels for Hopper where the JAX package has Pallas kernels.  This
-package runs distributed Cholesky, the Left triangular solves and
-POTRS/POSV and the triangular inverse on any ``Pr x Pc`` grid of ranks on
-one card, with the potrf, panel-TRSM and trailing-update kernels, under
+package runs distributed Cholesky, the Left triangular solves,
+POTRS/POSV (with residual refinement, ``refine_to``, and the
+mixed-precision solver), the triangular inverse and POTRI, and the
+multiplication family (GEMM, TRMM, HEMM) on any ``Pr x Pc`` grid of ranks
+on one card, under any split-GEMM tier of ``tune.gemm_precision``, with the potrf, panel-TRSM and trailing-update kernels, under
 the 'pallas' collectives tier the ring kernels (hop merge, ring exchange,
 fused factor-and-send), and under the 'fused' trailing-update tier the
 ring consumers (the consume ring and the one-launch lookahead step) and
@@ -38,8 +40,19 @@ from dlaf_tpu_torch.comm import _ranks as _ranks
 _ranks.request_cuda_env()
 from dlaf_tpu_torch.algorithms.cholesky import cholesky_factorization  # noqa: E402
 from dlaf_tpu_torch.algorithms.eigensolver import EigResult, hermitian_eigensolver
-from dlaf_tpu_torch.algorithms.inverse import triangular_inverse
-from dlaf_tpu_torch.algorithms.solver import cholesky_solver, positive_definite_solver
+from dlaf_tpu_torch.algorithms.inverse import inverse_from_cholesky_factor, triangular_inverse
+from dlaf_tpu_torch.algorithms.multiplication import (
+    general_multiplication,
+    hermitian_multiplication,
+    triangular_multiplication,
+)
+from dlaf_tpu_torch.algorithms.norm import max_norm
+from dlaf_tpu_torch.algorithms.solver import (
+    MixedSolveInfo,
+    cholesky_solver,
+    positive_definite_solver,
+    positive_definite_solver_mixed,
+)
 from dlaf_tpu_torch.algorithms.triangular_solver import triangular_solver
 from dlaf_tpu_torch.comm.grid import Grid
 from dlaf_tpu_torch.matrix.matrix import DistributedMatrix
@@ -52,6 +65,13 @@ __all__ = [
     "cholesky_solver",
     "positive_definite_solver",
     "triangular_inverse",
+    "inverse_from_cholesky_factor",
+    "general_multiplication",
+    "triangular_multiplication",
+    "hermitian_multiplication",
+    "max_norm",
+    "MixedSolveInfo",
+    "positive_definite_solver_mixed",
     "hermitian_eigensolver",
     "EigResult",
 ]

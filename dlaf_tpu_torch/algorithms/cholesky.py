@@ -51,7 +51,7 @@ from dlaf_tpu_torch.ops import trailing_update as _tu
 
 def _diag_potrf(d):
     """Diagonal-tile Cholesky: the potrf kernel for real tiles under the JAX
-    package's gate, ``tile.potrf`` (``torch.linalg.cholesky``) otherwise.
+    package's gate, ``tile.potrf`` (``torch.linalg.cholesky_ex``) otherwise.
     Unlike the JAX package there is no catch-all fallback: a kernel failure
     raises."""
     if _potrf.supported(d):
@@ -269,13 +269,13 @@ def _factor_distributed(mat_a: DistributedMatrix, g: _spmd.Geometry, want_info: 
 
 
 def _cholesky_single_device(mat_a: DistributedMatrix) -> DistributedMatrix:
-    """1x1-grid dense path (``backend='auto'``): ``torch.linalg.cholesky``
-    on the whole matrix, where the JAX package leaves the work to XLA's
-    dense Cholesky.  The caller's upper triangle is kept."""
+    """1x1-grid dense path (``backend='auto'``): one dense Cholesky of the
+    whole matrix (``tile.potrf``), where the JAX package leaves the work to
+    XLA's dense Cholesky; a matrix that is not positive definite gives NaN,
+    as there.  The caller's upper triangle is kept."""
     dist = mat_a.dist
     g_ = layout.unpad_global(layout.unpack(mat_a.data, dist), dist)
-    herm = torch.tril(g_) + torch.tril(g_, -1).transpose(-1, -2).conj()
-    out = torch.linalg.cholesky(herm) + torch.triu(g_, 1)
+    out = t.potrf(g_, lower=True) + torch.triu(g_, 1)
     return mat_a._inplace(layout.pack(layout.pad_global(out, dist), dist))
 
 

@@ -23,11 +23,12 @@ sum crosses panel slots, so it is not applied per hop); under 'xla' it is
 dense triangular solve against the identity (``torch.linalg.solve_triangular``),
 where the JAX package leaves it to XLA.
 
+:func:`inverse_from_cholesky_factor` (POTRI) is TRTRI, then one
+``general_multiplication`` of the inverse factor with itself.
+
 Not in this slice (see ROADMAP.md): the masked kernels
 ``_trtri_lower_kernel`` / ``_trtri_upper_kernel``, which
-``triangular_inverse`` does not reach in the JAX package either, and
-``inverse_from_cholesky_factor`` (POTRI), which needs
-``general_multiplication`` (``multiplication.py``, not ported yet).
+``triangular_inverse`` does not reach in the JAX package either.
 """
 from __future__ import annotations
 
@@ -182,10 +183,17 @@ def triangular_inverse(uplo: str, diag: str, mat_a: DistributedMatrix) -> Distri
 
 
 def inverse_from_cholesky_factor(uplo: str, mat_a: DistributedMatrix) -> DistributedMatrix:
-    """POTRI: A^-1 from its Cholesky factor.  Not ported yet: it needs
-    ``general_multiplication`` (``multiplication.py``), the first item of
-    ROADMAP.md's queue of modules still to port."""
-    raise NotImplementedError(
-        "inverse_from_cholesky_factor: needs general_multiplication (multiplication.py), "
-        "which is not ported yet (ROADMAP.md, modules still to port: the first item)"
-    )
+    """POTRI (``inverse_from_cholesky_factor``, :305): given the Cholesky
+    factor in the ``uplo`` triangle of A, return A^-1 in full Hermitian
+    storage, a new matrix.  ``mat_a`` is inverted in place on the way
+    (TRTRI), as in the JAX package, whose TRTRI donates it."""
+    from dlaf_tpu_torch.algorithms.multiplication import general_multiplication
+    from dlaf_tpu_torch.matrix.util import extract_triangle
+
+    tinv = triangular_inverse(uplo, t.NON_UNIT, mat_a)
+    tri = extract_triangle(tinv, uplo)
+    out = DistributedMatrix(tinv.dist, tinv.grid, torch.zeros_like(tinv.data))
+    if uplo == t.LOWER:  # A^-1 = L^-H L^-1
+        return general_multiplication(t.CONJ_TRANS, t.NO_TRANS, 1.0, tri, tri, 0.0, out)
+    # A^-1 = U^-1 U^-H
+    return general_multiplication(t.NO_TRANS, t.CONJ_TRANS, 1.0, tri, tri, 0.0, out)

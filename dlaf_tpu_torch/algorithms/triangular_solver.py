@@ -14,8 +14,11 @@ one XLA ``triangular_solve``.
 On a ``Pr x Pc`` grid the kernel body runs once per rank thread
 (``comm/_ranks.py``) on the ranks' views of A and B.
 
+``refine_to='input'`` appends residual corrections (``_trsm_refined``,
+``algorithms/refine.py``), the companion of the bf16 split-GEMM tiers.
+
 Not in this slice (``NotImplementedError``, see ROADMAP.md): the Right
-side and ``refine_to``.
+side.
 """
 from __future__ import annotations
 
@@ -152,21 +155,31 @@ def _trsm_single_device(side, uplo, op, diag, alpha, mat_a, mat_b):
 
 def triangular_solver(side: str, uplo: str, op: str, diag: str, alpha,
                       mat_a: DistributedMatrix, mat_b: DistributedMatrix,
-                      backend: str = "auto", refine_to: str | None = None):
+                      backend: str = "auto", refine_to: str | None = None,
+                      refine_sweeps: int = 2):
     """B := solution X of op(A) X = alpha B (Left side), in place in
     ``mat_b``; A is triangular (only its ``uplo`` triangle is read).
     ``backend='auto'`` uses the dense path on 1x1 grids; 'distributed'
-    forces the tiled kernel."""
+    forces the tiled kernel.
+
+    ``refine_to='input'`` appends up to ``refine_sweeps`` residual
+    corrections: r = alpha B - op(A) X at full precision (a
+    ``triangular_multiplication`` under ``gemm_precision_scope('default')``),
+    d = the solve of r at the ambient tier, X += d.  It keeps a copy of B
+    from before the solve and returns a new matrix."""
     if side != t.LEFT:
         raise NotImplementedError(
             "triangular_solver: the Right side is not ported yet "
             "(ROADMAP.md §A, item 2: the rest of the main path)"
         )
     if refine_to is not None:
-        raise NotImplementedError(
-            "triangular_solver: refine_to is not ported yet "
-            "(ROADMAP.md §A, item 4: split-GEMM tiers, refinement, mixed precision)"
-        )
+        from dlaf_tpu_torch.algorithms.refine import validate_refine_to
+
+        validate_refine_to(refine_to)
+        b_snap = mat_b.astype(mat_b.dtype)  # a copy: the solve overwrites B
+        x = triangular_solver(side, uplo, op, diag, alpha, mat_a, mat_b, backend=backend)
+        return _trsm_refined(side, uplo, op, diag, alpha, mat_a, x, b_snap, backend,
+                             refine_sweeps)
     if mat_a.size.rows != mat_a.size.cols:
         raise ValueError("trsm: A must be square")
     if mat_a.block_size.rows != mat_a.block_size.cols:
@@ -196,3 +209,28 @@ def triangular_solver(side: str, uplo: str, op: str, diag: str, alpha,
 
     coll.spmd(mat_b.grid, body, mat_a.data, mat_b.data)
     return mat_b._inplace(mat_b.data)
+
+
+def _trsm_refined(side, uplo, op, diag, alpha, mat_a, x, b_snap, backend, refine_sweeps):
+    """The ``refine_to='input'`` tail of :func:`triangular_solver`
+    (``_trsm_refined``, JAX :463)."""
+    from dlaf_tpu_torch.algorithms.multiplication import triangular_multiplication
+    from dlaf_tpu_torch.algorithms.norm import max_norm
+    from dlaf_tpu_torch.algorithms.refine import refine_tolerance, residual_refine
+
+    anorm = max_norm(mat_a, uplo)
+
+    def residual(xc):
+        # a new matrix, and an elementwise subtraction: no contraction
+        ax = triangular_multiplication(side, uplo, op, diag, 1.0, mat_a, xc)
+        return ax.like(alpha * b_snap.data.to(ax.dtype) - ax.data)
+
+    x, _ = residual_refine(
+        x,
+        residual,
+        lambda r: triangular_solver(side, uplo, op, diag, 1.0, mat_a, r, backend=backend),
+        tol=refine_tolerance(anorm, mat_a.size.rows, x.dtype),
+        anorm=anorm,
+        max_sweeps=refine_sweeps,
+    )
+    return x

@@ -33,6 +33,7 @@ the runtime's lock) and the ring kernels' error word.
 """
 from __future__ import annotations
 
+import contextvars
 import os
 import threading
 import time
@@ -409,8 +410,11 @@ def spmd(grid, fn, *stacked):
         finally:
             _tls.ctx = None
 
-    threads = [threading.Thread(target=rank, args=(r, c), daemon=True,
-                                name=f"dlaf-rank-{r}-{c}")
+    # each rank body runs in a copy of the caller's context: a new thread
+    # starts in an empty one, and the ambient gemm_precision_scope
+    # (tune.py) must reach the ranks
+    threads = [threading.Thread(target=contextvars.copy_context().run, args=(rank, r, c),
+                                daemon=True, name=f"dlaf-rank-{r}-{c}")
                for r in range(pr) for c in range(pc)]
     for t in threads:
         t.start()

@@ -30,9 +30,19 @@
 // order, never per hop: the sum crosses slots.  Bound by operations, as B3:
 // at TRTRI's widest step on a 2x4 grid at N=16384 (a [16, 8, 512, 512]) one
 // rank's contraction is 34 GFlop over 0.5 GB.
+//
+// Under the split tiers (tier 'bf16x3' / 'bf16x6', the _update_kernel and
+// _contract_kernel bodies tracing tile.contract's bf16 split) B3 and B9
+// launch the split-tier kernels below instead: the same grid of 64 x 64
+// output tiles and the same slot loop, with the tile body of
+// csrc/split_gemm.cuh (the slices cut as the tiles are loaded, the
+// products on the tensor cores, one float32 accumulator per term).  Their
+// bound is the tensor cores' rate: B3 at 32 x 32 x 512^2 under bf16x3 is
+// 0.83 ms of bf16 operations, where the default tier's is 4.1 ms of f32 FMA.
 
 #include <cuda_runtime.h>
 
+#include "split_gemm.cuh"
 #include "trailing_update.cuh"
 
 namespace {
@@ -88,6 +98,56 @@ panel_contract_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __res
                                 threadIdx.x);
 }
 
+// B3, split tier: one 64 x 64 tile of one (i, j) pair per block.
+template <typename T, int NS, bool kBIsNK>
+__global__ void __launch_bounds__(dlaf_split::kThreads)
+trailing_update_split_kernel(T* __restrict__ x, const T* __restrict__ a, const T* __restrict__ b,
+                             int C, int M, int N, int K) {
+  __shared__ __align__(16) dlaf_split::Smem<NS> sm;
+  constexpr int BM = dlaf_split::kBM, BN = dlaf_split::kBN;
+  const int tiles_n = (N + BN - 1) / BN, tiles_m = (M + BM - 1) / BM;
+  long long bid = blockIdx.x;
+  const int tn = (int)(bid % tiles_n);
+  bid /= tiles_n;
+  const int tm = (int)(bid % tiles_m);
+  bid /= tiles_m;
+  const int j = (int)(bid % C);
+  const long long i = bid / C;
+
+  dlaf_split::Acc<NS> acc;
+  dlaf_split::tile_gemm<T, NS, kBIsNK>(acc, a + i * M * (long long)K, 0, K,
+                                       b + (long long)j * N * K, 0, kBIsNK ? K : N, 1, M, N, K,
+                                       tm * BM, tn * BN, threadIdx.x, sm);
+  dlaf_split::tile_store<T, NS, true>(x + (i * C + j) * (long long)M * N, N, M, N, tm * BM,
+                                      tn * BN, acc, threadIdx.x);
+}
+
+// B9, split tier: one 64 x 64 tile of one output slot per block.
+template <typename T, int NS, int kForm>
+__global__ void __launch_bounds__(dlaf_split::kThreads)
+panel_contract_split_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
+                            int L, int C, int M, int N, int K) {
+  __shared__ __align__(16) dlaf_split::Smem<NS> sm;
+  constexpr int BM = dlaf_split::kBM, BN = dlaf_split::kBN;
+  const int tiles_n = (N + BN - 1) / BN, tiles_m = (M + BM - 1) / BM;
+  long long bid = blockIdx.x;
+  const int tn = (int)(bid % tiles_n);
+  bid /= tiles_n;
+  const int tm = (int)(bid % tiles_m);
+  const long long o = bid / tiles_m;  // the output slot: i (form 0) or j (form 1)
+  const long long mk = (long long)M * K, kn = (long long)K * N;
+
+  dlaf_split::Acc<NS> acc;
+  if (kForm == 0)  // sum over j of a[i, j] @ b[j]
+    dlaf_split::tile_gemm<T, NS, false>(acc, a + o * C * mk, mk, K, b, kn, N, C, M, N, K,
+                                        tm * BM, tn * BN, threadIdx.x, sm);
+  else  // sum over i of a[i] @ b[i, j]
+    dlaf_split::tile_gemm<T, NS, false>(acc, a, mk, K, b + o * kn, C * kn, N, L, M, N, K,
+                                        tm * BM, tn * BN, threadIdx.x, sm);
+  dlaf_split::tile_store<T, NS, false>(out + o * M * (long long)N, N, M, N, tm * BM, tn * BN, acc,
+                                       threadIdx.x);
+}
+
 template <typename T>
 int launch_trailing_update(void* x, const void* a, const void* b, int L, int C, int M, int N,
                            int K, int b_is_nk, void* stream) {
@@ -123,6 +183,68 @@ int launch_panel_contract(const void* a, const void* b, void* out, int form, int
   return (int)cudaGetLastError();
 }
 
+template <typename T, int NS>
+void launch_trailing_update_split_ns(T* x, const T* a, const T* b, int C, int M, int N, int K,
+                                     int b_is_nk, unsigned blocks, cudaStream_t s) {
+  if (b_is_nk)
+    trailing_update_split_kernel<T, NS, true><<<blocks, dlaf_split::kThreads, 0, s>>>(
+        x, a, b, C, M, N, K);
+  else
+    trailing_update_split_kernel<T, NS, false><<<blocks, dlaf_split::kThreads, 0, s>>>(
+        x, a, b, C, M, N, K);
+}
+
+template <typename T>
+int launch_trailing_update_split(void* x, const void* a, const void* b, int L, int C, int M,
+                                 int N, int K, int b_is_nk, int nslices, void* stream) {
+  if (nslices != 2 && nslices != 3) return (int)cudaErrorInvalidValue;
+  if (L <= 0 || C <= 0 || M <= 0 || N <= 0) return 0;
+  constexpr int BM = dlaf_split::kBM, BN = dlaf_split::kBN;
+  const long long blocks = (long long)L * C * ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  T* xt = static_cast<T*>(x);
+  const T* at = static_cast<const T*>(a);
+  const T* bt = static_cast<const T*>(b);
+  if (nslices == 2)
+    launch_trailing_update_split_ns<T, 2>(xt, at, bt, C, M, N, K, b_is_nk, (unsigned)blocks, s);
+  else
+    launch_trailing_update_split_ns<T, 3>(xt, at, bt, C, M, N, K, b_is_nk, (unsigned)blocks, s);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NS>
+void launch_panel_contract_split_ns(const T* a, const T* b, T* out, int form, int L, int C, int M,
+                                    int N, int K, unsigned blocks, cudaStream_t s) {
+  if (form == 0)
+    panel_contract_split_kernel<T, NS, 0><<<blocks, dlaf_split::kThreads, 0, s>>>(
+        a, b, out, L, C, M, N, K);
+  else
+    panel_contract_split_kernel<T, NS, 1><<<blocks, dlaf_split::kThreads, 0, s>>>(
+        a, b, out, L, C, M, N, K);
+}
+
+template <typename T>
+int launch_panel_contract_split(const void* a, const void* b, void* out, int form, int L, int C,
+                                int M, int N, int K, int nslices, void* stream) {
+  if (nslices != 2 && nslices != 3) return (int)cudaErrorInvalidValue;
+  if (form != 0 && form != 1) return (int)cudaErrorInvalidValue;
+  if (L <= 0 || C <= 0 || M <= 0 || N <= 0) return 0;
+  constexpr int BM = dlaf_split::kBM, BN = dlaf_split::kBN;
+  const long long blocks =
+      (long long)(form == 0 ? L : C) * ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* at = static_cast<const T*>(a);
+  const T* bt = static_cast<const T*>(b);
+  T* ot = static_cast<T*>(out);
+  if (nslices == 2)
+    launch_panel_contract_split_ns<T, 2>(at, bt, ot, form, L, C, M, N, K, (unsigned)blocks, s);
+  else
+    launch_panel_contract_split_ns<T, 3>(at, bt, ot, form, L, C, M, N, K, (unsigned)blocks, s);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -146,6 +268,27 @@ int dlaf_panel_contract_f32(const void* a, const void* b, void* out, int form, i
 int dlaf_panel_contract_f64(const void* a, const void* b, void* out, int form, int L, int C, int M,
                             int N, int K, void* stream) {
   return launch_panel_contract<double>(a, b, out, form, L, C, M, N, K, stream);
+}
+
+// B3 and B9 under the split tiers: nslices 2 (bf16x3) or 3 (bf16x6)
+int dlaf_trailing_update_split_f32(void* x, const void* a, const void* b, int L, int C, int M,
+                                   int N, int K, int b_is_nk, int nslices, void* stream) {
+  return launch_trailing_update_split<float>(x, a, b, L, C, M, N, K, b_is_nk, nslices, stream);
+}
+
+int dlaf_trailing_update_split_f64(void* x, const void* a, const void* b, int L, int C, int M,
+                                   int N, int K, int b_is_nk, int nslices, void* stream) {
+  return launch_trailing_update_split<double>(x, a, b, L, C, M, N, K, b_is_nk, nslices, stream);
+}
+
+int dlaf_panel_contract_split_f32(const void* a, const void* b, void* out, int form, int L, int C,
+                                  int M, int N, int K, int nslices, void* stream) {
+  return launch_panel_contract_split<float>(a, b, out, form, L, C, M, N, K, nslices, stream);
+}
+
+int dlaf_panel_contract_split_f64(const void* a, const void* b, void* out, int form, int L, int C,
+                                  int M, int N, int K, int nslices, void* stream) {
+  return launch_panel_contract_split<double>(a, b, out, form, L, C, M, N, K, nslices, stream);
 }
 
 }  // extern "C"

@@ -1,13 +1,17 @@
 """Error taxonomy of the port (counterpart of ``dlaf_tpu/health.py:38-84``).
 
-Only the exception classes the Cholesky/POSV and HEEV slices raise are
-ported, with the stage-boundary NaN/Inf sentinel :func:`check_finite`; the
-health event stream waits for the observability items of ROADMAP queue A.  LAPACK conventions carry over: ``info == 0`` is
-success, ``info == k > 0`` names the 1-based first failing pivot.
+Only the exception classes the ported slices raise are ported, with the
+stage-boundary NaN/Inf sentinel :func:`check_finite` and the health event
+stream's :func:`record` / :func:`capture_events` (``dlaf_tpu/health.py:
+209-236``); the stream's ``obs.metrics`` sink waits for the observability
+item of ROADMAP queue A (item 7).  LAPACK conventions carry over: ``info
+== 0`` is success, ``info == k > 0`` names the 1-based first failing
+pivot.
 """
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager
 
 
 class DlafError(Exception):
@@ -115,3 +119,28 @@ def check_finite(stage: str, *operands) -> None:
         flags.append(torch.isfinite(d).all())
     if flags and not bool(torch.stack([f.to(flags[0].device) for f in flags]).all()):
         raise NonFiniteError(stage)
+
+
+# ----------------------------------------------------------- event stream
+
+_captured: list | None = None
+
+
+def record(event: str, **fields) -> None:
+    """Record one health event (a fallback, a stall) into the innermost
+    :func:`capture_events` list; free when nothing captures."""
+    if _captured is not None:
+        _captured.append({"event": event, **fields})
+
+
+@contextmanager
+def capture_events():
+    """Collect health events into the yielded list (for tests).  Nested
+    captures see only their own events; the outer one resumes when the
+    inner one exits."""
+    global _captured
+    prev, _captured = _captured, []
+    try:
+        yield _captured
+    finally:
+        _captured = prev

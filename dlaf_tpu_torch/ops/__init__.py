@@ -21,8 +21,13 @@ KERNELS = {
 }
 
 
-#: counters beside KERNELS': the cluster kernel's share of B1's launches
-SUB_COUNTS = {"potrf_cluster": (potrf, "cluster_launches")}
+#: counters beside KERNELS': the cluster kernel's share of B1's launches,
+#: and the split-tier body's share of B3's and of B9's
+SUB_COUNTS = {
+    "potrf_cluster": (potrf, "cluster_launches"),
+    "trailing_update_split": (trailing_update, "split_launches"),
+    "panel_contract_split": (trailing_update, "split_contract_launches"),
+}
 
 
 def reset_launch_counts() -> None:
@@ -32,3 +37,7 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
+
+
+def sub_counts() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in SUB_COUNTS.items()}

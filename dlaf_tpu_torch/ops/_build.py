@@ -51,6 +51,12 @@ SIGNATURES = {
     # (a, b, out, form, L, C, M, N, K, stream)
     "dlaf_panel_contract_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dlaf_panel_contract_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (x, a, b, L, C, M, N, K, b_is_nk, nslices, stream): B3 under a split tier
+    "dlaf_trailing_update_split_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dlaf_trailing_update_split_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (a, b, out, form, L, C, M, N, K, nslices, stream): B9 under a split tier
+    "dlaf_panel_contract_split_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dlaf_panel_contract_split_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # (y, h, z, out, oh, x, cp, land, land_h, entry, rflag, aflag, err, ltr, ltc, M, N, K,
     #  G, P, me, epoch, timeout_ns, stream)
     "dlaf_dma_ring_consume_f32": [_P] * 13 + [_I] * 8 + [_ULL, _ULL, _P],

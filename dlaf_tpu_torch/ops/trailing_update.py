@@ -2,8 +2,10 @@
 versions: ``csrc/trailing_update.cu`` (B3, B9) and ``csrc/consume.cu`` (B6,
 B8), with the tile body they share in ``csrc/trailing_update.cuh``.
 
-Replaces ``dlaf_tpu/ops/pallas_trailing_update.py``, tier 'default' only
-(the in-kernel bf16x3/bf16x6 split waits in ROADMAP with ``gemm_precision``):
+Replaces ``dlaf_tpu/ops/pallas_trailing_update.py``.  Every contraction
+here is ``tile.contract`` at a split-GEMM tier (``tune.gemm_precision``,
+resolved in the calling thread when ``tier`` is None, as the JAX kernels
+trace ``t.contract(..., tier=tier)`` inside their bodies):
 
 * B3, :func:`trailing_update` (``trailing_update`` / ``_update_kernel``):
   ``x - contract(subscripts, a, b)`` written into ``x``, in two forms,
@@ -31,9 +33,14 @@ The updates write into ``x`` in place (the JAX kernels return new arrays):
 copy buys nothing.  On CPU tensors every wrapper runs its plain version;
 on CUDA tensors it launches its kernel or raises.  Every kernel here is
 bound by operations on the H100: at N=16384, nb=512 the Cholesky update is
-275 GFlop over 2.2 GB.  The kernels are plain shared-memory-tiled FMA GEMMs
-(64 x 64 output tiles, 16-deep k slices), no tensor cores yet; see
-``PERF.md`` for their measured times.
+275 GFlop over 2.2 GB.  At the 'default' tier the kernels are plain
+shared-memory-tiled FMA GEMMs (64 x 64 output tiles, 16-deep k slices);
+under 'bf16x3' / 'bf16x6' B3 and B9 launch their split-tier body instead
+(``csrc/split_gemm.cuh``: the bf16 slices made as the tiles are loaded,
+the products on the tensor cores with float32 accumulators, one per
+term).  B6 and B8 have no split body yet: on a CUDA tensor under a split
+tier they raise ``ConfigurationError`` (ROADMAP.md §B, item 11); their CPU
+twins run every tier.  See ``PERF.md`` for the measured times.
 """
 from __future__ import annotations
 
@@ -43,9 +50,11 @@ import torch
 
 from dlaf_tpu_torch.comm import _ranks
 from dlaf_tpu_torch.comm import collectives as coll
+from dlaf_tpu_torch.health import ConfigurationError
 from dlaf_tpu_torch.ops import _build
 from dlaf_tpu_torch.ops import panel_exchange as _px
 from dlaf_tpu_torch.ops import panel_trsm as _ptrsm
+from dlaf_tpu_torch.ops import tile as t
 
 #: launches since the last reset (one per rank and call; the plain versions
 #: count nothing): B3, B6, B8, B9
@@ -53,6 +62,10 @@ launches = 0
 consume_launches = 0
 step_launches = 0
 contract_launches = 0
+#: the shares of ``launches`` and ``contract_launches`` that ran the
+#: split-tier body (B3 and B9 under 'bf16x3' / 'bf16x6')
+split_launches = 0
+split_contract_launches = 0
 
 CHOLESKY_SUBSCRIPTS = "iab,jcb->ijac"
 TRSM_SUBSCRIPTS = "iab,jbc->ijac"
@@ -69,42 +82,59 @@ def update_kernel_ok(dtype) -> bool:
     return dtype in (torch.float32, torch.float64)
 
 
-def _expand(mask, t):
-    return mask.reshape(mask.shape + (1,) * (t.dim() - mask.dim()))
+def _expand(mask, v):
+    return mask.reshape(mask.shape + (1,) * (v.dim() - mask.dim()))
 
 
 def _check_cuda(what: str, *tensors) -> None:
     dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(f"{what}: operands on {[str(t.device) for t in tensors]}; need one "
+    if dev.type != "cuda" or any(v.device != dev for v in tensors):
+        raise ValueError(f"{what}: operands on {[str(v.device) for v in tensors]}; need one "
                          f"CUDA device (CPU tensors take the plain version)")
-    if not update_kernel_ok(tensors[0].dtype) or any(t.dtype != tensors[0].dtype for t in tensors):
-        raise TypeError(f"{what}: dtypes {[t.dtype for t in tensors]}; need one real dtype")
-    if not all(t.is_contiguous() for t in tensors):
+    if not update_kernel_ok(tensors[0].dtype) or any(v.dtype != tensors[0].dtype for v in tensors):
+        raise TypeError(f"{what}: dtypes {[v.dtype for v in tensors]}; need one real dtype")
+    if not all(v.is_contiguous() for v in tensors):
         raise ValueError(f"{what}: operands must be contiguous")
 
 
-def _count(name: str) -> None:
+def _count(*names: str) -> None:
     with _build.COUNT_LOCK:  # rank threads launch concurrently
-        globals()[name] += 1
+        for name in names:
+            globals()[name] += 1
+
+
+def _no_split_on_card(what: str, cp, y) -> None:
+    """B6 and B8 have no split-tier body: under a split tier a CUDA launch
+    raises rather than run the 'default' tier."""
+    tier = t.resolve_tier(CHOLESKY_SUBSCRIPTS, cp, y)
+    if tier in t.SPLIT_SLICES:
+        raise ConfigurationError(
+            f"{what}: gemm_precision {tier!r} is not ported to this kernel on the card; "
+            "its split tier waits in ROADMAP.md §B, item 11 (the split tier of B6 and B8)"
+        )
 
 
 # ------------------------------------------------------------------------ B3
 
 
-def trailing_update_plain(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS):
-    """``x -= einsum(subscripts, a, b)``, in place; returns ``x``."""
-    return x.sub_(torch.einsum(subscripts, a, b))
+def trailing_update_plain(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS,
+                          tier: str | None = None):
+    """``x -= tile.contract(subscripts, a, b, tier=tier)``, in place;
+    returns ``x``."""
+    return x.sub_(t.contract(subscripts, a, b, tier=tier))
 
 
-def trailing_update(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS):
-    """``x - contract(subscripts, a, b)`` written into ``x``; returns ``x``.
-    CPU tensors take :func:`trailing_update_plain`; CUDA tensors launch B3
-    or raise."""
+def trailing_update(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS, tier: str | None = None):
+    """``x - contract(subscripts, a, b, tier)`` written into ``x``; returns
+    ``x``.  ``tier=None`` is the calling thread's
+    ``tune.resolved_gemm_precision()``.  CPU tensors take
+    :func:`trailing_update_plain`; CUDA tensors launch B3 (its split-tier
+    body under 'bf16x3' / 'bf16x6') or raise."""
     if subscripts not in _B_IS_NK:
         raise ValueError(f"trailing_update: subscripts {subscripts!r} not in {tuple(_B_IS_NK)}")
-    if all(t.device.type == "cpu" for t in (x, a, b)):
-        return trailing_update_plain(x, a, b, subscripts)
+    tier = t.resolve_tier(subscripts, a, b, tier)
+    if all(v.device.type == "cpu" for v in (x, a, b)):
+        return trailing_update_plain(x, a, b, subscripts, tier)
     _check_cuda("trailing_update", x, a, b)
     b_is_nk = _B_IS_NK[subscripts]
     if x.dim() != 4 or a.dim() != 3 or b.dim() != 3:
@@ -120,11 +150,20 @@ def trailing_update(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS):
     if x.numel() == 0:
         return x
     lib = _build.lib()
-    fn = lib.dlaf_trailing_update_f32 if x.dtype == torch.float32 else lib.dlaf_trailing_update_f64
-    rc = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), L, C, M, N, K, int(b_is_nk),
+    f32 = x.dtype == torch.float32
+    nslices = t.SPLIT_SLICES.get(tier)
+    if nslices is None:
+        fn = lib.dlaf_trailing_update_f32 if f32 else lib.dlaf_trailing_update_f64
+        rc = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), L, C, M, N, K, int(b_is_nk),
+                _build.stream_of(x))
+        _build.check(rc, "trailing_update")
+        _count("launches")
+        return x
+    fn = lib.dlaf_trailing_update_split_f32 if f32 else lib.dlaf_trailing_update_split_f64
+    rc = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), L, C, M, N, K, int(b_is_nk), nslices,
             _build.stream_of(x))
-    _build.check(rc, "trailing_update")
-    _count("launches")
+    _build.check(rc, f"trailing_update[{tier}]")
+    _count("launches", "split_launches")
     return x
 
 
@@ -185,7 +224,7 @@ def dma_ring_consume_plain(x, yf, h, cp, z, axis: str, *, events: list | None = 
     zero = torch.zeros((), dtype=yf.dtype)
 
     def apply(y, mask):
-        x.sub_(torch.einsum(CHOLESKY_SUBSCRIPTS, cp, torch.where(_expand(mask, y), y, zero)))
+        x.sub_(t.contract(CHOLESKY_SUBSCRIPTS, cp, torch.where(_expand(mask, y), y, zero)))
 
     pos, n, ring = ctx.axis(axis)
     if n == 1:  # no ring: the local contribution is the whole update
@@ -245,10 +284,12 @@ def dma_ring_consume(x, yf, h, cp, z, axis: str):
     column).  ``x [ltr, slots, M, N]`` is updated in place; returns ``(x,
     yf', h')`` with the merged panel and have unmasked, as the JAX kernel
     does.  CPU tensors take :func:`dma_ring_consume_plain`; CUDA tensors
-    launch B6 (real dtypes, on an axis longer than 1) or raise."""
-    if all(t.device.type == "cpu" for t in (x, yf, h, cp, z)):
+    launch B6 (real dtypes, on an axis longer than 1, the 'default' tier)
+    or raise."""
+    if all(v.device.type == "cpu" for v in (x, yf, h, cp, z)):
         return dma_ring_consume_plain(x, yf, h, cp, z, axis)
     _check_cuda("dma_ring_consume", x, yf, cp)
+    _no_split_on_card("dma_ring_consume", cp, yf)
     ctx = _ranks.current()
     pos, n, ring = ctx.axis(axis)
     if ctx.world is None or n == 1:
@@ -317,7 +358,7 @@ def fused_transpose_update(x, cp, taken, have, suppress, axis: str = "r"):
     if real:
         trailing_update(x, cp.contiguous(), b, CHOLESKY_SUBSCRIPTS)
     else:
-        x.sub_(torch.einsum(CHOLESKY_SUBSCRIPTS, cp, b))
+        x.sub_(t.contract(CHOLESKY_SUBSCRIPTS, cp, b))
     return x, rp
 
 
@@ -358,7 +399,7 @@ def fused_step_plain(x, taken, have, suppress, cp, below1, params):
     rp = torch.where(_expand(hh.reshape(ltc) != 0, y), y, zero)
     if ctx.myc == kc1:
         xc1 = x[:, l_next]
-        xc1 -= torch.einsum("iab,cb->iac", cp, rp[l_next])
+        xc1 -= t.contract("iab,cb->iac", cp, rp[l_next])
     own = ctx.myr == kr1 and ctx.myc == kc1
     d = x[lkr1, lkc1].clone() if own else torch.zeros_like(x[0, 0])
     d1, h1 = _px.ring_exchange(d, own, "c", kind="fused_step_diag")
@@ -397,6 +438,7 @@ def fused_step(x, taken, have, suppress, cp, below1, params):
     if x.device.type == "cpu":
         return fused_step_plain(x, taken, have, suppress, cp, below1, params)
     _check_cuda("fused_step", x, taken, cp)
+    _no_split_on_card("fused_step", cp, taken)
     if not fused_step_supported(x, cp):
         raise ValueError(f"fused_step: x {tuple(x.shape)} {x.dtype}, cp {tuple(cp.shape)} fail "
                          "fused_step_supported")
@@ -470,22 +512,25 @@ def fused_step(x, taken, have, suppress, cp, below1, params):
 # ------------------------------------------------------------------------ B9
 
 
-def panel_contract_plain(a, b, subscripts: str):
-    """``contract(subscripts, a, b)``: ``torch.einsum``."""
-    return torch.einsum(subscripts, a, b)
+def panel_contract_plain(a, b, subscripts: str, tier: str | None = None):
+    """``tile.contract(subscripts, a, b, tier=tier)``."""
+    return t.contract(subscripts, a, b, tier=tier)
 
 
-def panel_contract(a, b, subscripts: str):
+def panel_contract(a, b, subscripts: str, tier: str | None = None):
     """The one-shot TRTRI contraction (``panel_contract``, :198), returning
     ``contract``, not ``0 - contract`` (the caller negates: the two differ
     at signed zeros).  Two forms: ``ijab,jbc->iac`` (a [L, C, M, K], b
     [C, K, N]) and ``iab,ijbc->jac`` (a [L, M, K], b [L, C, K, N]); the sum
-    over the slot axis runs in one fixed order.  CPU tensors take
-    :func:`panel_contract_plain`; CUDA tensors launch B9 or raise."""
+    over the slot axis runs in one fixed order.  ``tier`` as in
+    :func:`trailing_update`.  CPU tensors take :func:`panel_contract_plain`;
+    CUDA tensors launch B9 (its split-tier body under 'bf16x3' / 'bf16x6')
+    or raise."""
     if subscripts not in _CONTRACT_FORM:
         raise ValueError(f"panel_contract: subscripts {subscripts!r} not in {tuple(_CONTRACT_FORM)}")
+    tier = t.resolve_tier(subscripts, a, b, tier)
     if a.device.type == "cpu" and b.device.type == "cpu":
-        return panel_contract_plain(a, b, subscripts)
+        return panel_contract_plain(a, b, subscripts, tier)
     _check_cuda("panel_contract", a, b)
     form = _CONTRACT_FORM[subscripts]
     if form == 0:
@@ -508,8 +553,18 @@ def panel_contract(a, b, subscripts: str):
     if K == 0:
         return out.zero_()
     lib = _build.lib()
-    fn = lib.dlaf_panel_contract_f32 if a.dtype == torch.float32 else lib.dlaf_panel_contract_f64
-    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), form, L, C, M, N, K, _build.stream_of(a))
-    _build.check(rc, "panel_contract")
-    _count("contract_launches")
+    f32 = a.dtype == torch.float32
+    nslices = t.SPLIT_SLICES.get(tier)
+    if nslices is None:
+        fn = lib.dlaf_panel_contract_f32 if f32 else lib.dlaf_panel_contract_f64
+        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), form, L, C, M, N, K,
+                _build.stream_of(a))
+        _build.check(rc, "panel_contract")
+        _count("contract_launches")
+        return out
+    fn = lib.dlaf_panel_contract_split_f32 if f32 else lib.dlaf_panel_contract_split_f64
+    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), form, L, C, M, N, K, nslices,
+            _build.stream_of(a))
+    _build.check(rc, f"panel_contract[{tier}]")
+    _count("contract_launches", "split_contract_launches")
     return out

@@ -25,8 +25,13 @@ explicit :meth:`TuneParameters.update` calls.
   plain protocol twin on the CPU) or 'auto', which resolves as the JAX
   package's rule does: 'v2' on the card, 'psum' on the CPU, never
   'pallas'.
-- ``gemm_precision``: only 'default' (full operand precision) is ported;
-  the bf16 split tiers wait in ROADMAP (queue A, item 4).
+- ``gemm_precision``: the split-GEMM tier of ``ops.tile.contract`` and of
+  the trailing-update kernels B3 and B9: 'default' (full operand
+  precision), 'bf16x3' / 'bf16x6' (two / three bf16 slices per operand,
+  f32 accumulation) or 'auto' (per call site, from the operands' device
+  and contracted extent).  :func:`gemm_precision_scope` overrides it for
+  the calls inside it, in this thread and in the rank threads that
+  ``comm._ranks.spmd`` starts from it.
 - ``bucket_segment_ratio``: window-shrink factor per bucketed segment
   (``algorithms._spmd.halving_segments``).
 
@@ -56,6 +61,8 @@ asks whether the grid's device is CUDA (:func:`on_accelerator`):
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 from dataclasses import dataclass, field, fields
 
@@ -67,7 +74,7 @@ COLLECTIVES_IMPLS = ("psum", "v2", "pallas", "auto")
 BAND_CHASE_BACKENDS = ("native", "device", "auto")
 #: the values that mean full float32 products, the only ones ported
 FULL_F32_PRECISIONS = ("float32", "f32", "highest")
-#: the JAX package's domain; every value but 'default' raises here
+#: the split-GEMM tiers (``ops/tile.py``)
 GEMM_PRECISIONS = ("default", "bf16x3", "bf16x6", "auto")
 
 
@@ -165,12 +172,6 @@ def validate_gemm_precision(value) -> str:
             f"gemm_precision must be one of {GEMM_PRECISIONS}, "
             f"got {value!r} (env DLAF_TPU_GEMM_PRECISION)"
         )
-    if value != "default":
-        raise ConfigurationError(
-            f"gemm_precision={value!r} is not ported yet: the bf16 split "
-            "tiers wait in ROADMAP.md queue A, item 4 (split tiers in "
-            "contract and in the trailing-update kernel)"
-        )
     return value
 
 
@@ -208,7 +209,36 @@ def trailing_update_tier() -> str:
     return "xla" if impl == "auto" else impl
 
 
+# The ambient split-GEMM tier override (``dlaf_tpu/tune.py:466-486``): the
+# refinement loops (``algorithms/refine.py``) compute their residuals under
+# gemm_precision_scope('default') while the factorization and the solves
+# keep the fast tier.  A context variable, so that rank threads started
+# inside the scope see it (``comm._ranks.spmd`` runs each rank body in a
+# copy of the caller's context).
+_gemm_precision_override: contextvars.ContextVar = contextvars.ContextVar(
+    "dlaf_tpu_torch_gemm_precision_override", default=None
+)
+
+
+@contextlib.contextmanager
+def gemm_precision_scope(tier: str):
+    """Force the split-GEMM tier of the contractions made inside the scope,
+    overriding ``gemm_precision``."""
+    validate_gemm_precision(tier)
+    token = _gemm_precision_override.set(tier)
+    try:
+        yield tier
+    finally:
+        _gemm_precision_override.reset(token)
+
+
 def resolved_gemm_precision() -> str:
+    """The split-GEMM tier in effect in the calling thread: the active
+    :func:`gemm_precision_scope`, else the (validated) knob.  'auto' is
+    returned as it is: ``ops.tile.contract`` resolves it per call site."""
+    override = _gemm_precision_override.get()
+    if override is not None:
+        return override
     return validate_gemm_precision(get_tune_parameters().gemm_precision)
 
 

@@ -107,6 +107,31 @@ def test_info_on_non_spd_matches_jax(grid_1x1, variant):
         assert e.value.info == 71
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_dense_paths_of_a_non_spd_matrix_give_nan_like_jax(grid_1x1, dtype):
+    """A matrix that is not positive definite: the 1x1 dense path (and
+    ``tile.potrf``, which the distributed kernel uses for tiles outside
+    the potrf kernel's gate) give NaN, as ``jnp.linalg.cholesky`` does in
+    the JAX package, rather than raise (ROADMAP §C, C3)."""
+    import torch
+
+    from dlaf_tpu_torch.ops import tile
+
+    n, mb = 24, 8
+    a = tu.random_hermitian_pd(n, dtype, seed=9)
+    a[13, 13] = -5.0
+    jm, tm = _pair(grid_1x1, a, mb)
+    ref = dt.cholesky_factorization("L", jm).to_global()
+    got = cholesky_factorization("L", tm).to_global()
+    low = np.tril_indices(n)
+    assert np.isnan(ref[low]).all() and np.isnan(got[low]).all()
+    np.testing.assert_array_equal(np.triu(got, 1), np.triu(ref, 1))  # the caller's upper
+    tiles = torch.from_numpy(np.stack([a[:8, :8], a[8:16, 8:16]]))
+    fac = tile.potrf(tiles).numpy()
+    assert not np.isnan(fac[0]).any() and np.isnan(fac[1][np.tril_indices(8)]).all()
+    assert not np.triu(fac[1], 1).any()
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_info_zero_and_dense_auto_path_match_jax(grid_1x1, dtype):
     n, mb = 100, 32

@@ -306,22 +306,25 @@ def _port_factor(shape, a, mb, **kw):
 
 
 @pytest.mark.parametrize("tier", ["psum", "v2", "pallas"])
-@pytest.mark.parametrize("shape,dtype", [pytest.param(s, np.float32, id=f"shape{i}")
-                                         for i, s in enumerate(SHAPES)]
-                         + [pytest.param((2, 4), np.complex64, id="shape1-complex64")])
-def test_lookahead_fused_matches_xla_and_jax(comm_grids, shape, dtype, tier):
+@pytest.mark.parametrize("shape,dtype,gemm", [pytest.param(s, np.float32, "default", id=f"shape{i}")
+                                              for i, s in enumerate(SHAPES)]
+                         + [pytest.param((2, 4), np.complex64, "default", id="shape1-complex64"),
+                            pytest.param((2, 4), np.float32, "bf16x3", id="shape1-bf16x3")])
+def test_lookahead_fused_matches_xla_and_jax(comm_grids, shape, dtype, gemm, tier):
     """Lookahead Cholesky under 'fused' on rank threads: bitwise the 'xla'
     tier's factor in the port, and within tol_for of the JAX package's
-    fused tier; f32 on every shape, c64 on 2x4."""
+    fused tier; f32 on every shape, c64 on 2x4, and f32 on 2x4 under the
+    bf16x3 split-GEMM tier (B6's and B8's twins, the narrow update and the
+    'xla' update all split in ``tile.contract``)."""
     pytest.importorskip("jax")
     n, mb = 60, 8
     a = np.tril(random_hermitian_pd(n, dtype, 41)) + np.triu(random_matrix(n, n, dtype, 42), 1)
     ref, jinfo = _jax_factor(comm_grids, shape, a, mb, cholesky_lookahead=True,
-                             trailing_update_impl="fused")
+                             trailing_update_impl="fused", gemm_precision=gemm)
     out = {}
     for impl in ("xla", "fused"):
         out[impl] = _port_factor(shape, a, mb, collectives_impl=tier, cholesky_lookahead=True,
-                                 trailing_update_impl=impl)
+                                 trailing_update_impl=impl, gemm_precision=gemm)
     np.testing.assert_array_equal(out["fused"][0], out["xla"][0])
     assert out["fused"][2] == out["xla"][2] == jinfo == 0
     assert np.isfinite(out["fused"][1]).all()

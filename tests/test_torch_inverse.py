@@ -179,10 +179,49 @@ def test_cpu_inverse_launches_nothing():
 
 @pytest.mark.parametrize("shape", [(1, 1), (2, 4)])
 def test_inverse_from_cholesky_factor_raises(shape):
+    """POTRI runs (the identity's inverse is the identity, in a new matrix;
+    the factor is inverted in place on the way, as in the JAX package) and
+    raises only on what TRTRI refuses: a matrix that is not square."""
     m = dtt.DistributedMatrix.from_global(Grid.create(shape, device="cpu"), np.eye(16), (8, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inverse_from_cholesky_factor("L", m)
+    out = inverse_from_cholesky_factor("L", m)
+    assert out.data is not m.data
+    np.testing.assert_array_equal(out.to_global(), np.eye(16))
     np.testing.assert_array_equal(m.to_global(), np.eye(16))
+    rect = dtt.DistributedMatrix.from_global(Grid.create(shape, device="cpu"), np.ones((16, 8)),
+                                             (8, 8))
+    with pytest.raises(ValueError, match="square"):
+        inverse_from_cholesky_factor("L", rect)
+
+
+@pytest.mark.parametrize("uplo", ["L", "U"])
+def test_triangular_inverse_split_tier_fused_matches_xla_and_jax(comm_grids, grid_1x1, uplo):
+    """Under gemm_precision='bf16x3' on a 2x4 grid: 'fused' (B9's plain
+    version at the tier) bitwise 'xla', and within tol_for(f32, n) of the
+    JAX package's fused tier at bf16x3 (f32: both are float32 class)."""
+    pytest.importorskip("jax")
+    import dlaf_tpu as dt
+
+    n = 60
+    f = _factor(uplo, "N", n, np.float32)
+    jgrid = next(g for g in comm_grids if tuple(g.grid_size) == (2, 4))
+    from dlaf_tpu import tune as jtune
+
+    jp = jtune.get_tune_parameters()
+    jold = {k: getattr(jp, k) for k in ("gemm_precision", "trailing_update_impl")}
+    try:
+        jp.update(gemm_precision="bf16x3", trailing_update_impl="fused")
+        ref = dt.triangular_inverse(uplo, "N", dt.DistributedMatrix.from_global(jgrid, f, (8, 8)))
+        ref = ref.to_global()
+    finally:
+        jp.update(**jold)
+    out = {}
+    for impl in ("xla", "fused"):
+        with knobs(gemm_precision="bf16x3", trailing_update_impl=impl, collectives_impl="pallas"):
+            m = dtt.DistributedMatrix.from_global(Grid.create((2, 4), device="cpu"), f, (8, 8))
+            out[impl] = dtt.triangular_inverse(uplo, "N", m).to_global()
+    tri = np.tril if uplo == "L" else np.triu
+    np.testing.assert_array_equal(out["fused"], out["xla"])
+    assert _rel_err(tri(out["fused"]), tri(ref)) <= tol_for(np.float32, n)
 
 
 # ------------------------------------------------------------ card only

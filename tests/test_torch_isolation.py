@@ -66,11 +66,12 @@ def test_grid_defaults_to_the_card(monkeypatch):
 @pytest.mark.parametrize("shape", [(2, 2), (1, 2), (2, 1)])
 def test_multi_rank_grids_wait_for_the_next_slice(shape):
     """Multi-rank grids are rank threads, and the lookahead kernel's fused
-    trailing-update tier runs on them (the 'xla' tier's bits on the CPU);
-    what waits for a later slice there is POTRI
-    (``inverse_from_cholesky_factor``, which needs ``multiplication.py``),
-    which raises naming ROADMAP."""
+    trailing-update tier runs on them (the 'xla' tier's bits on the CPU),
+    as does POTRI (``inverse_from_cholesky_factor``); what waits for a
+    later slice there is the HEEV stages' multi-rank code (ROADMAP §A,
+    item 3), of which ``sub_matrix`` raises naming ROADMAP."""
     from dlaf_tpu_torch.algorithms.inverse import inverse_from_cholesky_factor
+    from dlaf_tpu_torch.matrix.util import sub_matrix
 
     grid = dtt.Grid.create(shape, device="cpu")
     assert tuple(grid.grid_size) == shape
@@ -86,8 +87,11 @@ def test_multi_rank_grids_wait_for_the_next_slice(shape):
     finally:
         tp.update(**old)
     np.testing.assert_array_equal(out["fused"], out["xla"])
+    ell = np.tril(a)
+    inv = inverse_from_cholesky_factor("L", dtt.DistributedMatrix.from_global(grid, ell, (4, 4)))
+    np.testing.assert_allclose(inv.to_global() @ (ell @ ell.T), np.eye(16), atol=1e-10)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        inverse_from_cholesky_factor("L", dtt.DistributedMatrix.from_global(grid, a, (4, 4)))
+        sub_matrix(dtt.DistributedMatrix.from_global(grid, a, (4, 4)), (0, 0), (4, 4))
 
 
 def test_tune_env_names_precedence_and_domains(monkeypatch):
@@ -101,8 +105,8 @@ def test_tune_env_names_precedence_and_domains(monkeypatch):
     assert not p.panel_trsm_pallas
     with pytest.raises(ConfigurationError):
         p.update(trailing_update_impl="pallas")
-    with pytest.raises(ConfigurationError, match="ROADMAP"):
-        p.update(gemm_precision="bf16x3")
+    with pytest.raises(ConfigurationError, match="gemm_precision"):
+        p.update(gemm_precision="bf16")
     with pytest.raises(ValueError):
         p.update(no_such_knob=1)
 

@@ -107,15 +107,19 @@ def test_positive_definite_solver_matches_jax(grid_1x1, dtype, return_info, vari
 
 
 def test_left_out_options_raise():
+    """The Right side still waits (ROADMAP §A, item 2); ``refine_to`` is
+    ported, and a value outside its domain raises."""
+    from dlaf_tpu_torch.health import ConfigurationError
+
     g = Grid.create(device="cpu")
     ta = DistributedMatrix.from_global(g, np.eye(8), (4, 4))
     tb = DistributedMatrix.from_global(g, np.ones((8, 2)), (4, 4))
     with pytest.raises(NotImplementedError):
         triangular_solver("Right", "L", "N", "N", 1.0, ta, tb)
-    with pytest.raises(NotImplementedError):
-        triangular_solver("Left", "L", "N", "N", 1.0, ta, tb, refine_to="input")
-    with pytest.raises(NotImplementedError):
-        positive_definite_solver("L", ta, tb, refine_to="input")
+    with pytest.raises(ConfigurationError, match="refine_to"):
+        triangular_solver("Left", "L", "N", "N", 1.0, ta, tb, refine_to="output")
+    with pytest.raises(ConfigurationError, match="refine_to"):
+        positive_definite_solver("L", ta, tb, refine_to="target")
 
 
 # ------------------------------------------------------- multi-rank grids
