@@ -48,7 +48,14 @@ on failure:
    their plain versions (tile.contract at the tier, on the card), within
    tol_for(f32, K) and shown to be split (far from the 'default' product),
    the check first shown to reject the default-tier kernel's output and a
-   dropped term; then a small
+   dropped term; B6's and B8's split bodies (csrc/consume.cu, the same
+   body inside the ring's per-slot update) against their twins at the
+   tier on a CPU grid, bf16x3 in f32 and bf16x6 in f64: B6 at step 0 of M5,
+   at red2band's first window on 2x4 (K = 128) and in f64 at N=4096, B8 at
+   step 0 of M4 and in f64 at N=4096, each on normal operands within
+   tol_for(f32, K) and on the split probe bit for bit (merged panels and
+   have bitwise on both), each check first shown to reject the
+   default-tier kernel's output and a dropped term; then a small
    ragged input factored by the port and by torch.linalg.cholesky;
 3. path A, the headline configuration: cholesky_factorization(backend=
    "distributed"), panel TRSM kernel on (DLAF_TPU_PANEL_TRSM_PALLAS=1);
@@ -77,7 +84,11 @@ on failure:
    this N), and the upper form on the leading N=4096 block of L^T; S4,
    path I under gemm_precision=bf16x3 (B9's split body once per step and
    rank), then POTRI (inverse_from_cholesky_factor) of the leading N=4096
-   block of M4's factor, held by ||A X - I||_F / ||I||_F;
+   block of M4's factor, held by ||A X - I||_F / ||I||_F; S6, M5 under
+   bf16x3 (B6's split body per step and rank); S7, float64 Cholesky at
+   N=4096 under bf16x6 at nb=512 (B8's split body) and nb=192 (B6's),
+   and under 'auto' at both (B8 split, B6 not: K = 192 < 512), each factor
+   residual float32 class where split and float64 class where not;
 5e. the split-GEMM solvers: S1, positive_definite_solver(refine_to=
    "input") on 1x1 under path B's knobs and bf16x3 (B1, B2, B3's split
    body), its RefineInfo, forward and backward errors, and the unrefined
@@ -87,7 +98,16 @@ on failure:
    every rank thread: all at 'default' under the refinement's scope; S3,
    positive_definite_solver_mixed of a float64 matrix on the 2x4 grid at the
    default tier (the factor in float32: B1, B2, B5), converged without the
-   fallback, its forward error within tol_for(f64, N);
+   fallback, its forward error within tol_for(f64, N); S5, S2's call under
+   the fused tier (B8's split body on every step and rank; the residual at
+   'default' in every rank thread);
+5f. paths R1 and R2: reduction_to_band of path H's matrix on the 2x4 grid
+   under the fused tier (B3 and B6 once per panel and rank), R1 at the
+   default tier and R2 under bf16x3 (their split bodies), held by Q^H A Q
+   (zero outside the band, its band the stored one) and by the band's
+   eigenvalues against A's, each check first shown to reject a band with
+   one panel's second addend dropped; the distance to the 1x1 grid's band
+   reported;
 6. path H: hermitian_eigensolver("L", A, backend="pipeline") with
    dc_secular_pallas=1, trailing_update_impl=fused, band_chase_backend=
    native: one warm-up, one timed run (wall, GFlop/s at 4/3 N^3 as bench.py
@@ -164,6 +184,17 @@ N_TIERS = 4096
 PATH_S1 = {**PATH_B, "gemm_precision": "bf16x3"}
 PATH_S2 = {**PATH_M2, "trsm_lookahead": True, "gemm_precision": "bf16x3"}
 PATH_S4 = {**PATH_I, "gemm_precision": "bf16x3"}
+# the split bodies of the ring consumers: S5 S2's call under the fused tier
+# (B8's split body per step and rank); S6 M5 under bf16x3 (B6's split body
+# per step and rank); S7 float64 Cholesky at N_TIERS under the fused tier,
+# bf16x6 at NB (B8, 3 slices) and NB_M5 (B6, 3 slices), and 'auto' at both
+# (bf16x6 for B8 at K = 512, 'default' for B6 at K = 192)
+PATH_S5 = {**PATH_M4, "trsm_lookahead": True, "gemm_precision": "bf16x3"}
+PATH_S6 = {**PATH_M4, "gemm_precision": "bf16x3"}
+# paths R1 / R2: reduction_to_band of path H's matrix on the 2x4 grid under
+# path H's fused tier and the 'pallas' collectives (B3 and B6 per panel and
+# rank), R1 at the 'default' tier, R2 under bf16x3 (their split bodies)
+PATH_R = {**PATH_H, "collectives_impl": "pallas"}
 # B10 phase: (K, S) secular tables at path H's merge levels (leaf 512:
 # one compiled instantiation of the kernel per S), f32 bisection rounds
 K_B10, S_B10, ITERS_B10 = 8192, (1024, 2048, 4096, 8192), 42
@@ -200,8 +231,15 @@ def card_line() -> str:
         return f"nvidia-smi unavailable ({e.__class__.__name__})"
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+    what = obj.get("phase") or obj.get("kernel")
+    if what:  # progress, with the seconds since the script started
+        print(f"chip_smoke: {time.perf_counter() - _T0:8.1f} s  {what}", file=sys.stderr,
+              flush=True)
 
 
 def worst(values) -> float:
@@ -215,9 +253,9 @@ def worst(values) -> float:
 def launch_counts() -> dict:
     """The kernels' launch counts since the last ``ops.reset_launch_counts``
     and their shares (``ops.SUB_COUNTS``): "potrf_cluster", how many of B1's
-    went to its cluster kernel, and "trailing_update_split" /
-    "panel_contract_split", how many of B3's and B9's ran their split-tier
-    body."""
+    went to its cluster kernel, and "trailing_update_split",
+    "panel_contract_split", "dma_ring_consume_split" and "fused_step_split",
+    how many of B3's, B9's, B6's and B8's ran their split-tier body."""
     from dlaf_tpu_torch import ops
 
     return {**ops.launch_counts(), **ops.sub_counts()}
@@ -864,7 +902,6 @@ def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS) -
     scripts/planted_faults.py take one).  Returns their report entries."""
     import torch
 
-    import dlaf_tpu_torch as dtt
     from dlaf_tpu_torch import tune
     from dlaf_tpu_torch.algorithms import _spmd
     from dlaf_tpu_torch.algorithms import cholesky as chol
@@ -885,21 +922,8 @@ def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS) -
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
 
     def step0(nb):
-        """Step 0 at block size nb: the geometry, the stacked local matrix,
-        panel 0 (B7) and its row-panel parts on every rank."""
-        mat = dtt.DistributedMatrix.from_global(gpu, a_glob, (nb, nb))
-        g = _spmd.Geometry.of(mat.dist)
-
-        def panel0(x):
-            myr, myc = coll.my_rank()
-            gi = _spmd.local_row_tiles(g, myr, x.device)
-            gj = _spmd.local_col_tiles(g, myc, x.device)
-            d = _spmd.bcast_diag_tile(x, k, g, myr, myc)
-            _, cp = px.fused_factor_bcast(d, x[:, k // g.pc].contiguous(), gi > k, k % g.pc, "c")
-            taken, have = coll.transpose_panel_parts(cp, g.mt, g.ltc)
-            return cp, taken, have, gj == k1, gi > k1
-
-        return (g, mat.data) + tuple(on_ranks(gpu, panel0, [mat.data]))
+        """Step 0 at block size nb (``_step0``)."""
+        return _step0(gpu, a_glob, nb, k)
 
     def b6_work(g, nb, have, supp):
         """B6's work at step 0: the slots held somewhere on each rank's ring
@@ -1151,7 +1175,9 @@ def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS) -
 def path_fused(stamp: dict, a_glob, factor_residual, res_tol, kept: dict) -> dict:
     """Phase 5d: the fused trailing-update tier on the 2x4 grid: M4
     (lookahead Cholesky, B8 per step), its info on a non-SPD input against
-    the 'xla' tier's, M5 (nb=192: B6 per step, B7 per panel), path I
+    the 'xla' tier's, M5 (nb=192: B6 per step, B7 per panel), S6 (M5 under
+    bf16x3: B6's split body per step), S7 (float64 at N_TIERS: B8's and B6's
+    split bodies at bf16x6, and 'auto', which splits B8 and not B6), path I
     (triangular_inverse of M4's factor: B9 per step) and S4 (path I under
     bf16x3: B9's split body per step; then POTRI at N_TIERS), each residual
     first shown to reject a wrong answer.  Returns each run's launch
@@ -1248,6 +1274,68 @@ def path_fused(stamp: dict, a_glob, factor_residual, res_tol, kept: dict) -> dic
         fail(f"path M5 launched B6 {counts['dma_ring_consume']} times (want "
              f"{ranks * (mt5 - 1)}), B8 {counts['fused_step']}, B7 "
              f"{counts['fused_factor_bcast']} (want {ranks * mt5}): {counts}")
+
+    # ---- S6: M5 under bf16x3 (B6's split body per step and rank)
+    tune.initialize(**PATH_S6)
+    fac6, wall, counts = timed(lambda: factor(a_glob, NB_M5))
+    res = factor_residual(fac6)
+    del fac6
+    torch.cuda.empty_cache()
+    counts_by["S6"] = counts
+    emit({"phase": "path_S6", "config": "M5 (nb=192) under gemm_precision=bf16x3: lookahead, "
+          "trailing_update_impl=fused, collectives_impl=pallas, panel_trsm_pallas=1",
+          "grid": list(GRID_M), "n": n, "nb": NB_M5, "wall_s": wall, "gflops": gflop / wall,
+          "factor_residual": res, "tol": res_tol, "launches": counts,
+          "launches_per_rank": {k_: v / ranks for k_, v in counts.items()}, **stamp})
+    if not res <= res_tol:
+        fail(f"path S6 residual {res:.3e} > {res_tol:.3e}")
+    if not (counts["dma_ring_consume"] == counts["dma_ring_consume_split"] == ranks * (mt5 - 1)
+            and counts["fused_step"] == 0):
+        fail(f"path S6 launched B6 {counts['dma_ring_consume']} times, its split body "
+             f"{counts['dma_ring_consume_split']} (want {ranks * (mt5 - 1)} each): {counts}")
+
+    # ---- S7: float64 at N_TIERS under the fused tier: bf16x6 at NB (B8's
+    # split body, 3 slices) and at NB_M5 (B6's), then 'auto' at both, which
+    # splits B8 (K = 512: bf16x6) and not B6 (K = 192)
+    a64 = a_glob[:N_TIERS, :N_TIERS].double()  # a_glob is stored in full
+
+    def residual64(fac):
+        lo = torch.tril(layout.unpack(fac.data, fac.dist)[:N_TIERS, :N_TIERS])
+        return (torch.linalg.matrix_norm(a64 - lo @ lo.T) / torch.linalg.matrix_norm(a64)).item()
+
+    tol32, tol64 = tol_for("float32", N_TIERS), tol_for("float64", N_TIERS)
+    low64 = torch.tril(a64)
+    wrong = (torch.linalg.matrix_norm(a64 - low64 @ low64.T)
+             / torch.linalg.matrix_norm(a64)).item()  # the check rejects L = tril(A)
+    del low64
+    s7 = {}
+    for label, tier, nb_, kernel, split in (("bf16x6_nb512", "bf16x6", NB, "fused_step", True),
+                                            ("bf16x6_nb192", "bf16x6", NB_M5, "dma_ring_consume",
+                                             True),
+                                            ("auto_nb512", "auto", NB, "fused_step", True),
+                                            ("auto_nb192", "auto", NB_M5, "dma_ring_consume",
+                                             False)):
+        tune.initialize(**PATH_M4, gemm_precision=tier)
+        fac, wall, counts = timed(lambda nb_=nb_: factor(a64, nb_))
+        res = residual64(fac)
+        del fac
+        steps = ranks * (-(-N_TIERS // nb_) - 1)
+        counts_by[f"S7_{label}"] = counts
+        # a split factor is float32 class, far above the float64 rounding
+        # of the 'default' tier's (whose residual must then be float64 class)
+        ok = res <= tol32 and res > tol64 if split else res <= tol64
+        s7[label] = {"tier": tier, "nb": nb_, "wall_s": wall, "factor_residual": res,
+                     "launches": counts, "ok": ok, "launches_ok": (
+                         counts[kernel] == steps
+                         and counts[f"{kernel}_split"] == (steps if split else 0))}
+    emit({"phase": "path_S7", "config": "float64 Cholesky, lookahead, trailing_update_impl=fused, "
+          "collectives_impl=pallas, panel_trsm_pallas=1", "grid": list(GRID_M), "n": N_TIERS,
+          "runs": s7, "tol_split_float32_class": tol32, "tol_default_float64": tol64,
+          "factor_residual_of_tril_a": wrong, **stamp})
+    if not (all(r["ok"] and r["launches_ok"] for r in s7.values()) and wrong > tol32):
+        fail(f"path S7: {s7} (tril(A): {wrong:.3e})")
+    del a64
+    torch.cuda.empty_cache()
 
     # ---- path I: triangular_inverse of M4's factor, then the upper form
     tune.initialize(**PATH_I)
@@ -1360,6 +1448,17 @@ def _rel_dev(got, want) -> tuple[float, float]:
     return d.abs().max().item(), torch.linalg.vector_norm(d).item() / (den if den > 0 else 1.0)
 
 
+def _term01(sub, a, b):
+    """The (0, 1) product of the split of ``contract(sub, a, b)``: a's head
+    slice times b's first residual slice, in float32."""
+    import torch
+
+    from dlaf_tpu_torch.ops import tile
+
+    sa, sb = tile._bf16_slices(a, 2), tile._bf16_slices(b, 2)
+    return torch.einsum(sub, sa[0].float(), sb[1].float()).to(a.dtype)
+
+
 def split_phase(stamp: dict, timed_ms, kgen, only=SPLIT_KERNELS) -> dict:
     """Phase 2d: B3 and B9 under the split tiers against their plain
     versions (``tile.contract`` at the tier, on the card): B3 at path B's
@@ -1398,12 +1497,6 @@ def split_phase(stamp: dict, timed_ms, kgen, only=SPLIT_KERNELS) -> dict:
     def bound16(flops, nbytes):
         t_ops, t_bytes = flops / BF16_PEAK * 1e3, nbytes / HBM_RATE * 1e3
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-    def term01(sub, a, b):
-        """The (0, 1) product of the split: a's head slice times b's first
-        residual slice, in float32."""
-        sa, sb = tile._bf16_slices(a, 2), tile._bf16_slices(b, 2)
-        return torch.einsum(sub, sa[0].float(), sb[1].float()).to(a.dtype)
 
     def probe(sub, b):
         """``b`` with one non-zero per output column of ``sub``: every output
@@ -1460,7 +1553,7 @@ def split_phase(stamp: dict, timed_ms, kgen, only=SPLIT_KERNELS) -> dict:
 
         normal, rej_n = checked(f"{label} (normal operands)", got, plain,
                                 {"term_0_1_dropped": plain - sign * per_rank(
-                                    lambda a_, b_: term01(sub, a_, b_), a, b)}, within)
+                                    lambda a_, b_: _term01(sub, a_, b_), a, b)}, within)
         del got, plain
         bp = per_rank(lambda a_, b_: probe(sub, b_), a, b)
         got, plain = run(True, tier, bp), run(False, tier, bp)
@@ -1475,7 +1568,7 @@ def split_phase(stamp: dict, timed_ms, kgen, only=SPLIT_KERNELS) -> dict:
         probed, rej_p = checked(f"{label} (split probe)", got, plain,
                                 {"default_tier_kernel": run(True, "default", bp),
                                  "term_0_1_dropped": plain - sign * per_rank(
-                                     lambda a_, b_: term01(sub, a_, b_), a, bp)}, split)
+                                     lambda a_, b_: _term01(sub, a_, b_), a, bp)}, split)
         return {"max_abs_err": err_abs, **normal, "rel_err_vs_default": vs_default, **probed,
                 "wrong_answers_pass": {"normal": rej_n, "split_probe": rej_p}}
 
@@ -1588,6 +1681,341 @@ def split_phase(stamp: dict, timed_ms, kgen, only=SPLIT_KERNELS) -> dict:
     return report
 
 
+def _sync() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _step0(grid, a, nb, k=0):
+    """Step ``k`` of lookahead Cholesky of ``a`` at block size ``nb`` on the
+    2x4 ``grid`` (collectives 'pallas'): the geometry, the stacked local
+    matrix, panel k made by B7 and its row-panel parts, the narrow column's
+    slot mask (the slot of column k + 1) and the tiles below step k + 1."""
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch.algorithms import _spmd
+    from dlaf_tpu_torch.comm import collectives as coll
+    from dlaf_tpu_torch.ops import panel_exchange as px
+
+    mat = dtt.DistributedMatrix.from_global(grid, a, (nb, nb))
+    g = _spmd.Geometry.of(mat.dist)
+
+    def panel(x):
+        myr, myc = coll.my_rank()
+        gi = _spmd.local_row_tiles(g, myr, x.device)
+        gj = _spmd.local_col_tiles(g, myc, x.device)
+        d = _spmd.bcast_diag_tile(x, k, g, myr, myc)
+        _, cp = px.fused_factor_bcast(d, x[:, k // g.pc].contiguous(), gi > k, k % g.pc, "c")
+        taken, have = coll.transpose_panel_parts(cp, g.mt, g.ltc)
+        return cp, taken, have, gj == k + 1, gi > k + 1
+
+    return (g, mat.data) + tuple(on_ranks(grid, panel, [mat.data]))
+
+
+def _ptxas_of(kernel: str) -> dict:
+    """What ptxas said of one kernel instantiation in this run's build
+    (empty when the library was not built in this process)."""
+    from dlaf_tpu_torch.ops import _build
+
+    for e in _build.ptxas_report:
+        if kernel in e["kernel"]:
+            return {k: e.get(k) for k in ("registers", "stack", "spill_stores", "spill_loads")}
+    return {}
+
+
+CONSUME_SPLIT_KERNELS = ("dma_ring_consume_split", "fused_step_split")
+
+
+def consume_split_phase(stamp: dict, timed_ms, a_glob, only=CONSUME_SPLIT_KERNELS) -> dict:
+    """Phase 2e: B6's and B8's split bodies (gemm_precision bf16x3 on f32,
+    bf16x6 on f64) against their twins at the tier on a CPU grid of the
+    same shape (2x4).  B6 at step 0 of M5 (nb = NB_M5), at red2band's first
+    window of path H's geometry on 2x4 (x [8, 4, 512, 512], cp [8, 512,
+    128], K = band = 128) and in float64 at step 0 of the leading N_TIERS
+    block at NB_M5; B8 at step 0 of M4 and in float64 at step 0 of the
+    leading N_TIERS block.  Each case has two checks, each first shown to
+    reject the 'default'-tier kernel's output and the twin's with the
+    split's (0, 1) product dropped:
+
+    - normal operands: the applied update within tol_for(f32, K) of the
+      twin's (a split tier is float32 class); the merged panel (and have)
+      bit for bit;
+    - the split probe: the row panel cut to one non-zero per row, so that
+      every output is one product (B8's narrow update of column k+1
+      included): x bit for bit the twin's, and farther than 1e-6 (f32;
+      1e-10 in f64) from the 'default'-tier kernel's.
+
+    B8's factor, new panel and diagonal tile are held to the twin's within
+    tol_for(dtype, nb).  Every launch of the checks must run the split
+    instantiation.  Times: the kernel and the 'default'-tier kernel in the
+    same call, the twin (CPU), and the yardstick ``tile.contract`` at the
+    tier, one per rank on the card; bounds with the split products at the
+    bf16 tensor cores' rate.  Returns the report entries."""
+    import torch
+
+    from dlaf_tpu_torch import tune
+    from dlaf_tpu_torch.comm.grid import Grid
+    from dlaf_tpu_torch.ops import _build, tile
+    from dlaf_tpu_torch.ops import trailing_update as tu
+    from dlaf_tpu_torch.testing import tol_for
+
+    dev = a_glob.device
+    pr, pc = GRID_M
+    ranks = pr * pc
+    gpu, cpu = Grid.create(GRID_M, device=dev), Grid.create(GRID_M, device="cpu")
+    tune.initialize(**PATH_M4)
+    report, bad = {}, []
+    sub = tu.CHOLESKY_SUBSCRIPTS
+    zero_of = lambda t: torch.zeros((), dtype=t.dtype, device=t.device)  # noqa: E731
+
+    def per_rank(fn, *stacked):
+        """``fn`` on each rank's views of stacked tensors, restacked."""
+        return torch.stack([torch.stack([fn(*(t[r, c] for t in stacked)) for c in range(pc)])
+                            for r in range(pr)])
+
+    def term01(cp, ymask):
+        """The (0, 1) product of every rank's update cp[i] @ ymask[j]^T."""
+        return per_rank(lambda a, b: _term01(sub, a, b), cp, ymask)
+
+    def probe(y):
+        """Stacked row-panel parts [..., slots, rows, K] with one non-zero
+        left per row, at column (7 row + 3 slot) mod K."""
+        s_, n_, k_ = y.shape[-3:]
+        j = torch.arange(s_, device=y.device)[:, None].expand(s_, n_)
+        c = torch.arange(n_, device=y.device)[None, :].expand(s_, n_)
+        keep = torch.zeros((s_, n_, k_), dtype=torch.bool, device=y.device)
+        keep[j, c, (7 * c + 3 * j) % k_] = True
+        return torch.where(keep, y, zero_of(y))
+
+    def checked(label, got, wrongs, ok):
+        """``ok(candidate) -> (passes, metrics)``: every wrong answer must
+        fail it, then the kernel's output must pass."""
+        rejected = {w: ok(c)[0] for w, c in wrongs.items()}
+        passes, metrics = ok(got)
+        if any(rejected.values()):
+            bad.append(f"{label}: the check accepts a wrong answer: {rejected}")
+        if not passes:
+            bad.append(f"{label}: {metrics}")
+        return metrics, rejected
+
+    def case(kernel, label, body, x0, y, rest, post, flops, other_flops, nbytes, iters):
+        """Both checks and the times of one case.  ``body(x, y, *rest)`` is
+        one rank's call of the wrapper (the kernel on the card grid, its
+        twin on the CPU grid), updating ``x`` in place; ``post(outs, rest)``
+        gives the merged panel masked to the applied slots, the outputs that
+        must be bitwise and those held within tolerance."""
+        f64 = x0.dtype == torch.float64
+        tier = "bf16x6" if f64 else "bf16x3"
+        tol = tol_for("float32", y.shape[-1])
+        cp = rest[-1] if kernel.startswith("dma") else rest[2]
+        rest_c = [t.cpu() for t in rest]
+        x0c = x0.to("cpu", copy=True)
+
+        def card(tier_, y_):
+            x = x0.clone()
+            with tune.gemm_precision_scope(tier_):
+                outs = on_ranks(gpu, body, [x, y_] + rest)
+            _sync()
+            return x, post(outs, rest)
+
+        def twin(y_):
+            x = x0c.clone()
+            t0 = time.perf_counter()
+            with tune.gemm_precision_scope(tier):
+                outs = on_ranks(cpu, body, [x, y_.cpu()] + rest_c)
+            ms = (time.perf_counter() - t0) * 1e3
+            _, same, near = post(outs, rest_c)
+            return x.to(dev), [t.to(dev) for t in same], [t.to(dev) for t in near], ms
+
+        before = tu.consume_split_launches + tu.fused_step_split_launches
+        # normal operands
+        xk, (ymask, same_k, near_k) = card(tier, y)
+        xt, same_t, near_t, plain_ms = twin(y)
+        bitwise = all(torch.equal(a, b) for a, b in zip(same_k, same_t))
+        near = {nm: _rel_dev(a, b)[1] for nm, a, b in zip(("lkk1", "cp1", "d1"), near_k, near_t)}
+        upd_t = xt - x0
+        err_abs = _rel_dev(xk - x0, upd_t)[0]
+
+        def within(c):
+            e = _rel_dev(c - x0, upd_t)[1]
+            return e <= tol, {"rel_err_vs_plain": e, "tol": tol}
+
+        normal, rej_n = checked(f"{kernel} [{label}] (normal operands)", xk,
+                                {"term_0_1_dropped": xt + term01(cp, ymask)}, within)
+        vs_default = _rel_dev(xk - x0, card("default", y)[0] - x0)[1]
+        del xk, xt, upd_t
+        # the split probe
+        yp = probe(y)
+        xk_p, (ymask_p, same_kp, _) = card(tier, yp)
+        xt_p, same_tp, _, _ = twin(yp)
+        xd_p, _ = card("default", yp)
+        bitwise = bitwise and all(torch.equal(a, b) for a, b in zip(same_kp, same_tp))
+        floor = 1e-10 if f64 else 1e-6
+
+        def split(c):
+            same, e = bool(torch.equal(c, xt_p)), _rel_dev(c - x0, xd_p - x0)[1]
+            return same and e > floor, {"probe_bitwise_vs_plain": same,
+                                        "probe_rel_err_vs_default": e, "probe_floor": floor}
+
+        probed, rej_p = checked(f"{kernel} [{label}] (split probe)", xk_p,
+                                {"default_tier_kernel": xd_p,
+                                 "term_0_1_dropped": xt_p + term01(cp, ymask_p)}, split)
+        del xk_p, xt_p, xd_p, yp
+        split_runs = tu.consume_split_launches + tu.fused_step_split_launches - before
+        if not bitwise:
+            bad.append(f"{kernel} [{label}]: merged panel or have not bitwise the twin's")
+        # B8's factor, panel and tile come from a split update: float32 class
+        tol_near = tol_for("float32", x0.shape[-1])
+        if not all(v <= tol_near for v in near.values()):
+            bad.append(f"{kernel} [{label}]: factor, panel or tile vs twin {near} > {tol_near}")
+        if dev.type == "cuda" and split_runs != 2 * ranks:  # the normal and the probe run
+            bad.append(f"{kernel} [{label}]: {split_runs} split launches, want {2 * ranks}")
+        # times: the kernel and the 'default'-tier kernel in turns, the yardstick
+        xs = x0.clone()
+        spans = {}
+        for t_ in (tier, "default", "default", tier):
+            with tune.gemm_precision_scope(t_):
+                spans.setdefault(t_, []).append(grid_span_ms(gpu, body, [xs, y] + rest, iters)[0])
+        pairs = [(cp[r, c], ymask[r, c]) for r in range(pr) for c in range(pc)]
+        yard_ms = timed_ms(lambda: [tile.contract(sub, a, b, tier) for a, b in pairs], 2)
+        del xs, pairs
+        ns = tile.SPLIT_SLICES[tier]
+        nterms = len(tile.split_terms(ns))
+        t_ops = (nterms * flops / BF16_PEAK + other_flops / FP32_PEAK) * 1e3
+        t_bytes = nbytes / HBM_RATE * 1e3
+        b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        t_name = "double" if f64 else "float"
+        b6 = kernel.startswith("dma")
+        inst = (f"consume_kernel<{t_name}, {ns}>" if b6
+                else f"fused_step_kernel<{t_name}, {16 if f64 else 32}, {ns}>")
+        per_sm = (_build.lib().dlaf_ring_consumer_blocks_per_sm(
+            0 if b6 else 1, int(f64), ns, int(y.shape[-3]), int(x0.shape[-1]))
+            if dev.type == "cuda" else None)
+        rec = {"kernel": kernel, "case": label, "dtype": "float64" if f64 else "float32",
+               "tier": tier, "nslices": ns, "products": nterms,
+               "shape": {"x": list(x0.shape[2:]), "cp": list(cp.shape[2:]),
+                         "y": list(y.shape[2:])}, "ranks": ranks,
+               "bitwise_vs_plain_panel_have": bitwise, "max_abs_err": err_abs, **normal,
+               "rel_err_vs_default": vs_default, **probed, "rel_err_vs_plain_outputs": near,
+               "wrong_answers_pass": {"normal": rej_n, "split_probe": rej_p},
+               "kernel_ms": min(spans[tier]), "default_tier_kernel_ms": min(spans["default"]),
+               "spans_ms_in_turns": {"split": spans[tier], "default": spans["default"]},
+               "plain_ms": plain_ms, "plain_on": "cpu, at the tier (the twin's rings are host "
+                                                 "objects)",
+               "yardstick_ms": yard_ms,
+               "yardstick": "tile.contract at the tier, one per rank on the card (bf16 slices "
+                            "upcast, one float32 einsum per product)",
+               "library_ms": None,
+               "library_call": "none: no single PyTorch call computes a split product",
+               "bound_ms": b_ms, "bound_by": b_by,
+               "bound_counts": f"{nterms} bf16 products per applied tile pair at "
+                               f"{BF16_PEAK:.3g} FLOP/s (B8: its factor and solve at "
+                               f"{FP32_PEAK:.3g}); bytes: x read and written, cp, the panel "
+                               "read and the merged panel written, every rank",
+               "instantiation": inst, "ptxas": _ptxas_of(inst), "blocks_per_sm": per_sm,
+               **stamp}
+        emit(rec)
+        return rec
+
+    def b6_body(x, y, have, supp, cp):
+        _, yy, hh = tu.dma_ring_consume(x, y, have.to(torch.int32).reshape(-1, 1), cp,
+                                        supp.to(torch.int32).reshape(-1, 1), "r")
+        return yy, hh
+
+    def b6_post(outs, rest):
+        yy, hh = outs
+        applied = (hh.reshape(hh.shape[:3]) != 0) & ~rest[1].to(hh.device)
+        return torch.where(applied[..., None, None], yy, zero_of(yy)), [yy, hh], []
+
+    def b6_case(label, x0, cp, taken, have, supp, iters):
+        nb, k_ = x0.shape[-1], taken.shape[-1]
+        ltr, ltc = x0.shape[2], x0.shape[3]
+        esz = x0.element_size()
+        applied = int((have.any(dim=0, keepdim=True).expand_as(have) & ~supp).sum())
+        flops = 2.0 * x0.shape[-2] * nb * k_ * ltr * applied
+        nbytes = ranks * (2 * ltr * ltc * nb * nb + ltr * nb * k_ + 2 * ltc * nb * k_) * esz
+        return case("dma_ring_consume_split", label, b6_body, x0, taken, [have, supp, cp],
+                    b6_post, flops, 0.0, nbytes, iters)
+
+    if "dma_ring_consume_split" in only:
+        recs = {}
+        # ---- M5's step 0 (nb = NB_M5 on its padded geometry), f32, bf16x3
+        g5, x5, cp5, tk5, hv5, sp5, _ = _step0(gpu, a_glob, NB_M5)
+        recs["M5_step0"] = b6_case("step 0 of M5", x5, cp5, tk5, hv5, sp5, 2)
+        del x5, cp5, tk5, hv5, sp5
+        # ---- red2band's first window at path H's geometry on 2x4: L = ltr,
+        # C = ltc, K = 128, the transposed W2 panel's parts
+        nbh, band = NBH, 128
+        mth = NH // NBH
+        L, C = mth // pr, mth // pc
+        gen = torch.Generator(device=dev).manual_seed(SEED_H)
+        xw = torch.randn(pr, pc, L, C, nbh, nbh, generator=gen, device=dev)
+        vr = torch.randn(pr, pc, L, nbh, band, generator=gen, device=dev)
+        w2 = torch.randn(pr, pc, L, nbh, band, generator=gen, device=dev)
+
+        def parts(w):
+            from dlaf_tpu_torch.comm import collectives as coll
+
+            _, myc = coll.my_rank()
+            gj = torch.arange(C, device=w.device) * pc + myc
+            taken, have = coll.transpose_panel_windowed_parts(w, gj, 0, mth)
+            return taken, have, torch.zeros_like(have)
+
+        tkw, hvw, spw = on_ranks(gpu, parts, [w2])
+        recs["red2band_window"] = b6_case(f"red2band's first window, K={band}", xw, vr, tkw,
+                                          hvw, spw, 3)
+        del xw, vr, w2, tkw, hvw, spw
+        # ---- float64, bf16x6: step 0 of the leading N_TIERS block at NB_M5
+        a64 = a_glob[:N_TIERS, :N_TIERS].double()
+        g6, x6, cp6, tk6, hv6, sp6, _ = _step0(gpu, a64, NB_M5)
+        recs["f64_step0"] = b6_case(f"float64, step 0 at N={N_TIERS}, nb={NB_M5}", x6, cp6,
+                                    tk6, hv6, sp6, 3)
+        del a64, x6, cp6, tk6, hv6, sp6
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        report["dma_ring_consume_split"] = {
+            **recs["M5_step0"], "cases": recs,
+            "max_abs_err": worst(r["max_abs_err"] for r in recs.values())}
+
+    if "fused_step_split" in only:
+        recs = {}
+        for label, a, iters in (("step 0 of M4", a_glob, 2),
+                                (f"float64, step 0 at N={N_TIERS}, nb={NB}",
+                                 a_glob[:N_TIERS, :N_TIERS].double(), 3)):
+            g, x0, cp, taken, have, supp, below1 = _step0(gpu, a, NB)
+            k1 = 1
+            params = (k1 % g.pc, k1 % g.pr, k1 // g.pc, k1 // g.pr, k1 // g.pc)
+
+            def b8_body(x, y, hv, z, c, bl, params=params):
+                return tu.fused_step(x, y, hv, z, c, bl, params)[1:]
+
+            def b8_post(outs, rest):
+                rp, lkk1, cp1, d1 = outs
+                return rp, [rp], [lkk1, cp1, d1]
+
+            nb, esz = NB, x0.element_size()
+            applied = int(have.any(dim=0, keepdim=True).expand_as(have).sum())
+            flops = 2.0 * nb ** 3 * g.ltr * applied
+            rows_solved = int(below1[:, params[0]].sum()) * nb
+            other = ranks * nb ** 3 / 3 + rows_solved * nb * nb
+            tile_b = nb * nb * esz
+            nbytes = (ranks * (2 * g.ltr * g.ltc + g.ltr + 2 * g.ltc) * tile_b
+                      + ranks * 3 * tile_b + pr * g.ltr * tile_b + ranks * g.ltr * tile_b)
+            key = "M4_step0" if a is a_glob else "f64_step0"
+            recs[key] = case("fused_step_split", label, b8_body, x0, taken,
+                             [have, supp, cp, below1], b8_post, flops, other, nbytes, iters)
+            del x0, cp, taken, have, supp, below1, a
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        report["fused_step_split"] = {
+            **recs["M4_step0"], "cases": recs,
+            "max_abs_err": worst(r["max_abs_err"] for r in recs.values())}
+    if bad:
+        fail("B6's and B8's split bodies vs their twins: " + "; ".join(bad))
+    return report
+
+
 class _RefineProbe:
     """Records the RefineInfo of every ``refine.residual_refine`` call made
     while it is active (the solvers do not return it)."""
@@ -1621,7 +2049,9 @@ def path_split(stamp: dict, a_glob, rhs, solve_err, res_tol, by_path: dict) -> d
     split body in the factor); S2, the same call on the 2x4 grid with the
     'xla' bulk update (products split in tile.contract, the residual a
     SUMMA hermitian_multiplication over B5 under the 'default' scope: every
-    rank thread's residual contractions at 'default', none split); S3,
+    rank thread's residual contractions at 'default', none split); S5, S2's
+    call under the fused tier (B8's split body on every step and rank, the
+    residual still at 'default'); S3,
     positive_definite_solver_mixed on the 2x4 grid at the default tier, an
     f64 matrix factored in f32.  Each check is first shown to reject a wrong
     answer.  Returns each run's launch counts."""
@@ -1751,6 +2181,42 @@ def path_split(stamp: dict, a_glob, rhs, solve_err, res_tol, by_path: dict) -> d
         fail(f"path S2: the factor and solves did not split in every rank thread "
              f"({split_in_ranks}) or B5 did not run: {counts}")
 
+    # ---- S5: S2's call under the fused tier: B8's split body per step and
+    # rank; the residual under the 'default' scope in every rank thread
+    tune.initialize(**PATH_S5)
+    residual_counts.clear()
+    solver.hermitian_multiplication = counted
+    try:
+        x5, info5, wall5, counts, contracts, infos = posv(grid, True)
+    finally:
+        solver.hermitian_multiplication = inner
+    err5, be5 = solve_err(x5), _backward_err(a_glob, x5, rhs)
+    del x5
+    torch.cuda.empty_cache()
+    counts_by["S5"] = counts
+    ri = refine_record(infos)
+    steps = len(ranks) * (n // nb - 1)
+    emit({"phase": "path_S5", "config": "positive_definite_solver(return_info=True, "
+          "refine_to='input'), gemm_precision=bf16x3, lookahead, trailing_update_impl=fused, "
+          "trsm_lookahead, collectives_impl=pallas, panel_trsm_pallas=1", "grid": list(GRID_M),
+          "n": n, "nrhs": nb, "wall_s": wall5, "info": info5, "refine": ri,
+          "solve_forward_err": err5, "backward_err": be5, "tol": res_tol, "launches": counts,
+          "launches_per_rank": {k_: v / len(ranks) for k_, v in counts.items()},
+          "residual_contracts": [{f"{k[0]}:{k[1]}": v for k, v in d.items()}
+                                 for d in residual_counts],
+          "residual_unsplit_in_every_rank_thread": [unsplit_everywhere(d)
+                                                    for d in residual_counts], **stamp})
+    if not (info5 == 0 and len(ri) == 1 and ri[0]["converged"] and err5 <= res_tol
+            and be5 <= res_tol < be_wrong):
+        fail(f"path S5: info {info5}, refine {ri}, forward error {err5:.3e}, backward error "
+             f"{be5:.3e} (tol {res_tol:.3e})")
+    if not residual_counts or not all(unsplit_everywhere(d) for d in residual_counts):
+        fail(f"path S5: a residual was split in a rank thread: {residual_counts}")
+    if not (counts["fused_step"] == counts["fused_step_split"] == steps
+            and counts["dma_ring_consume"] == counts["dma_ring_consume_split"]):
+        fail(f"path S5 launched B8 {counts['fused_step']} times, its split body "
+             f"{counts['fused_step_split']} (want {steps} each; B6 all split): {counts}")
+
     # ---- S3: the mixed-precision solver, 2x4, default tier
     tune.initialize(**PATH_M1)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -1794,6 +2260,146 @@ def path_split(stamp: dict, a_glob, rhs, solve_err, res_tol, by_path: dict) -> d
              f"{e3:.3e} (of its f32 rounding {e3_f32:.3e}; tol {tol64:.3e})")
     if min(counts[k] for k in ("potrf", "panel_trsm", "ring_exchange")) <= 0:
         fail(f"path S3 did not launch B1, B2 and B5: {counts}")
+    return counts_by
+
+
+def path_red2band(stamp: dict, dev) -> dict:
+    """Phase 5f: reduction_to_band of path H's matrix (NH, NBH, band 128,
+    seed SEED_H, f32) on the 2x4 grid under PATH_R: R1 at the 'default'
+    tier (B3 for the first addend and B6 for the second, once per panel and
+    rank), R2 under bf16x3 (both split bodies).  Checks, in float64 on the
+    card, each relative to ||A||_2 and held to tol_for(f32, NH):
+
+    - zero outside the band: C = Q^H A Q, Q rebuilt from the stored
+      reflectors and taus (compact WY per panel, T from the UT relation
+      T^-1 = diag(1 / tau) + striu(V^H V)), has no entry above rounding
+      more than ``band`` off the diagonal;
+    - C's band is the band the reduction stored;
+    - the band's eigenvalues are A's.
+
+    Each check is first shown to reject a wrong band: the same reduction
+    on the 1x1 grid with the second addend of one panel dropped.  The
+    distance of each band to the 1x1 grid's (path H's first stage) is
+    reported, of the entries and of their magnitudes (the band is defined
+    up to the signs of its rows and columns).  Returns each run's launch
+    counts."""
+    import numpy as np
+    import torch
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import ops, tune
+    from dlaf_tpu_torch.algorithms.reduction_to_band import get_band_size
+    from dlaf_tpu_torch.matrix import layout
+    from dlaf_tpu_torch.ops import trailing_update as tu
+    from dlaf_tpu_torch.testing import random_hermitian_pd, tol_for
+
+    n, nb = NH, NBH
+    a_np = random_hermitian_pd(n, np.float32, seed=SEED_H)
+    a_low = torch.from_numpy(np.tril(a_np)).to(dev)
+    a64 = torch.from_numpy(a_np).to(dev).double()
+    del a_np
+    band = get_band_size(nb, dev)
+    n_panels = (n - 1) // band
+    w_ref = torch.linalg.eigvalsh(a64)
+    norm2 = w_ref.abs().max().item()
+    tol = tol_for("float32", n)
+    idx = torch.arange(n, device=dev)
+    off = idx[:, None] - idx[None, :]
+    in_band = (off >= 0) & (off <= band)
+    grid = dtt.Grid.create(GRID_M, device=dev)
+    ranks = grid.size
+
+    def reduce(grid_, tier):
+        tune.initialize(**PATH_R, gemm_precision=tier)
+        mat = dtt.DistributedMatrix.from_global(grid_, a_low, (nb, nb))
+        _sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out, taus = dtt.reduction_to_band(mat, band=band)
+        _sync()
+        wall = time.perf_counter() - t0
+        g = layout.unpad_global(layout.unpack(out.data, out.dist), out.dist)
+        return torch.where(in_band, g, torch.zeros((), dtype=g.dtype, device=dev)), g, taus, \
+            wall, launch_counts()
+
+    def qhaq(g, taus):
+        """Q^H A Q in float64, Q = Q_0 Q_1 ... from the reflectors below the
+        band (unit heads on the band's last sub-diagonal) and the taus."""
+        c = a64.clone()
+        for p in range(n_panels):
+            s = (p + 1) * band
+            t = taus[p].double()
+            v = torch.tril(g[s:, p * band:(p + 1) * band].double(), -1)
+            v = v + torch.eye(n - s, band, dtype=torch.float64, device=dev)
+            v = torch.where(t[None, :] != 0, v, torch.zeros((), dtype=v.dtype, device=dev))
+            tinv = torch.triu(v.T @ v, 1) + torch.diag(torch.where(t != 0, 1.0 / t, 1.0))
+            tm = torch.linalg.solve_triangular(tinv, torch.eye(band, dtype=torch.float64,
+                                                               device=dev), upper=True)
+            tm = torch.where(t[None, :] != 0, tm, torch.zeros((), dtype=tm.dtype, device=dev))
+            c[s:, :] -= v @ (tm.T @ (v.T @ c[s:, :]))
+            c[:, s:] -= (c[:, s:] @ v) @ tm @ v.T
+        return c
+
+    def checks(lb, g, taus):
+        c = qhaq(g, taus)
+        outside = (c.abs() * (off.abs() > band)).max().item() / norm2
+        band_vs_c = ((c - lb.double()) * in_band).abs().max().item() / norm2
+        del c
+        b = lb.double()
+        b = b + torch.tril(b, -1).T
+        eig = ((torch.linalg.eigvalsh(b) - w_ref).abs().max() / norm2).item()
+        return {"outside_band_of_QhAQ": outside, "band_vs_QhAQ": band_vs_c, "eig_err": eig}
+
+    # the 1x1 grid's band, and a wrong one: panel 5's second addend dropped
+    ref_lb, _, _, wall_1x1, _ = reduce(dtt.Grid.create(device=dev), "default")
+    inner, calls = tu.fused_transpose_update, []
+
+    def drop_one(x, cp, taken, have, suppress, axis="r"):
+        calls.append(None)
+        if len(calls) == 6:
+            return x, None
+        return inner(x, cp, taken, have, suppress, axis)
+
+    tu.fused_transpose_update = drop_one
+    try:
+        bad_lb, bad_g, bad_taus, _, _ = reduce(dtt.Grid.create(device=dev), "default")
+    finally:
+        tu.fused_transpose_update = inner
+    wrong = checks(bad_lb, bad_g, bad_taus)
+    del bad_lb, bad_g, bad_taus
+    counts_by, runs = {}, {}
+    for label, tier in (("R1", "default"), ("R2", "bf16x3")):
+        lb, g, taus, wall, counts = reduce(grid, tier)
+        got = checks(lb, g, taus)
+        # the band is defined up to signs (D B D, D = diag(+-1): a reflector
+        # whose head is near zero may flip), so magnitudes are compared too
+        vs_1x1 = ((lb - ref_lb).abs().max() / norm2).item()
+        vs_1x1_mag = ((lb.abs() - ref_lb.abs()).abs().max() / norm2).item()
+        del lb, g, taus
+        counts_by[label] = counts
+        want = ranks * n_panels
+        split = tier != "default"
+        launches_ok = (counts["trailing_update"] == counts["dma_ring_consume"] == want
+                       and counts["trailing_update_split"] == (want if split else 0)
+                       and counts["dma_ring_consume_split"] == (want if split else 0))
+        runs[label] = {"tier": tier, "wall_s": wall, "checks": got, "launches": counts,
+                       "launches_ok": launches_ok}
+        emit({"phase": f"path_{label}", "config": f"reduction_to_band, gemm_precision={tier}, "
+              + ", ".join(f"{k}={v}" for k, v in PATH_R.items()), "grid": list(GRID_M), "n": n,
+              "nb": nb, "band": band, "panels": n_panels, "seed": SEED_H, "wall_s": wall,
+              "checks": got, "tol": tol, "wrong_band_checks": wrong,
+              "wrong_band": "1x1 grid, the second addend of panel 5 dropped",
+              "max_abs_vs_1x1_band_over_norm2": vs_1x1,
+              "max_abs_vs_1x1_band_magnitudes_over_norm2": vs_1x1_mag, "wall_s_1x1": wall_1x1,
+              "launches": counts, "launches_per_rank": {k: v / ranks for k, v in counts.items()},
+              **stamp})
+    del a64, a_low, ref_lb
+    if not all(v > tol for v in wrong.values()):
+        fail(f"path R: a check accepts the band with one panel's second addend dropped: {wrong}")
+    for label, r in runs.items():
+        if not (all(v <= tol for v in r["checks"].values()) and r["launches_ok"]):
+            fail(f"path {label}: checks {r['checks']} (tol {tol:.3e}), launches {r['launches']} "
+                 f"(want B3 and B6 {ranks * n_panels} times{', all split' if label == 'R2' else ''})")
     return counts_by
 
 
@@ -1841,6 +2447,11 @@ def main() -> int:
           "chase_library": os.path.relpath(chase_path, HERE),
           "chase_build_and_load_s": round(time.perf_counter() - t1, 3),
           "chase_source": os.path.relpath(native.SOURCE, HERE)})
+    # registers and spills of the ring consumers' instantiations (-Xptxas -v)
+    emit({"phase": "ptxas", "kernels": [e for e in _build.ptxas_report
+                                        if "consume_kernel" in e["kernel"]
+                                        or "fused_step_kernel" in e["kernel"]
+                                        or "split_kernel" in e["kernel"]]})
 
     def timed_ms(fn, iters: int, warmup: int = 1) -> float:
         for _ in range(warmup):
@@ -2037,6 +2648,9 @@ def main() -> int:
     # B6, B8 and B9 at the fused paths' shapes (B8 on step 0 of M4)
     report.update(consume_phases(stamp, bound, timed_ms, a_glob))
 
+    # B6's and B8's split bodies at the same steps, red2band's window and f64
+    report.update(consume_split_phase(stamp, timed_ms, a_glob))
+
     # small ragged input: the port's factor (kernels on) vs torch.linalg.cholesky
     ns = 2 * nb + nb // 2 + 8
     tune.initialize(cholesky_lookahead=True, trailing_update_impl="fused", panel_trsm_pallas=True)
@@ -2172,10 +2786,14 @@ def main() -> int:
     by_path.update(path_fused(stamp, a_glob, factor_residual, res_tol, kept))
     torch.cuda.empty_cache()
 
-    # ---- 5e. the split-GEMM solvers: S1, S2, S3
+    # ---- 5e. the split-GEMM solvers: S1, S2, S5, S3
     by_path.update(path_split(stamp, a_glob, rhs, solve_err, res_tol, by_path))
 
     del a_glob, rhs, x_ref
+    torch.cuda.empty_cache()
+
+    # ---- 5f. reduction_to_band on the 2x4 grid: R1, R2
+    by_path.update(path_red2band(stamp, dev))
     torch.cuda.empty_cache()
 
     # ---- 6. path H: the HEEV pipeline
@@ -2204,6 +2822,10 @@ def main() -> int:
                                   "dlaf_tpu/ops/pallas_trailing_update.py:163"),
         "panel_contract_split": ("dlaf_tpu_torch/csrc/trailing_update.cu",
                                  "dlaf_tpu/ops/pallas_trailing_update.py:226"),
+        "dma_ring_consume_split": ("dlaf_tpu_torch/csrc/consume.cu",
+                                   "dlaf_tpu/ops/pallas_trailing_update.py:407"),
+        "fused_step_split": ("dlaf_tpu_torch/csrc/consume.cu",
+                             "dlaf_tpu/ops/pallas_trailing_update.py:651"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
@@ -2256,17 +2878,17 @@ def main() -> int:
             entry["forms"] = {s: {k: f[k] for k in ("kernel_ms", "plain_ms", "library_ms",
                                                     "bound_ms", "max_abs_err")}
                               for s, f in r["forms"].items()}
-        if name in SPLIT_KERNELS:
-            # B3's and B9's split-tier body (csrc/split_gemm.cuh), their launches a
-            # share of B3's and B9's; the yardstick is tile.contract at the tier
+        if name in SPLIT_KERNELS + CONSUME_SPLIT_KERNELS:
+            # the split-tier body (csrc/split_gemm.cuh) of B3, B9, B6 and B8, its
+            # launches a share of theirs; the yardstick is tile.contract at the tier
             entry["body"] = "dlaf_tpu_torch/csrc/split_gemm.cuh"
             entry["yardstick_ms"] = r["yardstick_ms"]
             entry["default_tier_kernel_ms"] = r["default_tier_kernel_ms"]
-            entry["forms"] = {s: {k: f[k] for k in (
-                "tier", "kernel_ms", "default_tier_kernel_ms", "plain_ms", "yardstick_ms",
-                "bound_ms", "bound_by", "max_abs_err", "rel_err_vs_plain", "rel_err_vs_default",
-                "probe_bitwise_vs_plain", "probe_rel_err_vs_default")}
-                for s, f in r["forms"].items()}
+            keys = ("tier", "kernel_ms", "default_tier_kernel_ms", "plain_ms", "yardstick_ms",
+                    "bound_ms", "bound_by", "max_abs_err", "rel_err_vs_plain",
+                    "rel_err_vs_default", "probe_bitwise_vs_plain", "probe_rel_err_vs_default")
+            entry["forms"] = {s: {k: f[k] for k in keys}
+                              for s, f in r.get("forms", r.get("cases", {})).items()}
         if name == "secular_bisect":
             entry["max_abs_err"] = max(f["max_abs_err"] for f in r["shapes"].values())
             entry["shapes"] = {f"{K_B10}x{s}": {k: f[k] for k in (

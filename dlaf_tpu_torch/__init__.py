@@ -47,6 +47,7 @@ from dlaf_tpu_torch.algorithms.multiplication import (
     triangular_multiplication,
 )
 from dlaf_tpu_torch.algorithms.norm import max_norm
+from dlaf_tpu_torch.algorithms.reduction_to_band import reduction_to_band
 from dlaf_tpu_torch.algorithms.solver import (
     MixedSolveInfo,
     cholesky_solver,
@@ -74,4 +75,5 @@ __all__ = [
     "positive_definite_solver_mixed",
     "hermitian_eigensolver",
     "EigResult",
+    "reduction_to_band",
 ]

@@ -198,7 +198,9 @@ def sbr_back_transform(tr: SbrTransforms, mat_e, out_cols: bool = False):
         dist, grid = mat_e.dist, mat_e.grid
     else:
         if mat_e.grid.size != 1:
-            raise NotImplementedError("sbr_back_transform: multi-rank grids wait (ROADMAP.md)")
+            raise NotImplementedError(
+                "sbr_back_transform on a multi-rank grid is not ported yet "
+                "(ROADMAP.md §A, item 3: the HEEV stages on Pr×Pc)")
         dist, grid = mat_e.dist, mat_e.grid
         g = layout.unpad_global(layout.unpack(mat_e.data, dist), dist)
         e = torch.nn.functional.pad(g, (0, 0, 0, n_pad - n))

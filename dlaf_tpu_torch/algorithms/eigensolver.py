@@ -124,13 +124,21 @@ def hermitian_eigensolver(
     band-reduction pipeline."""
     if spectrum is not None:
         raise NotImplementedError(
-            "hermitian_eigensolver: partial spectra are not ported yet (ROADMAP.md)")
+            "hermitian_eigensolver: partial spectra are not ported yet "
+            "(ROADMAP.md §A, item 5: the rest of the eigensolver)")
     if backend not in ("auto", "pipeline"):
         raise ValueError(f"hermitian_eigensolver: unknown backend {backend!r}")
     if mat_a.dtype.is_complex:
-        raise NotImplementedError("hermitian_eigensolver: complex dtypes are not ported yet (ROADMAP.md)")
+        raise NotImplementedError("hermitian_eigensolver: complex dtypes are not ported yet "
+                                  "(ROADMAP.md §A, item 5: the rest of the eigensolver)")
     if mat_a.size.rows != mat_a.size.cols:
         raise ValueError("hermitian_eigensolver: matrix must be square")
+    if mat_a.grid.size != 1:
+        raise NotImplementedError(
+            "hermitian_eigensolver on a multi-rank grid: reduction_to_band runs there, the band "
+            "gather, SBR, the D&C and the back-transforms are not ported yet (ROADMAP.md §A, "
+            "item 3: the HEEV stages on Pr×Pc)"
+        )
     if uplo == t.UPPER:
         # lower-storage pipeline on the mirrored matrix
         mat_a = mutil.extract_triangle(mutil.hermitize(mat_a, "U"), "L")

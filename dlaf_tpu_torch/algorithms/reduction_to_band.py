@@ -5,21 +5,38 @@ Per band panel ``p`` (columns ``[p*band, (p+1)*band)``, rows below
 ``(p+1)*band``): gather the panel strip, factor it with the reference's own
 per-column Householder loop (:func:`_hh_panel`, LAPACK geqrf convention,
 blocked in sub-panels of at most 32 columns), build the compact-WY factor
-``T`` (:func:`_t_factor`), and apply the two-sided update
+``T`` (:func:`_t_factor`; both on rank (0, 0) and broadcast), and apply the
+two-sided update
 ``A := Q^H A Q`` with ``Q = I - V T V^H`` to the trailing window as
 ``X = A V T``, ``M = V^H X``, ``W2 = X - V T^H M / 2``,
 ``A -= W2 V^H + V W2^H``.  The window shrinks by segment as in the JAX
 package (``_spmd.halving_segments``), so the same slots are touched.
 
-Under ``tune.trailing_update_impl='fused'`` the two rank-``band`` updates
-go through the hand-written trailing-update kernel (``ops/trailing_update``,
-the second one through the one-rank branch of ``fused_transpose_update``),
-updating the window in place; under 'xla' they are two einsums.
+It runs on any ``Pr×Pc`` grid, once per rank (``coll.spmd``, as
+``cholesky.py`` runs its kernels): each rank gathers the panel strip over
+'r' and broadcasts it over 'c', and updates its own tiles of the window,
+the partial products summed over the grid axes (``psum_axis``).  The
+reflectors and ``T`` are the same on every rank; the JAX package computes
+them redundantly, the port once, on rank (0, 0), and broadcasts them: the
+rank threads share one interpreter, and eight of them launching the
+per-column loop at once ran past the rank threads' 120 s bound at
+N = 8192 on a 2x4 grid of an H100.  Under
+``tune.trailing_update_impl='fused'`` the two rank-``band`` updates are
+routed as the JAX package routes them (``reduction_to_band.py:209-226``):
+the first addend, whose operands are both local, is one B3
+(``trailing_update``); the second, whose panel crosses the diagonal, goes
+through ``fused_transpose_update`` over ``transpose_panel_windowed_parts``
+with no slot suppressed, which is B6 (the consume ring over 'r') for real
+dtypes on a card grid with more than one process row, and the transport
+plus one update otherwise.  Both run at the ambient ``gemm_precision``
+(their split bodies under 'bf16x3' / 'bf16x6').  Under 'xla' they are two
+``tile.contract`` calls; on the CPU the two tiers give the same bits.
 
 The JAX package runs the panel loop as one jitted ``fori_loop``; here it is
 an eager Python loop with Python-int panel indices.  On return the matrix
 holds the band in its lower triangle and the reflector tails below it, and
-``taus[n_panels, band]`` comes with it.  Checkpointing waits (ROADMAP.md).
+``taus[n_panels, band]`` (the same on every rank) comes with it.
+Checkpointing waits (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -139,10 +156,16 @@ def _red2band_step(x, taus_all, p: int, g: _spmd.Geometry, band: int, myr: int, 
     col_tiles = gat.permute(1, 0, 2, 3).reshape(mt_pad, g.mb, band)
     pnl = coll.bcast(col_tiles, kc, COL_AXIS).reshape(np_, band).clone()
     start = (p + 1) * band  # first eliminated row
-    p_out, v, taus = _hh_panel(pnl, start, band, np_, g.m)
+    # 2. the reflectors and the T factor: on rank (0, 0), then broadcast
+    # (the module docstring says why)
+    if myr == 0 and myc == 0:
+        p_out, v, taus = _hh_panel(pnl, start, band, np_, g.m)
+        packed = torch.cat([p_out, v, _t_factor(v, taus, band), taus[None, :]])
+    else:
+        packed = torch.zeros((2 * np_ + band + 1, band), dtype=x.dtype, device=dev)
+    packed = coll.bcast2d(packed, 0, 0)
+    p_out, v, tmat, taus = packed[:np_], packed[np_:2 * np_], packed[2 * np_:-1], packed[-1]
     taus_all[p] = taus
-    # 2. T factor (replicated)
-    tmat = _t_factor(v, taus, band)
     # 3. two-sided trailing update on the window: V is zero outside the
     # trailing region, so the clamped window's overlap contributes nothing
     v_tiles = v.reshape(mt_pad, g.mb, band)
@@ -232,20 +255,25 @@ def reduction_to_band(mat_a: DistributedMatrix, band: int | None = None,
         tune.get_tune_parameters().eigensolver_matmul_precision)
     n_panels = max(0, (g.m - 1) // band)
     full = mutil.hermitize(mat_a, "L")
-    taus = torch.zeros((n_panels, band), dtype=full.dtype, device=full.data.device)
     if n_panels == 0:
         out = mat_a.like(full.data)
         out.band_size = band
-        return out, taus
+        return out, torch.zeros((0, band), dtype=full.dtype, device=full.data.device)
     fused = tune.trailing_update_tier() == "fused"
-    myr, myc = coll.my_rank()
-    x = coll.local(full.data)
-    for p0, p1 in _spmd.halving_segments(n_panels):
-        t0 = (p0 + 1) * band // g.mb
-        L = max(min(g.ltr, (g.mt - 1 - t0 + g.pr - 1) // g.pr + 1), 1)
-        C = max(min(g.ltc, (g.mt - 1 - t0 + g.pc - 1) // g.pc + 1), 1)
-        for p in range(p0, p1):
-            _red2band_step(x, taus, p, g, band, myr, myc, L, C, fused)
+
+    def body(x):
+        """The panel loop on this rank's tile stack, in place; its taus."""
+        myr, myc = coll.my_rank()
+        taus_r = torch.zeros((n_panels, band), dtype=x.dtype, device=x.device)
+        for p0, p1 in _spmd.halving_segments(n_panels):
+            t0 = (p0 + 1) * band // g.mb
+            L = max(min(g.ltr, (g.mt - 1 - t0 + g.pr - 1) // g.pr + 1), 1)
+            C = max(min(g.ltc, (g.mt - 1 - t0 + g.pc - 1) // g.pc + 1), 1)
+            for p in range(p0, p1):
+                _red2band_step(x, taus_r, p, g, band, myr, myc, L, C, fused)
+        return taus_r
+
+    taus = coll.spmd(full.grid, body, full.data)
     out = mat_a.like(full.data)
     out.band_size = band  # consumed as the default by the band stage
     return out, taus

@@ -427,7 +427,8 @@ def tridiag_dc_distributed(
 
     if spectrum is not None:
         raise NotImplementedError(
-            "tridiag_dc_distributed: partial spectra are not ported yet (ROADMAP.md)")
+            "tridiag_dc_distributed: partial spectra are not ported yet "
+            "(ROADMAP.md §A, item 5: the rest of the eigensolver)")
     if grid.size != 1:
         raise NotImplementedError(
             "tridiag_dc_distributed on a multi-rank grid is not ported yet "

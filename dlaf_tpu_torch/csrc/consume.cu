@@ -39,17 +39,29 @@
 // semaphore sets), so a rank ahead in phase p + 1 never signals into a
 // neighbour still in phase p.
 //
-// Both launch 512 threads per block: the update runs two 64 x 64 output
-// tiles at a time, one per 256-thread group, with B3's tile body
-// (csrc/trailing_update.cuh), reading operands through L2 (landing slots are
-// rewritten by other ranks during the launch).  Each rank takes at most
-// SMs / ranks blocks, as every ring kernel, so all ranks' launches are
-// resident at once.
+// Both launch 512 threads per block, reading operands through L2 (landing
+// slots are rewritten by other ranks during the launch).  At the 'default'
+// tier (NS = 0) the update runs two 64 x 64 output tiles at a time, one per
+// 256-thread group, with B3's FMA tile body (csrc/trailing_update.cuh).
+// Under the split tiers the update is the split body of
+// csrc/split_gemm.cuh (bf16 slices cut as the tiles load, mma.sync
+// products, one float32 accumulator per term, added in the JAX package's
+// order), NS = 2 slices per operand for 'bf16x3' and 3 for 'bf16x6', with
+// the whole block on one tile (16 warps of 16 x 16 outputs), which keeps
+// the accumulators within the 128 registers a thread of a 512-thread block
+// may use.  The slice count is a template parameter of B6 and of B8's
+// consume phase only: B8's factor and panel-solve phases are the same code
+// at every tier.  Each rank takes at most SMs / ranks blocks, as every ring
+// kernel, so all ranks' launches are resident at once; the launchers refuse
+// an instantiation that cannot hold one block on an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 //
 // What bounds them on the H100: operations.  At N=16384, nb=512 on a 2x4
 // grid one rank's consume update is 16 x 8 tiles of 2 * 512^3 flops (34
-// GFlop; 275 GFlop over the grid) against 2 x 128 MiB of trailing matrix.
-// No tensor cores yet, and 16 blocks per rank: the first cut is slow.
+// GFlop; 275 GFlop over the grid) against 2 x 128 MiB of trailing matrix:
+// 4.1 ms at the 67 TFLOP/s of f32 FMA, 0.83 ms for bf16x3's three products
+// at the 989 TFLOP/s of the bf16 tensor cores.  16 blocks per rank, and no
+// pipelining of the loads: the first cuts are slow.
 
 #include <cuda_runtime.h>
 
@@ -58,6 +70,7 @@
 #include "panel_trsm.cuh"
 #include "potrf.cuh"
 #include "ring.cuh"
+#include "split_gemm.cuh"
 #include "trailing_update.cuh"
 
 namespace {
@@ -65,7 +78,16 @@ namespace {
 using namespace dlaf_ring;
 
 constexpr int kThreads = 512;
-constexpr int kGroups = kThreads / dlaf_tu::kThreads;  // GEMM tiles in flight per block
+constexpr int kGroups = kThreads / dlaf_tu::kThreads;  // FMA GEMM tiles in flight per block
+static_assert(dlaf_split::threads_of(1) == kThreads, "the split body's MI = 1 layout is a block");
+
+// bytes of shared memory apply_rows needs: two FMA tile bodies (NS = 0) or
+// one split body's bf16 staging
+template <typename T, int NS>
+__host__ __device__ constexpr size_t gemm_smem() {
+  if constexpr (NS == 0) return kGroups * dlaf_tu::kSmemElems * sizeof(T);
+  else return sizeof(dlaf_split::Smem<NS>);
+}
 
 // rows of one ring segment of a [slots][n][k] panel: the widest of 64,
 // 32, 16, 8 that divides n, so that no segment crosses a slot (0: none)
@@ -85,24 +107,39 @@ struct Panel {
 
 // x[i, j][:, r0 : r0 + sr] -= cp[i] @ src[0 : sr, :]^T for every i: the
 // trailing contribution of rows [r0, r0 + sr) of panel slot j, `src`
-// pointing at row r0 of the slot.  Called by every thread of the block.
-template <typename T>
-__device__ void apply_rows(const Panel<T>& p, const T* src, int j, int r0, T* sm) {
-  const int group = threadIdx.x / dlaf_tu::kThreads, tid = threadIdx.x % dlaf_tu::kThreads;
-  T* gsm = sm + group * dlaf_tu::kSmemElems;
+// pointing at row r0 of the slot, at the tier of NS (0: the FMA body, two
+// tiles at a time; 2, 3: the split body, one tile at a time).  Called by
+// every thread of the block; `sm` holds gemm_smem<T, NS>() bytes.
+template <typename T, int NS>
+__device__ void apply_rows(const Panel<T>& p, const T* src, int j, int r0, void* sm) {
   const int mtiles = (p.M + dlaf_tu::kBM - 1) / dlaf_tu::kBM;
   const int ntiles = p.ltr * mtiles;
-  for (int t0 = 0; t0 < ntiles; t0 += kGroups) {
-    const int t = t0 + group;
-    const bool valid = t < ntiles;  // a group without a tile runs the loop on no rows
-    const int i = valid ? t / mtiles : 0;
-    const int m0 = valid ? (t % mtiles) * dlaf_tu::kBM : 0;
-    T acc[dlaf_tu::kTM][dlaf_tu::kTN];
-    dlaf_tu::tile_gemm<T, true, true>(acc, p.cp + (long long)i * p.M * p.K, 0, p.K, src, 0, p.K,
-                                      1, valid ? p.M : 0, p.sr, p.K, m0, 0, tid, gsm);
-    if (valid)
-      dlaf_tu::tile_store<T, true>(p.x + ((long long)i * p.ltc + j) * p.M * p.N + r0, p.N, p.M,
-                                   p.sr, m0, 0, acc, tid);
+  if constexpr (NS != 0) {
+    auto& ssm = *static_cast<dlaf_split::Smem<NS>*>(sm);
+    for (int t = 0; t < ntiles; ++t) {
+      const int i = t / mtiles, m0 = (t % mtiles) * dlaf_split::kBM;
+      dlaf_split::Acc<NS, 1> acc;
+      dlaf_split::tile_gemm<T, NS, true, true, 1>(acc, p.cp + (long long)i * p.M * p.K, 0, p.K,
+                                                  src, 0, p.K, 1, p.M, p.sr, p.K, m0, 0,
+                                                  threadIdx.x, ssm);
+      dlaf_split::tile_store<T, NS, true, 1>(p.x + ((long long)i * p.ltc + j) * p.M * p.N + r0,
+                                             p.N, p.M, p.sr, m0, 0, acc, threadIdx.x);
+    }
+  } else {
+    const int group = threadIdx.x / dlaf_tu::kThreads, tid = threadIdx.x % dlaf_tu::kThreads;
+    T* gsm = static_cast<T*>(sm) + group * dlaf_tu::kSmemElems;
+    for (int t0 = 0; t0 < ntiles; t0 += kGroups) {
+      const int t = t0 + group;
+      const bool valid = t < ntiles;  // a group without a tile runs the loop on no rows
+      const int i = valid ? t / mtiles : 0;
+      const int m0 = valid ? (t % mtiles) * dlaf_tu::kBM : 0;
+      T acc[dlaf_tu::kTM][dlaf_tu::kTN];
+      dlaf_tu::tile_gemm<T, true, true>(acc, p.cp + (long long)i * p.M * p.K, 0, p.K, src, 0,
+                                        p.K, 1, valid ? p.M : 0, p.sr, p.K, m0, 0, tid, gsm);
+      if (valid)
+        dlaf_tu::tile_store<T, true>(p.x + ((long long)i * p.ltc + j) * p.M * p.N + r0, p.N,
+                                     p.M, p.sr, m0, 0, acc, tid);
+    }
   }
 }
 
@@ -110,7 +147,7 @@ __device__ void apply_rows(const Panel<T>& p, const T* src, int j, int r0, T* sm
 // segments of the slots this rank holds on entry (out of its own payload
 // y), then after each hop's merge its segments of the fresh slots (out of
 // the landing slot), each only where sh_apply[slot] is set.
-template <typename T>
+template <typename T, int NS>
 struct ConsumeHooks {
   Panel<T> p;
   const u32* y;        // this rank's payload
@@ -120,7 +157,7 @@ struct ConsumeHooks {
   const int* sh_have;  // have before the hop's merge
   const int* sh_hin;   // the hop's incoming have
   const int* sh_apply;
-  T* sm;
+  void* sm;  // gemm_smem<T, NS>() bytes
 
   template <bool kFresh>
   __device__ void apply(const u32* base) {
@@ -131,7 +168,7 @@ struct ConsumeHooks {
       const int j = (int)(e / slot_elems);
       const int r0 = (int)((e % slot_elems) / p.K);
       const bool take = kFresh ? hop_take(sh_have[j], sh_hin[j]) : sh_have[j] != 0;
-      if (take && sh_apply[j]) apply_rows(p, reinterpret_cast<const T*>(base + lo), j, r0, sm);
+      if (take && sh_apply[j]) apply_rows<T, NS>(p, reinterpret_cast<const T*>(base + lo), j, r0, sm);
     }
     __syncthreads();  // the caller may change sh_have next
   }
@@ -143,13 +180,12 @@ struct ConsumeHooks {
 
 // ---------------------------------------------------------------- B6
 
-template <typename T>
+template <typename T, int NS>
 __global__ void __launch_bounds__(kThreads)
 consume_kernel(Ring r, Panel<T> p, const int* __restrict__ h, const int* __restrict__ z,
                int* __restrict__ oh) {
   extern __shared__ __align__(16) unsigned char dlaf_smem[];
-  T* sm = reinterpret_cast<T*>(dlaf_smem);
-  int* sh_have = reinterpret_cast<int*>(sm + kGroups * dlaf_tu::kSmemElems);
+  int* sh_have = reinterpret_cast<int*>(dlaf_smem + gemm_smem<T, NS>());
   int* sh_hin = sh_have + r.slots;
   int* sh_apply = sh_hin + r.slots;
   int* sh_ok = sh_apply + r.slots;
@@ -159,7 +195,8 @@ consume_kernel(Ring r, Panel<T> p, const int* __restrict__ h, const int* __restr
   }
   copy_segments(r.acc, r.y, r);  // the merged panel starts as this rank's payload
   __syncthreads();
-  ConsumeHooks<T> hooks{p, r.y, r.land, r.total, r.seg, r.me, sh_have, sh_hin, sh_apply, sm};
+  ConsumeHooks<T, NS> hooks{p, r.y, r.land, r.total, r.seg, r.me, sh_have, sh_hin, sh_apply,
+                            dlaf_smem};
   if (!ring_hops(r, sh_have, sh_hin, sh_ok, hooks)) return;
   if (blockIdx.x == 0)
     for (int i = threadIdx.x; i < r.slots; i += blockDim.x) oh[i] = sh_have[i];
@@ -197,7 +234,7 @@ __device__ bool wait_all(u64* flags, u64 target, const Ring& r) {
   return true;
 }
 
-template <typename T, int R>
+template <typename T, int R, int NS>
 __global__ void __launch_bounds__(kThreads)
 fused_step_kernel(Step<T> a) {
   extern __shared__ __align__(16) unsigned char dlaf_smem[];
@@ -220,8 +257,8 @@ fused_step_kernel(Step<T> a) {
   }
   copy_segments(a.rc.acc, a.rc.y, a.rc);
   __syncthreads();
-  ConsumeHooks<T> hooks{a.p, a.rc.y, a.rc.land, a.rc.total, a.rc.seg, a.rc.me,
-                        sh_have, sh_hin, sh_apply, work};
+  ConsumeHooks<T, NS> hooks{a.p, a.rc.y, a.rc.land, a.rc.total, a.rc.seg, a.rc.me,
+                            sh_have, sh_hin, sh_apply, work};
   if (!ring_hops(a.rc, sh_have, sh_hin, sh_ok, hooks)) return;
   if (b == 0)
     for (int i = tid; i < ltc; i += blockDim.x) a.oh[i] = sh_have[i];
@@ -279,11 +316,43 @@ fused_step_kernel(Step<T> a) {
 
 // -------------------------------------------------------------- launchers
 
+// Set the kernel's dynamic shared memory and check that an SM holds one of
+// its blocks: a ring launch spins on flags its other blocks and ranks set,
+// so every block must be resident.  Returns blocks per SM, or a negated
+// CUDA error.
+template <typename Kernel>
+int prepare(Kernel kernel, size_t smem) {
+  if (smem > dlaf_potrf::kSmemLimit) return -(int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return -(int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (e != cudaSuccess) return -(int)e;
+  return per_sm >= 1 ? per_sm : -(int)cudaErrorInvalidConfiguration;
+}
+
+template <typename T, int NS>
+size_t consume_smem(int ltc) {
+  return gemm_smem<T, NS>() + (3 * (size_t)ltc + 1) * sizeof(int);
+}
+
+template <typename T, int NS>
+int launch_consume_ns(const Ring& r, const Panel<T>& p, const void* h, const void* z, void* oh,
+                      int G, void* stream) {
+  const size_t smem = consume_smem<T, NS>(p.ltc);
+  const int per_sm = prepare(consume_kernel<T, NS>, smem);
+  if (per_sm < 0) return -per_sm;
+  consume_kernel<T, NS><<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      r, p, static_cast<const int*>(h), static_cast<const int*>(z), static_cast<int*>(oh));
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_consume(const void* y, const void* h, const void* z, void* out, void* oh, void* x,
                    const void* cp, void* land, void* land_h, void* entry, void* rflag, void* aflag,
                    void* err, int ltr, int ltc, int M, int N, int K, int G, int P, int me,
-                   u64 epoch, u64 timeout_ns, void* stream) {
+                   int nslices, u64 epoch, u64 timeout_ns, void* stream) {
   const int sr = segment_rows(N);
   if (sr == 0 || ltr <= 0 || ltc <= 0 || M <= 0 || K <= 0 || G <= 0 || P < 1 ||
       ((long long)sr * K * sizeof(T)) % 16)
@@ -294,14 +363,12 @@ int launch_consume(const void* y, const void* h, const void* z, void* out, void*
   Ring r = make_ring(y, out, land, land_h, entry, rflag, aflag, err, total, words_per_slot, ltc,
                      seg, P, me, epoch, timeout_ns);
   Panel<T> p{static_cast<T*>(x), static_cast<const T*>(cp), ltr, ltc, M, N, K, sr};
-  const size_t smem = kGroups * dlaf_tu::kSmemElems * sizeof(T) + (3 * (size_t)ltc + 1) * sizeof(int);
-  if (smem > dlaf_potrf::kSmemLimit) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(consume_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  consume_kernel<T><<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      r, p, static_cast<const int*>(h), static_cast<const int*>(z), static_cast<int*>(oh));
-  return (int)cudaGetLastError();
+  switch (nslices) {
+    case 0: return launch_consume_ns<T, 0>(r, p, h, z, oh, G, stream);
+    case 2: return launch_consume_ns<T, 2>(r, p, h, z, oh, G, stream);
+    case 3: return launch_consume_ns<T, 3>(r, p, h, z, oh, G, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The fused step's arguments as one int64 array: the head, four rings of
@@ -342,8 +409,35 @@ Ring ring_of(const long long* d, int which, const void* y, void* acc, long long 
                    (u64)q[kRingEpoch], (u64)d[kTimeout]);
 }
 
+// B8's shared memory: the work area of B1's and B2's bodies and of the
+// consume update, then the int scratch of the rings
+template <typename T, int R, int NS>
+size_t step_work(int mb) {
+  size_t work = dlaf_potrf::smem_bytes<T>(mb);
+  const size_t trsm = dlaf_panel_trsm::smem_bytes<T, R>(mb);
+  const size_t gemm = gemm_smem<T, NS>();
+  if (trsm > work) work = trsm;
+  if (gemm > work) work = gemm;
+  return (work + 15) / 16 * 16;
+}
+
+template <typename T, int R, int NS>
+size_t step_smem(int ltc, int mb) {
+  return step_work<T, R, NS>(mb) + (3 * (size_t)ltc + 3) * sizeof(int);
+}
+
+template <typename T, int R, int NS>
+int launch_fused_step_ns(Step<T>& a, int G, void* stream) {
+  a.work = step_work<T, R, NS>(a.p.M);
+  const size_t smem = step_smem<T, R, NS>(a.p.ltc, a.p.M);
+  const int per_sm = prepare(fused_step_kernel<T, R, NS>, smem);
+  if (per_sm < 0) return -per_sm;
+  fused_step_kernel<T, R, NS><<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int R>
-int launch_fused_step(const long long* d, void* stream) {
+int launch_fused_step(const long long* d, int nslices, void* stream) {
   if (d[kCount] != kDescLen) return (int)cudaErrorInvalidValue;
   auto ptr = [](long long v) { return reinterpret_cast<void*>(v); };
   const int G = (int)d[kG], ltr = (int)d[kLtr], ltc = (int)d[kLtc], mb = (int)d[kMb];
@@ -381,43 +475,54 @@ int launch_fused_step(const long long* d, void* stream) {
   a.me_r = (int)d[kMeR];
   a.me_c = (int)d[kMeC];
   a.pw = pw;
-  size_t work = dlaf_potrf::smem_bytes<T>(mb);
-  const size_t trsm = dlaf_panel_trsm::smem_bytes<T, R>(mb);
-  const size_t gemm = kGroups * dlaf_tu::kSmemElems * sizeof(T);
-  if (trsm > work) work = trsm;
-  if (gemm > work) work = gemm;
-  work = (work + 15) / 16 * 16;
-  a.work = work;
-  const size_t smem = work + (3 * (size_t)ltc + 3) * sizeof(int);
-  if (smem > dlaf_potrf::kSmemLimit) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(fused_step_kernel<T, R>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  fused_step_kernel<T, R><<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  switch (nslices) {
+    case 0: return launch_fused_step_ns<T, R, 0>(a, G, stream);
+    case 2: return launch_fused_step_ns<T, R, 2>(a, G, stream);
+    case 3: return launch_fused_step_ns<T, R, 3>(a, G, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// blocks per SM of one instantiation (B6: step = 0, B8: step = 1), or a
+// negated CUDA error
+template <typename T, int R, int NS>
+int blocks_per_sm_ns(int step, int ltc, int mb) {
+  return step ? prepare(fused_step_kernel<T, R, NS>, step_smem<T, R, NS>(ltc, mb))
+              : prepare(consume_kernel<T, NS>, consume_smem<T, NS>(ltc));
+}
+
+template <typename T, int R>
+int blocks_per_sm(int step, int nslices, int ltc, int mb) {
+  switch (nslices) {
+    case 0: return blocks_per_sm_ns<T, R, 0>(step, ltc, mb);
+    case 2: return blocks_per_sm_ns<T, R, 2>(step, ltc, mb);
+    case 3: return blocks_per_sm_ns<T, R, 3>(step, ltc, mb);
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// B6: this rank's launch of the consume ring over a [ltc][N][K] row panel.
+// B6: this rank's launch of the consume ring over a [ltc][N][K] row panel;
+// nslices 0 ('default'), 2 ('bf16x3') or 3 ('bf16x6').
 int dlaf_dma_ring_consume_f32(const void* y, const void* h, const void* z, void* out, void* oh,
                               void* x, const void* cp, void* land, void* land_h, void* entry,
                               void* rflag, void* aflag, void* err, int ltr, int ltc, int M, int N,
-                              int K, int G, int P, int me, unsigned long long epoch,
+                              int K, int G, int P, int me, int nslices, unsigned long long epoch,
                               unsigned long long timeout_ns, void* stream) {
   return launch_consume<float>(y, h, z, out, oh, x, cp, land, land_h, entry, rflag, aflag, err,
-                               ltr, ltc, M, N, K, G, P, me, epoch, timeout_ns, stream);
+                               ltr, ltc, M, N, K, G, P, me, nslices, epoch, timeout_ns, stream);
 }
 
 int dlaf_dma_ring_consume_f64(const void* y, const void* h, const void* z, void* out, void* oh,
                               void* x, const void* cp, void* land, void* land_h, void* entry,
                               void* rflag, void* aflag, void* err, int ltr, int ltc, int M, int N,
-                              int K, int G, int P, int me, unsigned long long epoch,
+                              int K, int G, int P, int me, int nslices, unsigned long long epoch,
                               unsigned long long timeout_ns, void* stream) {
   return launch_consume<double>(y, h, z, out, oh, x, cp, land, land_h, entry, rflag, aflag, err,
-                                ltr, ltc, M, N, K, G, P, me, epoch, timeout_ns, stream);
+                                ltr, ltc, M, N, K, G, P, me, nslices, epoch, timeout_ns, stream);
 }
 
 // B8: the names of the Desc array's entries, in order, comma-separated.
@@ -437,13 +542,21 @@ const char* dlaf_fused_step_fields() {
   return names.c_str();
 }
 
-// B8: this rank's launch of the fused lookahead step (the Desc array above).
-int dlaf_fused_step_f32(const long long* desc, void* stream) {
-  return launch_fused_step<float, 32>(desc, stream);
+// B8: this rank's launch of the fused lookahead step (the Desc array
+// above), its consume phase at nslices 0, 2 or 3 as B6.
+int dlaf_fused_step_f32(const long long* desc, int nslices, void* stream) {
+  return launch_fused_step<float, 32>(desc, nslices, stream);
 }
 
-int dlaf_fused_step_f64(const long long* desc, void* stream) {
-  return launch_fused_step<double, 16>(desc, stream);
+int dlaf_fused_step_f64(const long long* desc, int nslices, void* stream) {
+  return launch_fused_step<double, 16>(desc, nslices, stream);
+}
+
+// Blocks per SM of B6 (step = 0) or B8 (step = 1) at nslices, for ltc slots
+// of mb-wide tiles (B8's work area depends on mb), or a negated CUDA error.
+int dlaf_ring_consumer_blocks_per_sm(int step, int f64, int nslices, int ltc, int mb) {
+  return f64 ? blocks_per_sm<double, 16>(step, nslices, ltc, mb)
+             : blocks_per_sm<float, 32>(step, nslices, ltc, mb);
 }
 
 }  // extern "C"

@@ -22,11 +22,13 @@ KERNELS = {
 
 
 #: counters beside KERNELS': the cluster kernel's share of B1's launches,
-#: and the split-tier body's share of B3's and of B9's
+#: and the split-tier body's share of B3's, B9's, B6's and B8's
 SUB_COUNTS = {
     "potrf_cluster": (potrf, "cluster_launches"),
     "trailing_update_split": (trailing_update, "split_launches"),
     "panel_contract_split": (trailing_update, "split_contract_launches"),
+    "dma_ring_consume_split": (trailing_update, "consume_split_launches"),
+    "fused_step_split": (trailing_update, "fused_step_split_launches"),
 }
 
 

@@ -9,13 +9,15 @@ The library lands in ``dlaf_tpu_torch/_build/`` (listed in ``.gitignore``)
 under a name keyed by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is reused.  Nothing is built when the package
 is imported: only the first kernel launch on a CUDA tensor calls
-:func:`lib`.
+:func:`lib`.  ptxas reports each kernel's registers and spills
+(``-Xptxas -v``); a build keeps them in :data:`ptxas_report`.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -28,7 +30,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -58,12 +60,14 @@ SIGNATURES = {
     "dlaf_panel_contract_split_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "dlaf_panel_contract_split_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # (y, h, z, out, oh, x, cp, land, land_h, entry, rflag, aflag, err, ltr, ltc, M, N, K,
-    #  G, P, me, epoch, timeout_ns, stream)
-    "dlaf_dma_ring_consume_f32": [_P] * 13 + [_I] * 8 + [_ULL, _ULL, _P],
-    "dlaf_dma_ring_consume_f64": [_P] * 13 + [_I] * 8 + [_ULL, _ULL, _P],
-    # (the int64 argument array named by dlaf_fused_step_fields, stream)
-    "dlaf_fused_step_f32": [_P, _P],
-    "dlaf_fused_step_f64": [_P, _P],
+    #  G, P, me, nslices, epoch, timeout_ns, stream): nslices 0, 2 or 3 (the split tiers)
+    "dlaf_dma_ring_consume_f32": [_P] * 13 + [_I] * 9 + [_ULL, _ULL, _P],
+    "dlaf_dma_ring_consume_f64": [_P] * 13 + [_I] * 9 + [_ULL, _ULL, _P],
+    # (the int64 argument array named by dlaf_fused_step_fields, nslices, stream)
+    "dlaf_fused_step_f32": [_P, _I, _P],
+    "dlaf_fused_step_f64": [_P, _I, _P],
+    # (step, f64, nslices, ltc, mb): blocks per SM of B6 (step 0) or B8 (step 1)
+    "dlaf_ring_consumer_blocks_per_sm": [_I, _I, _I, _I, _I],
     # (dw, z2, rho, anchor, lo0, hi0, out, K, S, iters, stream)
     "dlaf_secular_bisect_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (y, y_in, h, h_in, oy, oh, total, w, slots, stream)
@@ -91,6 +95,10 @@ COUNT_LOCK = threading.Lock()
 #: wall seconds of the last nvcc run in this process (0.0 when the cached
 #: library was reused)
 build_seconds = 0.0
+#: what ptxas said of each kernel in the last build in this process: one
+#: dict per entry function (source, kernel, registers, stack, spill stores
+#: and loads in bytes); empty when the cached library was reused
+ptxas_report: list = []
 
 
 def _nvcc() -> str:
@@ -120,11 +128,51 @@ def library_path() -> Path:
     return BUILD_DIR / f"libdlaf_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _demangle(names: list) -> list:
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True)
+    lines = out.stdout.splitlines()
+    return lines if out.returncode == 0 and len(lines) == len(names) else names
+
+
+def parse_ptxas(source: str, text: str) -> list:
+    """The entry functions of one ``-Xptxas -v`` log: registers from their
+    "Used N registers" line, stack and spills from their "Function
+    properties" lines."""
+    props, entries, cur, named = {}, [], None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"source": source, "kernel": m.group(1)}
+            entries.append(cur)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            named = props.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and named is not None:
+            named.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                         spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    for e in entries:
+        e.update(props.get(e["kernel"], {}))
+    for e, name in zip(entries, _demangle([e["kernel"] for e in entries])):
+        e["kernel"] = name
+    return entries
+
+
 def build() -> Path:
     """Compile every ``csrc/*.cu`` into one library unless it exists: one
     ``nvcc -c`` per source, all started together, then one link.  Raises
     ``RuntimeError`` with nvcc's output when a step fails."""
-    global build_seconds
+    global build_seconds, ptxas_report
     out = library_path()
     if out.exists():
         return out
@@ -138,12 +186,14 @@ def build() -> Path:
             procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.PIPE, text=True)))
             objs.append(obj)
-        failed = []
-        for cmd, proc in procs:
+        failed, report = [], []
+        for src, (cmd, proc) in zip(sources(), procs):
             stdout, stderr = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n"
                               f"{stdout}\n{stderr}")
+            else:
+                report += parse_ptxas(src.name, stdout + stderr)
         if failed:
             raise RuntimeError("\n".join(failed))
         tmp = os.path.join(work, out.name)
@@ -154,6 +204,7 @@ def build() -> Path:
                                f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
     build_seconds = time.perf_counter() - t0
+    ptxas_report = report
     return out
 
 

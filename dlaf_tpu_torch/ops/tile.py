@@ -190,8 +190,9 @@ def auto_tier(subscripts, a, b, dtype) -> str:
     split when the contracted extent is at least :data:`AUTO_SPLIT_MIN_K`,
     'bf16x6' for 64-bit operands and 'bf16x3' otherwise.  The JAX package
     asks the process backend (``_auto_tier``, :192); the port asks the
-    operands' device, and has no autotune profile to override it."""
-    if a.device.type != "cuda":
+    operands' device (``tune.on_accelerator``), and has no autotune profile
+    to override it."""
+    if not tune.on_accelerator(a.device):
         return "default"
     if contracted_extent(subscripts, a, b) < AUTO_SPLIT_MIN_K:
         return "default"

@@ -35,12 +35,13 @@ on CUDA tensors it launches its kernel or raises.  Every kernel here is
 bound by operations on the H100: at N=16384, nb=512 the Cholesky update is
 275 GFlop over 2.2 GB.  At the 'default' tier the kernels are plain
 shared-memory-tiled FMA GEMMs (64 x 64 output tiles, 16-deep k slices);
-under 'bf16x3' / 'bf16x6' B3 and B9 launch their split-tier body instead
+under 'bf16x3' / 'bf16x6' they run the split-tier body instead
 (``csrc/split_gemm.cuh``: the bf16 slices made as the tiles are loaded,
 the products on the tensor cores with float32 accumulators, one per
-term).  B6 and B8 have no split body yet: on a CUDA tensor under a split
-tier they raise ``ConfigurationError`` (ROADMAP.md §B, item 11); their CPU
-twins run every tier.  See ``PERF.md`` for the measured times.
+term): B3 and B9 as kernels of their own, B6 and B8 (whose update is
+spliced into a ring) as an instantiation of the same kernel at 2 or 3
+slices per operand (:func:`ring_slices`), B8's factor and panel-solve
+phases unchanged.  See ``PERF.md`` for the measured times.
 """
 from __future__ import annotations
 
@@ -50,7 +51,6 @@ import torch
 
 from dlaf_tpu_torch.comm import _ranks
 from dlaf_tpu_torch.comm import collectives as coll
-from dlaf_tpu_torch.health import ConfigurationError
 from dlaf_tpu_torch.ops import _build
 from dlaf_tpu_torch.ops import panel_exchange as _px
 from dlaf_tpu_torch.ops import panel_trsm as _ptrsm
@@ -62,10 +62,13 @@ launches = 0
 consume_launches = 0
 step_launches = 0
 contract_launches = 0
-#: the shares of ``launches`` and ``contract_launches`` that ran the
-#: split-tier body (B3 and B9 under 'bf16x3' / 'bf16x6')
+#: the shares of ``launches``, ``contract_launches``, ``consume_launches``
+#: and ``step_launches`` that ran the split-tier body (B3, B9, B6 and B8
+#: under 'bf16x3' / 'bf16x6')
 split_launches = 0
 split_contract_launches = 0
+consume_split_launches = 0
+fused_step_split_launches = 0
 
 CHOLESKY_SUBSCRIPTS = "iab,jcb->ijac"
 TRSM_SUBSCRIPTS = "iab,jbc->ijac"
@@ -86,6 +89,12 @@ def _expand(mask, v):
     return mask.reshape(mask.shape + (1,) * (v.dim() - mask.dim()))
 
 
+def _plain(*tensors) -> bool:
+    """Whether a wrapper takes its plain version: every operand lies on the
+    CPU."""
+    return all(v.device.type == "cpu" for v in tensors)
+
+
 def _check_cuda(what: str, *tensors) -> None:
     dev = tensors[0].device
     if dev.type != "cuda" or any(v.device != dev for v in tensors):
@@ -103,15 +112,13 @@ def _count(*names: str) -> None:
             globals()[name] += 1
 
 
-def _no_split_on_card(what: str, cp, y) -> None:
-    """B6 and B8 have no split-tier body: under a split tier a CUDA launch
-    raises rather than run the 'default' tier."""
-    tier = t.resolve_tier(CHOLESKY_SUBSCRIPTS, cp, y)
-    if tier in t.SPLIT_SLICES:
-        raise ConfigurationError(
-            f"{what}: gemm_precision {tier!r} is not ported to this kernel on the card; "
-            "its split tier waits in ROADMAP.md §B, item 11 (the split tier of B6 and B8)"
-        )
+def ring_slices(cp, y) -> int:
+    """The bf16 slices per operand of B6's and B8's update: 0 at 'default',
+    2 at 'bf16x3', 3 at 'bf16x6'.  The tier is the one ``tile.contract``
+    takes in the calling thread for the update ``iab,jcb->ijac`` of ``cp``
+    and the row panel ``y`` ('auto' splits at K >= 512 on the card), as the
+    JAX kernels' bodies trace ``t.contract`` at the ambient tier."""
+    return t.SPLIT_SLICES.get(t.resolve_tier(CHOLESKY_SUBSCRIPTS, cp, y), 0)
 
 
 # ------------------------------------------------------------------------ B3
@@ -133,7 +140,7 @@ def trailing_update(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS, tier: str | 
     if subscripts not in _B_IS_NK:
         raise ValueError(f"trailing_update: subscripts {subscripts!r} not in {tuple(_B_IS_NK)}")
     tier = t.resolve_tier(subscripts, a, b, tier)
-    if all(v.device.type == "cpu" for v in (x, a, b)):
+    if _plain(x, a, b):
         return trailing_update_plain(x, a, b, subscripts, tier)
     _check_cuda("trailing_update", x, a, b)
     b_is_nk = _B_IS_NK[subscripts]
@@ -284,12 +291,12 @@ def dma_ring_consume(x, yf, h, cp, z, axis: str):
     column).  ``x [ltr, slots, M, N]`` is updated in place; returns ``(x,
     yf', h')`` with the merged panel and have unmasked, as the JAX kernel
     does.  CPU tensors take :func:`dma_ring_consume_plain`; CUDA tensors
-    launch B6 (real dtypes, on an axis longer than 1, the 'default' tier)
-    or raise."""
-    if all(v.device.type == "cpu" for v in (x, yf, h, cp, z)):
+    launch B6 (real dtypes, on an axis longer than 1; its split body under
+    'bf16x3' / 'bf16x6', :func:`ring_slices`) or raise."""
+    if _plain(x, yf, h, cp, z):
         return dma_ring_consume_plain(x, yf, h, cp, z, axis)
     _check_cuda("dma_ring_consume", x, yf, cp)
-    _no_split_on_card("dma_ring_consume", cp, yf)
+    nslices = ring_slices(cp, yf)
     ctx = _ranks.current()
     pos, n, ring = ctx.axis(axis)
     if ctx.world is None or n == 1:
@@ -322,10 +329,11 @@ def dma_ring_consume(x, yf, h, cp, z, axis: str):
     rc = fn(yf.data_ptr(), hc.data_ptr(), zc.data_ptr(), out.data_ptr(), oh.data_ptr(),
             x.data_ptr(), cp.data_ptr(), st.land.data_ptr(), st.land_h.data_ptr(), st.entry,
             st.rflag, st.aflag, rt.error_word().data_ptr(), ltr, slots, M, N, K, st.blocks, n,
-            pos, st.epoch[pos] << 16, int(_px.RING_TIMEOUT_S * 1e9), _build.stream_of(x))
-    _build.check(rc, "dma_ring_consume")
+            pos, nslices, st.epoch[pos] << 16, int(_px.RING_TIMEOUT_S * 1e9),
+            _build.stream_of(x))
+    _build.check(rc, f"dma_ring_consume[nslices={nslices}]")
     ctx.world.ring_launched = True
-    _count("consume_launches")
+    _count("consume_launches", *(("consume_split_launches",) if nslices else ()))
     return x, out, oh
 
 
@@ -434,11 +442,12 @@ def fused_step(x, taken, have, suppress, cp, below1, params):
     ``params`` the ints ``(kc1, kr1, l_next, lkr1, lkc1)`` of step k+1.
     ``x`` is updated in place; returns ``(x, rp, lkk1, cp1, d1)``, ``d1``
     the broadcast diagonal tile for the owner's pivot scan.  CPU tensors
-    take :func:`fused_step_plain`; CUDA tensors launch B8 or raise."""
-    if x.device.type == "cpu":
+    take :func:`fused_step_plain`; CUDA tensors launch B8 (its consume phase
+    at :func:`ring_slices`) or raise."""
+    if _plain(x, taken, cp):
         return fused_step_plain(x, taken, have, suppress, cp, below1, params)
     _check_cuda("fused_step", x, taken, cp)
-    _no_split_on_card("fused_step", cp, taken)
+    nslices = ring_slices(cp, taken)
     if not fused_step_supported(x, cp):
         raise ValueError(f"fused_step: x {tuple(x.shape)} {x.dtype}, cp {tuple(cp.shape)} fail "
                          "fused_step_supported")
@@ -500,10 +509,10 @@ def fused_step(x, taken, have, suppress, cp, below1, params):
     _ranks.rendezvous(None, "fused step: launch")
     _px._skew(ctx)
     fn = lib.dlaf_fused_step_f32 if x.dtype == torch.float32 else lib.dlaf_fused_step_f64
-    rc = fn(ctypes.addressof(desc), _build.stream_of(x))
-    _build.check(rc, "fused_step")
+    rc = fn(ctypes.addressof(desc), nslices, _build.stream_of(x))
+    _build.check(rc, f"fused_step[nslices={nslices}]")
     ctx.world.ring_launched = True
-    _count("step_launches")
+    _count("step_launches", *(("fused_step_split_launches",) if nslices else ()))
     rp = torch.where(_expand(oh.reshape(ltc) != 0, rp), rp, torch.zeros((), dtype=rp.dtype,
                                                                          device=rp.device))
     return x, rp, lkk1, cp1, od
@@ -529,7 +538,7 @@ def panel_contract(a, b, subscripts: str, tier: str | None = None):
     if subscripts not in _CONTRACT_FORM:
         raise ValueError(f"panel_contract: subscripts {subscripts!r} not in {tuple(_CONTRACT_FORM)}")
     tier = t.resolve_tier(subscripts, a, b, tier)
-    if a.device.type == "cpu" and b.device.type == "cpu":
+    if _plain(a, b):
         return panel_contract_plain(a, b, subscripts, tier)
     _check_cuda("panel_contract", a, b)
     form = _CONTRACT_FORM[subscripts]

@@ -9,8 +9,9 @@ of dlaf_tpu_torch/ and chip_smoke.py under _faults/<name>/ (listed in
 .gitignore; the repository's own files are never edited).  The copy builds
 its kernels at first use as the repository does, then runs chip_smoke.py's
 kernel phase of the one kernel the fault is in (consume_phases for B6, B8
-and B9, pull_phase for B5, potrf_phase for B1), on the main path's shapes,
-in a process of its own.  The script prints one JSON line
+and B9, consume_split_phase for B6's and B8's split bodies, pull_phase for
+B5, potrf_phase for B1), on the main path's shapes, in a process of its
+own.  The script prints one JSON line
 per fault: whether the phase failed, as it must, and the errors the phase
 measured.  Needs a CUDA device; it exits non-zero if a fault that must
 fail went unseen (faults marked latent are run and reported, with the
@@ -117,11 +118,46 @@ FAULTS = {
         [("      __syncthreads();\n    }\n    cluster.sync();\n    // 2. the factor",
           "      __syncthreads();\n    }\n    // 2. the factor")],
         "potrf", "fails"),
+    # B6's split body (bf16x3, the consumers' 512-thread layout MI = 1) adds
+    # its terms without the (0, 1) product
+    "b6_split_drop_term01": (
+        "split_gemm.cuh",
+        [("        T sum = static_cast<T>(acc[0][mi][ni][c]);\n",
+          "        T sum = (NS == 2 && MI == 1) ? T(0) : static_cast<T>(acc[0][mi][ni][c]);\n")],
+        "dma_ring_consume_split", "fails"),
+    # B8's split body leaves column k+1 out of the consume ring and applies
+    # it after the ring with the 'default'-tier body (each block its own
+    # segments of the merged panel's slot k+1)
+    "b8_split_narrow_at_default": (
+        "consume.cu",
+        [("    sh_apply[i] = a.z[i] == 0 || (col1 && i == a.l_next);\n",
+          "    sh_apply[i] = a.z[i] == 0;\n"),
+         ("  if (!ring_hops(a.rc, sh_have, sh_hin, sh_ok, hooks)) return;\n",
+          "  if (!ring_hops(a.rc, sh_have, sh_hin, sh_ok, hooks)) return;\n"
+          "  if (col1) {\n"
+          "    const long long w = a.rc.w, lo0 = (long long)a.l_next * w;\n"
+          "    for (long long lo = (long long)b * a.rc.seg; lo < a.rc.total; lo += (long long)G * a.rc.seg)\n"
+          "      if (lo >= lo0 && lo < lo0 + w)\n"
+          "        apply_rows<T, 0>(a.p, reinterpret_cast<const T*>(a.rc.acc + lo), a.l_next,\n"
+          "                         (int)((lo - lo0) / (long long)(sizeof(T) / sizeof(u32)) / a.p.K), work);\n"
+          "  }\n")],
+        "fused_step_split", "fails"),
+    # B6's split body reads the landing slots with plain loads (through L1)
+    # instead of __ldcg
+    "b6_split_plain_loads": (
+        "consume.cu",
+        [("      dlaf_split::tile_gemm<T, NS, true, true, 1>(",
+          "      dlaf_split::tile_gemm<T, NS, true, false, 1>(")],
+        "dma_ring_consume_split",
+        "latent: a block reads each landing-slot byte at most once per launch (a slot is fresh "
+        "at one hop only, and a segment is whole 128-byte lines of one slot), so no stale line "
+        "can be in its L1, which holds nothing across launches; the rings here are 2 ranks long "
+        "(one hop)"),
     # B9: the lower form's sum over j drops the last slot
     "b9_drop_one_j": (
         "trailing_update.cu",
-        [("a + o * C * mk, mk, K, b, kn, N, C, M, N, K,",
-          "a + o * C * mk, mk, K, b, kn, N, C - 1, M, N, K,")],
+        [("dlaf_tu::tile_gemm<T, false, false>(acc, a + o * C * mk, mk, K, b, kn, N, C, M, N, K,",
+          "dlaf_tu::tile_gemm<T, false, false>(acc, a + o * C * mk, mk, K, b, kn, N, C - 1, M, N, K,")],
         "panel_contract", "fails"),
 }
 
@@ -158,6 +194,9 @@ if kernel == "ring_exchange":
                   Grid.create(cs.GRID_M, device="cpu"), timed_ms)
 elif kernel == "potrf":
     cs.potrf_phase(stamp, bound, timed_ms, torch.Generator(device=dev).manual_seed(cs.SEED + 1))
+elif kernel in cs.CONSUME_SPLIT_KERNELS:
+    a_glob, _ = cs.make_inputs(dev)
+    cs.consume_split_phase(stamp, timed_ms, a_glob, only=(kernel,))
 else:
     a_glob, _ = cs.make_inputs(dev)
     cs.consume_phases(stamp, bound, timed_ms, a_glob, only=(kernel,))
@@ -189,6 +228,8 @@ def plant(name: str) -> dict:
             "rc": proc.returncode, "failure": failed[0] if failed else None,
             "measured": [{k: v for k, v in m.items() if k in (
                 "kernel", "subscripts", "rel_err", "max_abs_err", "bitwise_vs_plain_yf_h",
+                "rel_err_vs_plain", "probe_bitwise_vs_plain", "probe_rel_err_vs_default",
+                "bitwise_vs_plain_panel_have",
                 "skewed_run_bitwise", "rp_bitwise_vs_plain", "rel_err_vs_two_piece",
                 "ring_of_4", "tol", "case", "bitwise_vs_plain", "bitwise_hop_ring_vs_plain",
                 "skewed_run", "input_lifetime_bitwise_vs_plain", "input_lifetime_wrong_elements",

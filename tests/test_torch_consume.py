@@ -9,17 +9,22 @@ on a one-axis ring (the merged panel and have bitwise, the trailing matrix
 within ``tol_for``), and its events in the schedule's order; B8's twin
 bitwise against the two-piece composition the CPU runs (transport plus
 one-shot update, the narrow update, ``bcast_diag_tile``, B7's twin), its
-diagonal tile feeding the owner's pivot scan; and whole factorizations,
+diagonal tile feeding the owner's pivot scan; whole factorizations,
 'fused' against 'xla' bitwise in the port and against the JAX package
-within ``tol_for``, the non-SPD info included.
+within ``tol_for``, the non-SPD info included, at the 'default' tier and
+under bf16x3 and bf16x6; and the slice count B6's and B8's CUDA wrappers
+hand their launch at every tier, with the library handle replaced.
 
-On a card only (``-m cuda``, skipped here): B6 and B8 against their twins,
-a skewed B6 run, and the fused tier's factorization against 'xla'.  The
-JAX side is imported inside the tests that use it:
+On a card only (``-m cuda``, skipped here): B6 and B8 against their twins
+at every tier (under the split tiers also on the split probe, one product
+per output, bit for bit), a skewed B6 run, and the fused tier's
+factorization against 'xla'.  The JAX side is imported inside the tests
+that use it:
 ``python -m pytest tests/test_torch_consume.py --noconftest -m cuda``
 runs the CUDA tests on a machine with no JAX.
 """
 import contextlib
+import re
 
 import numpy as np
 import pytest
@@ -29,9 +34,12 @@ import dlaf_tpu_torch as dtt
 from dlaf_tpu_torch import ops, tune
 from dlaf_tpu_torch.algorithms import _spmd
 from dlaf_tpu_torch.algorithms import cholesky as chol
+from dlaf_tpu_torch.comm import _ranks
 from dlaf_tpu_torch.comm import collectives as coll
 from dlaf_tpu_torch.comm.grid import Grid
+from dlaf_tpu_torch.ops import _build
 from dlaf_tpu_torch.ops import panel_exchange as px
+from dlaf_tpu_torch.ops import tile
 from dlaf_tpu_torch.ops import trailing_update as tu
 from dlaf_tpu_torch.testing import random_hermitian_pd, random_matrix, tol_for
 
@@ -309,13 +317,15 @@ def _port_factor(shape, a, mb, **kw):
 @pytest.mark.parametrize("shape,dtype,gemm", [pytest.param(s, np.float32, "default", id=f"shape{i}")
                                               for i, s in enumerate(SHAPES)]
                          + [pytest.param((2, 4), np.complex64, "default", id="shape1-complex64"),
-                            pytest.param((2, 4), np.float32, "bf16x3", id="shape1-bf16x3")])
+                            pytest.param((2, 4), np.float32, "bf16x3", id="shape1-bf16x3"),
+                            pytest.param((2, 4), np.float32, "bf16x6", id="shape1-bf16x6")])
 def test_lookahead_fused_matches_xla_and_jax(comm_grids, shape, dtype, gemm, tier):
     """Lookahead Cholesky under 'fused' on rank threads: bitwise the 'xla'
     tier's factor in the port, and within tol_for of the JAX package's
     fused tier; f32 on every shape, c64 on 2x4, and f32 on 2x4 under the
-    bf16x3 split-GEMM tier (B6's and B8's twins, the narrow update and the
-    'xla' update all split in ``tile.contract``)."""
+    bf16x3 and bf16x6 split-GEMM tiers (B6's and B8's twins, the narrow
+    update of column k+1 and the 'xla' update all split in
+    ``tile.contract``)."""
     pytest.importorskip("jax")
     n, mb = 60, 8
     a = np.tril(random_hermitian_pd(n, dtype, 41)) + np.triu(random_matrix(n, n, dtype, 42), 1)
@@ -377,6 +387,103 @@ def test_cpu_fused_tier_launches_nothing():
     _port_factor((2, 2), np.tril(random_hermitian_pd(32, np.float64, 3)), 8,
                  collectives_impl="pallas", cholesky_lookahead=True, trailing_update_impl="fused")
     assert set(ops.launch_counts().values()) == {0}
+
+
+# -------------------------------------- the slice count the wrappers launch
+
+
+def _step_fields() -> list:
+    """B8's argument names in the library's order, read from the X-macro
+    lists of ``csrc/consume.cu`` as ``dlaf_fused_step_fields`` joins them."""
+    src = (_build.SRC_DIR / "consume.cu").read_text()
+
+    def names(macro):
+        body = re.search(rf"#define {macro}\(X\)((?:[^\n]*\\\n)*[^\n]*)", src).group(1)
+        return re.findall(r"X\(\w+, (\w+)\)", body)
+
+    return (names("DLAF_STEP_HEAD")
+            + [f"ring{q}_{f}" for q in range(4) for f in names("DLAF_RING_FIELDS")]
+            + names("DLAF_STEP_TAIL"))
+
+
+class _FakeLib:
+    """Stands in for the kernel library: records every call, launches
+    nothing, returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def dlaf_fused_step_fields(self):
+        return ",".join(_step_fields()).encode()
+
+    def __getattr__(self, name):
+        if not name.startswith("dlaf_"):
+            raise AttributeError(name)
+
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("tier", ["default", "bf16x3", "bf16x6", "auto"])
+def test_ring_wrappers_launch_the_resolved_slices(tier, monkeypatch):
+    """B6's and B8's CUDA wrappers, driven on a CPU grid with the library
+    handle replaced (and the device checks, the card's SM count and its
+    ring buffers stood in for), hand their launch the slice count of the
+    tier ``tile.contract`` resolves for their update: 0 at 'default', 2 at
+    'bf16x3', 3 at 'bf16x6'; 'auto', with the operands taken for the
+    card's, splits at K >= 512 only (bf16x3 for f32, bf16x6 for f64), as
+    the JAX rule has it, so that red2band's K = 128 and M5's K = 192 stay
+    at 'default'.  The split launches are counted apart."""
+    lib = _FakeLib()
+    monkeypatch.setattr(tu, "_plain", lambda *ts: False)
+    monkeypatch.setattr(tu, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(px, "_max_blocks", lambda rt: 4)
+    monkeypatch.setattr(_ranks.Runtime, "zeros",
+                        lambda self, numel, dtype: torch.zeros(numel, dtype=dtype))
+    monkeypatch.setattr(_build, "lib", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    if tier == "auto":
+        monkeypatch.setattr(tune, "on_accelerator", lambda device: True)
+    grid = Grid.create((2, 2), device="cpu")
+
+    def want(dtype, k):
+        if tier == "auto":
+            return 0 if k < tile.AUTO_SPLIT_MIN_K else (3 if dtype == torch.float64 else 2)
+        return {"default": 0, "bf16x3": 2, "bf16x6": 3}[tier]
+
+    def b6(x, y, cp):
+        h = torch.ones(y.shape[0], 1, dtype=torch.int32)
+        tu.dma_ring_consume(x, y, h, cp, torch.zeros_like(h), "r")
+
+    def b8(x, cp):
+        ltc = x.shape[1]
+        tu.fused_step(x, cp.clone(), torch.ones(ltc, dtype=torch.bool),
+                      torch.zeros(ltc, dtype=torch.bool), cp,
+                      torch.ones(x.shape[0], dtype=torch.bool), (0, 0, 0, 0, 0))
+
+    with knobs(jax_too=False, gemm_precision=tier, collectives_impl="pallas"):
+        for dtype in (torch.float32, torch.float64):
+            for k in (128, 512):
+                before = {**ops.launch_counts(), **ops.sub_counts()}
+                lib.calls.clear()
+                coll.spmd(grid, b6, torch.zeros(2, 2, 1, 2, 8, 8, dtype=dtype),
+                          torch.zeros(2, 2, 2, 8, k, dtype=dtype),
+                          torch.zeros(2, 2, 1, 8, k, dtype=dtype))
+                coll.spmd(grid, b8, torch.zeros(2, 2, 1, 1, k, k, dtype=dtype),
+                          torch.zeros(2, 2, 1, k, k, dtype=dtype))
+                suffix = "f64" if dtype == torch.float64 else "f32"
+                ns = want(dtype, k)
+                # the slice count: B6's 22nd argument, B8's 2nd
+                got = sorted((name, args[21] if "consume" in name else args[1])
+                             for name, args in lib.calls)
+                assert got == ([(f"dlaf_dma_ring_consume_{suffix}", ns)] * 4
+                               + [(f"dlaf_fused_step_{suffix}", ns)] * 4)
+                after = {**ops.launch_counts(), **ops.sub_counts()}
+                assert {k_: after[k_] - before[k_] for k_ in after if after[k_] != before[k_]} \
+                    == {"dma_ring_consume": 4, "fused_step": 4,
+                        **({"dma_ring_consume_split": 4, "fused_step_split": 4} if ns else {})}
 
 
 # ------------------------------------------------------------ card only
@@ -539,3 +646,143 @@ def test_cuda_consume_skips_the_slots_it_does_not_apply():
     assert torch.equal(torch.isnan(gx[..., :2, :, :]), torch.isnan(ref[0][..., :2, :, :]))
     assert _rel_err((gx[..., :2, :, :] - x[..., :2, :, :])[both].numpy(),
                     (ref[0][..., :2, :, :] - x[..., :2, :, :])[both].numpy()) <= tol_for(np.float32, mb)
+
+
+def _one_per_row(t, seed):
+    """``t[..., rows, K]`` with one non-zero left in each row, so that every
+    output of the update ``x -= cp @ t^T`` is a single product: float32
+    accumulation then adds no rounding, and a split body must give the
+    plain split's bits."""
+    g = torch.Generator().manual_seed(seed)
+    k = torch.randint(0, t.shape[-1], t.shape[:-1] + (1,), generator=g)
+    keep = torch.zeros(t.shape, dtype=torch.bool).scatter_(-1, k, True)
+    return torch.where(keep, t, torch.zeros((), dtype=t.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis,dtype,tier", [("r", torch.float32, "bf16x3"),
+                                             ("c", torch.float32, "bf16x3"),
+                                             ("c", torch.float64, "bf16x6")])
+def test_cuda_consume_split_matches_twin(axis, dtype, tier):
+    """B6's split body (``gemm_precision`` bf16x3 / bf16x6) on a 2x4 grid
+    against its twin at the tier on a CPU grid: the merged panel and have
+    bitwise; the applied update within tol_for(f32, K) on normal operands
+    (a split tier is float32 class); on the split probe bit for bit, and
+    more than 1e-10 from the 'default' twin's (a body that ran the default
+    tier fails).  Over 'c' the ring has 3 hops, so landing slots are
+    reused (the split body reads them through L2).  Every launch runs the
+    split instantiation."""
+    dev = _cuda()
+    pr, pc, ltr, slots, mb = 2, 4, 3, 6, 96
+    n = pr if axis == "r" else pc
+    gen = torch.Generator().manual_seed(31)
+    x = torch.randn(pr, pc, ltr, slots, mb, mb, generator=gen, dtype=dtype)
+    cp = torch.randn(pr, pc, ltr, mb, mb, generator=gen, dtype=dtype)
+    y = torch.randn(pr, pc, slots, mb, mb, generator=gen, dtype=dtype)
+    h = torch.zeros(pr, pc, slots, 1, dtype=torch.int32)
+    z = torch.zeros(pr, pc, slots, 1, dtype=torch.int32)
+    for s in range(slots - 1):
+        if axis == "r":
+            h[s % n, :, s] = 1
+        else:
+            h[:, s % n, s] = 1
+    z[:, :, 1] = 1
+    cpu, gpu = Grid.create((pr, pc), device="cpu"), Grid.create((pr, pc), device=dev)
+    for probe in (False, True):
+        yy = _one_per_row(y, 5) if probe else y
+        with knobs(jax_too=False, gemm_precision=tier):
+            ref = _consume_on_ranks(cpu, x, cp, yy, h, z, axis)
+            before = (tu.consume_launches, tu.consume_split_launches)
+            got = _consume_on_ranks(gpu, *(t.to(dev) for t in (x, cp, yy, h, z)), axis=axis,
+                                    consume=tu.dma_ring_consume)
+            torch.cuda.synchronize()
+        assert (tu.consume_launches, tu.consume_split_launches) == (before[0] + pr * pc,
+                                                                    before[1] + pr * pc)
+        assert torch.equal(got[1].cpu(), ref[1]) and torch.equal(got[2].cpu(), ref[2])
+        gx = got[0].cpu()
+        if probe:
+            with knobs(jax_too=False, gemm_precision="default"):
+                default = _consume_on_ranks(cpu, x, cp, yy, h, z, axis)[0]
+            assert torch.equal(gx, ref[0])
+            assert _rel_err((gx - x).numpy(), (default - x).numpy()) > 1e-10
+        else:
+            assert _rel_err((gx - x).numpy(), (ref[0] - x).numpy()) <= tol_for(np.float32, mb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tier", [(torch.float32, "bf16x3"), (torch.float64, "bf16x6")])
+def test_cuda_fused_step_split_matches_twin(dtype, tier):
+    """B8 with its consume phase split, on a 2x4 grid (mb = 128), against
+    its twin at the tier on a CPU grid.  The column panel is the split
+    probe (one non-zero per row, so every output of the consume update,
+    column k+1's narrow update included, is one product): x and the merged
+    row panel bit for bit the twin's, x more than 1e-10 from the 'default'
+    twin's; the factor, the new panel and the diagonal tile within
+    tol_for(dtype, mb)."""
+    dev = _cuda()
+    n, mb, k = 1536, 128, 3
+    a = torch.from_numpy(np.tril(random_hermitian_pd(n, np.float64, 23))).to(dtype)
+    cpu = Grid.create((2, 4), device="cpu")
+    mat = dtt.DistributedMatrix.from_global(cpu, a, (mb, mb))
+    g = _spmd.Geometry.of(mat.dist)
+    cps = _one_per_row(torch.randn(2, 4, g.ltr, mb, mb, generator=torch.Generator().manual_seed(3),
+                                   dtype=dtype) * 0.1, 7)
+
+    def step(x, cp, rp, lkk, cp1, d1):
+        myr, myc = coll.my_rank()
+        gi = _spmd.local_row_tiles(g, myr, x.device)
+        gj = _spmd.local_col_tiles(g, myc, x.device)
+        k1 = k + 1
+        params = (k1 % g.pc, k1 % g.pr, k1 // g.pc, k1 // g.pr, k1 // g.pc)
+        got = tu.fused_step(x, *coll.transpose_panel_parts(cp, g.mt, g.ltc), gj == k1, cp,
+                            gi > k1, params)
+        for o, t in zip((rp, lkk, cp1, d1), got[1:]):
+            o.copy_(t)
+
+    outs = {}
+    for label, grid, gemm in (("cpu", cpu, tier), ("cuda", Grid.create((2, 4), device=dev), tier),
+                              ("default", cpu, "default")):
+        w = grid.device
+        args = [mat.data.clone().to(w), cps.to(w)] + [
+            torch.empty(s, dtype=dtype).to(w) for s in ((2, 4, g.ltc, mb, mb), (2, 4, mb, mb),
+                                                       tuple(cps.shape), (2, 4, mb, mb))]
+        before = (tu.step_launches, tu.fused_step_split_launches)
+        with knobs(jax_too=False, collectives_impl="pallas", gemm_precision=gemm):
+            coll.spmd(grid, step, *args)
+        if w.type == "cuda":
+            torch.cuda.synchronize()
+            assert (tu.step_launches, tu.fused_step_split_launches) == (before[0] + 8,
+                                                                        before[1] + 8)
+        outs[label] = [t.cpu() for t in [args[0]] + args[2:]]
+    got, want = outs["cuda"], outs["cpu"]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _rel_err((got[0] - mat.data).numpy(), (outs["default"][0] - mat.data).numpy()) > 1e-10
+    tol = tol_for(np.float32 if dtype == torch.float32 else np.float64, mb)
+    for gv, wv in zip(got[2:], want[2:]):
+        err = torch.linalg.vector_norm((gv - wv).double()) / torch.linalg.vector_norm(wv.double())
+        assert err <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb,kernel", [(128, "fused_step"), (96, "dma_ring_consume")])
+def test_cuda_cholesky_fused_split_matches_xla(mb, kernel):
+    """Lookahead Cholesky on a 2x4 grid of the card under bf16x3: 'fused'
+    launches B8 (mb % 128 == 0) or B6 once per step and rank, every launch
+    its split body, and its factor is within tol_for(f32, n) of the 'xla'
+    tier's (whose products split in ``tile.contract``)."""
+    dev = _cuda()
+    n = 20 * mb
+    a = torch.from_numpy(np.tril(random_hermitian_pd(n, np.float32, 19))).to(dev)
+    out = {}
+    for impl in ("xla", "fused"):
+        with knobs(jax_too=False, collectives_impl="pallas", cholesky_lookahead=True,
+                   trailing_update_impl=impl, panel_trsm_pallas=True, gemm_precision="bf16x3"):
+            grid = Grid.create((2, 4), device=dev)
+            ops.reset_launch_counts()
+            fac, info = dtt.cholesky_factorization(
+                "L", dtt.DistributedMatrix.from_global(grid, a.clone(), (mb, mb)), return_info=True)
+            out[impl] = (np.tril(fac.to_global()), int(info), ops.launch_counts(), ops.sub_counts())
+    assert out["fused"][1] == out["xla"][1] == 0
+    assert _rel_err(out["fused"][0], out["xla"][0]) <= tol_for(np.float32, n)
+    assert out["fused"][2][kernel] == out["fused"][3][f"{kernel}_split"] == 8 * (n // mb - 1)
+    assert out["xla"][2][kernel] == 0

@@ -365,28 +365,3 @@ def test_cuda_auto_splits_by_extent_and_width():
     before = tu.split_launches
     tu.trailing_update(x, a, a.clone(), tu.CHOLESKY_SUBSCRIPTS, tier="auto")
     assert tu.split_launches == before + 1
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("tier", ["bf16x3", "bf16x6"])
-def test_cuda_consume_and_step_refuse_split_tiers(tier):
-    """B6 and B8 have no split body: under a split tier their CUDA
-    wrappers raise before any launch, naming ROADMAP."""
-    dev = _cuda()
-    tp = tune.get_tune_parameters()
-    old = tp.gemm_precision
-    x = torch.zeros(2, 2, 128, 128, device=dev)
-    y = torch.zeros(2, 128, 128, device=dev)
-    cp = torch.zeros(2, 128, 128, device=dev)
-    h = torch.zeros(2, 1, dtype=torch.int32, device=dev)
-    before = (tu.consume_launches, tu.step_launches)
-    try:
-        tp.update(gemm_precision=tier)
-        with pytest.raises(ConfigurationError, match="ROADMAP"):
-            tu.dma_ring_consume(x, y, h, cp, h, "r")
-        with pytest.raises(ConfigurationError, match="ROADMAP"):
-            tu.fused_step(x, y, h, h, cp, torch.zeros(2, dtype=torch.bool, device=dev),
-                          (0, 0, 0, 0, 0))
-    finally:
-        tp.update(gemm_precision=old)
-    assert (tu.consume_launches, tu.step_launches) == before
