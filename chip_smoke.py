@@ -22,7 +22,12 @@ on failure:
    for the same work: B1 (the cluster kernel, also bit for bit the
    one-block kernel it replaced at 512 f32 and in float64, and timed in
    turns with it: old, new, new, old), B2, B3 in both lookahead forms and
-   at red2band's shapes (K = band = 128), and B10, the secular bisection,
+   at red2band's shapes (K = band = 128) and in float64, its FMA body
+   (csrc/fma_gemm.cuh) bit for bit the first body (the reference kernel)
+   and timed in turns with it, the bitwise check first shown to reject the
+   reference with its last k slice dropped; both forms of B3 and B9 at
+   ragged shapes (M, N off the 128 tile, K off the 16 slice) in f32 and
+   f64, bit for bit their reference kernels; and B10, the secular bisection,
    at each of path H's shapes (8192, S), S = 1024, 2048, 4096, 8192, on
    true secular equations; then B4 (hop merge), B5 (the pull exchange:
    M1's panel broadcast, slotted exchanges on both axes, the diagonal tile
@@ -41,6 +46,8 @@ on failure:
    narrow update -> bcast_diag_tile -> B7), and B9 (the panel contraction)
    in both forms at path I's widest step, each against its plain twin on
    a CPU grid (merged panels bitwise, the rest within tol_for(f32, nb));
+   B9 also bit for bit its reference kernel on every rank and timed in
+   turns with it;
    B3's and B9's split-tier bodies (gemm_precision bf16x3 / bf16x6; csrc/
    split_gemm.cuh) at the same shapes as their default-tier checks (B3 f32
    bf16x3 at path B's two shapes and red2band's, f64 bf16x6 at 16 x 16 x
@@ -248,6 +255,30 @@ def worst(values) -> float:
     could pass a NaN)."""
     values = list(values)
     return float("nan") if any(v != v for v in values) else max(values)
+
+
+def timed_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean time of one call of ``fn`` in ms, by CUDA events over ``iters``
+    calls after ``warmup`` untimed ones."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float):
+    """The card's least time in ms for ``flops`` f32 operations outside the
+    tensor cores and ``nbytes`` of device memory, and which of the two it is."""
+    t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def launch_counts() -> dict:
@@ -898,7 +929,10 @@ def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS) -
     0 made by B7): B6 at M5's nb=192 on its padded geometry, and again at
     M4's nb=512 as B8's consume part; B8 on M4's, so that it factors a
     positive definite tile.  B9's are standard normal, at path I's widest
-    step.  ``only`` picks the kernels to check (the planted-fault runs of
+    step; its FMA body is also held bit for bit to the reference kernel (the
+    first body) on every rank, the check first shown to reject the reference
+    with its last k slice dropped, and timed in turns with it.  ``only``
+    picks the kernels to check (the planted-fault runs of
     scripts/planted_faults.py take one).  Returns their report entries."""
     import torch
 
@@ -1139,23 +1173,45 @@ def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS) -
         small_l = torch.randn(pr, pc, 8, nb, nb, generator=gen, device=dev)
         small_u = torch.randn(pr, pc, 16, nb, nb, generator=gen, device=dev)
         forms = {}
+        kd = _k_dropped(nb)
         for sub, ops_ in ((tu.TRTRI_LOWER_SUBSCRIPTS, [big, small_l]),
                           (tu.TRTRI_UPPER_SUBSCRIPTS, [small_u, big])):
             fn = lambda a, b, sub=sub: (tu.panel_contract(a, b, sub),)  # noqa: E731
+            fn_ref = lambda a, b, sub=sub: (tu.panel_contract_reference(a, b, sub),)  # noqa: E731
             got = on_ranks(gpu, fn, ops_)[0]
+            # before/after: the reference kernel (the first body) on the same
+            # operands, and with its last k slice dropped (a [..., K], b [..., K, N])
+            before = on_ranks(gpu, fn_ref, ops_)[0]
+            dropped = on_ranks(gpu, fn_ref, [ops_[0][..., :kd].contiguous(),
+                                             ops_[1][..., :kd, :].contiguous()])[0]
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             ref = on_ranks(cpu, fn, to_cpu(ops_))[0]
             plain_ms = (time.perf_counter() - t0) * 1e3
+            verdict = fma_verdict(f"panel_contract[{sub}]", got, before, dropped, ref.to(dev), tol)
+            bad += verdict.pop("problems")
+            del before, dropped
             err_abs, rel = _rel_frob(got, ref)
-            span, enq = grid_span_ms(gpu, fn, ops_, 5)
+            turns = [grid_span_ms(gpu, fn_ref, ops_, 5), grid_span_ms(gpu, fn, ops_, 5),
+                     grid_span_ms(gpu, fn, ops_, 5), grid_span_ms(gpu, fn_ref, ops_, 5)]
+            span, enq = (turns[1][0] + turns[2][0]) / 2, turns[1][1]
             a0, b0 = ops_[0][0, 0], ops_[1][0, 0]
             lib_ms = timed_ms(lambda: [torch.einsum(sub, a0, b0) for _ in range(ranks)], 3)
             flops9 = ranks * 2.0 * 16 * 8 * nb ** 3
             small = ops_[1 if sub == tu.TRTRI_LOWER_SUBSCRIPTS else 0]
             nbytes9 = ranks * (big[0, 0].numel() + small[0, 0].numel() + got[0, 0].numel()) * 4
             b9, by9 = bound(flops9, nbytes9)
+            vec = _vec_copies(ops_[0], ops_[1], nb, nb)
             forms[sub] = {"shape": {"a": list(ops_[0].shape[2:]), "b": list(ops_[1].shape[2:])},
                           "max_abs_err": err_abs, "rel_err": rel, "tol": tol, "kernel_ms": span,
+                          "reference_ms": (turns[0][0] + turns[3][0]) / 2,
+                          "turns_ms": {"reference": [turns[0][0], turns[3][0]],
+                                       "fma_body": [turns[1][0], turns[2][0]]},
+                          **{k: verdict[k] for k in ("bitwise_vs_reference", "elements_differing",
+                                                     "dropped_slice_rejected")},
+                          "copies": "16-byte" if vec else "element",
+                          "ptxas": _fma_ptxas("panel_contract_fma_kernel", "float",
+                                              0 if sub == tu.TRTRI_LOWER_SUBSCRIPTS else 1, vec),
                           "enqueue_ms_of_5_calls": enq, "plain_ms": plain_ms, "library_ms": lib_ms,
                           "bound_ms": b9, "bound_by": by9}
             emit({"kernel": "panel_contract", "subscripts": sub, "ranks": ranks, **forms[sub],
@@ -1434,6 +1490,230 @@ def path_fused(stamp: dict, a_glob, factor_residual, res_tol, kept: dict) -> dic
     if counts["panel_contract"] != ranks * (N_TIERS // NB):
         fail(f"path I (upper) launched B9 {counts['panel_contract']} times: {counts}")
     return counts_by
+
+#: the k slice of B3's and B9's bodies: the before/after checks' wrong
+#: answer is the reference with its last slice dropped
+KBK_FMA = 16
+
+
+def _k_dropped(k: int) -> int:
+    """The depth left when the last (possibly partial) k slice is dropped."""
+    return (k - 1) // KBK_FMA * KBK_FMA
+
+
+def _fma_ptxas(kernel: str, dtype_name: str, *flags: bool) -> dict:
+    """ptxas's registers and spills of one instantiation of the FMA body's
+    kernels (``trailing_update_fma_kernel<float, true, true>``, ...)."""
+    args = ", ".join([dtype_name] + [str(f).lower() if isinstance(f, bool) else str(f)
+                                      for f in flags])
+    return _ptxas_of(f"{kernel}<{args}>")
+
+
+def _vec_copies(a, b, lda: int, ldb: int) -> bool:
+    """Whether B3's / B9's launcher takes the 16-byte copies (its
+    ``rows_aligned16``): both bases and both row lengths on 16 bytes."""
+    e = a.element_size()
+    return (a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0 and lda * e % 16 == 0
+            and ldb * e % 16 == 0)
+
+
+def fma_verdict(label: str, new, ref, dropped, plain, tol: float, base=None) -> dict:
+    """The before/after checks of one B3 or B9 case: ``new`` (the FMA body)
+    bit for bit ``ref`` (the first body on the same inputs), the same check
+    first shown to reject ``dropped`` (the reference with its last k slice
+    dropped), and ``new`` within ``tol`` of ``plain`` (relative Frobenius;
+    B3 compares the applied updates, ``x - base``)."""
+    import torch
+
+    def bits(t):  # the raw words: signed zeros and NaN payloads count
+        return t.view(torch.int32 if t.element_size() == 4 else torch.int64)
+
+    rejects = not torch.equal(bits(dropped), bits(ref))
+    bitwise = torch.equal(bits(new), bits(ref))
+    differ = 0 if bitwise else int((bits(new) != bits(ref)).sum())
+    if base is not None:
+        new, plain = new - base, plain - base
+    err_abs, rel = _rel_dev(new, plain)
+    problems = []
+    if not rejects:
+        problems.append("the bitwise check accepts the reference with its last k slice dropped")
+    if not bitwise:
+        problems.append(f"not bit for bit the reference ({differ} of {ref.numel()} elements "
+                        "differ)")
+    if not rel <= tol:
+        problems.append(f"rel err vs plain {rel:.3e} > tol {tol:.3e}")
+    return {"bitwise_vs_reference": bitwise, "elements_differing": differ,
+            "dropped_slice_rejected": rejects, "max_abs_err": err_abs, "rel_err": rel, "tol": tol,
+            "problems": [f"{label}: {p}" for p in problems]}
+
+
+def trailing_update_phase(stamp: dict, bound, timed_ms, kgen) -> dict:
+    """Phase 2b: B3 at the 'default' tier, the FMA body of csrc/fma_gemm.cuh,
+    in both lookahead forms at path B's shapes (32 x 32 and 32 x 1 pairs of
+    512^2 tiles) and at red2band's (16 x 16, K = band = 128), f32, and in
+    f64 at 8 x 8 x 512^2: bit for bit the reference kernel (the first body,
+    ``trailing_update_reference``) on the same inputs, the bitwise check
+    first shown to reject the reference with its last k slice dropped,
+    and the applied update within tol_for(dtype, K) of the plain version;
+    times (CUDA events) of the kernel and the reference in turns (ref, new,
+    new, ref), the plain version, the yardstick (one in-place ``baddbmm_``
+    over the pair batch, operands expanded beforehand), the bound, and
+    ptxas's registers and spills of the instantiation.  Standard normal
+    operands.  Returns the report entry (path B's 32 x 32 form first)."""
+    import torch
+
+    from dlaf_tpu_torch.ops import trailing_update as tu
+    from dlaf_tpu_torch.testing import tol_for
+
+    dev = kgen.device
+    mt = N // NB
+    cases = [  # (label, subscripts, L, C, M, N, K, dtype, iters)
+        (tu.CHOLESKY_SUBSCRIPTS, tu.CHOLESKY_SUBSCRIPTS, mt, mt, NB, NB, NB, torch.float32, 5),
+        (tu.TRSM_SUBSCRIPTS, tu.TRSM_SUBSCRIPTS, mt, 1, NB, NB, NB, torch.float32, 50),
+        (f"{tu.CHOLESKY_SUBSCRIPTS} (red2band, K=128)", tu.CHOLESKY_SUBSCRIPTS, NH // NBH,
+         NH // NBH, NBH, NBH, 128, torch.float32, 20),
+        (f"{tu.CHOLESKY_SUBSCRIPTS} (f64)", tu.CHOLESKY_SUBSCRIPTS, 8, 8, NB, NB, NB,
+         torch.float64, 5),
+    ]
+    forms, bad = {}, []
+    for label, sub, L, C, M, N_, K, dtype, iters in cases:
+        nk = sub == tu.CHOLESKY_SUBSCRIPTS
+        kd = _k_dropped(K)
+        x0 = torch.randn(L, C, M, N_, generator=kgen, device=dev, dtype=dtype)
+        a_op = torch.randn(L, M, K, generator=kgen, device=dev, dtype=dtype)
+        b_op = torch.randn(*((C, N_, K) if nk else (C, K, N_)), generator=kgen, device=dev,
+                           dtype=dtype)
+        a_d = a_op[..., :kd].contiguous()
+        b_d = (b_op[..., :kd] if nk else b_op[:, :kd]).contiguous()
+        xk = tu.trailing_update(x0.clone(), a_op, b_op, sub)
+        xr = tu.trailing_update_reference(x0.clone(), a_op, b_op, sub)
+        xd = tu.trailing_update_reference(x0.clone(), a_d, b_d, sub)
+        xp = tu.trailing_update_plain(x0.clone(), a_op, b_op, sub)
+        torch.cuda.synchronize()
+        verdict = fma_verdict(f"trailing_update[{label}]", xk, xr, xd, xp,
+                              tol_for(str(dtype).replace("torch.", ""), K), base=x0)
+        bad += verdict.pop("problems")
+        del xr, xd, xp, a_d, b_d, x0
+        vec = _vec_copies(a_op, b_op, K, K if nk else N_)
+        a_exp = a_op.unsqueeze(1).expand(L, C, M, K).reshape(L * C, M, K)
+        b_kn = b_op.transpose(-1, -2) if nk else b_op
+        b_exp = b_kn.unsqueeze(0).expand(L, C, K, N_).reshape(L * C, K, N_)
+        xv = xk.view(L * C, M, N_)
+        b_ms, b_by = bound(2.0 * L * C * M * N_ * K,
+                           (2 * L * C * M * N_ + L * M * K + C * N_ * K) * a_op.element_size())
+        new = lambda: tu.trailing_update(xk, a_op, b_op, sub)  # noqa: E731
+        old = lambda: tu.trailing_update_reference(xk, a_op, b_op, sub)  # noqa: E731
+        turns = [timed_ms(old, iters), timed_ms(new, iters), timed_ms(new, iters),
+                 timed_ms(old, iters)]
+        forms[label] = {
+            "shape": {"x": [L, C, M, N_], "a": list(a_op.shape), "b": list(b_op.shape)},
+            "dtype": str(dtype).replace("torch.", ""), **verdict,
+            "kernel_ms": (turns[1] + turns[2]) / 2, "reference_ms": (turns[0] + turns[3]) / 2,
+            "turns_ms": {"reference": [turns[0], turns[3]], "fma_body": [turns[1], turns[2]]},
+            "copies": "16-byte" if vec else "element",
+            "ptxas": _fma_ptxas("trailing_update_fma_kernel",
+                                "float" if dtype == torch.float32 else "double", nk, vec),
+            "plain_ms": timed_ms(lambda: tu.trailing_update_plain(xk, a_op, b_op, sub), iters),
+            "library_ms": timed_ms(lambda: xv.baddbmm_(a_exp, b_exp, alpha=-1), iters),
+            "library_call": "torch.Tensor.baddbmm_", "bound_ms": b_ms, "bound_by": b_by,
+        }
+        emit({"kernel": "trailing_update", "subscripts": label, **forms[label], **stamp})
+        del xk, xv, a_op, b_op, a_exp, b_exp
+        torch.cuda.empty_cache()
+    if bad:
+        fail("trailing_update (the FMA body): " + "; ".join(bad))
+    return {**forms[tu.CHOLESKY_SUBSCRIPTS], "forms": forms}
+
+
+#: the ragged shapes of B3's and B9's FMA body (L, C, M, N, K): M and N off
+#: the 128 tile, K off the 16 slice (130: element copies) and on it (128:
+#: 16-byte copies, N = 200 a multiple of 4)
+FMA_EDGE_SHAPES = ((3, 2, 200, 192, 130), (2, 3, 192, 200, 128), (2, 2, 200, 200, 132))
+
+
+def fma_edge_phase(stamp: dict, timed_ms, kgen) -> dict:
+    """Phase 2b': B3 (both forms) and B9 (both forms) at the ragged shapes
+    FMA_EDGE_SHAPES, in f32 and f64: bit for bit the reference kernels, the
+    check first shown to reject the reference with its last k slice
+    dropped, and within tol_for(dtype, depth) of the plain versions.  Also
+    B9 in f64 at form 0, 4 x 8 slots of 512^2 (timed in turns with the
+    reference).  Returns the cases' records."""
+    import torch
+
+    from dlaf_tpu_torch.ops import trailing_update as tu
+    from dlaf_tpu_torch.testing import tol_for
+
+    dev = kgen.device
+    cases, bad = {}, []
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=kgen, device=dev, dtype=dtype)
+
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).replace("torch.", "")
+        for L, C, M, N_, K in FMA_EDGE_SHAPES:
+            kd = _k_dropped(K)
+            for sub in (tu.CHOLESKY_SUBSCRIPTS, tu.TRSM_SUBSCRIPTS):
+                nk = sub == tu.CHOLESKY_SUBSCRIPTS
+                x0, a_op = randn(L, C, M, N_, dtype=dtype), randn(L, M, K, dtype=dtype)
+                b_op = randn(*((C, N_, K) if nk else (C, K, N_)), dtype=dtype)
+                b_d = (b_op[..., :kd] if nk else b_op[:, :kd]).contiguous()
+                label = f"trailing_update[{sub}] {dname} {[L, C, M, N_, K]}"
+                v = fma_verdict(
+                    label, tu.trailing_update(x0.clone(), a_op, b_op, sub),
+                    tu.trailing_update_reference(x0.clone(), a_op, b_op, sub),
+                    tu.trailing_update_reference(x0.clone(), a_op[..., :kd].contiguous(), b_d,
+                                                 sub),
+                    tu.trailing_update_plain(x0.clone(), a_op, b_op, sub), tol_for(dname, K),
+                    base=x0)
+                bad += v.pop("problems")
+                cases[label] = {**v, "copies": "16-byte" if _vec_copies(
+                    a_op, b_op, K, K if nk else N_) else "element"}
+            for sub in (tu.TRTRI_LOWER_SUBSCRIPTS, tu.TRTRI_UPPER_SUBSCRIPTS):
+                if sub == tu.TRTRI_LOWER_SUBSCRIPTS:  # a [L, C, M, K], b [C, K, N]
+                    a_op, b_op = randn(L, C, M, K, dtype=dtype), randn(C, K, N_, dtype=dtype)
+                else:  # a [L, M, K], b [L, C, K, N]
+                    a_op, b_op = randn(L, M, K, dtype=dtype), randn(L, C, K, N_, dtype=dtype)
+                a_d = a_op[..., :kd].contiguous()
+                b_d = b_op[..., :kd, :].contiguous()
+                label = f"panel_contract[{sub}] {dname} {[L, C, M, N_, K]}"
+                depth = (C if sub == tu.TRTRI_LOWER_SUBSCRIPTS else L) * K
+                v = fma_verdict(label, tu.panel_contract(a_op, b_op, sub),
+                                tu.panel_contract_reference(a_op, b_op, sub),
+                                tu.panel_contract_reference(a_d, b_d, sub),
+                                tu.panel_contract_plain(a_op, b_op, sub), tol_for(dname, depth))
+                bad += v.pop("problems")
+                cases[label] = {**v, "copies": "16-byte" if _vec_copies(a_op, b_op, K, N_)
+                                else "element"}
+    torch.cuda.synchronize()
+    # B9 in f64 at a table-like shape, timed in turns with the reference
+    sub, L, C, nb = tu.TRTRI_LOWER_SUBSCRIPTS, 4, 8, NB
+    a_op, b_op = randn(L, C, nb, nb, dtype=torch.float64), randn(C, nb, nb, dtype=torch.float64)
+    kd = _k_dropped(nb)
+    label = f"panel_contract[{sub}] float64 {[L, C, nb, nb, nb]}"
+    v = fma_verdict(label, tu.panel_contract(a_op, b_op, sub),
+                    tu.panel_contract_reference(a_op, b_op, sub),
+                    tu.panel_contract_reference(a_op[..., :kd].contiguous(),
+                                                b_op[:, :kd].contiguous(), sub),
+                    tu.panel_contract_plain(a_op, b_op, sub), tol_for("float64", C * nb))
+    bad += v.pop("problems")
+
+    new = lambda: tu.panel_contract(a_op, b_op, sub)  # noqa: E731
+    old = lambda: tu.panel_contract_reference(a_op, b_op, sub)  # noqa: E731
+    turns = [timed_ms(old, 5), timed_ms(new, 5), timed_ms(new, 5), timed_ms(old, 5)]
+    cases[label] = {**v, "copies": "16-byte", "kernel_ms": (turns[1] + turns[2]) / 2,
+                    "reference_ms": (turns[0] + turns[3]) / 2,
+                    "turns_ms": {"reference": [turns[0], turns[3]],
+                                 "fma_body": [turns[1], turns[2]]},
+                    "ptxas": _fma_ptxas("panel_contract_fma_kernel", "double", 0, True)}
+    for label, rec in cases.items():
+        emit({"kernel": "fma_body_edges", "case": label, **rec, **stamp})
+    del a_op, b_op
+    torch.cuda.empty_cache()
+    if bad:
+        fail("the FMA body of B3 and B9 at ragged shapes and in f64: " + "; ".join(bad))
+    return cases
+
 
 SPLIT_KERNELS = ("trailing_update_split", "panel_contract_split")
 
@@ -2447,27 +2727,13 @@ def main() -> int:
           "chase_library": os.path.relpath(chase_path, HERE),
           "chase_build_and_load_s": round(time.perf_counter() - t1, 3),
           "chase_source": os.path.relpath(native.SOURCE, HERE)})
-    # registers and spills of the ring consumers' instantiations (-Xptxas -v)
+    # registers and spills of the ring consumers', the split bodies' and the
+    # FMA body's instantiations (-Xptxas -v)
     emit({"phase": "ptxas", "kernels": [e for e in _build.ptxas_report
                                         if "consume_kernel" in e["kernel"]
                                         or "fused_step_kernel" in e["kernel"]
-                                        or "split_kernel" in e["kernel"]]})
-
-    def timed_ms(fn, iters: int, warmup: int = 1) -> float:
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-
-    def bound(flops: float, nbytes: float):
-        t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
-        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+                                        or "split_kernel" in e["kernel"]
+                                        or "_fma_kernel" in e["kernel"]]})
 
     def rel_err(got, ref) -> tuple[float, float]:
         """Max abs error, and the Frobenius norm of the error over ref's."""
@@ -2511,79 +2777,11 @@ def main() -> int:
     report["panel_trsm"] = rec
     del ell, ell_t, pb, k_out, p_out
 
-    # B3 trailing update, both forms at their lookahead shapes, standard
-    # normal operands; the applied updates (x - x0) are compared
-    mt = n // nb
-    forms = {}
-    for sub, c in ((trailing_update.CHOLESKY_SUBSCRIPTS, mt), (trailing_update.TRSM_SUBSCRIPTS, 1)):
-        L, C, M, N_, K = mt, c, nb, nb, nb
-        b_shape = (C, N_, K) if sub == trailing_update.CHOLESKY_SUBSCRIPTS else (C, K, N_)
-        x0 = torch.randn(L, C, M, N_, generator=kgen, device=dev, dtype=f32)
-        a_op = torch.randn(L, M, K, generator=kgen, device=dev, dtype=f32)
-        b_op = torch.randn(*b_shape, generator=kgen, device=dev, dtype=f32)
-        xk, xp = x0.clone(), x0.clone()
-        trailing_update.trailing_update(xk, a_op, b_op, sub)
-        trailing_update.trailing_update_plain(xp, a_op, b_op, sub)
-        torch.cuda.synchronize()
-        err_abs, err = rel_err(xk.sub_(x0), xp.sub_(x0))
-        tol = tol_for("float32", K)
-        del xp, x0
-        # yardstick: one in-place baddbmm over the pair batch, operands
-        # expanded to the batch beforehand
-        a_exp = a_op.unsqueeze(1).expand(L, C, M, K).reshape(L * C, M, K)
-        b_kn = b_op.transpose(-1, -2) if sub == trailing_update.CHOLESKY_SUBSCRIPTS else b_op
-        b_exp = b_kn.unsqueeze(0).expand(L, C, K, N_).reshape(L * C, K, N_)
-        xv = xk.view(L * C, M, N_)
-        b_ms, b_by = bound(2.0 * L * C * M * N_ * K,
-                           (2 * L * C * M * N_ + L * M * K + C * N_ * K) * 4)
-        iters = 5 if L * C > 64 else 50
-        forms[sub] = {
-            "shape": {"x": [L, C, M, N_], "a": list(a_op.shape), "b": list(b_op.shape)},
-            "max_abs_err": err_abs, "rel_err": err, "tol": tol,
-            "kernel_ms": timed_ms(lambda: trailing_update.trailing_update(xk, a_op, b_op, sub), iters),
-            "plain_ms": timed_ms(lambda: trailing_update.trailing_update_plain(xk, a_op, b_op, sub),
-                                 iters),
-            "library_ms": timed_ms(lambda: xv.baddbmm_(a_exp, b_exp, alpha=-1), iters),
-            "library_call": "torch.Tensor.baddbmm_", "bound_ms": b_ms, "bound_by": b_by,
-        }
-        emit({"kernel": "trailing_update", "subscripts": sub, **forms[sub], **stamp})
-        del xk, xv, a_op, b_op, a_exp, b_exp
-        if not err <= tol:
-            fail(f"trailing_update[{sub}] kernel vs plain: rel err {err:.3e} > tol {tol:.3e}")
-    # B3 at red2band's shapes (path H): x[i, j] -= w2[i] @ v[j]^T over the
-    # first trailing window, K = band = 128, the 'iab,jcb->ijac' form twice
-    # per panel
-    L, C, M, N_, K = NH // NBH, NH // NBH, NBH, NBH, 128
-    sub = trailing_update.CHOLESKY_SUBSCRIPTS
-    x0 = torch.randn(L, C, M, N_, generator=kgen, device=dev, dtype=f32)
-    a_op = torch.randn(L, M, K, generator=kgen, device=dev, dtype=f32)
-    b_op = torch.randn(C, N_, K, generator=kgen, device=dev, dtype=f32)
-    xk, xp = x0.clone(), x0.clone()
-    trailing_update.trailing_update(xk, a_op, b_op, sub)
-    trailing_update.trailing_update_plain(xp, a_op, b_op, sub)
-    torch.cuda.synchronize()
-    err_abs, err = rel_err(xk.sub_(x0), xp.sub_(x0))
-    tol = tol_for("float32", K)
-    del xp, x0
-    a_exp = a_op.unsqueeze(1).expand(L, C, M, K).reshape(L * C, M, K)
-    b_exp = b_op.transpose(-1, -2).unsqueeze(0).expand(L, C, K, N_).reshape(L * C, K, N_)
-    xv = xk.view(L * C, M, N_)
-    b_ms, b_by = bound(2.0 * L * C * M * N_ * K, (2 * L * C * M * N_ + L * M * K + C * N_ * K) * 4)
-    red2band_form = f"{sub} (red2band, K={K})"
-    forms[red2band_form] = {
-        "shape": {"x": [L, C, M, N_], "a": list(a_op.shape), "b": list(b_op.shape)},
-        "max_abs_err": err_abs, "rel_err": err, "tol": tol,
-        "kernel_ms": timed_ms(lambda: trailing_update.trailing_update(xk, a_op, b_op, sub), 20),
-        "plain_ms": timed_ms(lambda: trailing_update.trailing_update_plain(xk, a_op, b_op, sub), 20),
-        "library_ms": timed_ms(lambda: xv.baddbmm_(a_exp, b_exp, alpha=-1), 20),
-        "library_call": "torch.Tensor.baddbmm_", "bound_ms": b_ms, "bound_by": b_by,
-    }
-    emit({"kernel": "trailing_update", "subscripts": red2band_form, **forms[red2band_form], **stamp})
-    del xk, xv, a_op, b_op, a_exp, b_exp
-    if not err <= tol:
-        fail(f"trailing_update[{red2band_form}] kernel vs plain: rel err {err:.3e} > tol {tol:.3e}")
-    report["trailing_update"] = {**forms[trailing_update.CHOLESKY_SUBSCRIPTS], "forms": forms}
-    torch.cuda.empty_cache()
+    # B3 in both lookahead forms and at red2band's shapes, and in f64: the
+    # FMA body against the reference kernel (the first body) in turns
+    report["trailing_update"] = trailing_update_phase(stamp, bound, timed_ms, kgen)
+    # B3 and B9 at ragged shapes and in f64, bit for bit their reference kernels
+    report["fma_body_edges"] = fma_edge_phase(stamp, timed_ms, kgen)
 
     # B3 and B9 under the split tiers, at the same shapes
     report.update(split_phase(stamp, timed_ms, kgen))
@@ -2837,10 +3035,15 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         }
-        if name == "trailing_update":
+        if name in ("trailing_update", "panel_contract"):
+            # the FMA body of csrc/fma_gemm.cuh; the first body (the reference
+            # kernel, same bits) timed in turns with it in this run
+            entry["body"] = "dlaf_tpu_torch/csrc/fma_gemm.cuh"
+            entry["reference_ms"] = r["reference_ms"]
             entry["max_abs_err"] = max(f["max_abs_err"] for f in r["forms"].values())
-            entry["forms"] = {s: {k: f[k] for k in ("kernel_ms", "plain_ms", "library_ms",
-                                                    "bound_ms", "max_abs_err")}
+            entry["forms"] = {s: {k: f[k] for k in ("kernel_ms", "reference_ms", "plain_ms",
+                                                    "library_ms", "bound_ms", "max_abs_err",
+                                                    "bitwise_vs_reference")}
                               for s, f in r["forms"].items()}
         if name == "merge_hop":
             # B4's select runs inside every B5 pull and every hop of B6, B7 and B8; its own
@@ -2873,11 +3076,6 @@ def main() -> int:
         if name == "fused_step":
             entry["max_abs_err"] = r["max_abs_err"]
             entry["two_piece_ms"] = r["two_piece_ms"]
-        if name == "panel_contract":
-            entry["max_abs_err"] = max(f["max_abs_err"] for f in r["forms"].values())
-            entry["forms"] = {s: {k: f[k] for k in ("kernel_ms", "plain_ms", "library_ms",
-                                                    "bound_ms", "max_abs_err")}
-                              for s, f in r["forms"].items()}
         if name in SPLIT_KERNELS + CONSUME_SPLIT_KERNELS:
             # the split-tier body (csrc/split_gemm.cuh) of B3, B9, B6 and B8, its
             # launches a share of theirs; the yardstick is tile.contract at the tier

@@ -9,14 +9,20 @@
 // with x [L, C, M, N] and a [L, M, K], all row-major.
 //
 // What bounds it on the H100: operations.  At N=16384, nb=512 (x is
-// [32, 32, 512, 512]) one update is 275 GFlop over 2.2 GB.  The design is a
-// plain shared-memory-tiled FMA GEMM, no tensor cores yet: a 256-thread
-// block computes one 64 x 64 tile of one (i, j) pair, staging 16-deep k
-// slices of a and b in shared memory, each thread a 4 x 4 register tile.
-// The grid is one-dimensional, L*C*ceil(M/64)*ceil(N/64) blocks (65536 at
-// N=16384), so it never meets the 65535 limit of gridDim.y and gridDim.z.
-// Masked zero slots are computed like any other, as the TPU kernel does.
-// The tile body is csrc/trailing_update.cuh, shared with B6, B8 and B9.
+// [32, 32, 512, 512]) one update is 275 GFlop over 2.2 GB, in full f32 (the
+// default tier may not use the tensor cores).  A 256-thread block computes
+// one 128 x 128 tile (f64: 64 x 64) of one (i, j) pair with the FMA body
+// of csrc/fma_gemm.cuh: 8 x 8 outputs a thread, k slices copied by
+// cp.async into a four-stage shared-memory ring.  The grid is
+// one-dimensional, L*C*ceil(M/128)*ceil(N/128) blocks, so it never meets
+// the 65535 limit of gridDim.y and gridDim.z.  Masked zero slots are
+// computed like any other, as the TPU kernel does.
+//
+// The first body, csrc/trailing_update.cuh's dlaf_tu::tile_gemm (64 x 64
+// tiles, 4 x 4 a thread, one unpipelined stage of scalar loads), stays in
+// B6 and B8 and in the reference kernels below (the *_ref_* entry points):
+// the new body gives its bits, and only the card's checks and scripts
+// launch the reference.
 //
 // B9 replaces dlaf_tpu/ops/pallas_trailing_update.py (panel_contract /
 // _contract_kernel): out = contract(subscripts, a, b) for the two TRTRI
@@ -26,15 +32,15 @@
 //     (a [L, C, M, K], b [C, K, N], out [L, M, N]);
 //   form 1, 'iab,ijbc->jac': out[j] = sum_i a[i] @ b[i, j]
 //     (a [L, M, K], b [L, C, K, N], out [C, M, N]).
-// The same tile body, its slot loop summing over j (or i) in one fixed
+// The same FMA body, its slot loop summing over j (or i) in one fixed
 // order, never per hop: the sum crosses slots.  Bound by operations, as B3:
 // at TRTRI's widest step on a 2x4 grid at N=16384 (a [16, 8, 512, 512]) one
 // rank's contraction is 34 GFlop over 0.5 GB.
 //
 // Under the split tiers (tier 'bf16x3' / 'bf16x6', the _update_kernel and
 // _contract_kernel bodies tracing tile.contract's bf16 split) B3 and B9
-// launch the split-tier kernels below instead: the same grid of 64 x 64
-// output tiles and the same slot loop, with the tile body of
+// launch the split-tier kernels below instead: a grid of 64 x 64 output
+// tiles and the same slot loop, with the tile body of
 // csrc/split_gemm.cuh (the slices cut as the tiles are loaded, the
 // products on the tensor cores, one float32 accumulator per term).  Their
 // bound is the tensor cores' rate: B3 at 32 x 32 x 512^2 under bf16x3 is
@@ -42,6 +48,7 @@
 
 #include <cuda_runtime.h>
 
+#include "fma_gemm.cuh"
 #include "split_gemm.cuh"
 #include "trailing_update.cuh"
 
@@ -51,6 +58,60 @@ using dlaf_tu::kBM;
 using dlaf_tu::kBN;
 using dlaf_tu::kThreads;
 
+// B3: one tile of one (i, j) pair per block, the FMA body of fma_gemm.cuh.
+// kVec: 16-byte copies (the launcher has checked the alignment).
+template <typename T, bool kBIsNK, bool kVec>
+__global__ void __launch_bounds__(dlaf_fma::kThreads)
+trailing_update_fma_kernel(T* __restrict__ x, const T* __restrict__ a, const T* __restrict__ b,
+                           int C, int M, int N, int K) {
+  extern __shared__ __align__(16) unsigned char fma_smem[];
+  using G = dlaf_fma::Geom<T, kBIsNK>;
+  const int tiles_n = (N + G::BN - 1) / G::BN, tiles_m = (M + G::BM - 1) / G::BM;
+  long long bid = blockIdx.x;
+  const int tn = (int)(bid % tiles_n);
+  bid /= tiles_n;
+  const int tm = (int)(bid % tiles_m);
+  bid /= tiles_m;
+  const int j = (int)(bid % C);
+  const long long i = bid / C;
+
+  T acc[G::TM][G::TN];
+  dlaf_fma::gemm<T, kBIsNK, kVec>(acc, a + i * M * (long long)K, 0, K, b + (long long)j * N * K,
+                                  0, kBIsNK ? K : N, 1, M, N, K, tm * G::BM, tn * G::BN,
+                                  reinterpret_cast<T*>(fma_smem));
+  dlaf_fma::store<T, kBIsNK, true>(x + (i * C + j) * (long long)M * N, N, M, N, tm * G::BM,
+                                   tn * G::BN, acc);
+}
+
+// B9: one tile of one output slot per block, the FMA body of fma_gemm.cuh.
+template <typename T, int kForm, bool kVec>
+__global__ void __launch_bounds__(dlaf_fma::kThreads)
+panel_contract_fma_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
+                          int L, int C, int M, int N, int K) {
+  extern __shared__ __align__(16) unsigned char fma_smem[];
+  using G = dlaf_fma::Geom<T, false>;
+  const int tiles_n = (N + G::BN - 1) / G::BN, tiles_m = (M + G::BM - 1) / G::BM;
+  long long bid = blockIdx.x;
+  const int tn = (int)(bid % tiles_n);
+  bid /= tiles_n;
+  const int tm = (int)(bid % tiles_m);
+  const long long o = bid / tiles_m;  // the output slot: i (form 0) or j (form 1)
+  const long long mk = (long long)M * K, kn = (long long)K * N;
+
+  T acc[G::TM][G::TN];
+  T* sm = reinterpret_cast<T*>(fma_smem);
+  if (kForm == 0)  // sum over j of a[i, j] @ b[j]
+    dlaf_fma::gemm<T, false, kVec>(acc, a + o * C * mk, mk, K, b, kn, N, C, M, N, K, tm * G::BM,
+                                   tn * G::BN, sm);
+  else  // sum over i of a[i] @ b[i, j]
+    dlaf_fma::gemm<T, false, kVec>(acc, a, mk, K, b + o * kn, C * kn, N, L, M, N, K, tm * G::BM,
+                                   tn * G::BN, sm);
+  dlaf_fma::store<T, false, false>(out + o * M * (long long)N, N, M, N, tm * G::BM, tn * G::BN,
+                                   acc);
+}
+
+// The reference kernels: the first default-tier B3 and B9, on the body of
+// trailing_update.cuh (one 64 x 64 tile per block).
 template <typename T, bool kBIsNK>
 __global__ void __launch_bounds__(kThreads)
 trailing_update_kernel(T* __restrict__ x, const T* __restrict__ a, const T* __restrict__ b,
@@ -73,7 +134,6 @@ trailing_update_kernel(T* __restrict__ x, const T* __restrict__ a, const T* __re
                                acc, threadIdx.x);
 }
 
-// B9: one 64 x 64 tile of one output slot per block (see the header).
 template <typename T, int kForm>
 __global__ void __launch_bounds__(kThreads)
 panel_contract_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
@@ -149,7 +209,7 @@ panel_contract_split_kernel(const T* __restrict__ a, const T* __restrict__ b, T*
 }
 
 template <typename T>
-int launch_trailing_update(void* x, const void* a, const void* b, int L, int C, int M, int N,
+int launch_trailing_update_ref(void* x, const void* a, const void* b, int L, int C, int M, int N,
                            int K, int b_is_nk, void* stream) {
   if (L <= 0 || C <= 0 || M <= 0 || N <= 0) return 0;
   const long long blocks =
@@ -166,7 +226,7 @@ int launch_trailing_update(void* x, const void* a, const void* b, int L, int C, 
 }
 
 template <typename T>
-int launch_panel_contract(const void* a, const void* b, void* out, int form, int L, int C, int M,
+int launch_panel_contract_ref(const void* a, const void* b, void* out, int form, int L, int C, int M,
                           int N, int K, void* stream) {
   if (L <= 0 || C <= 0 || M <= 0 || N <= 0) return 0;
   if (form != 0 && form != 1) return (int)cudaErrorInvalidValue;
@@ -181,6 +241,91 @@ int launch_panel_contract(const void* a, const void* b, void* out, int form, int
     panel_contract_kernel<T, 1><<<(unsigned)blocks, kThreads, 0, s>>>(
         static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(out), L, C, M, N, K);
   return (int)cudaGetLastError();
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory (above the 48 KB
+// that needs no opt-in), with the most shared memory the SM can give.
+template <typename F>
+cudaError_t allow_smem(F* kernel, size_t bytes) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
+// Whether every row of the operands starts on 16 bytes: the bases aligned
+// and the row lengths multiples of 16 bytes (the 16-byte copies).
+inline bool rows_aligned16(const void* a, const void* b, long long lda, long long ldb,
+                           int elem) {
+  return reinterpret_cast<unsigned long long>(a) % 16 == 0 &&
+         reinterpret_cast<unsigned long long>(b) % 16 == 0 && lda * elem % 16 == 0 &&
+         ldb * elem % 16 == 0;
+}
+
+template <typename T, bool kBIsNK, bool kVec>
+int launch_tu_fma(T* x, const T* a, const T* b, int C, int M, int N, int K, unsigned blocks,
+                  cudaStream_t s) {
+  auto* kernel = &trailing_update_fma_kernel<T, kBIsNK, kVec>;
+  constexpr size_t smem = dlaf_fma::Geom<T, kBIsNK>::SMEM_BYTES;
+  static const cudaError_t e = allow_smem(kernel, smem);  // once per instantiation
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<blocks, dlaf_fma::kThreads, smem, s>>>(x, a, b, C, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_trailing_update(void* x, const void* a, const void* b, int L, int C, int M, int N,
+                           int K, int b_is_nk, void* stream) {
+  if (L <= 0 || C <= 0 || M <= 0 || N <= 0) return 0;
+  constexpr int BM = dlaf_fma::Geom<T, true>::BM, BN = dlaf_fma::Geom<T, true>::BN;
+  const long long blocks = (long long)L * C * ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  T* xt = static_cast<T*>(x);
+  const T* at = static_cast<const T*>(a);
+  const T* bt = static_cast<const T*>(b);
+  const unsigned nblk = (unsigned)blocks;
+  const bool vec = rows_aligned16(a, b, K, b_is_nk ? K : N, (int)sizeof(T));
+  if (b_is_nk)
+    return vec ? launch_tu_fma<T, true, true>(xt, at, bt, C, M, N, K, nblk, s)
+               : launch_tu_fma<T, true, false>(xt, at, bt, C, M, N, K, nblk, s);
+  return vec ? launch_tu_fma<T, false, true>(xt, at, bt, C, M, N, K, nblk, s)
+             : launch_tu_fma<T, false, false>(xt, at, bt, C, M, N, K, nblk, s);
+}
+
+template <typename T, int kForm, bool kVec>
+int launch_pc_fma(const T* a, const T* b, T* out, int L, int C, int M, int N, int K,
+                  unsigned blocks, cudaStream_t s) {
+  auto* kernel = &panel_contract_fma_kernel<T, kForm, kVec>;
+  constexpr size_t smem = dlaf_fma::Geom<T, false>::SMEM_BYTES;
+  static const cudaError_t e = allow_smem(kernel, smem);  // once per instantiation
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<blocks, dlaf_fma::kThreads, smem, s>>>(a, b, out, L, C, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_panel_contract(const void* a, const void* b, void* out, int form, int L, int C, int M,
+                          int N, int K, void* stream) {
+  if (L <= 0 || C <= 0 || M <= 0 || N <= 0) return 0;
+  if (form != 0 && form != 1) return (int)cudaErrorInvalidValue;
+  constexpr int BM = dlaf_fma::Geom<T, false>::BM, BN = dlaf_fma::Geom<T, false>::BN;
+  const long long blocks =
+      (long long)(form == 0 ? L : C) * ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* at = static_cast<const T*>(a);
+  const T* bt = static_cast<const T*>(b);
+  T* ot = static_cast<T*>(out);
+  const unsigned nblk = (unsigned)blocks;
+  const bool vec = rows_aligned16(a, b, K, N, (int)sizeof(T));
+  if (form == 0)
+    return vec ? launch_pc_fma<T, 0, true>(at, bt, ot, L, C, M, N, K, nblk, s)
+               : launch_pc_fma<T, 0, false>(at, bt, ot, L, C, M, N, K, nblk, s);
+  return vec ? launch_pc_fma<T, 1, true>(at, bt, ot, L, C, M, N, K, nblk, s)
+             : launch_pc_fma<T, 1, false>(at, bt, ot, L, C, M, N, K, nblk, s);
 }
 
 template <typename T, int NS>
@@ -268,6 +413,27 @@ int dlaf_panel_contract_f32(const void* a, const void* b, void* out, int form, i
 int dlaf_panel_contract_f64(const void* a, const void* b, void* out, int form, int L, int C, int M,
                             int N, int K, void* stream) {
   return launch_panel_contract<double>(a, b, out, form, L, C, M, N, K, stream);
+}
+
+// the reference kernels (the first B3 and B9 body), same arguments
+int dlaf_trailing_update_ref_f32(void* x, const void* a, const void* b, int L, int C, int M, int N,
+                                 int K, int b_is_nk, void* stream) {
+  return launch_trailing_update_ref<float>(x, a, b, L, C, M, N, K, b_is_nk, stream);
+}
+
+int dlaf_trailing_update_ref_f64(void* x, const void* a, const void* b, int L, int C, int M, int N,
+                                 int K, int b_is_nk, void* stream) {
+  return launch_trailing_update_ref<double>(x, a, b, L, C, M, N, K, b_is_nk, stream);
+}
+
+int dlaf_panel_contract_ref_f32(const void* a, const void* b, void* out, int form, int L, int C,
+                                int M, int N, int K, void* stream) {
+  return launch_panel_contract_ref<float>(a, b, out, form, L, C, M, N, K, stream);
+}
+
+int dlaf_panel_contract_ref_f64(const void* a, const void* b, void* out, int form, int L, int C,
+                                int M, int N, int K, void* stream) {
+  return launch_panel_contract_ref<double>(a, b, out, form, L, C, M, N, K, stream);
 }
 
 // B3 and B9 under the split tiers: nslices 2 (bf16x3) or 3 (bf16x6)

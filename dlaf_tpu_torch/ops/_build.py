@@ -53,6 +53,11 @@ SIGNATURES = {
     # (a, b, out, form, L, C, M, N, K, stream)
     "dlaf_panel_contract_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dlaf_panel_contract_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # the same on B3's and B9's first tile body (the before/after reference)
+    "dlaf_trailing_update_ref_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dlaf_trailing_update_ref_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dlaf_panel_contract_ref_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dlaf_panel_contract_ref_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # (x, a, b, L, C, M, N, K, b_is_nk, nslices, stream): B3 under a split tier
     "dlaf_trailing_update_split_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "dlaf_trailing_update_split_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

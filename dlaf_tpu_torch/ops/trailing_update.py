@@ -33,9 +33,13 @@ The updates write into ``x`` in place (the JAX kernels return new arrays):
 copy buys nothing.  On CPU tensors every wrapper runs its plain version;
 on CUDA tensors it launches its kernel or raises.  Every kernel here is
 bound by operations on the H100: at N=16384, nb=512 the Cholesky update is
-275 GFlop over 2.2 GB.  At the 'default' tier the kernels are plain
-shared-memory-tiled FMA GEMMs (64 x 64 output tiles, 16-deep k slices);
-under 'bf16x3' / 'bf16x6' they run the split-tier body instead
+275 GFlop over 2.2 GB.  At the 'default' tier B3 and B9 run the FMA body
+of ``csrc/fma_gemm.cuh`` (128 x 128 output tiles, 8 x 8 a thread, a
+cp.async ring of 16-deep k slices) and B6 and B8 the first one of
+``csrc/trailing_update.cuh`` (64 x 64 tiles), which gives the same bits;
+:func:`trailing_update_reference` and :func:`panel_contract_reference`
+launch B3 and B9 on that first body, for the card's before/after checks
+only.  Under 'bf16x3' / 'bf16x6' they run the split-tier body instead
 (``csrc/split_gemm.cuh``: the bf16 slices made as the tiles are loaded,
 the products on the tensor cores with float32 accumulators, one per
 term): B3 and B9 as kernels of their own, B6 and B8 (whose update is
@@ -131,17 +135,8 @@ def trailing_update_plain(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS,
     return x.sub_(t.contract(subscripts, a, b, tier=tier))
 
 
-def trailing_update(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS, tier: str | None = None):
-    """``x - contract(subscripts, a, b, tier)`` written into ``x``; returns
-    ``x``.  ``tier=None`` is the calling thread's
-    ``tune.resolved_gemm_precision()``.  CPU tensors take
-    :func:`trailing_update_plain`; CUDA tensors launch B3 (its split-tier
-    body under 'bf16x3' / 'bf16x6') or raise."""
-    if subscripts not in _B_IS_NK:
-        raise ValueError(f"trailing_update: subscripts {subscripts!r} not in {tuple(_B_IS_NK)}")
-    tier = t.resolve_tier(subscripts, a, b, tier)
-    if _plain(x, a, b):
-        return trailing_update_plain(x, a, b, subscripts, tier)
+def _update_dims(x, a, b, subscripts: str):
+    """B3's (L, C, M, N, K, b_is_nk) of CUDA operands, checked."""
     _check_cuda("trailing_update", x, a, b)
     b_is_nk = _B_IS_NK[subscripts]
     if x.dim() != 4 or a.dim() != 3 or b.dim() != 3:
@@ -154,6 +149,21 @@ def trailing_update(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS, tier: str | 
             f"trailing_update[{subscripts}]: x {tuple(x.shape)}, a {tuple(a.shape)}, "
             f"b {tuple(b.shape)} (b must be {want_b})"
         )
+    return L, C, M, N, K, b_is_nk
+
+
+def trailing_update(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS, tier: str | None = None):
+    """``x - contract(subscripts, a, b, tier)`` written into ``x``; returns
+    ``x``.  ``tier=None`` is the calling thread's
+    ``tune.resolved_gemm_precision()``.  CPU tensors take
+    :func:`trailing_update_plain`; CUDA tensors launch B3 (its split-tier
+    body under 'bf16x3' / 'bf16x6') or raise."""
+    if subscripts not in _B_IS_NK:
+        raise ValueError(f"trailing_update: subscripts {subscripts!r} not in {tuple(_B_IS_NK)}")
+    tier = t.resolve_tier(subscripts, a, b, tier)
+    if _plain(x, a, b):
+        return trailing_update_plain(x, a, b, subscripts, tier)
+    L, C, M, N, K, b_is_nk = _update_dims(x, a, b, subscripts)
     if x.numel() == 0:
         return x
     lib = _build.lib()
@@ -171,6 +181,23 @@ def trailing_update(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS, tier: str | 
             _build.stream_of(x))
     _build.check(rc, f"trailing_update[{tier}]")
     _count("launches", "split_launches")
+    return x
+
+
+def trailing_update_reference(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS):
+    """B3 at the 'default' tier on its first tile body (``dlaf_tu::tile_gemm``,
+    64 x 64 tiles), which the FMA body of :func:`trailing_update` replaced
+    with the same bits: the reference of the card's before/after checks.
+    CUDA tensors only; counts nothing."""
+    if subscripts not in _B_IS_NK:
+        raise ValueError(f"trailing_update: subscripts {subscripts!r} not in {tuple(_B_IS_NK)}")
+    L, C, M, N, K, b_is_nk = _update_dims(x, a, b, subscripts)
+    if x.numel():
+        lib = _build.lib()
+        fn = (lib.dlaf_trailing_update_ref_f32 if x.dtype == torch.float32
+              else lib.dlaf_trailing_update_ref_f64)
+        _build.check(fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), L, C, M, N, K, int(b_is_nk),
+                        _build.stream_of(x)), "trailing_update_reference")
     return x
 
 
@@ -526,20 +553,8 @@ def panel_contract_plain(a, b, subscripts: str, tier: str | None = None):
     return t.contract(subscripts, a, b, tier=tier)
 
 
-def panel_contract(a, b, subscripts: str, tier: str | None = None):
-    """The one-shot TRTRI contraction (``panel_contract``, :198), returning
-    ``contract``, not ``0 - contract`` (the caller negates: the two differ
-    at signed zeros).  Two forms: ``ijab,jbc->iac`` (a [L, C, M, K], b
-    [C, K, N]) and ``iab,ijbc->jac`` (a [L, M, K], b [L, C, K, N]); the sum
-    over the slot axis runs in one fixed order.  ``tier`` as in
-    :func:`trailing_update`.  CPU tensors take :func:`panel_contract_plain`;
-    CUDA tensors launch B9 (its split-tier body under 'bf16x3' / 'bf16x6')
-    or raise."""
-    if subscripts not in _CONTRACT_FORM:
-        raise ValueError(f"panel_contract: subscripts {subscripts!r} not in {tuple(_CONTRACT_FORM)}")
-    tier = t.resolve_tier(subscripts, a, b, tier)
-    if _plain(a, b):
-        return panel_contract_plain(a, b, subscripts, tier)
+def _contract_dims(a, b, subscripts: str):
+    """B9's (form, L, C, M, N, K, output shape) of CUDA operands, checked."""
     _check_cuda("panel_contract", a, b)
     form = _CONTRACT_FORM[subscripts]
     if form == 0:
@@ -556,6 +571,24 @@ def panel_contract(a, b, subscripts: str, tier: str | None = None):
         ok, out_shape = tuple(b.shape) == (L, C, K, N), (C, M, N)
     if not ok:
         raise ValueError(f"panel_contract[{subscripts}]: a {tuple(a.shape)}, b {tuple(b.shape)}")
+    return form, L, C, M, N, K, out_shape
+
+
+def panel_contract(a, b, subscripts: str, tier: str | None = None):
+    """The one-shot TRTRI contraction (``panel_contract``, :198), returning
+    ``contract``, not ``0 - contract`` (the caller negates: the two differ
+    at signed zeros).  Two forms: ``ijab,jbc->iac`` (a [L, C, M, K], b
+    [C, K, N]) and ``iab,ijbc->jac`` (a [L, M, K], b [L, C, K, N]); the sum
+    over the slot axis runs in one fixed order.  ``tier`` as in
+    :func:`trailing_update`.  CPU tensors take :func:`panel_contract_plain`;
+    CUDA tensors launch B9 (its split-tier body under 'bf16x3' / 'bf16x6')
+    or raise."""
+    if subscripts not in _CONTRACT_FORM:
+        raise ValueError(f"panel_contract: subscripts {subscripts!r} not in {tuple(_CONTRACT_FORM)}")
+    tier = t.resolve_tier(subscripts, a, b, tier)
+    if _plain(a, b):
+        return panel_contract_plain(a, b, subscripts, tier)
+    form, L, C, M, N, K, out_shape = _contract_dims(a, b, subscripts)
     out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
@@ -576,4 +609,24 @@ def panel_contract(a, b, subscripts: str, tier: str | None = None):
             _build.stream_of(a))
     _build.check(rc, f"panel_contract[{tier}]")
     _count("contract_launches", "split_contract_launches")
+    return out
+
+
+def panel_contract_reference(a, b, subscripts: str):
+    """B9 at the 'default' tier on its first tile body (``dlaf_tu::tile_gemm``),
+    which the FMA body of :func:`panel_contract` replaced with the same
+    bits: the reference of the card's before/after checks.  CUDA tensors
+    only; counts nothing."""
+    if subscripts not in _CONTRACT_FORM:
+        raise ValueError(
+            f"panel_contract: subscripts {subscripts!r} not in {tuple(_CONTRACT_FORM)}")
+    form, L, C, M, N, K, out_shape = _contract_dims(a, b, subscripts)
+    out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
+    if out.numel() == 0 or K == 0:
+        return out.zero_()
+    lib = _build.lib()
+    fn = (lib.dlaf_panel_contract_ref_f32 if a.dtype == torch.float32
+          else lib.dlaf_panel_contract_ref_f64)
+    _build.check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), form, L, C, M, N, K,
+                    _build.stream_of(a)), "panel_contract_reference")
     return out

@@ -10,11 +10,11 @@ of dlaf_tpu_torch/ and chip_smoke.py under _faults/<name>/ (listed in
 its kernels at first use as the repository does, then runs chip_smoke.py's
 kernel phase of the one kernel the fault is in (consume_phases for B6, B8
 and B9, consume_split_phase for B6's and B8's split bodies, pull_phase for
-B5, potrf_phase for B1), on the main path's shapes, in a process of its
-own.  The script prints one JSON line
-per fault: whether the phase failed, as it must, and the errors the phase
-measured.  Needs a CUDA device; it exits non-zero if a fault that must
-fail went unseen (faults marked latent are run and reported, with the
+B5, potrf_phase for B1, trailing_update_phase and fma_edge_phase for B3's
+and B9's FMA body), on the main path's shapes, in a process of its own.
+The script prints one JSON line per fault: whether the phase failed, as
+it must, and the errors the phase measured.  Needs a CUDA device; it
+exits non-zero if a fault that must fail went unseen (faults marked latent are run and reported, with the
 reason no output check can see them).
 """
 from __future__ import annotations
@@ -153,12 +153,32 @@ FAULTS = {
         "at one hop only, and a segment is whole 128-byte lines of one slot), so no stale line "
         "can be in its L1, which holds nothing across launches; the rings here are 2 ranks long "
         "(one hop)"),
-    # B9: the lower form's sum over j drops the last slot
+    # B9 (the FMA body): the lower form's sum over j drops the last slot
     "b9_drop_one_j": (
         "trailing_update.cu",
-        [("dlaf_tu::tile_gemm<T, false, false>(acc, a + o * C * mk, mk, K, b, kn, N, C, M, N, K,",
-          "dlaf_tu::tile_gemm<T, false, false>(acc, a + o * C * mk, mk, K, b, kn, N, C - 1, M, N, K,")],
+        [("dlaf_fma::gemm<T, false, kVec>(acc, a + o * C * mk, mk, K, b, kn, N, C, M, N, K,",
+          "dlaf_fma::gemm<T, false, kVec>(acc, a + o * C * mk, mk, K, b, kn, N, C - 1, M, N, K,")],
         "panel_contract", "fails"),
+    # B3's and B9's FMA body reads a stage before its cp.async group has
+    # landed: the wait lets one group more stay pending (at slice 0 none is
+    # waited for)
+    "fma_read_before_wait": (
+        "fma_gemm.cuh",
+        [("    cp_async_wait<kStages - 2>();  // this thread's copies of slice t have landed\n",
+          "    cp_async_wait<kStages - 1>();  // this thread's copies of slice t have landed\n")],
+        "fma_body", "fails"),
+    # the FMA body drops the ragged k tail: floor(K / 16) slices a slot
+    "fma_drop_k_tail": (
+        "fma_gemm.cuh",
+        [("  const int nk = (K + kBK - 1) / kBK;", "  const int nk = K / kBK;")],
+        "fma_body", "fails"),
+    # the FMA body's mask on the N edge of a K x N operand is off by one
+    # 16-byte chunk: the last chunk of every row of b reads as zero
+    "fma_n_edge_mask": (
+        "fma_gemm.cuh",
+        [("        const bool ok = gk < K && gn < N;  // N is a multiple of V",
+          "        const bool ok = gk < K && gn + V < N;  // N is a multiple of V")],
+        "fma_body", "fails"),
 }
 
 _RUN = """
@@ -168,22 +188,7 @@ import dlaf_tpu_torch  # before torch touches the card
 import torch
 import chip_smoke as cs
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / cs.FP32_PEAK * 1e3, nbytes / cs.HBM_RATE * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-def timed_ms(fn, iters, warmup=1):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / iters
-
+bound, timed_ms = cs.bound, cs.timed_ms
 dev = torch.device("cuda")
 stamp = {{"card": cs.card_line()}}
 kernel = {kernel!r}
@@ -192,6 +197,10 @@ if kernel == "ring_exchange":
     kgen = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
     cs.pull_phase(stamp, bound, kgen, Grid.create(cs.GRID_M, device=dev),
                   Grid.create(cs.GRID_M, device="cpu"), timed_ms)
+elif kernel == "fma_body":
+    kgen = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
+    cs.trailing_update_phase(stamp, bound, timed_ms, kgen)
+    cs.fma_edge_phase(stamp, timed_ms, kgen)
 elif kernel == "potrf":
     cs.potrf_phase(stamp, bound, timed_ms, torch.Generator(device=dev).manual_seed(cs.SEED + 1))
 elif kernel in cs.CONSUME_SPLIT_KERNELS:
@@ -233,7 +242,8 @@ def plant(name: str) -> dict:
                 "skewed_run_bitwise", "rp_bitwise_vs_plain", "rel_err_vs_two_piece",
                 "ring_of_4", "tol", "case", "bitwise_vs_plain", "bitwise_hop_ring_vs_plain",
                 "skewed_run", "input_lifetime_bitwise_vs_plain", "input_lifetime_wrong_elements",
-                "elements", "bitwise_vs_one_block")} for m in measured],
+                "elements", "bitwise_vs_one_block", "bitwise_vs_reference", "elements_differing",
+                "dropped_slice_rejected")} for m in measured],
             "stderr_tail": proc.stderr[-600:] if proc.returncode and not failed else ""}
 
 

@@ -30,6 +30,7 @@ GROUPS = (
     ("fused_step", "fused_step_kernel"),
     ("dma_ring_consume", "consume_kernel"),
     ("panel_contract", "panel_contract_kernel"),
+    ("panel_contract", "panel_contract_fma_kernel"),
     ("ring_exchange", "pull_kernel"),
     ("ring_exchange", "ring_kernel"),
     ("fused_factor_bcast", "fused_kernel"),
@@ -37,6 +38,7 @@ GROUPS = (
     ("potrf", "potrf_kernel"),
     ("panel_trsm", "panel_trsm_kernel"),
     ("trailing_update", "trailing_update_kernel"),
+    ("trailing_update", "trailing_update_fma_kernel"),
     ("library_gemm", "gemm"),
 )
 

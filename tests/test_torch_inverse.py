@@ -49,31 +49,51 @@ def _rel_err(got, ref) -> float:
     return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1.0))
 
 
-def _operands(subscripts, dtype, seed, L=3, C=4, mb=8):
+def _operands(subscripts, dtype, seed, L=3, C=4, mb=8, M=None, N=None, K=None):
+    """B9's operands: a [L, C, M, K], b [C, K, N] (lower form) or a [L, M, K],
+    b [L, C, K, N] (upper form); M, N and K default to mb."""
+    M, N, K = (mb if v is None else v for v in (M, N, K))
     rng = np.random.default_rng(seed)
-    big = rng.standard_normal((L, C, mb, mb)).astype(dtype)
     if subscripts == tu.TRTRI_LOWER_SUBSCRIPTS:
-        return big, rng.standard_normal((C, mb, mb)).astype(dtype)
-    return rng.standard_normal((L, mb, mb)).astype(dtype), big
+        big = rng.standard_normal((L, C, M, K)).astype(dtype)
+        return big, rng.standard_normal((C, K, N)).astype(dtype)
+    big = rng.standard_normal((L, C, K, N)).astype(dtype)
+    return rng.standard_normal((L, M, K)).astype(dtype), big
+
+
+#: B9's (L, C, M, N, K): the small case, then M and N off the CUDA body's 128
+#: tile (192, 200) and K off (130) and on (128) its 16-deep k slice
+B9_SHAPES = [(3, 4, 8, 8, 8), (2, 2, 192, 200, 130), (2, 1, 200, 192, 128)]
+
+
+def _b9_cases():
+    return [pytest.param(sub, shape, id=sub if i == 0 else f"{sub}-{'x'.join(map(str, shape))}")
+            for sub in FORMS for i, shape in enumerate(B9_SHAPES)]
+
+
+def _b9_operands(subscripts, shape, dtype, seed):
+    L, C, M, N, K = shape
+    return _operands(subscripts, dtype, seed, L=L, C=C, M=M, N=N, K=K)
 
 
 # ------------------------------------------------------------------ B9
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("subscripts", FORMS)
-def test_panel_contract_plain_matches_pallas(subscripts, dtype):
+@pytest.mark.parametrize("subscripts,shape", _b9_cases())
+def test_panel_contract_plain_matches_pallas(subscripts, shape, dtype):
     pytest.importorskip("jax")
     import jax.numpy as jnp
 
     from dlaf_tpu.ops import pallas_trailing_update as ptu
 
-    a, b = _operands(subscripts, dtype, seed=61)
+    a, b = _b9_operands(subscripts, shape, dtype, seed=61)
     ref = np.asarray(ptu.panel_contract(jnp.asarray(a), jnp.asarray(b), subscripts,
                                         interpret=True))
     out = tu.panel_contract(torch.from_numpy(a), torch.from_numpy(b), subscripts)
     assert out.shape == ref.shape and out.dtype == torch.from_numpy(a).dtype
-    assert _rel_err(out.numpy(), ref) <= tol_for(dtype, 4 * 8)
+    L, C, _, _, K = shape
+    assert _rel_err(out.numpy(), ref) <= tol_for(dtype, max(L, C) * K)
 
 
 def test_panel_contract_signed_zero():
@@ -246,6 +266,32 @@ def test_cuda_panel_contract_matches_plain(subscripts, dtype):
     torch.cuda.synchronize()
     assert tu.contract_launches == before + 1
     assert _rel_err(got.cpu().numpy(), ref.numpy()) <= tol_for(np_dtype, 5 * 72)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("subscripts,shape", _b9_cases())
+def test_cuda_panel_contract_matches_reference_bitwise(subscripts, shape, dtype):
+    """B9's FMA body (csrc/fma_gemm.cuh) gives the first body's bits, signed
+    zeros included, and is within tol_for of the plain version; also with
+    b at an offset of one element (rows not 16-byte aligned)."""
+    dev = _cuda()
+    a, b = (torch.from_numpy(v).to(dev) for v in _b9_operands(subscripts, shape, dtype, seed=5))
+    plain = tu.panel_contract_plain(a, b, subscripts)
+    words = torch.int32 if dtype == np.float32 else torch.int64
+    L, C, _, _, K = shape
+    for off in (0, 1):
+        bo = torch.empty(b.numel() + off, dtype=b.dtype, device=dev)[off:].view(b.shape)
+        bo.copy_(b)
+        before = tu.contract_launches
+        got = tu.panel_contract(a, bo, subscripts)
+        ref = tu.panel_contract_reference(a, bo, subscripts)
+        torch.cuda.synchronize()
+        assert tu.contract_launches == before + 1
+        assert torch.equal(got.view(-1).view(words), ref.view(-1).view(words))
+        assert _rel_err(got.cpu().numpy(), plain.cpu().numpy()) <= tol_for(dtype, max(L, C) * K)
+    zero = tu.panel_contract(torch.zeros_like(a), torch.zeros_like(b), subscripts)
+    assert not torch.signbit(zero).any()
 
 
 @pytest.mark.cuda

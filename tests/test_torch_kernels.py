@@ -76,18 +76,34 @@ def test_panel_trsm_plain_matches_pallas(m, nb, dtype, conj):
     np.testing.assert_allclose(got.numpy() @ ell.T, b, rtol=0, atol=tol_for(dtype, nb) * 10)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("subscripts", [trailing_update.CHOLESKY_SUBSCRIPTS,
-                                        trailing_update.TRSM_SUBSCRIPTS])
-def test_trailing_update_plain_matches_pallas(subscripts, dtype):
-    _, jnp = _jax()
-    from dlaf_tpu.ops import pallas_trailing_update as ptu
+#: B3's (L, C, M, N, K): a small case, then M and N off the CUDA body's 128
+#: tile (192, 200) and K off (130) and on (128) its 16-deep k slice
+B3_SHAPES = [(3, 2, 16, 8, 16), (2, 1, 192, 200, 130), (1, 2, 200, 192, 128)]
 
-    L, C, M, N, K = 3, 2, 16, 8, 16
+
+def _b3_cases():
+    return [pytest.param(sub, shape, id=sub if i == 0 else f"{sub}-{'x'.join(map(str, shape))}")
+            for sub in (trailing_update.CHOLESKY_SUBSCRIPTS, trailing_update.TRSM_SUBSCRIPTS)
+            for i, shape in enumerate(B3_SHAPES)]
+
+
+def _b3_operands(subscripts, shape, dtype):
+    L, C, M, N, K = shape
     x = random_matrix(L * C * M, N, dtype, seed=4).reshape(L, C, M, N)
     a = random_matrix(L * M, K, dtype, seed=5).reshape(L, M, K)
     bshape = (C, N, K) if subscripts == trailing_update.CHOLESKY_SUBSCRIPTS else (C, K, N)
     b = random_matrix(int(np.prod(bshape[:-1])), bshape[-1], dtype, seed=6).reshape(bshape)
+    return x, a, b
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("subscripts,shape", _b3_cases())
+def test_trailing_update_plain_matches_pallas(subscripts, shape, dtype):
+    _, jnp = _jax()
+    from dlaf_tpu.ops import pallas_trailing_update as ptu
+
+    K = shape[4]
+    x, a, b = _b3_operands(subscripts, shape, dtype)
     ref = ptu.trailing_update(jnp.asarray(x), jnp.asarray(a), jnp.asarray(b), subscripts,
                               interpret=True, tier="default")
     xt = torch.from_numpy(x.copy())
@@ -116,6 +132,18 @@ def test_cpu_wrappers_take_plain_versions_and_count_nothing():
     assert torch.all(x == -2)
     # 1 - 0.5/x + 0.5/(1 - x) = 0 at x = 1 - sqrt(1/2)
     assert abs(root.item() - (1 - 0.5 ** 0.5)) < 1e-6
+
+
+def test_reference_kernels_take_only_cuda_tensors():
+    """The first B3 / B9 body is a reference for the card's before/after
+    checks: it has no plain version to fall back on."""
+    x = torch.zeros(1, 1, 4, 4)
+    with pytest.raises(ValueError):
+        trailing_update.trailing_update_reference(x, torch.ones(1, 4, 2), torch.ones(1, 4, 2))
+    with pytest.raises(ValueError):
+        trailing_update.panel_contract_reference(torch.ones(1, 2, 4, 2), torch.ones(2, 2, 4),
+                                                 trailing_update.TRTRI_LOWER_SUBSCRIPTS)
+    assert torch.all(x == 0)
 
 
 def test_wrappers_reject_other_devices_and_forms():
@@ -260,6 +288,30 @@ def test_cuda_trailing_update_matches_plain(dtype, subscripts):
     ref = trailing_update.trailing_update_plain(x.clone(), a, b, subscripts)
     got = trailing_update.trailing_update(x.to(dev), a.to(dev), b.to(dev), subscripts)
     assert _rel_err(got.cpu().numpy(), ref.numpy()) <= tol_for(np.dtype(str(dtype)[6:]), K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("subscripts,shape", _b3_cases())
+def test_cuda_trailing_update_matches_reference_bitwise(subscripts, shape, dtype):
+    """B3's FMA body (csrc/fma_gemm.cuh) gives the first body's bits: every
+    output one FMA chain in the same order, the zero-filled k tail included;
+    and it is within tol_for of the plain version.  Also at an offset of one
+    element (rows not 16-byte aligned: the element copies)."""
+    dev = _cuda()
+    x, a, b = (torch.from_numpy(v).to(dev) for v in _b3_operands(subscripts, shape, dtype))
+    update = (trailing_update.trailing_update_plain(x.clone(), a, b, subscripts) - x).cpu()
+    words = torch.int32 if dtype == np.float32 else torch.int64
+    for off in (0, 1):
+        ao = torch.empty(a.numel() + off, dtype=a.dtype, device=dev)[off:].view(a.shape)
+        ao.copy_(a)
+        before = trailing_update.launches
+        got = trailing_update.trailing_update(x.clone(), ao, b, subscripts)
+        ref = trailing_update.trailing_update_reference(x.clone(), ao, b, subscripts)
+        torch.cuda.synchronize()
+        assert trailing_update.launches == before + 1
+        assert torch.equal(got.view(-1).view(words), ref.view(-1).view(words))
+        assert _rel_err((got - x).cpu().numpy(), update.numpy()) <= tol_for(dtype, shape[4])
 
 
 @pytest.mark.cuda
