@@ -21,7 +21,13 @@ on failure:
    kernel / plain / library-call times (CUDA events) and the card's bound
    for the same work: B1 (the cluster kernel, also bit for bit the
    one-block kernel it replaced at 512 f32 and in float64, and timed in
-   turns with it: old, new, new, old), B2, B3 in both lookahead forms and
+   turns with it: old, new, new, old), B2 (its Hopper body bit for bit
+   the first body, the reference kernel, at heights 15872 down to 512 x
+   512, 15872 x 512 in float64, at ragged shapes and with subnormal
+   quotients (ties between two subnormals), each check first shown
+   to reject the reference with its last column block's GEMM term dropped,
+   timed in turns with it beside torch.linalg.solve_triangular, and summed
+   over the heights of path A's 32 launches), B3 in both lookahead forms and
    at red2band's shapes (K = band = 128) and in float64, its FMA body
    (csrc/fma_gemm.cuh) bit for bit the first body (the reference kernel)
    and timed in turns with it, the bitwise check first shown to reject the
@@ -29,13 +35,20 @@ on failure:
    ragged shapes (M, N off the 128 tile, K off the 16 slice) in f32 and
    f64, bit for bit their reference kernels; and B10, the secular bisection,
    at each of path H's shapes (8192, S), S = 1024, 2048, 4096, 8192, on
-   true secular equations; then B4 (hop merge), B5 (the pull exchange:
+   true secular equations; then B4 (hop merge: its select bit for bit its
+   plain version and the first body, the reference kernel, at path M's
+   panel, at a ragged w, in f64 words, at the have masks' extremes and at
+   an offset of one element, each check first shown to reject a planted
+   wrong answer; timed against the reference and torch.where four ways:
+   events over back-to-back calls, the device alone with L2 hot (a CUDA
+   graph) and cold (256 MiB written before each launch), and the host's
+   time per call), B5 (the pull exchange:
    M1's panel broadcast, slotted exchanges on both axes, the diagonal tile
    on both axes, a skewed run in which one rank sleeps 50 ms before each
    launch, and the inputs' lifetime with a late source and late readers;
    bit for bit its twin and the hop ring it replaced, timed in turns with
    the hop ring) and B7 (fused factor-and-send) at path M's shapes on a
-   2x4 grid of rank threads, B4 and B5 bitwise against their plain twins
+   2x4 grid of rank threads, B5 bitwise against its plain twin
    (on a CPU grid), B7 against its plain twin within tol_for(f32, nb) and
    bitwise against the unfused B1 -> B2 -> mask -> B5; then B6 (the consume
    ring) on step 0 of path M5, the path that launches it (nb=192 on its
@@ -455,6 +468,151 @@ def potrf_phase(stamp: dict, bound, timed_ms, kgen):
     return rec, p_out
 
 
+#: B2's sweep at nb=512, f32: heights from the main path's tallest panel down
+#: to its shortest (each bit for bit the reference, timed in turns with it)
+B2_HEIGHTS = (15872, 12288, 8192, 4096, 2048, 512)
+#: B2's ragged cases (rows, nb, dtype): rows off every strip and warp size,
+#: nb of 3 and 5 column blocks
+B2_RAGGED = ((1000, 96, "float32"), (200, 160, "float32"), (40, 96, "float32"),
+             (200, 96, "float64"), (1000, 160, "float64"))
+#: B2's case of subnormal quotients: rows, the power of two every other row
+#: of b is scaled by (its x then lie below FLT_MIN), and L's diagonal (98:
+#: for some ties between two subnormals, a / 98 = K * 2^-150 with K odd, the
+#: f32 body's product with RN64(1/98) is not the tie; with 6 it always is)
+B2_SUBNORMAL = (2048, -133, 98.0)
+
+
+def path_a_heights() -> list:
+    """The rows of path A's 32 panel solves (1x1 grid, N, NB): the bucketed
+    kernel solves a window of the tile column whose height shrinks by
+    halving segments (``_spmd.halving_segments``), not the exact rows below
+    the diagonal."""
+    from dlaf_tpu_torch.algorithms import _spmd
+
+    mt = N // NB
+    return [max(min(mt, mt - k0), 1) * NB
+            for k0, k1 in _spmd.halving_segments(mt) for _ in range(k0, k1)]
+
+
+def _spd_factor(n: int, dtype, gen):
+    """The lower Cholesky factor of a Wishart G G^T / (2 n), G (n, 2 n)."""
+    import torch
+
+    g = torch.randn(n, 2 * n, generator=gen, device=gen.device, dtype=dtype)
+    return torch.linalg.cholesky(g @ g.T / (2 * n)).contiguous()
+
+
+def _drop_last_block(ell):
+    """L with its last column block's row block left of the diagonal block
+    zeroed: a solve against it drops that block's GEMM term."""
+    from dlaf_tpu_torch.ops import panel_trsm as pt
+
+    d = ell.clone()
+    d[-pt.W:, :-pt.W] = 0
+    return d
+
+
+def panel_trsm_phase(stamp: dict, bound, timed_ms, kgen, ell) -> dict:
+    """Phase 2a': B2, the Hopper body (``solve_rows``), against its first
+    body (the reference kernel, ``panel_trsm_reference``) on the same
+    inputs: at B2_HEIGHTS x 512 against B1's factor ``ell`` (f32), at
+    15872 x 512 in float64, at the ragged B2_RAGGED, and at B2_SUBNORMAL
+    (``ell`` with its diagonal set to 98 and every other row of b scaled
+    into the subnormal range, so that some quotients are ties between two
+    subnormals that the f32 body's reciprocal product misses, and the body
+    must divide there; the tolerance against the plain version is then held
+    by the normal rows), each bit for bit the reference, the
+    check first shown to reject the reference with its last column block's
+    GEMM term dropped, and within tol_for(dtype, nb) of the plain version;
+    timed in turns with the reference (reference, new, new, reference)
+    beside one ``torch.linalg.solve_triangular``.  Then the same times at
+    every height path A launches, summed over its 32 launches.  Standard
+    normal right-hand sides.  Returns the report entry (15872 x 512 f32
+    first)."""
+    import torch
+
+    from dlaf_tpu_torch.ops import panel_trsm as pt
+    from dlaf_tpu_torch.testing import tol_for
+
+    dev = kgen.device
+    nb = NB
+    a_heights = path_a_heights()
+    gen64 = torch.Generator(device=dev).manual_seed(SEED + 5)
+    # the main path's panel from kgen, as the earlier runs drew it (the later
+    # phases draw the same inputs), then the rows path A's windows add
+    b_all = torch.cat([torch.randn(N - NB, nb, generator=kgen, device=dev),
+                       torch.randn(max(a_heights) - (N - NB), nb, generator=gen64, device=dev)])
+    cases, bad = {}, []
+
+    def times(l_op, b, iters):
+        lt = l_op.T.contiguous()
+        new = lambda: pt.panel_trsm_right_lower_t(l_op, b)  # noqa: E731
+        old = lambda: pt.panel_trsm_reference(l_op, b)  # noqa: E731
+        turns = [timed_ms(old, iters), timed_ms(new, iters), timed_ms(new, iters),
+                 timed_ms(old, iters)]
+        return {"kernel_ms": (turns[1] + turns[2]) / 2, "reference_ms": (turns[0] + turns[3]) / 2,
+                "turns_ms": {"reference": [turns[0], turns[3]], "hopper_body": [turns[1], turns[2]]},
+                "library_ms": timed_ms(lambda: torch.linalg.solve_triangular(
+                    lt, b, upper=True, left=False), iters)}
+
+    def case(label, l_op, b, iters, timed=True):
+        dname = str(l_op.dtype).replace("torch.", "")
+        m, n = b.shape
+        new = pt.panel_trsm_right_lower_t(l_op, b)
+        v = fma_verdict(label, new, pt.panel_trsm_reference(l_op, b),
+                        pt.panel_trsm_reference(_drop_last_block(l_op), b),
+                        pt.panel_trsm_plain(l_op, b), tol_for(dname, n),
+                        dropped_what="its last column block's GEMM term")
+        bad.extend(v.pop("problems"))
+        b_ms, b_by = bound(m * n * n, (2 * m * n + n * (n + 1) // 2) * b.element_size())
+        rec = {"shape": [m, n], "dtype": dname, **v, "bound_ms": b_ms, "bound_by": b_by,
+               "subnormal_x": int(((new.abs() < torch.finfo(new.dtype).tiny)
+                                   & (new != 0)).sum())}
+        if timed:
+            rec.update(times(l_op, b, iters),
+                       plain_ms=timed_ms(lambda: pt.panel_trsm_plain(l_op, b), 1))
+        cases[label] = rec
+        emit({"kernel": "panel_trsm", "case": label, **rec, **stamp})
+
+    for h in B2_HEIGHTS:
+        case(f"{h}x{nb} float32", ell, b_all[:h], 10)
+    ell64 = _spd_factor(nb, torch.float64, gen64)
+    b64 = torch.randn(max(B2_HEIGHTS), nb, generator=gen64, device=dev, dtype=torch.float64)
+    case(f"{max(B2_HEIGHTS)}x{nb} float64", ell64, b64, 5)
+    del ell64, b64
+    for m, n, dname in B2_RAGGED:
+        dtype = getattr(torch, dname)
+        case(f"{m}x{n} {dname}", _spd_factor(n, dtype, gen64),
+             torch.randn(m, n, generator=gen64, device=dev, dtype=dtype), 10, timed=False)
+    m, e, diag = B2_SUBNORMAL
+    tie = ell.clone()
+    tie.diagonal().fill_(diag)
+    bs = b_all[:m].clone()
+    bs[1::2] *= 2.0 ** e
+    label = f"{m}x{nb} float32, subnormal quotients"
+    case(label, tie, bs, 10, timed=False)
+    if not cases[label]["subnormal_x"]:
+        bad.append(f"{label}: no x is subnormal, so the case checks nothing of them")
+    del tie, bs
+
+
+    # every height path A launches, each timed in turns, summed over its launches
+    sweep = {}
+    for h in sorted(set(a_heights), reverse=True):
+        sweep[h] = {"launches": a_heights.count(h), **times(ell, b_all[:h], 10)}
+    total = {k: sum(r[k] * r["launches"] for r in sweep.values())
+             for k in ("kernel_ms", "reference_ms", "library_ms")}
+    emit({"kernel": "panel_trsm", "case": "path A's launches", "heights": a_heights,
+          "by_height": sweep, "launch_weighted_sum_ms": total, **stamp})
+    del b_all
+    torch.cuda.empty_cache()
+    if bad:
+        fail("panel_trsm (the Hopper body) vs its reference and plain version: " + "; ".join(bad))
+    head = cases[f"{max(B2_HEIGHTS)}x{nb} float32"]
+    return {**head, "max_abs_err": worst(c["max_abs_err"] for c in cases.values()),
+            "cases": cases, "path_a": {"by_height": sweep, "launch_weighted_sum_ms": total}}
+
+
 def grid_span_ms(grid, fn, stacked, iters: int, gate_s: float = 1.0):
     """Device time of one call of ``fn`` on every rank of ``grid``, and the
     slowest rank thread's host time to queue its calls (both in ms).  The
@@ -673,10 +831,211 @@ def pull_phase(stamp: dict, bound, kgen, gpu, cpu, timed_ms) -> dict:
     return {**shapes["bcast_c"], "shapes": shapes, "skewed_run": skew, "input_lifetime": life}
 
 
+#: B4's cases beyond path M's panel (slots, words a slot, dtype, have
+#: masks): a ragged w (every slot a head or a tail), f64 words, a slot of
+#: fewer words than a 16-byte vector, and the masks' extremes
+B4_CASES = ((7, 1023, "float32", "mixed"), (5, 300, "float64", "mixed"),
+            (9, 3, "float32", "mixed"), (16, 4096, "float32", "all held"),
+            (16, 4096, "float32", "none held"), (16, 4096, "float32", "all incoming"))
+
+
+def _merge_inputs(slots, w, dtype, masks, gen):
+    import torch
+
+    dev = gen.device
+    y = torch.randn(slots, w, generator=gen, device=dev, dtype=dtype)
+    y_in = torch.randn(slots, w, generator=gen, device=dev, dtype=dtype)
+
+    def mask(p):
+        return torch.randint(0, 2, (slots, 1), generator=gen, device=dev,
+                             dtype=torch.int32) if p is None else torch.full(
+                                 (slots, 1), p, device=dev, dtype=torch.int32)
+
+    h, h_in = {"mixed": (None, None), "all held": (1, None), "none held": (0, 0),
+               "all incoming": (0, 1)}[masks]
+    return y, y_in, mask(h), mask(h_in)
+
+
+def _poisoned(fn, numel: int, dev):
+    """``fn()`` after freeing a block of ``numel`` words of all ones, the
+    only free block in PyTorch's caching allocator, which hands it out again
+    for the output: a word the kernel leaves unwritten reads as NaN, not as
+    an earlier result."""
+    import torch
+
+    torch.cuda.empty_cache()
+    junk = torch.full((numel,), -1, dtype=torch.int32, device=dev)
+    del junk
+    return fn()
+
+
+def merge_verdict(label: str, args) -> dict:
+    """B4's checks of one case: the select (``merge_hop``) bit for bit its
+    plain version (on the CPU) and its reference kernel (the first body),
+    payload words and have, the check first shown to reject a wrong select:
+    the plain version's output for the same inputs with the last slot's
+    have flipped (that slot's take, or its have out, changes)."""
+    import torch
+
+    from dlaf_tpu_torch.ops import panel_exchange as px
+
+    dev = args[0].device
+    ky, kh = _poisoned(lambda: px.merge_hop(*args),
+                       args[0].numel() * args[0].element_size() // 4, dev)
+    ry, rh = px.merge_hop_reference(*args)
+    py, ph = px.merge_hop_plain(*(a.cpu() for a in args))
+    torch.cuda.synchronize()
+
+    def words(t):
+        return t.contiguous().view(torch.int32)
+
+    h_wrong = args[2].cpu().clone()
+    h_wrong[-1] ^= 1
+    wy, wh = px.merge_hop_plain(args[0].cpu(), args[1].cpu(), h_wrong, args[3].cpu())
+    rejects = not (torch.equal(words(ky.cpu()), words(wy)) and torch.equal(kh.cpu(), wh))
+    vs_plain = torch.equal(words(ky.cpu()), words(py)) and torch.equal(kh.cpu(), ph)
+    vs_ref = torch.equal(words(ky), words(ry)) and torch.equal(kh, rh)
+    differ = int((words(ky.cpu()) != words(py)).sum())
+    problems = [f"{label}: {p}" for p, bad in (
+        ("the bitwise check accepts the select with the last slot's have flipped", not rejects),
+        (f"not bit for bit the plain version ({differ} words differ)", not vs_plain),
+        ("not bit for bit the reference kernel", not vs_ref)) if bad]
+    return {"bitwise_vs_plain": vs_plain, "bitwise_vs_reference": vs_ref,
+            "words_differing": differ, "planted_rejected": rejects,
+            "max_abs_err": (ky.cpu().double() - py.double()).abs().max().item(),
+            "problems": problems}
+
+
+def merge_phase(stamp: dict, bound, kgen) -> dict:
+    """Phase 2b: B4 at path M's shape, the column panel's wire layout (16
+    slots of 512^2 f32 words, mixed have masks), and at B4_CASES: the
+    select (``merge_select_kernel``) bit for bit its plain version and its
+    reference kernel (the first body), each check first shown to reject a
+    planted wrong answer, also at an offset of one element (element
+    accesses).  Times of the select, the reference and the yardstick
+    ``torch.where`` (its take mask computed inside the call), in turns
+    (reference, select, select, reference), four ways: CUDA events over 20
+    back-to-back wrapper calls (``kernel_ms``, as the earlier runs timed
+    it); the device time alone, a CUDA graph of 20 launches replayed (L2
+    hot: the 48 MiB of operands fit in the 50 MB L2); the device time with
+    L2 cold (256 MiB written before each launch, outside its own events);
+    and the host's time per wrapper call.  Returns the report entry."""
+    import torch
+
+    from dlaf_tpu_torch.ops import panel_exchange as px
+
+    dev = kgen.device
+    slots, w = N // NB // GRID_M[0], NB * NB
+    y, y_in, h, h_in = _merge_inputs(slots, w, torch.float32, "mixed", kgen)
+    args = (y, y_in, h, h_in)
+    checks, bad = {}, []
+    v = merge_verdict("path M's panel", args)
+    bad += v.pop("problems")
+    checks["path M's panel"] = v
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for cs, cw, dname, masks in B4_CASES:
+        a = _merge_inputs(cs, cw, getattr(torch, dname), masks, gen)
+        label = f"{cs}x{cw} {dname}, {masks}"
+        v = merge_verdict(label, a)
+        bad += v.pop("problems")
+        checks[label] = v
+        if masks == "mixed":  # the payloads one element past a 16-byte boundary
+            off = []
+            for t in a[:2]:
+                buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+                off.append(buf[1:].view(t.shape))
+                off[-1].copy_(t)
+            v = merge_verdict(label + ", offset 1", (*off, *a[2:]))
+            bad += v.pop("problems")
+            checks[label + ", offset 1"] = v
+
+    def where():
+        return torch.where((h == 0) & (h_in != 0), y_in, y), h | h_in
+
+    fns = {"select": lambda: px.merge_hop(*args), "reference": lambda: px.merge_hop_reference(*args),
+           "torch.where": where}
+
+    graphs = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for _ in range(20):
+                fn()
+
+    def graph_ms(name, reps=5):
+        graphs[name].replay()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            graphs[name].replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / (20 * reps)
+
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MiB
+
+    def cold_ms(fn, iters=20):
+        fn()
+        spans = []
+        for i in range(iters):
+            flush.fill_(i)
+            torch.cuda._sleep(100_000)  # the host queues the launch before the card reaches it
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            spans.append((a, b))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in spans) / iters
+
+    def host_ms(fn, iters=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3 / iters
+
+    timings = {}
+    for way, timer in (("events_20_calls_ms", lambda n: timed_ms(fns[n], 20)),
+                       ("device_hot_ms", graph_ms), ("device_cold_ms", lambda n: cold_ms(fns[n])),
+                       ("host_ms_per_call", lambda n: host_ms(fns[n]))):
+        turns = [timer("reference"), timer("select"), timer("select"), timer("reference")]
+        timings[way] = {"select": (turns[1] + turns[2]) / 2, "reference": (turns[0] + turns[3]) / 2,
+                        "torch.where": timer("torch.where"),
+                        "turns": {"reference": [turns[0], turns[3]],
+                                  "select": [turns[1], turns[2]]}}
+    del graphs, flush
+    nbytes = 2 * slots * w * 4 + 3 * slots * 4  # the kept payload read, the output, the masks
+    b_ms, b_by = bound(0.0, nbytes)
+    rec = {"kernel": "merge_hop", "shape": [slots, w], "checks": checks,
+           "max_abs_err": worst(c["max_abs_err"] for c in checks.values()),
+           "bitwise_vs_plain": all(c["bitwise_vs_plain"] for c in checks.values()),
+           "kernel_ms": timings["events_20_calls_ms"]["select"],
+           "reference_ms": timings["events_20_calls_ms"]["reference"],
+           "device_hot_ms": timings["device_hot_ms"]["select"],
+           "device_cold_ms": timings["device_cold_ms"]["select"],
+           "host_ms_per_call": timings["host_ms_per_call"]["select"], "timings": timings,
+           "plain_ms": timed_ms(lambda: px.merge_hop_plain(*args), 20),
+           "library_ms": timings["events_20_calls_ms"]["torch.where"],
+           "library_call": "torch.where, its take mask computed in the call",
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bound_counts": "the kept payload read, the output written, h, h_in, oh", **stamp}
+    emit(rec)
+    if bad:
+        fail("merge_hop (the select) vs its plain version and reference: " + "; ".join(bad))
+    return rec
+
+
 def ring_phases(stamp: dict, bound, kgen) -> dict:
-    """Phase 2b: B4, B5 and B7 against their twins at path M's shapes (f32,
-    a 2x4 grid of rank threads on the card; the twins run on a CPU grid of
-    the same shape).  Returns their report entries."""
+    """Phase 2b: B4 (``merge_phase``), B5 and B7 against their twins at
+    path M's shapes (f32, a 2x4 grid of rank threads on the card; the twins
+    run on a CPU grid of the same shape).  Returns their report entries."""
     import torch
 
     from dlaf_tpu_torch.comm import collectives as coll
@@ -702,31 +1061,9 @@ def ring_phases(stamp: dict, bound, kgen) -> dict:
         b.synchronize()
         return a.elapsed_time(b) / iters
 
-    # ---- B4: one hop merge of the column panel's wire layout, mixed have masks
-    slots, w = ltr, nb * nb
-    y = torch.randn(slots, w, generator=kgen, device=dev)
-    y_in = torch.randn(slots, w, generator=kgen, device=dev)
-    h = torch.randint(0, 2, (slots, 1), generator=kgen, device=dev, dtype=torch.int32)
-    h_in = torch.randint(0, 2, (slots, 1), generator=kgen, device=dev, dtype=torch.int32)
-    ky, kh = px.merge_hop(y, y_in, h, h_in)
-    py, ph = px.merge_hop_plain(y.cpu(), y_in.cpu(), h.cpu(), h_in.cpu())
-    torch.cuda.synchronize()
-    bitwise = torch.equal(ky.cpu(), py) and torch.equal(kh.cpu(), ph)
-    take = ((h == 0) & (h_in != 0)).expand(slots, w)
-    nbytes = 3 * slots * w * 4 + 3 * slots * 4
-    b_ms, b_by = bound(0.0, nbytes)
-    rec = {"kernel": "merge_hop", "shape": [slots, w], "bitwise_vs_plain": bitwise,
-           "max_abs_err": (ky.cpu() - py).abs().max().item(),
-           "kernel_ms": timed_ms(lambda: px.merge_hop(y, y_in, h, h_in), 20),
-           "plain_ms": timed_ms(lambda: px.merge_hop_plain(y, y_in, h, h_in), 20),
-           "library_ms": timed_ms(lambda: torch.where(take, y_in, y), 20),
-           "library_call": "torch.where on the precomputed take mask",
-           "bound_ms": b_ms, "bound_by": b_by, **stamp}
-    emit(rec)
-    if not bitwise:
-        fail("merge_hop kernel vs plain: not bitwise equal")
-    report["merge_hop"] = rec
-    del y, y_in, take, ky
+    # ---- B4: one hop merge of the column panel's wire layout, its select
+    # against its reference and its plain version, timed honestly
+    report["merge_hop"] = merge_phase(stamp, bound, kgen)
 
     # ---- B5 at path M's shapes, on all rings of the grid at once: the pull
     # against its twin and against the hop ring it replaced, timed in turns
@@ -1517,12 +1854,13 @@ def _vec_copies(a, b, lda: int, ldb: int) -> bool:
             and ldb * e % 16 == 0)
 
 
-def fma_verdict(label: str, new, ref, dropped, plain, tol: float, base=None) -> dict:
-    """The before/after checks of one B3 or B9 case: ``new`` (the FMA body)
-    bit for bit ``ref`` (the first body on the same inputs), the same check
-    first shown to reject ``dropped`` (the reference with its last k slice
-    dropped), and ``new`` within ``tol`` of ``plain`` (relative Frobenius;
-    B3 compares the applied updates, ``x - base``)."""
+def fma_verdict(label: str, new, ref, dropped, plain, tol: float, base=None,
+                dropped_what: str = "its last k slice") -> dict:
+    """The before/after checks of one B3 or B9 case (and of B2's): ``new``
+    (the new body) bit for bit ``ref`` (the first body on the same inputs),
+    the same check first shown to reject ``dropped`` (the reference with
+    ``dropped_what`` dropped), and ``new`` within ``tol`` of ``plain``
+    (relative Frobenius; B3 compares the applied updates, ``x - base``)."""
     import torch
 
     def bits(t):  # the raw words: signed zeros and NaN payloads count
@@ -1536,7 +1874,7 @@ def fma_verdict(label: str, new, ref, dropped, plain, tol: float, base=None) -> 
     err_abs, rel = _rel_dev(new, plain)
     problems = []
     if not rejects:
-        problems.append("the bitwise check accepts the reference with its last k slice dropped")
+        problems.append(f"the bitwise check accepts the reference with {dropped_what} dropped")
     if not bitwise:
         problems.append(f"not bit for bit the reference ({differ} of {ref.numel()} elements "
                         "differ)")
@@ -2699,12 +3037,11 @@ def main() -> int:
 
     from dlaf_tpu_torch import native, ops, tune
     from dlaf_tpu_torch.matrix import layout
-    from dlaf_tpu_torch.ops import _build, panel_trsm, potrf, secular, trailing_update
+    from dlaf_tpu_torch.ops import _build, potrf, secular, trailing_update
     from dlaf_tpu_torch.testing import tol_for
 
     n, nb = N, NB
     dev = torch.device("cuda")
-    f32 = torch.float32
     card = card_line()
     stamp = {"card": card}
 
@@ -2733,7 +3070,9 @@ def main() -> int:
                                         if "consume_kernel" in e["kernel"]
                                         or "fused_step_kernel" in e["kernel"]
                                         or "split_kernel" in e["kernel"]
-                                        or "_fma_kernel" in e["kernel"]]})
+                                        or "_fma_kernel" in e["kernel"]
+                                        or "panel_trsm" in e["kernel"]
+                                        or "merge" in e["kernel"]]})
 
     def rel_err(got, ref) -> tuple[float, float]:
         """Max abs error, and the Frobenius norm of the error over ref's."""
@@ -2753,29 +3092,10 @@ def main() -> int:
     # one-block kernel it replaced, timed in turns with it
     report["potrf"], ell = potrf_phase(stamp, bound, timed_ms, kgen)
 
-    # B2 panel TRSM: that factor against a standard normal panel of the
-    # main path's height
-    rows = n - nb
-    pb = torch.randn(rows, nb, generator=kgen, device=dev, dtype=f32)
-    k_out = panel_trsm.panel_trsm_right_lower_t(ell, pb)
-    p_out = panel_trsm.panel_trsm_plain(ell, pb)
-    torch.cuda.synchronize()
-    err_abs, err = rel_err(k_out, p_out)
-    tol = tol_for("float32", nb)
-    ell_t = ell.T.contiguous()
-    b_ms, b_by = bound(rows * nb * nb, (2 * rows * nb + nb * nb) * 4)
-    rec = {"kernel": "panel_trsm", "shape": [rows, nb], "max_abs_err": err_abs, "rel_err": err,
-           "tol": tol, "kernel_ms": timed_ms(lambda: panel_trsm.panel_trsm_right_lower_t(ell, pb), 20),
-           "plain_ms": timed_ms(lambda: panel_trsm.panel_trsm_plain(ell, pb), 3),
-           "library_ms": timed_ms(
-               lambda: torch.linalg.solve_triangular(ell_t, pb, upper=True, left=False), 20),
-           "library_call": "torch.linalg.solve_triangular", "bound_ms": b_ms, "bound_by": b_by,
-           **stamp}
-    emit(rec)
-    if not err <= tol:
-        fail(f"panel_trsm kernel vs plain: rel err {err:.3e} > tol {tol:.3e}")
-    report["panel_trsm"] = rec
-    del ell, ell_t, pb, k_out, p_out
+    # B2 panel TRSM: the Hopper body against its reference (the first body)
+    # on that factor and at the sweep's heights, f64 and ragged shapes
+    report["panel_trsm"] = panel_trsm_phase(stamp, bound, timed_ms, kgen, ell)
+    del ell
 
     # B3 in both lookahead forms and at red2band's shapes, and in f64: the
     # FMA body against the reference kernel (the first body) in turns
@@ -3045,7 +3365,20 @@ def main() -> int:
                                                     "library_ms", "bound_ms", "max_abs_err",
                                                     "bitwise_vs_reference")}
                               for s, f in r["forms"].items()}
+        if name == "panel_trsm":
+            # the Hopper body; the first body (the reference kernel, same bits)
+            # timed in turns with it in this run, and both summed over path A
+            entry["reference_ms"] = r["reference_ms"]
+            entry["path_a_launch_weighted_sum_ms"] = r["path_a"]["launch_weighted_sum_ms"]
+            entry["shapes"] = {c: {k: f.get(k) for k in (
+                "kernel_ms", "reference_ms", "library_ms", "bound_ms", "max_abs_err",
+                "bitwise_vs_reference")} for c, f in r["cases"].items()}
         if name == "merge_hop":
+            # the select, its first body (the reference kernel) in turns with it,
+            # the device's time alone (L2 hot and cold) and the host's per call
+            entry.update({k: r[k] for k in ("reference_ms", "device_hot_ms", "device_cold_ms",
+                                            "host_ms_per_call")})
+            entry["timings"] = r["timings"]
             # B4's select runs inside every B5 pull and every hop of B6, B7 and B8; its own
             # entry point is launched by its kernel phase only, as the JAX
             # package launches merge_hop only on its ring without remote copies

@@ -60,8 +60,9 @@ def resolve_chase_backend(device) -> str:
     if be == "device":
         raise NotImplementedError(
             "band_chase_backend='device' (the batched wavefront chase on the card, "
-            "dlaf_tpu/algorithms/band_chase_device.py) is not ported yet: see "
-            "ROADMAP.md; set band_chase_backend='native' for the host chase"
+            "dlaf_tpu/algorithms/band_chase_device.py) is not ported yet (ROADMAP.md §A, "
+            "item 5: the rest of the eigensolver); set band_chase_backend='native' for the "
+            "host chase"
         )
     return be
 

@@ -241,8 +241,8 @@ def reduction_to_band(mat_a: DistributedMatrix, band: int | None = None,
     hermitized copy."""
     if checkpoint_every or checkpoint_path is not None or resume_from is not None:
         raise NotImplementedError(
-            "reduction_to_band: checkpointing is not ported yet (ROADMAP.md, "
-            "left out of the HEEV slice)"
+            "reduction_to_band: checkpointing is not ported yet (ROADMAP.md §A, item 5: the "
+            "rest of the eigensolver; it needs item 7: robustness, observability, plan)"
         )
     if mat_a.size.rows != mat_a.size.cols or mat_a.block_size.rows != mat_a.block_size.cols:
         raise ValueError("reduction_to_band: square matrix with square tiles required")

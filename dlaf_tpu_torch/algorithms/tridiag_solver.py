@@ -34,7 +34,7 @@ def tridiagonal_eigensolver(
     if backend in ("dc", "host"):
         raise NotImplementedError(
             f"tridiagonal_eigensolver(backend={backend!r}) is not ported: only "
-            "'dc_dist' is (ROADMAP.md, left out of the HEEV slice)")
+            "'dc_dist' is (ROADMAP.md §A, item 5: the rest of the eigensolver)")
     if backend != "dc_dist":
         raise ValueError(f"tridiagonal_eigensolver: unknown backend {backend!r}")
     from dlaf_tpu_torch.algorithms.tridiag_dc_dist import tridiag_dc_distributed

@@ -83,6 +83,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "panel_trsm.cuh"
 #include "potrf.cuh"
 #include "ring.cuh"
@@ -100,7 +102,66 @@ constexpr int kPullMaxRanks = 32;  // ranks of a ring (a grid has at most 30)
 constexpr int kErrDone = 6;        // the pull's exit barrier ran out
 
 // ---------------------------------------------------------------- B4
+//
+// merge_select_kernel, the hop merge B4 launches: a grid of (slot, chunk)
+// blocks, so a block reads its slot's two have words once and decides
+// `take` once, divides nothing, and reads only the payload it keeps (y_in
+// where take, else y): two payloads of traffic (the kept one and the
+// output), not three.  A chunk is kMergeUnroll 16-byte words a thread, all
+// loads issued before the stores.  Where the three bases are 16-byte
+// aligned a slot's words are a head of up to 3 words up to its first
+// 16-byte boundary, 16-byte vectors, and a tail of up to 3 words (a ragged
+// w, w % 4 != 0, gives every slot a head or a tail); else every word is an
+// element access.  Chunk 0 writes the slot's have.  A pure select: bit for
+// bit merge_kernel, the first body, kept as B4's reference kernel.
 
+constexpr int kMergeUnroll = 4;
+constexpr long long kMergeChunk = (long long)kMergeThreads * kMergeUnroll;  // vectors
+
+__global__ void __launch_bounds__(kMergeThreads)
+merge_select_kernel(const u32* __restrict__ y, const u32* __restrict__ y_in,
+                    const int* __restrict__ h, const int* __restrict__ h_in, u32* __restrict__ oy,
+                    int* __restrict__ oh, long long w, int vec) {
+  const long long slot = blockIdx.x;
+  const int have = h[slot], have_in = h_in[slot];
+  if (blockIdx.y == 0 && threadIdx.x == 0) oh[slot] = have | have_in;
+  const long long base = slot * w;
+  const u32* src = (hop_take(have, have_in) ? y_in : y) + base;
+  u32* dst = oy + base;
+  if (!vec) {
+    for (long long i = (long long)blockIdx.y * blockDim.x + threadIdx.x; i < w;
+         i += (long long)gridDim.y * blockDim.x)
+      dst[i] = __ldg(src + i);
+    return;
+  }
+  const long long head = min((long long)((4 - (base & 3)) & 3), w);
+  const long long nvec = (w - head) >> 2;
+  const long long tail = w - head - 4 * nvec;
+  if (blockIdx.y == 0) {
+    if (threadIdx.x < head) dst[threadIdx.x] = __ldg(src + threadIdx.x);
+    const long long t = (long long)threadIdx.x - 32;  // the tail: threads 32 .. 34
+    if (t >= 0 && t < tail) dst[head + 4 * nvec + t] = __ldg(src + head + 4 * nvec + t);
+  }
+  const uint4* s4 = reinterpret_cast<const uint4*>(src + head);
+  uint4* d4 = reinterpret_cast<uint4*>(dst + head);
+  for (long long v0 = (long long)blockIdx.y * kMergeChunk; v0 < nvec;
+       v0 += (long long)gridDim.y * kMergeChunk) {
+    uint4 part[kMergeUnroll];
+#pragma unroll
+    for (int u = 0; u < kMergeUnroll; ++u) {
+      const long long i = v0 + (long long)u * blockDim.x + threadIdx.x;
+      if (i < nvec) part[u] = __ldg(s4 + i);
+    }
+#pragma unroll
+    for (int u = 0; u < kMergeUnroll; ++u) {
+      const long long i = v0 + (long long)u * blockDim.x + threadIdx.x;
+      if (i < nvec) d4[i] = part[u];
+    }
+  }
+}
+
+// merge_kernel: B4's first body, one word a thread, its slot by a 64-bit
+// division; the reference of B4's before/after check.
 __global__ void __launch_bounds__(kMergeThreads)
 merge_kernel(const u32* __restrict__ y, const u32* __restrict__ y_in, const int* __restrict__ h,
              const int* __restrict__ h_in, u32* __restrict__ oy, int* __restrict__ oh,
@@ -315,6 +376,24 @@ extern "C" {
 // B4: one hop merge on the wire layout; payload as 32-bit words.
 int dlaf_merge_hop(const void* y, const void* y_in, const void* h, const void* h_in, void* oy,
                    void* oh, long long total, long long w, int slots, void* stream) {
+  if (total <= 0 || w <= 0 || slots <= 0) return 0;
+  if (total != w * slots) return (int)cudaErrorInvalidValue;
+  const int vec = ((reinterpret_cast<std::uintptr_t>(y) | reinterpret_cast<std::uintptr_t>(y_in) |
+                    reinterpret_cast<std::uintptr_t>(oy)) % 16) == 0;
+  const long long units = vec ? w / 4 : w;  // 16-byte vectors or words of a slot
+  long long chunks = (units + kMergeChunk - 1) / kMergeChunk;
+  chunks = chunks < 1 ? 1 : chunks > 65535 ? 65535 : chunks;
+  merge_select_kernel<<<dim3((unsigned)slots, (unsigned)chunks), kMergeThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u32*>(y), static_cast<const u32*>(y_in), static_cast<const int*>(h),
+      static_cast<const int*>(h_in), static_cast<u32*>(oy), static_cast<int*>(oh), w, vec);
+  return (int)cudaGetLastError();
+}
+
+// B4's first body (merge_kernel), the reference of its before/after check
+int dlaf_merge_hop_ref(const void* y, const void* y_in, const void* h, const void* h_in,
+                       void* oy, void* oh, long long total, long long w, int slots,
+                       void* stream) {
   if (total <= 0 || w <= 0 || slots <= 0) return 0;
   long long blocks = (total + kMergeThreads - 1) / kMergeThreads;
   if (blocks > 65535) blocks = 65535;

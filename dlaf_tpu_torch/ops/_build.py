@@ -47,6 +47,9 @@ SIGNATURES = {
     # (ell, b, x, rows, nb, stream)
     "dlaf_panel_trsm_f32": [_P, _P, _P, _LL, _I, _P],
     "dlaf_panel_trsm_f64": [_P, _P, _P, _LL, _I, _P],
+    # the same on B2's first body (the before/after reference)
+    "dlaf_panel_trsm_ref_f32": [_P, _P, _P, _LL, _I, _P],
+    "dlaf_panel_trsm_ref_f64": [_P, _P, _P, _LL, _I, _P],
     # (x, a, b, L, C, M, N, K, b_is_nk, stream)
     "dlaf_trailing_update_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dlaf_trailing_update_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -77,6 +80,7 @@ SIGNATURES = {
     "dlaf_secular_bisect_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (y, y_in, h, h_in, oy, oh, total, w, slots, stream)
     "dlaf_merge_hop": [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P],
+    "dlaf_merge_hop_ref": [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P],
     # (ys, hs, out, oh, entry, done, err, total, w, slots, seg, G, P, me, epoch,
     #  timeout_ns, stream): B5, the pull; ys and hs host arrays of P device pointers
     "dlaf_pull_exchange": [_P] * 7 + [_LL, _LL, _I, _LL, _I, _I, _I, _ULL, _ULL, _P],

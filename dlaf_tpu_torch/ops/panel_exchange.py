@@ -166,10 +166,29 @@ def _words(t):
 def merge_hop(yf, y_in, h, h_in):
     """One hop merge on the wire layout: ``yf``/``y_in`` (slots, w) of one
     real dtype, ``h``/``h_in`` (slots, 1) int32.  CPU tensors take
-    :func:`merge_hop_plain`; CUDA tensors launch B4 or raise."""
+    :func:`merge_hop_plain`; CUDA tensors launch B4 or raise.  B4 (its
+    ``merge_select_kernel``) runs a block per slot and chunk, decides the
+    slot's take once and reads only the payload it keeps, 16 bytes a
+    thread where the slot's words allow it."""
     global merge_launches
     if all(t.device.type == "cpu" for t in (yf, y_in, h, h_in)):
         return merge_hop_plain(yf, y_in, h, h_in)
+    out = _merge(yf, y_in, h, h_in, "dlaf_merge_hop")
+    with _build.COUNT_LOCK:
+        merge_launches += 1
+    return out
+
+
+def merge_hop_reference(yf, y_in, h, h_in):
+    """The same merge by B4's first body (``merge_kernel``: one word a
+    thread, its slot by a division, both payloads read), the reference of
+    B4's before/after check: the same bits.  CUDA tensors only; counts
+    nothing."""
+    return _merge(yf, y_in, h, h_in, "dlaf_merge_hop_ref")
+
+
+def _merge(yf, y_in, h, h_in, entry: str):
+    """Check the operands and launch ``entry`` into new outputs."""
     dev = yf.device
     if dev.type != "cuda" or any(t.device != dev for t in (y_in, h, h_in)):
         raise ValueError("merge_hop: operands on different devices or not on a CUDA device")
@@ -184,12 +203,10 @@ def merge_hop(yf, y_in, h, h_in):
         raise ValueError("merge_hop: a slot must be a whole number of 32-bit words")
     y, yi, hh, hi = _words(yf), _words(y_in), h.contiguous(), h_in.contiguous()
     oy, oh = torch.empty_like(y), torch.empty_like(hh)
-    rc = _build.lib().dlaf_merge_hop(y.data_ptr(), yi.data_ptr(), hh.data_ptr(), hi.data_ptr(),
-                                     oy.data_ptr(), oh.data_ptr(), y.numel(), y.shape[1], slots,
-                                     _build.stream_of(y))
-    _build.check(rc, "merge_hop")
-    with _build.COUNT_LOCK:
-        merge_launches += 1
+    rc = getattr(_build.lib(), entry)(y.data_ptr(), yi.data_ptr(), hh.data_ptr(), hi.data_ptr(),
+                                      oy.data_ptr(), oh.data_ptr(), y.numel(), y.shape[1], slots,
+                                      _build.stream_of(y))
+    _build.check(rc, entry)
     return oy.view(yf.dtype), oh
 
 

@@ -4,17 +4,20 @@
 Replaces ``dlaf_tpu/ops/pallas_panel_trsm.py`` (``panel_trsm_right_lower_t``
 / ``_kernel``): Right / Lower / op in {T, C} / non-unit, the solve of every
 Cholesky panel against the factored diagonal tile.  Rows of X are
-independent: ``x[r, j] = (b[r, j] - sum_{s<j} x[r, s] L[j, s]) / L[j, j]``.
+independent: ``x[r, j] = (b[r, j] - sum_{s<j} x[r, s] L[j, s]) / L[j, j]``,
+in the TPU kernel's W=32 column blocks.
 
-At the main path's shape (15872 x 512 f32) the solve takes 4.2 GFlop and
-moves 66 MB, so on the H100 it is bound by operations.  The TPU kernel keeps
-the whole factor in VMEM; at nb=512 the f32 factor is 1 MiB, beyond a
-block's 227 KB of shared memory, so the CUDA kernel reads L through the L2
-cache, staged 32 x 32 at a time.  Each block owns a strip of rows (32 for
-f32, 16 for f64) held in shared memory and walks the W=32 column blocks of
-the TPU schedule: a GEMM update from the solved blocks (each warp owns
-rows, each lane a column), then a 32-step substitution within the block.
-See ``PERF.md`` for its measured time.
+At the main path's tallest panel (15872 x 512 f32) the solve takes 4.2
+GFlop and moves 66 MB, so on the H100 it is bound by operations.  The
+kernel (body ``solve_rows`` in ``csrc/panel_trsm.cuh``) gives each warp a
+few rows and keeps every later column block's GEMM sum of them in
+registers, grown as each block is solved; the substitution runs on every
+lane (lane = column, the solved value handed on by a warp shuffle); L
+streams through shared memory in slabs by ``cp.async``; a block takes 1 to
+8 warps, so short panels still spread over the SMs.  Its first body
+(``solve_strip``: one block per 32-row strip), which the fused kernels B7
+and B8 run, stays as :func:`panel_trsm_reference`, with the same bits.
+See ``PERF.md`` for the measured times.
 """
 from __future__ import annotations
 
@@ -83,6 +86,22 @@ def panel_trsm_right_lower_t(ell: torch.Tensor, b: torch.Tensor, conj: bool = Fa
     global launches
     if b.device.type == "cpu" and ell.device.type == "cpu":
         return panel_trsm_plain(ell, b, conj)
+    x = _launch(ell, b, "dlaf_panel_trsm")
+    with _build.COUNT_LOCK:  # rank threads launch concurrently
+        launches += 1
+    return x
+
+
+def panel_trsm_reference(ell: torch.Tensor, b: torch.Tensor, conj: bool = False) -> torch.Tensor:
+    """The same solve by B2's first body (``solve_strip``: one block of 256
+    threads per 32-row strip, 16 in f64), the reference of the kernel's
+    before/after check: the same bits.  CUDA tensors only (no plain
+    version to fall back on); counts nothing."""
+    return _launch(ell, b, "dlaf_panel_trsm_ref")
+
+
+def _launch(ell: torch.Tensor, b: torch.Tensor, entry: str) -> torch.Tensor:
+    """Check the operands and launch ``entry``_f32 / _f64 into a new X."""
     if ell.device.type != "cuda" or b.device != ell.device:
         raise ValueError(f"panel_trsm: operands on {ell.device} and {b.device}")
     if ell.dtype not in (torch.float32, torch.float64) or b.dtype != ell.dtype:
@@ -98,10 +117,7 @@ def panel_trsm_right_lower_t(ell: torch.Tensor, b: torch.Tensor, conj: bool = Fa
         raise ValueError("panel_trsm: operands must be contiguous")
     # real dtypes only: op = C is op = T
     x = torch.empty_like(b)
-    lib = _build.lib()
-    fn = lib.dlaf_panel_trsm_f32 if b.dtype == torch.float32 else lib.dlaf_panel_trsm_f64
+    fn = getattr(_build.lib(), entry + ("_f32" if b.dtype == torch.float32 else "_f64"))
     rc = fn(ell.data_ptr(), b.data_ptr(), x.data_ptr(), b.shape[0], nb, _build.stream_of(b))
-    _build.check(rc, "panel_trsm")
-    with _build.COUNT_LOCK:  # rank threads launch concurrently
-        launches += 1
+    _build.check(rc, entry)
     return x

@@ -10,8 +10,9 @@ of dlaf_tpu_torch/ and chip_smoke.py under _faults/<name>/ (listed in
 its kernels at first use as the repository does, then runs chip_smoke.py's
 kernel phase of the one kernel the fault is in (consume_phases for B6, B8
 and B9, consume_split_phase for B6's and B8's split bodies, pull_phase for
-B5, potrf_phase for B1, trailing_update_phase and fma_edge_phase for B3's
-and B9's FMA body), on the main path's shapes, in a process of its own.
+B5, potrf_phase for B1, panel_trsm_phase for B2, merge_phase for B4,
+trailing_update_phase and fma_edge_phase for B3's and B9's FMA body), on
+the main path's shapes, in a process of its own.
 The script prints one JSON line per fault: whether the phase failed, as
 it must, and the errors the phase measured.  Needs a CUDA device; it
 exits non-zero if a fault that must fail went unseen (faults marked latent are run and reported, with the
@@ -30,9 +31,9 @@ WORK = os.path.join(ROOT, "_faults")
 
 #: name -> (file under dlaf_tpu_torch/csrc/, [(text, its replacement)],
 #: kernel whose chip_smoke.py phase runs, what must happen).  A fault
-#: marked "latent" cannot change what the phase compares (the reason is
-#: given); it is run and reported all the same, and does not count as
-#: unseen.
+#: marked "latent" cannot change what the phase compares, or changes it
+#: only in a race the phase does not open every run (the reason is given);
+#: it is run and reported all the same, and does not count as unseen.
 FAULTS = {
     # B6: the capacity ack of landing slot s % 2 goes out before the hop's
     # update has read the slot (the ack is sent again after it, harmlessly)
@@ -179,6 +180,45 @@ FAULTS = {
         [("        const bool ok = gk < K && gn < N;  // N is a multiple of V",
           "        const bool ok = gk < K && gn + V < N;  // N is a multiple of V")],
         "fma_body", "fails"),
+    # B2 (the Hopper body): the substitution reads x[s] from its own lane,
+    # before the shuffle that hands lane s's value to the warp
+    "b2_x_before_shuffle": (
+        "panel_trsm.cuh",
+        [("        const T xs = __shfl_sync(0xffffffffu, v[q], s);\n",
+          "        const T xs = v[q];\n")],
+        "panel_trsm", "fails"),
+    # B2 (the Hopper body): a slab is read before its cp.async group has
+    # landed (the wait lets the one pending group, this slab's, stay pending)
+    "b2_read_before_wait": (
+        "panel_trsm.cuh",
+        [("    dlaf_fma::cp_async_wait<0>();  // this thread's copies of slab g have landed\n",
+          "    dlaf_fma::cp_async_wait<1>();  // this thread's copies of slab g have landed\n")],
+        "panel_trsm",
+        "latent: a race. A slab's copies are issued right after the barrier before the "
+        "previous slab is used and first read after the next barrier, so they have the "
+        "previous slab's substitution (and update) to land; at nb = 512 in f32 that outlasts "
+        "a copy even in the last column block, with L out of L2 too, and at (1000, 160) f64 "
+        "the phase failed in some runs and not in others"),
+    # B2 (the Hopper body): no warp solves its rows again by the division
+    # where a kept f32 quotient was under FLT_MIN, where the reciprocal's
+    # product can miss a tie between subnormals (the case of L's diagonal 98)
+    "b2_subnormal_unguarded": (
+        "panel_trsm.cuh",
+        [("    tiny = 2u * (unsigned)__double2hiint(p) - 0x00200000u < 0x70000000u;",
+          "    tiny = false;")],
+        "panel_trsm", "fails"),
+    # B4 (the select): a slot whose take holds is read from y, not y_in
+    "b4_y_where_take": (
+        "panel_exchange.cu",
+        [("  const u32* src = (hop_take(have, have_in) ? y_in : y) + base;\n",
+          "  const u32* src = y + base;\n")],
+        "merge_hop", "fails"),
+    # B4 (the select): the tail words of a slot (a ragged w) are not written
+    "b4_drop_ragged_tail": (
+        "panel_exchange.cu",
+        [("    if (t >= 0 && t < tail) dst[head + 4 * nvec + t]",
+          "    if (t >= 0 && t < 0) dst[head + 4 * nvec + t]")],
+        "merge_hop", "fails"),
 }
 
 _RUN = """
@@ -201,6 +241,12 @@ elif kernel == "fma_body":
     kgen = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
     cs.trailing_update_phase(stamp, bound, timed_ms, kgen)
     cs.fma_edge_phase(stamp, timed_ms, kgen)
+elif kernel == "panel_trsm":
+    kgen = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
+    _, ell = cs.potrf_phase(stamp, bound, timed_ms, kgen)
+    cs.panel_trsm_phase(stamp, bound, timed_ms, kgen, ell)
+elif kernel == "merge_hop":
+    cs.merge_phase(stamp, bound, torch.Generator(device=dev).manual_seed(cs.SEED + 1))
 elif kernel == "potrf":
     cs.potrf_phase(stamp, bound, timed_ms, torch.Generator(device=dev).manual_seed(cs.SEED + 1))
 elif kernel in cs.CONSUME_SPLIT_KERNELS:
@@ -243,7 +289,7 @@ def plant(name: str) -> dict:
                 "ring_of_4", "tol", "case", "bitwise_vs_plain", "bitwise_hop_ring_vs_plain",
                 "skewed_run", "input_lifetime_bitwise_vs_plain", "input_lifetime_wrong_elements",
                 "elements", "bitwise_vs_one_block", "bitwise_vs_reference", "elements_differing",
-                "dropped_slice_rejected")} for m in measured],
+                "dropped_slice_rejected", "checks")} for m in measured],
             "stderr_tail": proc.stderr[-600:] if proc.returncode and not failed else ""}
 
 

@@ -37,6 +37,7 @@ GROUPS = (
     ("potrf", "potrf_cluster_kernel"),
     ("potrf", "potrf_kernel"),
     ("panel_trsm", "panel_trsm_kernel"),
+    ("panel_trsm", "panel_trsm_rows_kernel"),
     ("trailing_update", "trailing_update_kernel"),
     ("trailing_update", "trailing_update_fma_kernel"),
     ("library_gemm", "gemm"),

@@ -294,6 +294,10 @@ def test_upper_storage_and_auto(backend):
     check_eig(a, res.eigenvalues, res.eigenvectors.to_global(), tol)
 
 
+#: what every message of a HEEV stage left to port names: its ROADMAP item
+ITEM_5 = r"ROADMAP\.md §A, item 5: the rest of the eigensolver"
+
+
 def test_accelerator_defaults_and_guards():
     tp = tune.get_tune_parameters()
     assert (tp.dc_leaf_size, tp.eigensolver_matmul_precision) == (512, "float32")
@@ -301,19 +305,23 @@ def test_accelerator_defaults_and_guards():
         assert get_band_size(512, "cuda") == 128 and get_band_size(256, "cpu") == 64
     with knobs(band_chase_backend="auto"):
         assert t_b2t.resolve_chase_backend("cpu") == "native"
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match=ITEM_5):
             t_b2t.resolve_chase_backend("cuda")
     with knobs(band_chase_backend="device"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match=ITEM_5):
             t_b2t.resolve_chase_backend("cpu")
     with pytest.raises(health.ConfigurationError, match="ROADMAP"):
         tp.update(eigensolver_matmul_precision="high")
     with pytest.raises(health.ConfigurationError):
         tp.update(band_chase_backend="gpu")
     for backend in ("dc", "host"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match=ITEM_5):
             tridiagonal_eigensolver(_cpu(), np.ones(4), np.ones(3), 2, backend=backend)
     mat = DistributedMatrix.from_global(_cpu(), np.eye(8), (4, 4))
+    for kw in ({"checkpoint_every": 1}, {"checkpoint_path": "ck"}, {"resume_from": "ck"}):
+        with pytest.raises(NotImplementedError, match=ITEM_5) as err:
+            t_r2b(mat, **kw)
+        assert "item 7: robustness, observability, plan" in str(err.value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_heev("L", mat, spectrum=(0, 3))
 

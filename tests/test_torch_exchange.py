@@ -64,14 +64,42 @@ class _Knobs:
 # ------------------------------------------------------------------ CPU: B4
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_merge_plain_matches_pallas_bitwise(dtype):
+#: B4's wire cases beyond the first (slots, w, have masks): an odd w (B4's
+#: select gives its slots a head or a tail of single words), and the
+#: masks' extremes
+MERGE_CASES = [(5, 7, "mixed"), (4, 9, "all held"), (4, 9, "none held"), (4, 9, "all incoming")]
+
+
+def _merge_params():
+    dts = (np.float32, np.float64)
+    return ([pytest.param(d, None, id=d.__name__) for d in dts]
+            + [pytest.param(d, c, id=f"{d.__name__}-{c[0]}x{c[1]}-{c[2].replace(' ', '-')}")
+               for c in MERGE_CASES for d in dts])
+
+
+def _merge_case(case, dtype, seed):
+    """``_wire_case`` of ``case`` (slots, w, masks), the masks set: "all
+    held" (h = 1), "none held" (h = h_in = 0), "all incoming" (h = 0, h_in
+    = 2), or "mixed" (random)."""
+    slots, w, masks = case
+    y, y_in, h, h_in = _wire_case(slots, w, dtype, seed)
+    if masks == "all held":
+        h[:] = 1
+    elif masks == "none held":
+        h[:], h_in[:] = 0, 0
+    elif masks == "all incoming":
+        h[:], h_in[:] = 0, 2
+    return y, y_in, h, h_in
+
+
+@pytest.mark.parametrize("dtype,case", _merge_params())
+def test_merge_plain_matches_pallas_bitwise(dtype, case):
     pytest.importorskip("jax")
     import jax.numpy as jnp
 
     from dlaf_tpu.ops import pallas_panel_exchange as ppe
 
-    y, y_in, h, h_in = _wire_case(6, 10, dtype, seed=1)
+    y, y_in, h, h_in = _merge_case(case or (6, 10, "mixed"), dtype, seed=1)
     ry, rh = ppe.merge_hop(jnp.asarray(y), jnp.asarray(y_in), jnp.asarray(h), jnp.asarray(h_in),
                            True)
     gy, gh = px.merge_hop(*map(torch.from_numpy, (y, y_in, h, h_in)))
@@ -387,6 +415,36 @@ def test_cuda_merge_matches_twin_bitwise(dtype):
     torch.cuda.synchronize()
     assert px.merge_launches == before + 1
     assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", [0, 1])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", [(37, 129, "mixed"), (7, 1023, "mixed"), (9, 3, "mixed"),
+                                  (16, 4096, "mixed"), (6, 256, "all held"),
+                                  (6, 256, "none held"), (6, 256, "all incoming")])
+def test_cuda_merge_matches_reference_bitwise(case, dtype, off):
+    """B4's select (``merge_select_kernel``) gives its first body's bits and
+    its plain version's: 16-byte vectors with a head and a tail of words on
+    a ragged w, element accesses at an offset of one element."""
+    dev = _cuda()
+    y, y_in, h, h_in = (torch.from_numpy(a) for a in _merge_case(case, dtype, seed=9))
+    ref = px.merge_hop_plain(y, y_in, h, h_in)
+    yo = []
+    for t in (y, y_in):
+        buf = torch.empty(t.numel() + off, dtype=t.dtype, device=dev)
+        yo.append(buf[off:].view(t.shape))
+        yo[-1].copy_(t)
+    args = (*yo, h.to(dev), h_in.to(dev))
+    before = px.merge_launches
+    got = px.merge_hop(*args)
+    old = px.merge_hop_reference(*args)
+    torch.cuda.synchronize()
+    assert px.merge_launches == before + 1
+    words = torch.int32 if dtype == np.float32 else torch.int64
+    assert torch.equal(got[0].view(words), old[0].view(words)) and torch.equal(got[1], old[1])
+    assert torch.equal(got[0].cpu().view(words), ref[0].view(words))
+    assert torch.equal(got[1].cpu(), ref[1])
 
 
 def _on(grid_dev, tensors, fn):

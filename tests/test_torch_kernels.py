@@ -62,7 +62,7 @@ def test_potrf_plain_matches_pallas(n, dtype):
 
 @pytest.mark.parametrize("conj", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("m,nb", [(64, 32), (96, 64)])
+@pytest.mark.parametrize("m,nb", [(64, 32), (96, 64), (40, 96), (200, 96), (200, 160)])
 def test_panel_trsm_plain_matches_pallas(m, nb, dtype, conj):
     _, jnp = _jax()
     from dlaf_tpu.ops.pallas_panel_trsm import panel_trsm_right_lower_t
@@ -144,6 +144,20 @@ def test_reference_kernels_take_only_cuda_tensors():
         trailing_update.panel_contract_reference(torch.ones(1, 2, 4, 2), torch.ones(2, 2, 4),
                                                  trailing_update.TRTRI_LOWER_SUBSCRIPTS)
     assert torch.all(x == 0)
+
+
+def test_b2_and_b4_reference_kernels_take_only_cuda_tensors():
+    """B2's and B4's first bodies are references for the card's
+    before/after checks: no plain version to fall back on, no count."""
+    from dlaf_tpu_torch.ops import panel_exchange as px
+
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError):
+        panel_trsm.panel_trsm_reference(torch.eye(32), torch.ones(8, 32))
+    h = torch.zeros(2, 1, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        px.merge_hop_reference(torch.ones(2, 4), torch.ones(2, 4), h, h)
+    assert sum(ops.launch_counts().values()) == 0
 
 
 def test_wrappers_reject_other_devices_and_forms():
@@ -271,6 +285,46 @@ def test_cuda_panel_trsm_matches_plain(dtype):
     got = panel_trsm.panel_trsm_right_lower_t(ell, b)
     ref = panel_trsm.panel_trsm_plain(ell, b)
     assert _rel_err(got.cpu().numpy(), ref.cpu().numpy()) <= tol_for(np.dtype(str(dtype)[6:]), 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiny", [False, True], ids=["normal", "subnormal"])
+@pytest.mark.parametrize("off", [0, 1])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,nb", [(200, 128), (40, 96), (1000, 160), (8, 32), (2056, 512),
+                                  (520, 1024)])
+def test_cuda_panel_trsm_matches_reference_bitwise(m, nb, dtype, off, tiny):
+    """B2's Hopper body (``solve_rows``) gives its first body's bits: rows
+    off every strip and warp size, 1 to 32 column blocks, every
+    instantiation; at an offset of one element L's slabs take element
+    copies.  And it is within tol_for of the plain version.  With ``tiny``
+    L's diagonal is 98 and every other row of b is scaled below the
+    smallest normal number, so some quotients (v - contrib) / 98 are ties
+    between two subnormals (K * 2^-150, K odd) that the f32 body's product
+    with RN64(1/98) misses (with 6 the product is always the tie, which
+    then rounds to even as the division does); the normal rows are held to
+    the plain version."""
+    dev = _cuda()
+    ell_np, b_np = _lower_factor(nb, dtype, nb + m), random_matrix(m, nb, dtype, seed=m)
+    if tiny:
+        np.fill_diagonal(ell_np, 98.0)
+        b_np[1::2] *= np.ldexp(1.0, -133 if dtype == np.float32 else -1040)
+    ell = torch.from_numpy(ell_np).to(dev)
+    lo = torch.empty(nb * nb + off, dtype=ell.dtype, device=dev)[off:].view(nb, nb)
+    lo.copy_(ell)
+    b = torch.from_numpy(b_np).to(dev)
+    before = panel_trsm.launches
+    got = panel_trsm.panel_trsm_right_lower_t(lo, b)
+    ref = panel_trsm.panel_trsm_reference(lo, b)
+    torch.cuda.synchronize()
+    assert panel_trsm.launches == before + 1
+    words = torch.int32 if dtype == np.float32 else torch.int64
+    assert torch.equal(got.view(words), ref.view(words))
+    if tiny:
+        assert ((got.abs() < torch.finfo(got.dtype).tiny) & (got != 0)).any()
+    rows = slice(None, None, 2 if tiny else 1)
+    plain = panel_trsm.panel_trsm_plain(ell, b)
+    assert _rel_err(got[rows].cpu().numpy(), plain[rows].cpu().numpy()) <= tol_for(dtype, nb)
 
 
 @pytest.mark.cuda
