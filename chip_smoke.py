@@ -36,15 +36,15 @@ on failure:
    f64, bit for bit their reference kernels; and B10, the secular bisection,
    at each of path H's shapes (8192, S), S = 1024, 2048, 4096, 8192, on
    true secular equations; then B4 (hop merge: its select bit for bit its
-   plain version and the first body, the reference kernel, at path M's
-   panel, at a ragged w, in f64 words, at the have masks' extremes and at
-   an offset of one element, each check first shown to reject a planted
-   wrong answer; timed against the reference and torch.where four ways:
-   events over back-to-back calls, the device alone with L2 hot (a CUDA
-   graph) and cold (256 MiB written before each launch), and the host's
-   time per call), B5 (the pull exchange:
-   M1's panel broadcast, slotted exchanges on both axes, the diagonal tile
-   on both axes, a skewed run in which one rank sleeps 50 ms before each
+   plain version at path M's panel, at a ragged w, in f64 words, at the
+   have masks' extremes and at an offset of one element, each check first
+   shown to reject a planted wrong answer; timed beside torch.where three
+   ways: the device alone with L2 hot (a CUDA graph) and cold (256 MiB
+   written before each launch), and the host's time per call), B5 (the
+   pull exchange: M1's panel broadcast, slotted exchanges on both axes,
+   the diagonal tile on both axes, slots smaller than the hop ring's
+   segments (its merge walks slot boundaries inside a segment), a skewed
+   run in which one rank sleeps 50 ms before each
    launch, and the inputs' lifetime with a late source and late readers;
    bit for bit its twin and the hop ring it replaced, timed in turns with
    the hop ring) and B7 (fused factor-and-send) at path M's shapes on a
@@ -55,7 +55,11 @@ on failure:
    padded geometry), and of path M4 as B8's consume part, and B8 (the
    one-launch lookahead step) on step 0 of M4 (the main path's matrix on
    the 2x4 grid, panel 0 by B7), B6 also on a ring of 4 and in a skewed
-   run at each step 0, B8 also against the card's two-piece step (B6 ->
+   run at each step 0, B6 and B8 (their FMA body, csrc/consume_gemm.cuh)
+   bit for bit B3 on the merged panel they return with the slots they do
+   not apply zeroed, each check first shown to reject B3 with the last k
+   slice of one applied slot dropped, B6 timed with every slot suppressed
+   (the ring alone), B8 also against the card's two-piece step (B6 ->
    narrow update -> bcast_diag_tile -> B7), and B9 (the panel contraction)
    in both forms at path I's widest step, each against its plain twin on
    a CPU grid (merged panels bitwise, the rest within tol_for(f32, nb));
@@ -714,6 +718,11 @@ def pull_phase(stamp: dict, bound, kgen, gpu, cpu, timed_ms) -> dict:
         # bcast_diag_tile: 1 MiB over 'c', then over 'r'
         "diag_c": ("c", (nb, nb), None),
         "diag_r": ("r", (nb, nb), None),
+        # slots smaller than the hop ring's segments, so that its merge walks
+        # slot boundaries inside a segment: 64 slots of 16 KiB (16 a segment,
+        # 16-byte accesses), and 37 slots of 129 words (one segment, words)
+        "small_slots_c": ("c", (64, 64, 64), slotted("c", 64)),
+        "ragged_slots_c": ("c", (37, 129), slotted("c", 37)),
     }
     shapes, bad = {}, []
     for name, (axis, shape, have) in cases.items():
@@ -871,10 +880,10 @@ def _poisoned(fn, numel: int, dev):
 
 def merge_verdict(label: str, args) -> dict:
     """B4's checks of one case: the select (``merge_hop``) bit for bit its
-    plain version (on the CPU) and its reference kernel (the first body),
-    payload words and have, the check first shown to reject a wrong select:
-    the plain version's output for the same inputs with the last slot's
-    have flipped (that slot's take, or its have out, changes)."""
+    plain version (on the CPU), payload words and have, the check first
+    shown to reject a wrong select: the plain version's output for the
+    same inputs with the last slot's have flipped (that slot's take, or its
+    have out, changes)."""
     import torch
 
     from dlaf_tpu_torch.ops import panel_exchange as px
@@ -882,7 +891,6 @@ def merge_verdict(label: str, args) -> dict:
     dev = args[0].device
     ky, kh = _poisoned(lambda: px.merge_hop(*args),
                        args[0].numel() * args[0].element_size() // 4, dev)
-    ry, rh = px.merge_hop_reference(*args)
     py, ph = px.merge_hop_plain(*(a.cpu() for a in args))
     torch.cuda.synchronize()
 
@@ -894,14 +902,11 @@ def merge_verdict(label: str, args) -> dict:
     wy, wh = px.merge_hop_plain(args[0].cpu(), args[1].cpu(), h_wrong, args[3].cpu())
     rejects = not (torch.equal(words(ky.cpu()), words(wy)) and torch.equal(kh.cpu(), wh))
     vs_plain = torch.equal(words(ky.cpu()), words(py)) and torch.equal(kh.cpu(), ph)
-    vs_ref = torch.equal(words(ky), words(ry)) and torch.equal(kh, rh)
     differ = int((words(ky.cpu()) != words(py)).sum())
     problems = [f"{label}: {p}" for p, bad in (
         ("the bitwise check accepts the select with the last slot's have flipped", not rejects),
-        (f"not bit for bit the plain version ({differ} words differ)", not vs_plain),
-        ("not bit for bit the reference kernel", not vs_ref)) if bad]
-    return {"bitwise_vs_plain": vs_plain, "bitwise_vs_reference": vs_ref,
-            "words_differing": differ, "planted_rejected": rejects,
+        (f"not bit for bit the plain version ({differ} words differ)", not vs_plain)) if bad]
+    return {"bitwise_vs_plain": vs_plain, "words_differing": differ, "planted_rejected": rejects,
             "max_abs_err": (ky.cpu().double() - py.double()).abs().max().item(),
             "problems": problems}
 
@@ -909,17 +914,15 @@ def merge_verdict(label: str, args) -> dict:
 def merge_phase(stamp: dict, bound, kgen) -> dict:
     """Phase 2b: B4 at path M's shape, the column panel's wire layout (16
     slots of 512^2 f32 words, mixed have masks), and at B4_CASES: the
-    select (``merge_select_kernel``) bit for bit its plain version and its
-    reference kernel (the first body), each check first shown to reject a
-    planted wrong answer, also at an offset of one element (element
-    accesses).  Times of the select, the reference and the yardstick
-    ``torch.where`` (its take mask computed inside the call), in turns
-    (reference, select, select, reference), four ways: CUDA events over 20
-    back-to-back wrapper calls (``kernel_ms``, as the earlier runs timed
-    it); the device time alone, a CUDA graph of 20 launches replayed (L2
-    hot: the 48 MiB of operands fit in the 50 MB L2); the device time with
-    L2 cold (256 MiB written before each launch, outside its own events);
-    and the host's time per wrapper call.  Returns the report entry."""
+    select (``merge_select_kernel``) bit for bit its plain version, each
+    check first shown to reject a planted wrong answer, also at an offset
+    of one element (element accesses).  Times of the select and the
+    yardstick ``torch.where`` (its take mask computed inside the call),
+    three ways: the device time alone, a CUDA graph of 20 launches replayed
+    (L2 hot: the 48 MiB of operands fit in the 50 MB L2); the device time
+    with L2 cold (256 MiB written before each launch, outside its own
+    events); and the host's time per wrapper call.  Returns the report
+    entry, its ``kernel_ms`` and ``library_ms`` the L2-cold times."""
     import torch
 
     from dlaf_tpu_torch.ops import panel_exchange as px
@@ -952,8 +955,7 @@ def merge_phase(stamp: dict, bound, kgen) -> dict:
     def where():
         return torch.where((h == 0) & (h_in != 0), y_in, y), h | h_in
 
-    fns = {"select": lambda: px.merge_hop(*args), "reference": lambda: px.merge_hop_reference(*args),
-           "torch.where": where}
+    fns = {"select": lambda: px.merge_hop(*args), "torch.where": where}
 
     graphs = {}
     for name, fn in fns.items():
@@ -1002,33 +1004,27 @@ def merge_phase(stamp: dict, bound, kgen) -> dict:
         return (t1 - t0) * 1e3 / iters
 
     timings = {}
-    for way, timer in (("events_20_calls_ms", lambda n: timed_ms(fns[n], 20)),
-                       ("device_hot_ms", graph_ms), ("device_cold_ms", lambda n: cold_ms(fns[n])),
+    for way, timer in (("device_hot_ms", graph_ms), ("device_cold_ms", lambda n: cold_ms(fns[n])),
                        ("host_ms_per_call", lambda n: host_ms(fns[n]))):
-        turns = [timer("reference"), timer("select"), timer("select"), timer("reference")]
-        timings[way] = {"select": (turns[1] + turns[2]) / 2, "reference": (turns[0] + turns[3]) / 2,
-                        "torch.where": timer("torch.where"),
-                        "turns": {"reference": [turns[0], turns[3]],
-                                  "select": [turns[1], turns[2]]}}
+        timings[way] = {name: timer(name) for name in fns}
     del graphs, flush
     nbytes = 2 * slots * w * 4 + 3 * slots * 4  # the kept payload read, the output, the masks
     b_ms, b_by = bound(0.0, nbytes)
     rec = {"kernel": "merge_hop", "shape": [slots, w], "checks": checks,
            "max_abs_err": worst(c["max_abs_err"] for c in checks.values()),
            "bitwise_vs_plain": all(c["bitwise_vs_plain"] for c in checks.values()),
-           "kernel_ms": timings["events_20_calls_ms"]["select"],
-           "reference_ms": timings["events_20_calls_ms"]["reference"],
+           "kernel_ms": timings["device_cold_ms"]["select"],
            "device_hot_ms": timings["device_hot_ms"]["select"],
            "device_cold_ms": timings["device_cold_ms"]["select"],
            "host_ms_per_call": timings["host_ms_per_call"]["select"], "timings": timings,
            "plain_ms": timed_ms(lambda: px.merge_hop_plain(*args), 20),
-           "library_ms": timings["events_20_calls_ms"]["torch.where"],
-           "library_call": "torch.where, its take mask computed in the call",
+           "library_ms": timings["device_cold_ms"]["torch.where"],
+           "library_call": "torch.where, its take mask computed in the call (L2 cold)",
            "bound_ms": b_ms, "bound_by": b_by,
            "bound_counts": "the kept payload read, the output written, h, h_in, oh", **stamp}
     emit(rec)
     if bad:
-        fail("merge_hop (the select) vs its plain version and reference: " + "; ".join(bad))
+        fail("merge_hop (the select) vs its plain version: " + "; ".join(bad))
     return rec
 
 
@@ -1258,7 +1254,71 @@ def _rel_frob(got, want) -> tuple[float, float]:
 CONSUME_KERNELS = ("dma_ring_consume", "fused_step", "panel_contract")
 
 
-def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS) -> dict:
+def _bits(t):
+    """The raw words of a float tensor: signed zeros and NaN payloads count."""
+    import torch
+
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int64)
+
+
+def digest(t) -> str:
+    """sha256 of a tensor's raw bytes (bitwise comparisons across processes)."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.detach().contiguous().cpu().view(torch.uint8).numpy()).hexdigest()
+
+
+def b3_bitwise_verdict(label: str, xk, x0, cp, panel, applied) -> dict:
+    """The ring consumers' bitwise check: ``xk`` (x after B6, or after B8,
+    whose later phases leave x as its consume phase wrote it; stacked
+    [Pr, Pc, ltr, ltc, M, N]) bit for bit B3 at the 'default' tier applied
+    once on every rank to ``x0`` with ``panel`` (the merged panel the kernel
+    returned, [Pr, Pc, ltc, N, K]) masked to the ``applied`` slots ([Pr, Pc,
+    ltc] bool), every other slot zero.  Each output of a consume update
+    takes one slot, so the kernel's chain is B3's.  The check is first shown
+    to reject B3's output with the last k slice of one applied slot dropped
+    (the first applied slot whose last k slice meets a non-zero one of cp:
+    the rows above step k are zero)."""
+    import torch
+
+    from dlaf_tpu_torch.ops import trailing_update as tu
+
+    zero = torch.zeros((), dtype=panel.dtype, device=panel.device)
+    masked = torch.where(applied[..., None, None], panel, zero)
+    want = x0.clone()
+    pr, pc = x0.shape[:2]
+    for r in range(pr):
+        for c in range(pc):
+            tu.trailing_update(want[r, c], cp[r, c].contiguous(), masked[r, c].contiguous(),
+                               tu.CHOLESKY_SUBSCRIPTS, "default")
+    # the first applied slot whose last k slice meets a non-zero one of cp
+    kd = _k_dropped(panel.shape[-1])
+    live = (masked[..., kd:] != 0).flatten(-2).any(-1) & (cp[..., kd:] != 0).flatten(2).any(-1)[
+        ..., None]
+    r, c, s_ = (int(v) for v in (applied & live).nonzero()[0])
+    dropped = masked[r, c].clone()
+    dropped[s_, :, kd:] = 0
+    wrong = tu.trailing_update(x0[r, c].clone(), cp[r, c].contiguous(), dropped,
+                               tu.CHOLESKY_SUBSCRIPTS, "default")
+    torch.cuda.synchronize()
+    rejects = not torch.equal(_bits(wrong), _bits(want[r, c]))
+    bitwise = torch.equal(_bits(xk), _bits(want))
+    differ = 0 if bitwise else int((_bits(xk) != _bits(want)).sum())
+    del want, wrong, masked, dropped
+    problems = [f"{label}: {p}" for p, bad in (
+        ("the bitwise check accepts B3 with the last k slice of one applied slot dropped",
+         not rejects),
+        (f"x not bit for bit B3 on the merged, masked panel ({differ} elements differ)",
+         not bitwise)) if bad]
+    return {"bitwise_vs_b3": bitwise, "elements_differing_vs_b3": differ,
+            "dropped_slice_rejected": rejects, "applied_slots": int(applied.sum()),
+            "problems": problems}
+
+
+def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS,
+                   digests: bool = False) -> dict:
     """Phase 2c: B6, B8 and B9 against their twins at the paths' shapes
     (f32, a 2x4 grid of rank threads on the card; the twins run on a CPU
     grid of the same shape), with their times.  The inputs of B6 and B8 are
@@ -1270,7 +1330,13 @@ def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS) -
     first body) on every rank, the check first shown to reject the reference
     with its last k slice dropped, and timed in turns with it.  ``only``
     picks the kernels to check (the planted-fault runs of
-    scripts/planted_faults.py take one).  Returns their report entries."""
+    scripts/planted_faults.py take one).  B6 (at both steps 0 and on the
+    ring of 4) and B8 are also held bit for bit to B3 on the merged panel
+    they return, masked to the slots they apply (:func:`b3_bitwise_verdict`),
+    and B6 is run and timed with every slot suppressed (the ring alone: the
+    transport, the merges and the waits, x untouched).  ``digests`` adds
+    sha256 digests of their outputs to the records (scripts/consume_ab.py
+    compares two checkouts by them).  Returns their report entries."""
     import torch
 
     from dlaf_tpu_torch import tune
@@ -1313,14 +1379,20 @@ def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS) -
     def b6_check(path, role, nb, g, x0, cp, taken, have, supp):
         """B6 over 'r' on step 0 of ``path``: yf and h bitwise and the
         applied update within tol_for(f32, nb) against the twin on a CPU
-        grid, a skewed run bitwise the unskewed one, its time, bound and
-        yardstick.  Emits and returns its record."""
+        grid, x bit for bit B3 on the merged, masked panel, a skewed run
+        bitwise the unskewed one, the ring alone (every slot suppressed),
+        its time, bound and yardstick.  Emits and returns its record."""
         tol = tol_for("float32", nb)
         applied, flops, nbytes = b6_work(g, nb, have, supp)
         x_cpu0 = x0.to("cpu", copy=True)
         xk = x0.clone()
         got = on_ranks(gpu, b6, [xk, taken, have, cp, supp])
         torch.cuda.synchronize()
+        held = have.any(dim=0, keepdim=True).expand_as(have)
+        b3 = b3_bitwise_verdict(f"dma_ring_consume on step 0 of {path}", xk, x0, cp, got[0],
+                                held & ~supp)
+        bad.extend(b3.pop("problems"))
+        outs = {"x": digest(xk), "yf": digest(got[0]), "h": digest(got[1])} if digests else None
         xt = x0.to("cpu", copy=True)
         t0 = time.perf_counter()
         ref = on_ranks(cpu, lambda x, tk, hv, c, z: tu.dma_ring_consume_plain(
@@ -1340,11 +1412,21 @@ def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS) -
         finally:
             px.launch_delay_s.clear()
         skew_ok = torch.equal(xs, xk) and all(torch.equal(a, b) for a, b in zip(got_s, got))
-        del xs, got_s
-        same = same and torch.equal(got[1].reshape(pr, pc, -1) != 0,
-                                    have.any(dim=0, keepdim=True).expand_as(have))
+        del got_s
+        # the ring alone: every slot suppressed, so nothing is applied and x
+        # stays as it was, bitwise, and the panel and have are the same
+        ring_args = [xs, taken, have, cp, torch.ones_like(supp)]
+        xs.copy_(x0)
+        got_r = on_ranks(gpu, b6, ring_args)
+        torch.cuda.synchronize()
+        ring_ok = torch.equal(_bits(xs), _bits(x0)) and all(
+            torch.equal(a, b) for a, b in zip(got_r, got))
+        del got_r
+        same = same and torch.equal(got[1].reshape(pr, pc, -1) != 0, held)
         b_ms, b_by = bound(flops, nbytes)
         span_ms, enq_ms = grid_span_ms(gpu, b6, [xk, taken, have, cp, supp], 3)
+        ring_ms, _ = grid_span_ms(gpu, b6, ring_args, 3)
+        del xs, ring_args
         # yardstick: B5's copy_ of the exchanged panel into every rank's buffer,
         # and one baddbmm_ per rank over the same tile pairs
         union = got[0].reshape(ranks, -1)
@@ -1366,18 +1448,25 @@ def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS) -
                "mt": g.mt, "shape": {"x": [g.ltr, g.ltc, nb, nb], "yf": [g.ltc, nb, nb]},
                "ranks": ranks, "ring": "r", "ring_length": pr, "applied_slots": applied,
                "bitwise_vs_plain_yf_h": same, "max_abs_err": err_abs, "rel_err": rel, "tol": tol,
-               "vs": "the plain twin on a CPU grid (the applied update x' - x)",
+               "vs": "the plain twin on a CPU grid (the applied update x' - x)", **b3,
+               "b3_check": "x bit for bit B3 ('default') on the merged panel, the slots not "
+                           "applied zero",
                "skewed_run_bitwise": skew_ok, "kernel_ms": span_ms, "enqueue_ms_of_3_calls": enq_ms,
+               "ring_alone_ms": ring_ms, "ring_alone_share": ring_ms / span_ms,
+               "ring_alone_x_untouched": ring_ok,
                "plain_ms": plain_ms, "plain_on": "cpu (the twin's ring is host objects)",
                "library_ms": lib_ms,
                "library_call": "B5's copy_ of the panel to every rank plus one baddbmm_ per rank",
                "bound_ms": b_ms, "bound_by": b_by,
                "bound_counts": "2 nb^3 per applied (i, j) pair; bytes: x read and written, cp, "
                                "the panel read and the merged panel written, every rank", **stamp}
+        if outs is not None:
+            rec["digests"] = outs
         emit(rec)
-        if not (same and rel <= tol and skew_ok):
+        if not (same and rel <= tol and skew_ok and ring_ok):
             bad.append(f"dma_ring_consume on step 0 of {path}: yf/h bitwise {same}, rel err "
-                       f"{rel:.3e} (tol {tol:.3e}), skewed run bitwise {skew_ok}")
+                       f"{rel:.3e} (tol {tol:.3e}), skewed run bitwise {skew_ok}, ring alone "
+                       f"leaves x and the panel as they were {ring_ok}")
         return rec
 
     if "dma_ring_consume" in only:
@@ -1407,6 +1496,9 @@ def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS) -
 
         xk = xc.clone()
         got = on_ranks(gpu, b6c, [xk, yc, hc, cc, zc])
+        b3_4 = b3_bitwise_verdict("dma_ring_consume on a ring of 4", xk, xc, cc, got[0],
+                                  hc.any(dim=1, keepdim=True).expand_as(hc) & ~zc)
+        bad.extend(b3_4.pop("problems"))
         xt = xc.to("cpu", copy=True)
         ref = on_ranks(cpu, lambda x, tk, hv, c, z: tu.dma_ring_consume_plain(
             x, tk, hv.to(torch.int32).reshape(-1, 1), c, z.to(torch.int32).reshape(-1, 1), "c")[1:],
@@ -1415,7 +1507,9 @@ def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS) -
         same4 = all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
         err4, rel4 = _rel_frob(xk.cpu() - xc.cpu(), xt - xc.cpu())
         ring4 = {"axis": "c", "x": [ltr4, slots4, nb, nb], "bitwise_vs_plain_yf_h": same4,
-                 "max_abs_err": err4, "rel_err": rel4}
+                 "max_abs_err": err4, "rel_err": rel4, **b3_4}
+        if digests:
+            ring4["digests"] = {"x": digest(xk), "yf": digest(got[0]), "h": digest(got[1])}
         report["dma_ring_consume"]["ring_of_4"] = ring4
         emit({"kernel": "dma_ring_consume", "ring_of_4": ring4, **stamp})
         if not (same4 and rel4 <= tol):
@@ -1468,19 +1562,30 @@ def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS) -
             errs_unf = {"x": _rel_frob(xk - x0, xu - x0)}
             errs_unf.update({nm: _rel_frob(a, b) for nm, a, b in zip(names, got, unf)})
             rp_same = torch.equal(got[0].cpu(), ref[0])
+            # x bit for bit B3 on the merged panel, masked to B8's applied slots:
+            # those held on the ring over 'r' and not suppressed, and slot l_next
+            # on the ranks of column k+1 (the narrow update)
+            held = have.any(dim=0, keepdim=True).expand_as(have)
+            narrow = torch.zeros_like(supp)
+            narrow[:, params[0], params[2]] = True
+            b3_8 = b3_bitwise_verdict("fused_step's consume phase on step 0 of M4", xk, x0, cp,
+                                      got[0], held & (~supp | narrow))
+            bad.extend(b3_8.pop("problems"))
             worst_twin = worst(e[1] for e in errs.values())
             worst_unf = worst(e[1] for e in errs_unf.values())
             rows_solved = int(below1[:, params[0]].sum()) * nb  # the root column's ranks solve
             flops8 = flops + ranks * nb ** 3 / 3 + rows_solved * nb * nb
             nbytes8 = nbytes + ranks * 3 * tile + pr * g.ltr * tile + ranks * g.ltr * tile
             b_ms8, b_by8 = bound(flops8, nbytes8)
+            outs8 = ({nm: digest(t) for nm, t in zip(("x",) + names, [xk] + list(got))}
+                     if digests else None)
             span8, enq8 = grid_span_ms(gpu, b8, [xk] + args, 3)
             span_unf, enq_unf = grid_span_ms(gpu, two_piece, [xu] + args, 3)
             rec = {"kernel": "fused_step",
                    "shape": {"x": [g.ltr, g.ltc, nb, nb], "cp": [g.ltr, nb, nb]},
                    "ranks": ranks, "step": k, "rel_err": {nm: e[1] for nm, e in errs.items()},
                    "max_abs_err": worst(e[0] for e in errs.values()),
-                   "rp_bitwise_vs_plain": rp_same,
+                   "rp_bitwise_vs_plain": rp_same, **b3_8,
                    "tol": tol, "vs": "the plain twin on a CPU grid (x as the applied update)",
                    "rel_err_vs_two_piece": {nm: e[1] for nm, e in errs_unf.items()},
                    "two_piece": "dma_ring_consume -> narrow einsum -> bcast_diag_tile -> "
@@ -1494,6 +1599,8 @@ def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS) -
                                    "rows*nb^2 on the root column; bytes: B6's, d, lkk and the "
                                    "diagonal tile per rank, the panel column on the root, cp1 "
                                    "per rank", **stamp}
+            if outs8 is not None:
+                rec["digests"] = outs8
             emit(rec)
             if not (worst_twin <= tol and rp_same and worst_unf <= tol):
                 bad.append(f"fused_step: rel err vs twin {worst_twin:.3e}, vs the two-piece step "
@@ -1863,12 +1970,9 @@ def fma_verdict(label: str, new, ref, dropped, plain, tol: float, base=None,
     (relative Frobenius; B3 compares the applied updates, ``x - base``)."""
     import torch
 
-    def bits(t):  # the raw words: signed zeros and NaN payloads count
-        return t.view(torch.int32 if t.element_size() == 4 else torch.int64)
-
-    rejects = not torch.equal(bits(dropped), bits(ref))
-    bitwise = torch.equal(bits(new), bits(ref))
-    differ = 0 if bitwise else int((bits(new) != bits(ref)).sum())
+    rejects = not torch.equal(_bits(dropped), _bits(ref))
+    bitwise = torch.equal(_bits(new), _bits(ref))
+    differ = 0 if bitwise else int((_bits(new) != _bits(ref)).sum())
     if base is not None:
         new, plain = new - base, plain - base
     err_abs, rel = _rel_dev(new, plain)
@@ -3374,9 +3478,9 @@ def main() -> int:
                 "kernel_ms", "reference_ms", "library_ms", "bound_ms", "max_abs_err",
                 "bitwise_vs_reference")} for c, f in r["cases"].items()}
         if name == "merge_hop":
-            # the select, its first body (the reference kernel) in turns with it,
-            # the device's time alone (L2 hot and cold) and the host's per call
-            entry.update({k: r[k] for k in ("reference_ms", "device_hot_ms", "device_cold_ms",
+            # the select's device time alone (L2 cold, the entry's ms, and hot)
+            # and the host's per call, beside torch.where's
+            entry.update({k: r[k] for k in ("device_hot_ms", "device_cold_ms",
                                             "host_ms_per_call")})
             entry["timings"] = r["timings"]
             # B4's select runs inside every B5 pull and every hop of B6, B7 and B8; its own
@@ -3402,13 +3506,20 @@ def main() -> int:
             entry["unfused_ms"] = r["unfused_ms"]
         if name == "dma_ring_consume":
             # the record of the path that launches B6 (step 0 of M5) gives the
-            # entry's numbers; step 0 of M4 is B8's consume part
+            # entry's numbers; step 0 of M4 is B8's consume part.  The body is
+            # csrc/consume_gemm.cuh; the ring alone is B6 with every slot suppressed
+            entry["body"] = "dlaf_tpu_torch/csrc/consume_gemm.cuh"
+            entry["ring_alone_ms"] = r["ring_alone_ms"]
+            entry["bitwise_vs_b3"] = all(q["bitwise_vs_b3"] for q in (r, r["at_M4"],
+                                                                     r["ring_of_4"]))
             entry["shapes"] = {f"{q['step0_of']}_step0": {k: q[k] for k in (
-                "nb", "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
-                for q in (r, r["at_M4"])}
+                "nb", "shape", "kernel_ms", "ring_alone_ms", "plain_ms", "library_ms", "bound_ms",
+                "max_abs_err", "bitwise_vs_b3")} for q in (r, r["at_M4"])}
         if name == "fused_step":
+            entry["body"] = "dlaf_tpu_torch/csrc/consume_gemm.cuh"
             entry["max_abs_err"] = r["max_abs_err"]
             entry["two_piece_ms"] = r["two_piece_ms"]
+            entry["bitwise_vs_b3"] = r["bitwise_vs_b3"]
         if name in SPLIT_KERNELS + CONSUME_SPLIT_KERNELS:
             # the split-tier body (csrc/split_gemm.cuh) of B3, B9, B6 and B8, its
             # launches a share of theirs; the yardstick is tile.contract at the tier

@@ -20,7 +20,9 @@
 // narrow column) and slots no rank holds are not applied at all (the TPU's
 // first cut multiplies a masked full panel at every hop; for finite cp the
 // results are the same, where cp holds Inf or NaN the masked product would
-// spread NaN into columns that take no slot).
+// spread NaN into columns that take no slot).  The rank's own slots are
+// applied out of the accumulator, which holds its payload until the first
+// merge (the same bytes, on the 16 bytes the update's copies need).
 //
 // B8.  The whole lookahead body in one launch per rank, spanning both grid
 // axes: (1) the consume ring over 'r' as B6, the narrow column k+1
@@ -39,11 +41,14 @@
 // semaphore sets), so a rank ahead in phase p + 1 never signals into a
 // neighbour still in phase p.
 //
-// Both launch 512 threads per block, reading operands through L2 (landing
-// slots are rewritten by other ranks during the launch).  At the 'default'
-// tier (NS = 0) the update runs two 64 x 64 output tiles at a time, one per
-// 256-thread group, with B3's FMA tile body (csrc/trailing_update.cuh).
-// Under the split tiers the update is the split body of
+// Both launch 512 threads per block.  At the 'default' tier (NS = 0) a
+// segment's update is the body of csrc/consume_gemm.cuh: the column panel
+// as one matrix of ltr * M rows in 128 x 64 tiles (f64 64 x 64), one
+// cp.async pipeline over the segment's tiles and k slices, both operands
+// read through L2 only (landing slots are rewritten by other ranks during
+// the launch), with B3's bits (csrc/fma_gemm.cuh): x after B6 is bit for
+// bit B3 applied once to the merged panel with the slots not applied set
+// to zero.  Under the split tiers the update is the split body of
 // csrc/split_gemm.cuh (bf16 slices cut as the tiles load, mma.sync
 // products, one float32 accumulator per term, added in the JAX package's
 // order), NS = 2 slices per operand for 'bf16x3' and 3 for 'bf16x6', with
@@ -60,32 +65,38 @@
 // grid one rank's consume update is 16 x 8 tiles of 2 * 512^3 flops (34
 // GFlop; 275 GFlop over the grid) against 2 x 128 MiB of trailing matrix:
 // 4.1 ms at the 67 TFLOP/s of f32 FMA, 0.83 ms for bf16x3's three products
-// at the 989 TFLOP/s of the bf16 tensor cores.  16 blocks per rank, and no
-// pipelining of the loads: the first cuts are slow.
+// at the 989 TFLOP/s of the bf16 tensor cores.  A rank has 16 SMs of the
+// card's 132, one 16-warp block on each, so the body keeps its FMA units
+// fed with 16-byte operand loads, a register tile of 4 x 4 outputs and four
+// stages of copies in flight rather than with more warps.
 
 #include <cuda_runtime.h>
 
 #include <string>
 
+#include "consume_gemm.cuh"
 #include "panel_trsm.cuh"
 #include "potrf.cuh"
 #include "ring.cuh"
 #include "split_gemm.cuh"
-#include "trailing_update.cuh"
+
+// the dynamic shared memory of every kernel here: the work area of its
+// block bodies, then its int scratch
+extern __shared__ __align__(16) unsigned char dlaf_smem[];
 
 namespace {
 
 using namespace dlaf_ring;
 
 constexpr int kThreads = 512;
-constexpr int kGroups = kThreads / dlaf_tu::kThreads;  // FMA GEMM tiles in flight per block
 static_assert(dlaf_split::threads_of(1) == kThreads, "the split body's MI = 1 layout is a block");
+static_assert(dlaf_ring_gemm::kThreads == kThreads, "the FMA body's layout is a block");
 
-// bytes of shared memory apply_rows needs: two FMA tile bodies (NS = 0) or
-// one split body's bf16 staging
+// bytes of shared memory apply_rows needs: the FMA body's stages (NS = 0)
+// or one split body's bf16 staging
 template <typename T, int NS>
 __host__ __device__ constexpr size_t gemm_smem() {
-  if constexpr (NS == 0) return kGroups * dlaf_tu::kSmemElems * sizeof(T);
+  if constexpr (NS == 0) return dlaf_ring_gemm::Geom<T>::SMEM_BYTES;
   else return sizeof(dlaf_split::Smem<NS>);
 }
 
@@ -107,14 +118,15 @@ struct Panel {
 
 // x[i, j][:, r0 : r0 + sr] -= cp[i] @ src[0 : sr, :]^T for every i: the
 // trailing contribution of rows [r0, r0 + sr) of panel slot j, `src`
-// pointing at row r0 of the slot, at the tier of NS (0: the FMA body, two
-// tiles at a time; 2, 3: the split body, one tile at a time).  Called by
-// every thread of the block; `sm` holds gemm_smem<T, NS>() bytes.
+// pointing at row r0 of the slot, at the tier of NS (0: the FMA body of
+// consume_gemm.cuh, one pipeline over the segment; 2, 3: the split body,
+// one 64 x 64 tile at a time).  Called by every thread of the block; `sm`
+// holds gemm_smem<T, NS>() bytes.
 template <typename T, int NS>
 __device__ void apply_rows(const Panel<T>& p, const T* src, int j, int r0, void* sm) {
-  const int mtiles = (p.M + dlaf_tu::kBM - 1) / dlaf_tu::kBM;
-  const int ntiles = p.ltr * mtiles;
   if constexpr (NS != 0) {
+    const int mtiles = (p.M + dlaf_split::kBM - 1) / dlaf_split::kBM;
+    const int ntiles = p.ltr * mtiles;
     auto& ssm = *static_cast<dlaf_split::Smem<NS>*>(sm);
     for (int t = 0; t < ntiles; ++t) {
       const int i = t / mtiles, m0 = (t % mtiles) * dlaf_split::kBM;
@@ -126,53 +138,58 @@ __device__ void apply_rows(const Panel<T>& p, const T* src, int j, int r0, void*
                                              p.N, p.M, p.sr, m0, 0, acc, threadIdx.x);
     }
   } else {
-    const int group = threadIdx.x / dlaf_tu::kThreads, tid = threadIdx.x % dlaf_tu::kThreads;
-    T* gsm = static_cast<T*>(sm) + group * dlaf_tu::kSmemElems;
-    for (int t0 = 0; t0 < ntiles; t0 += kGroups) {
-      const int t = t0 + group;
-      const bool valid = t < ntiles;  // a group without a tile runs the loop on no rows
-      const int i = valid ? t / mtiles : 0;
-      const int m0 = valid ? (t % mtiles) * dlaf_tu::kBM : 0;
-      T acc[dlaf_tu::kTM][dlaf_tu::kTN];
-      dlaf_tu::tile_gemm<T, true, true>(acc, p.cp + (long long)i * p.M * p.K, 0, p.K, src, 0,
-                                        p.K, 1, valid ? p.M : 0, p.sr, p.K, m0, 0, tid, gsm);
-      if (valid)
-        dlaf_tu::tile_store<T, true>(p.x + ((long long)i * p.ltc + j) * p.M * p.N + r0, p.N,
-                                     p.M, p.sr, m0, 0, acc, tid);
-    }
+    dlaf_ring_gemm::update_segment<T>(p.x, p.cp, src, p.ltr, p.ltc, j, p.M, p.N, p.K, p.sr, r0,
+                                      static_cast<T*>(sm));
   }
 }
 
-// The consume schedule's updates, spliced into ring_hops: this block's
-// segments of the slots this rank holds on entry (out of its own payload
-// y), then after each hop's merge its segments of the fresh slots (out of
-// the landing slot), each only where sh_apply[slot] is set.
+// apply_rows behind a call, for B8's split instantiations: inlined into the
+// one-launch step, ptxas schedules the split body's loop with fewer
+// registers than in B6 (102 against 126 for bf16x3) and B8's bf16x3 step
+// ran 41.0 ms against 31.7 at M4's step 0 (H100, 700 W); called, the body
+// keeps its own schedule.
 template <typename T, int NS>
+__device__ __noinline__ void apply_rows_called(const Panel<T>& p, const T* src, int j, int r0,
+                                               void* sm) {
+  apply_rows<T, NS>(p, src, j, r0, sm);
+}
+
+// The consume schedule's updates, spliced into ring_hops: this block's
+// segments of the slots this rank holds on entry (out of the accumulator,
+// which holds this rank's payload until the first merge), then after each
+// hop's merge its segments of the fresh slots (out of the landing slot),
+// each only where sh_apply[slot] is set.
+template <typename T, int NS, bool kCalled = false>
 struct ConsumeHooks {
   Panel<T> p;
-  const u32* y;        // this rank's payload
-  const u32* land;     // landing slots [P][2][total] of this ring
-  long long total, seg;
+  const u32* acc;   // the accumulator (the block's segments: this rank's payload)
+  const u32* land;  // landing slots [P][2][total] of this ring
+  long long total;  // the panel's words
   int me;
-  const int* sh_have;  // have before the hop's merge
-  const int* sh_hin;   // the hop's incoming have
-  const int* sh_apply;
-  void* sm;  // gemm_smem<T, NS>() bytes
+  // the byte offset in dlaf_smem of have [slots] before the hop's merge,
+  // then the hop's incoming have and the apply mask; the update's work
+  // area is dlaf_smem's first gemm_smem<T, NS>() bytes
+  int sh;
 
+  // segment q is rows [r0, r0 + sr) of slot q / (N / sr): a segment never
+  // crosses a slot, so its slot and rows come from int arithmetic on q
   template <bool kFresh>
   __device__ void apply(const u32* base) {
-    const long long per_word = sizeof(T) / sizeof(u32);
-    const long long slot_elems = (long long)p.N * p.K;
-    for (long long lo = (long long)blockIdx.x * seg; lo < total; lo += (long long)gridDim.x * seg) {
-      const long long e = lo / per_word;  // first element of the segment
-      const int j = (int)(e / slot_elems);
-      const int r0 = (int)((e % slot_elems) / p.K);
+    const int* sh_have = reinterpret_cast<const int*>(dlaf_smem + sh);
+    const int* sh_hin = sh_have + p.ltc;
+    const int* sh_apply = sh_hin + p.ltc;
+    const int per_slot = p.N / p.sr, nseg = p.ltc * per_slot;
+    for (int q = blockIdx.x; q < nseg; q += gridDim.x) {
+      const int j = q / per_slot, r0 = (q - j * per_slot) * p.sr;
       const bool take = kFresh ? hop_take(sh_have[j], sh_hin[j]) : sh_have[j] != 0;
-      if (take && sh_apply[j]) apply_rows<T, NS>(p, reinterpret_cast<const T*>(base + lo), j, r0, sm);
+      if (!take || !sh_apply[j]) continue;
+      const T* src = reinterpret_cast<const T*>(base) + (long long)q * p.sr * p.K;
+      if constexpr (kCalled) apply_rows_called<T, NS>(p, src, j, r0, dlaf_smem);
+      else apply_rows<T, NS>(p, src, j, r0, dlaf_smem);
     }
     __syncthreads();  // the caller may change sh_have next
   }
-  __device__ void on_entry() { apply<false>(y); }
+  __device__ void on_entry() { apply<false>(acc); }
   __device__ void after_merge(int, int slot) {
     apply<true>(land + ((long long)me * 2 + slot) * total);
   }
@@ -184,7 +201,6 @@ template <typename T, int NS>
 __global__ void __launch_bounds__(kThreads)
 consume_kernel(Ring r, Panel<T> p, const int* __restrict__ h, const int* __restrict__ z,
                int* __restrict__ oh) {
-  extern __shared__ __align__(16) unsigned char dlaf_smem[];
   int* sh_have = reinterpret_cast<int*>(dlaf_smem + gemm_smem<T, NS>());
   int* sh_hin = sh_have + r.slots;
   int* sh_apply = sh_hin + r.slots;
@@ -195,8 +211,7 @@ consume_kernel(Ring r, Panel<T> p, const int* __restrict__ h, const int* __restr
   }
   copy_segments(r.acc, r.y, r);  // the merged panel starts as this rank's payload
   __syncthreads();
-  ConsumeHooks<T, NS> hooks{p, r.y, r.land, r.total, r.seg, r.me, sh_have, sh_hin, sh_apply,
-                            dlaf_smem};
+  ConsumeHooks<T, NS> hooks{p, r.acc, r.land, r.total, r.me, (int)gemm_smem<T, NS>()};
   if (!ring_hops(r, sh_have, sh_hin, sh_ok, hooks)) return;
   if (blockIdx.x == 0)
     for (int i = threadIdx.x; i < r.slots; i += blockDim.x) oh[i] = sh_have[i];
@@ -237,7 +252,6 @@ __device__ bool wait_all(u64* flags, u64 target, const Ring& r) {
 template <typename T, int R, int NS>
 __global__ void __launch_bounds__(kThreads)
 fused_step_kernel(Step<T> a) {
-  extern __shared__ __align__(16) unsigned char dlaf_smem[];
   T* work = reinterpret_cast<T*>(dlaf_smem);
   const int ltc = a.p.ltc, mb = a.p.M, b = blockIdx.x, G = gridDim.x, tid = threadIdx.x;
   int* sh_have = reinterpret_cast<int*>(dlaf_smem + a.work);
@@ -257,8 +271,8 @@ fused_step_kernel(Step<T> a) {
   }
   copy_segments(a.rc.acc, a.rc.y, a.rc);
   __syncthreads();
-  ConsumeHooks<T, NS> hooks{a.p, a.rc.y, a.rc.land, a.rc.total, a.rc.seg, a.rc.me,
-                            sh_have, sh_hin, sh_apply, work};
+  ConsumeHooks<T, NS, NS != 0> hooks{a.p, a.rc.acc, a.rc.land, a.rc.total, a.rc.me,
+                                     (int)a.work};
   if (!ring_hops(a.rc, sh_have, sh_hin, sh_ok, hooks)) return;
   if (b == 0)
     for (int i = tid; i < ltc; i += blockDim.x) a.oh[i] = sh_have[i];
@@ -320,6 +334,12 @@ fused_step_kernel(Step<T> a) {
 // its blocks: a ring launch spins on flags its other blocks and ranks set,
 // so every block must be resident.  Returns blocks per SM, or a negated
 // CUDA error.
+// the update's 16-byte copies read cp, the accumulator and the landing
+// slots (every segment starts on 16 bytes when K * sizeof(T) does)
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
 template <typename Kernel>
 int prepare(Kernel kernel, size_t smem) {
   if (smem > dlaf_potrf::kSmemLimit) return -(int)cudaErrorInvalidValue;
@@ -355,8 +375,10 @@ int launch_consume(const void* y, const void* h, const void* z, void* out, void*
                    int nslices, u64 epoch, u64 timeout_ns, void* stream) {
   const int sr = segment_rows(N);
   if (sr == 0 || ltr <= 0 || ltc <= 0 || M <= 0 || K <= 0 || G <= 0 || P < 1 ||
-      ((long long)sr * K * sizeof(T)) % 16)
+      (K * sizeof(T)) % 16)
     return (int)cudaErrorInvalidValue;
+  if (!aligned16(cp) || !aligned16(out) || !aligned16(land))
+    return (int)cudaErrorMisalignedAddress;
   const long long words_per_slot = (long long)N * K * sizeof(T) / 4;
   const long long total = ltc * words_per_slot;
   const long long seg = (long long)sr * K * sizeof(T) / 4;
@@ -445,6 +467,8 @@ int launch_fused_step(const long long* d, int nslices, void* stream) {
   const int sr = segment_rows(mb);
   if (G <= 0 || ltr <= 0 || ltc <= 0 || pw == 0 || sr == 0 || mb % dlaf_panel_trsm::kW || mb % R)
     return (int)cudaErrorInvalidValue;
+  if (!aligned16(ptr(d[kCp])) || !aligned16(ptr(d[kRp])) || !aligned16(ptr(d[kRings + kLand])))
+    return (int)cudaErrorMisalignedAddress;
   const long long tile_words = (long long)mb * mb * sizeof(T) / 4;
   Step<T> a;
   a.rc = ring_of<T>(d, 0, ptr(d[kY]), ptr(d[kRp]), ltc * tile_words, tile_words, ltc,

@@ -113,7 +113,7 @@ constexpr int kErrDone = 6;        // the pull's exit barrier ran out
 // 16-byte boundary, 16-byte vectors, and a tail of up to 3 words (a ragged
 // w, w % 4 != 0, gives every slot a head or a tail); else every word is an
 // element access.  Chunk 0 writes the slot's have.  A pure select: bit for
-// bit merge_kernel, the first body, kept as B4's reference kernel.
+// bit its plain version (ops/panel_exchange.py's merge_hop_plain).
 
 constexpr int kMergeUnroll = 4;
 constexpr long long kMergeChunk = (long long)kMergeThreads * kMergeUnroll;  // vectors
@@ -158,21 +158,6 @@ merge_select_kernel(const u32* __restrict__ y, const u32* __restrict__ y_in,
       if (i < nvec) d4[i] = part[u];
     }
   }
-}
-
-// merge_kernel: B4's first body, one word a thread, its slot by a 64-bit
-// division; the reference of B4's before/after check.
-__global__ void __launch_bounds__(kMergeThreads)
-merge_kernel(const u32* __restrict__ y, const u32* __restrict__ y_in, const int* __restrict__ h,
-             const int* __restrict__ h_in, u32* __restrict__ oy, int* __restrict__ oh,
-             long long total, long long w, int slots) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
-    const long long slot = i / w;
-    oy[i] = hop_take(h[slot], h_in[slot]) ? y_in[i] : y[i];
-  }
-  for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x; s < slots; s += stride)
-    oh[s] = h[s] | h_in[s];
 }
 
 // ---------------------------------------------------------------- B5
@@ -387,20 +372,6 @@ int dlaf_merge_hop(const void* y, const void* y_in, const void* h, const void* h
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const u32*>(y), static_cast<const u32*>(y_in), static_cast<const int*>(h),
       static_cast<const int*>(h_in), static_cast<u32*>(oy), static_cast<int*>(oh), w, vec);
-  return (int)cudaGetLastError();
-}
-
-// B4's first body (merge_kernel), the reference of its before/after check
-int dlaf_merge_hop_ref(const void* y, const void* y_in, const void* h, const void* h_in,
-                       void* oy, void* oh, long long total, long long w, int slots,
-                       void* stream) {
-  if (total <= 0 || w <= 0 || slots <= 0) return 0;
-  long long blocks = (total + kMergeThreads - 1) / kMergeThreads;
-  if (blocks > 65535) blocks = 65535;
-  merge_kernel<<<(unsigned)blocks, kMergeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const u32*>(y), static_cast<const u32*>(y_in), static_cast<const int*>(h),
-      static_cast<const int*>(h_in), static_cast<u32*>(oy), static_cast<int*>(oh), total, w,
-      slots);
   return (int)cudaGetLastError();
 }
 

@@ -34,8 +34,8 @@ __device__ __forceinline__ u64 globaltimer() {
 }
 
 // The hop merge of one slot: take the incoming word only where this rank
-// has no contribution yet and the sender has one (B4's body; B5 and B7 call
-// it in every hop).
+// has no contribution yet and the sender has one (B4's select; the pull
+// and every hop of the rings, B6, B7 and B8 decide a slot's take with it).
 __device__ __forceinline__ bool hop_take(int have, int have_in) {
   return have == 0 && have_in != 0;
 }
@@ -106,24 +106,29 @@ __device__ inline void copy_segments(u32* __restrict__ dst, const u32* __restric
   }
 }
 
-// acc[i] = land[i] where hop_take(have[slot(i)], have_in[slot(i)]).
+// acc[i] = land[i] where hop_take(have[slot(i)], have_in[slot(i)]).  One
+// division a segment finds its first slot; the walk then goes from slot
+// boundary to slot boundary, deciding each slot's take once and copying
+// only the words it takes (16 bytes at a time where the layout allows).
+// The consumers' segments never cross a slot; B5's hop ring's may.
 __device__ inline void merge_segments(u32* __restrict__ acc, const u32* __restrict__ land,
-                               const int* sh_have, const int* sh_hin, const Ring& r) {
+                                      const int* sh_have, const int* sh_hin, const Ring& r) {
   const bool vec = (r.seg % 4 == 0) && (r.total % 4 == 0) && (r.w % 4 == 0);
   for (long long lo = (long long)blockIdx.x * r.seg; lo < r.total; lo += (long long)gridDim.x * r.seg) {
     const long long hi = min(lo + r.seg, r.total);
-    if (vec) {
-      const uint4* l4 = reinterpret_cast<const uint4*>(land + lo);
-      uint4* a4 = reinterpret_cast<uint4*>(acc + lo);
-      for (long long i = threadIdx.x; i < (hi - lo) / 4; i += blockDim.x) {
-        const long long slot = (lo + 4 * i) / r.w;
-        if (hop_take(sh_have[slot], sh_hin[slot])) a4[i] = __ldcg(l4 + i);
+    int slot = (int)(lo / r.w);
+    for (long long a = lo; a < hi; ++slot) {
+      const long long b = min(hi, (slot + 1) * r.w);
+      if (hop_take(sh_have[slot], sh_hin[slot])) {
+        if (vec) {  // a and b are multiples of 4 words
+          const uint4* l4 = reinterpret_cast<const uint4*>(land + a);
+          uint4* a4 = reinterpret_cast<uint4*>(acc + a);
+          for (long long i = threadIdx.x; i < (b - a) / 4; i += blockDim.x) a4[i] = __ldcg(l4 + i);
+        } else {
+          for (long long i = a + threadIdx.x; i < b; i += blockDim.x) acc[i] = __ldcg(land + i);
+        }
       }
-    } else {
-      for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-        const long long slot = i / r.w;
-        if (hop_take(sh_have[slot], sh_hin[slot])) acc[i] = __ldcg(land + i);
-      }
+      a = b;
     }
   }
 }

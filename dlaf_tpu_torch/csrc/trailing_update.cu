@@ -20,9 +20,9 @@
 //
 // The first body, csrc/trailing_update.cuh's dlaf_tu::tile_gemm (64 x 64
 // tiles, 4 x 4 a thread, one unpipelined stage of scalar loads), stays in
-// B6 and B8 and in the reference kernels below (the *_ref_* entry points):
-// the new body gives its bits, and only the card's checks and scripts
-// launch the reference.
+// the reference kernels below (the *_ref_* entry points): the new body
+// gives its bits, and only the card's checks and scripts launch the
+// reference.
 //
 // B9 replaces dlaf_tpu/ops/pallas_trailing_update.py (panel_contract /
 // _contract_kernel): out = contract(subscripts, a, b) for the two TRTRI
@@ -127,7 +127,7 @@ trailing_update_kernel(T* __restrict__ x, const T* __restrict__ a, const T* __re
   const long long i = bid / C;
 
   T acc[dlaf_tu::kTM][dlaf_tu::kTN];
-  dlaf_tu::tile_gemm<T, kBIsNK, false>(acc, a + i * M * (long long)K, 0, K,
+  dlaf_tu::tile_gemm<T, kBIsNK>(acc, a + i * M * (long long)K, 0, K,
                                        b + (long long)j * N * K, 0, kBIsNK ? K : N, 1, M, N, K,
                                        tm * kBM, tn * kBN, threadIdx.x, sm);
   dlaf_tu::tile_store<T, true>(x + (i * C + j) * (long long)M * N, N, M, N, tm * kBM, tn * kBN,
@@ -149,10 +149,10 @@ panel_contract_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __res
 
   T acc[dlaf_tu::kTM][dlaf_tu::kTN];
   if (kForm == 0)  // sum over j of a[i, j] @ b[j]
-    dlaf_tu::tile_gemm<T, false, false>(acc, a + o * C * mk, mk, K, b, kn, N, C, M, N, K,
+    dlaf_tu::tile_gemm<T, false>(acc, a + o * C * mk, mk, K, b, kn, N, C, M, N, K,
                                         tm * kBM, tn * kBN, threadIdx.x, sm);
   else  // sum over i of a[i] @ b[i, j]
-    dlaf_tu::tile_gemm<T, false, false>(acc, a, mk, K, b + o * kn, C * kn, N, L, M, N, K,
+    dlaf_tu::tile_gemm<T, false>(acc, a, mk, K, b + o * kn, C * kn, N, L, M, N, K,
                                         tm * kBM, tn * kBN, threadIdx.x, sm);
   dlaf_tu::tile_store<T, false>(out + o * M * (long long)N, N, M, N, tm * kBM, tn * kBN, acc,
                                 threadIdx.x);

@@ -1,7 +1,7 @@
-// The GEMM tile body of the trailing-update kernel (B3), shared by
-// csrc/trailing_update.cu (B3 and the panel contraction B9) and the ring
-// consumers of csrc/consume.cu (B6, B8), as the TPU kernels share
-// tile.contract.  See trailing_update.cu for why it is tiled this way.
+// The first GEMM tile body of the trailing-update kernel (B3) and of the
+// panel contraction (B9), which csrc/fma_gemm.cuh replaced with the same
+// bits: it runs only in their reference kernels (csrc/trailing_update.cu's
+// *_ref_* entry points), for the card's before/after checks.
 //
 // One 64 x 64 output tile, computed by 256 threads (16 x 16, each a 4 x 4
 // register tile) from 16-deep k slices staged in shared memory, summed over
@@ -21,14 +21,6 @@ constexpr int kLds = kBM + 4;    // row length of the staged slices (kBN == kBM)
 // shared memory of one tile_gemm, in elements
 constexpr int kSmemElems = 2 * kBK * kLds;
 
-template <typename T, bool kCG>
-__device__ __forceinline__ T load(const T* p) {
-  // kCG: through L2 only, for operands that other blocks or ranks wrote
-  // during the same launch (a ring's landing slots)
-  if constexpr (kCG) return __ldcg(p);
-  else return *p;
-}
-
 // acc = sum over slots s < S and depths k < K of A_s(m, k) * B_s(k, n), for
 // m in [m0, m0 + 64), n in [n0, n0 + 64), with
 //   A_s(m, k) = a[s * sa + m * lda + k]
@@ -41,7 +33,7 @@ __device__ __forceinline__ T load(const T* p) {
 // block must call it with the same S and K.  Offsets within a slot are 32
 // bits (a slot holds fewer than 2^31 elements), the slot strides 64, and
 // the body is forced inline: 64-bit offsets throughout cost B3 time.
-template <typename T, bool kBNK, bool kCG>
+template <typename T, bool kBNK>
 __device__ __forceinline__ void tile_gemm(T (&acc)[kTM][kTN], const T* __restrict__ a,
                                           long long sa, int lda, const T* __restrict__ b,
                                           long long sb, int ldb, int S, int M, int N, int K,
@@ -63,7 +55,7 @@ __device__ __forceinline__ void tile_gemm(T (&acc)[kTM][kTN], const T* __restric
         const int idx = tid + q * kThreads;
         const int mm = idx / kBK, kk = idx % kBK;
         const int gm = m0 + mm, gk = k0 + kk;
-        as[kk * kLds + mm] = (gm < M && gk < K) ? load<T, kCG>(as_s + gm * lda + gk) : T(0);
+        as[kk * kLds + mm] = (gm < M && gk < K) ? as_s[gm * lda + gk] : T(0);
       }
 #pragma unroll
       for (int q = 0; q < kBN * kBK / kThreads; ++q) {
@@ -71,11 +63,11 @@ __device__ __forceinline__ void tile_gemm(T (&acc)[kTM][kTN], const T* __restric
         if (kBNK) {
           const int nn = idx / kBK, kk = idx % kBK;
           const int gn = n0 + nn, gk = k0 + kk;
-          bs[kk * kLds + nn] = (gn < N && gk < K) ? load<T, kCG>(bs_s + gn * ldb + gk) : T(0);
+          bs[kk * kLds + nn] = (gn < N && gk < K) ? bs_s[gn * ldb + gk] : T(0);
         } else {
           const int kk = idx / kBN, nn = idx % kBN;
           const int gn = n0 + nn, gk = k0 + kk;
-          bs[kk * kLds + nn] = (gn < N && gk < K) ? load<T, kCG>(bs_s + gk * ldb + gn) : T(0);
+          bs[kk * kLds + nn] = (gn < N && gk < K) ? bs_s[gk * ldb + gn] : T(0);
         }
       }
       __syncthreads();

@@ -80,7 +80,6 @@ SIGNATURES = {
     "dlaf_secular_bisect_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (y, y_in, h, h_in, oy, oh, total, w, slots, stream)
     "dlaf_merge_hop": [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P],
-    "dlaf_merge_hop_ref": [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P],
     # (ys, hs, out, oh, entry, done, err, total, w, slots, seg, G, P, me, epoch,
     #  timeout_ns, stream): B5, the pull; ys and hs host arrays of P device pointers
     "dlaf_pull_exchange": [_P] * 7 + [_LL, _LL, _I, _LL, _I, _I, _I, _ULL, _ULL, _P],

@@ -173,22 +173,6 @@ def merge_hop(yf, y_in, h, h_in):
     global merge_launches
     if all(t.device.type == "cpu" for t in (yf, y_in, h, h_in)):
         return merge_hop_plain(yf, y_in, h, h_in)
-    out = _merge(yf, y_in, h, h_in, "dlaf_merge_hop")
-    with _build.COUNT_LOCK:
-        merge_launches += 1
-    return out
-
-
-def merge_hop_reference(yf, y_in, h, h_in):
-    """The same merge by B4's first body (``merge_kernel``: one word a
-    thread, its slot by a division, both payloads read), the reference of
-    B4's before/after check: the same bits.  CUDA tensors only; counts
-    nothing."""
-    return _merge(yf, y_in, h, h_in, "dlaf_merge_hop_ref")
-
-
-def _merge(yf, y_in, h, h_in, entry: str):
-    """Check the operands and launch ``entry`` into new outputs."""
     dev = yf.device
     if dev.type != "cuda" or any(t.device != dev for t in (y_in, h, h_in)):
         raise ValueError("merge_hop: operands on different devices or not on a CUDA device")
@@ -203,10 +187,12 @@ def _merge(yf, y_in, h, h_in, entry: str):
         raise ValueError("merge_hop: a slot must be a whole number of 32-bit words")
     y, yi, hh, hi = _words(yf), _words(y_in), h.contiguous(), h_in.contiguous()
     oy, oh = torch.empty_like(y), torch.empty_like(hh)
-    rc = getattr(_build.lib(), entry)(y.data_ptr(), yi.data_ptr(), hh.data_ptr(), hi.data_ptr(),
-                                      oy.data_ptr(), oh.data_ptr(), y.numel(), y.shape[1], slots,
-                                      _build.stream_of(y))
-    _build.check(rc, entry)
+    rc = _build.lib().dlaf_merge_hop(y.data_ptr(), yi.data_ptr(), hh.data_ptr(), hi.data_ptr(),
+                                     oy.data_ptr(), oh.data_ptr(), y.numel(), y.shape[1], slots,
+                                     _build.stream_of(y))
+    _build.check(rc, "merge_hop")
+    with _build.COUNT_LOCK:
+        merge_launches += 1
     return oy.view(yf.dtype), oh
 
 

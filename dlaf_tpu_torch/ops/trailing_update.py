@@ -1,6 +1,6 @@
 """The trailing-update kernels of the 'fused' tier and their plain PyTorch
 versions: ``csrc/trailing_update.cu`` (B3, B9) and ``csrc/consume.cu`` (B6,
-B8), with the tile body they share in ``csrc/trailing_update.cuh``.
+B8).
 
 Replaces ``dlaf_tpu/ops/pallas_trailing_update.py``.  Every contraction
 here is ``tile.contract`` at a split-GEMM tier (``tune.gemm_precision``,
@@ -35,11 +35,14 @@ on CUDA tensors it launches its kernel or raises.  Every kernel here is
 bound by operations on the H100: at N=16384, nb=512 the Cholesky update is
 275 GFlop over 2.2 GB.  At the 'default' tier B3 and B9 run the FMA body
 of ``csrc/fma_gemm.cuh`` (128 x 128 output tiles, 8 x 8 a thread, a
-cp.async ring of 16-deep k slices) and B6 and B8 the first one of
-``csrc/trailing_update.cuh`` (64 x 64 tiles), which gives the same bits;
+cp.async ring of 16-deep k slices), and B6 and B8 its form for the
+ring's 512-thread blocks, ``csrc/consume_gemm.cuh`` (the column panel as
+one matrix in 128 x 64 tiles, one pipeline over a ring segment), with the
+same bits: B6's update is bit for bit B3's applied once to the merged
+panel with the slots not applied set to zero.  The first body,
+``csrc/trailing_update.cuh`` (64 x 64 tiles), gives the same bits too:
 :func:`trailing_update_reference` and :func:`panel_contract_reference`
-launch B3 and B9 on that first body, for the card's before/after checks
-only.  Under 'bf16x3' / 'bf16x6' they run the split-tier body instead
+launch B3 and B9 on it, for the card's before/after checks only.  Under 'bf16x3' / 'bf16x6' they run the split-tier body instead
 (``csrc/split_gemm.cuh``: the bf16 slices made as the tiles are loaded,
 the products on the tensor cores with float32 accumulators, one per
 term): B3 and B9 as kernels of their own, B6 and B8 (whose update is

@@ -12,8 +12,9 @@ reject the reference with its last column block's GEMM term dropped,
 within tol_for of the plain version, and timed in turns with the reference
 (reference, new, new, reference) beside torch.linalg.solve_triangular; then
 every height path A launches, summed over its 32 launches.  With ``merge``
-it also runs B4's phase (``chip_smoke.merge_phase``: the select against
-its first body and torch.where, L2 hot and cold, host time per call).
+it also runs B4's phase (``chip_smoke.merge_phase``: the select bit for bit
+its plain version, timed beside torch.where with L2 hot and cold, and the
+host's time per call).
 Prints chip_smoke.py's JSON records, the build's ptxas line for both
 bodies, and the card's name and power limit; exits non-zero if a check
 fails or there is no CUDA device.

@@ -8,11 +8,12 @@ Each fault is an edit of one file of dlaf_tpu_torch/csrc/, made in a copy
 of dlaf_tpu_torch/ and chip_smoke.py under _faults/<name>/ (listed in
 .gitignore; the repository's own files are never edited).  The copy builds
 its kernels at first use as the repository does, then runs chip_smoke.py's
-kernel phase of the one kernel the fault is in (consume_phases for B6, B8
-and B9, consume_split_phase for B6's and B8's split bodies, pull_phase for
-B5, potrf_phase for B1, panel_trsm_phase for B2, merge_phase for B4,
-trailing_update_phase and fma_edge_phase for B3's and B9's FMA body), on
-the main path's shapes, in a process of its own.
+kernel phase of the one kernel the fault is in (consume_phases for B6, B8,
+their FMA body and B9, consume_split_phase for B6's and B8's split bodies,
+pull_phase for B5 and the rings' merge, potrf_phase for B1,
+panel_trsm_phase for B2, merge_phase for B4, trailing_update_phase and
+fma_edge_phase for B3's and B9's FMA body), on the main path's shapes, in
+a process of its own.
 The script prints one JSON line per fault: whether the phase failed, as
 it must, and the errors the phase measured.  Needs a CUDA device; it
 exits non-zero if a fault that must fail went unseen (faults marked latent are run and reported, with the
@@ -160,6 +161,43 @@ FAULTS = {
         [("dlaf_fma::gemm<T, false, kVec>(acc, a + o * C * mk, mk, K, b, kn, N, C, M, N, K,",
           "dlaf_fma::gemm<T, false, kVec>(acc, a + o * C * mk, mk, K, b, kn, N, C - 1, M, N, K,")],
         "panel_contract", "fails"),
+    # B6's and B8's FMA body (csrc/consume_gemm.cuh) drops the last k slice
+    # of every tile: ceil(K / 16) - 1 slices.  B3's bitwise check (and the
+    # twin's tolerance) must see it
+    "b6_body_drop_last_k_slice": (
+        "consume_gemm.cuh",
+        [("  const int nk = (K + kBK - 1) / kBK;  // the last slice's tail past K is zero-filled\n",
+          "  const int nk = (K - 1) / kBK;\n")],
+        "dma_ring_consume", "fails"),
+    # the consumers' FMA body reads a stage before its cp.async group has
+    # landed: the wait lets one group more stay pending (at a segment's
+    # first slice none is waited for)
+    "b6_body_read_before_wait": (
+        "consume_gemm.cuh",
+        [("      dlaf_fma::cp_async_wait<kStages - 2>();  // this thread's copies of slice t have landed\n",
+          "      dlaf_fma::cp_async_wait<kStages - 1>();  // this thread's copies of slice t have landed\n")],
+        "dma_ring_consume", "fails"),
+    # the consumers' FMA body copies the segment (a landing slot's rows)
+    # with cp.async.ca, through L1, instead of .cg
+    "b6_body_landing_slot_through_l1": (
+        "consume_gemm.cuh",
+        [("    dlaf_fma::cp_async16(bs + r * G::LDK + kc, ok ? b + r * K + gk : b, ok ? 16 : 0);\n",
+          "    asm volatile(\"cp.async.ca.shared.global [%0], [%1], 16, %2;\\n\" ::\"r\"(\n"
+          "                     dlaf_fma::smem_addr(bs + r * G::LDK + kc)),\n"
+          "                 \"l\"(ok ? b + r * K + gk : b), \"r\"(ok ? 16 : 0) : \"memory\");\n")],
+        "dma_ring_consume",
+        "latent: a block reads a landing slot's rows only for the slots fresh at that hop, and a "
+        "slot is fresh at one hop only, so when landing slot s % 2 is rewritten for hop s + 2 "
+        "the block reads other rows of it (other segments, whole 128-byte lines of one slot); "
+        "its rereads of a segment within the hop see the same bytes, and L1 holds nothing "
+        "across launches"),
+    # the rings' merge (csrc/ring.cuh) decides a whole segment by the take of
+    # its first word's slot: wrong where a segment crosses slots, as B5's hop
+    # ring's segments do on the pull phase's small and ragged slots
+    "ring_merge_first_slot": (
+        "ring.cuh",
+        [("      const long long b = min(hi, (slot + 1) * r.w);\n", "      const long long b = hi;\n")],
+        "ring_exchange", "fails"),
     # B3's and B9's FMA body reads a stage before its cp.async group has
     # landed: the wait lets one group more stay pending (at slice 0 none is
     # waited for)

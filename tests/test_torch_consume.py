@@ -137,9 +137,23 @@ CONSUME_CASES = {
     # every slot owned by a distinct rank: every hop applies fresh slots
     # under backpressure
     "ring4_all_owned": (4, 4, {0: 2, 1: 0, 2: 3, 3: 1}, [(1, 2), (3, 0)]),
+    # rank 2 applies every slot (its own at entry, the rest as they land);
+    # its upstream neighbour, rank 1, suppresses all of its own and applies
+    # nothing
+    "ring4_one_applies_all": (4, 4, {0: 1, 1: 3, 2: 0, 3: 2},
+                              [(1, 0), (1, 1), (1, 2), (1, 3)]),
+    # a wider tile than mb = 8, and two row tiles
+    "ring2_mb24": (2, 3, {0: 0, 1: 1}, [(1, 2)], {"ltr": 2, "mb": 24}),
     # one rank: no ring, the masked one-shot update
     "single_rank": (1, 2, {0: 0}, []),
 }
+
+
+def _consume_case_of(name: str, seed: int):
+    """The inputs of CONSUME_CASES[name], and its tile size."""
+    n, slots, contributors, suppress, *kw = CONSUME_CASES[name]
+    kw = kw[0] if kw else {}
+    return n, _consume_case(n, slots, contributors, suppress, seed, **kw), kw.get("mb", 8)
 
 
 @pytest.mark.parametrize("case", list(CONSUME_CASES))
@@ -156,8 +170,8 @@ def test_consume_twin_matches_pallas_interpret(case):
     from dlaf_tpu.ops import pallas_panel_exchange as ppe
     from dlaf_tpu.ops import pallas_trailing_update as ptu
 
-    n, slots, contributors, suppress = CONSUME_CASES[case]
-    x, cp, y, h, z = _consume_case(n, slots, contributors, suppress, seed=211 + n + slots)
+    n, slots = CONSUME_CASES[case][:2]
+    n, (x, cp, y, h, z), mb = _consume_case_of(case, seed=211 + n + slots)
     mesh = Mesh(np.array(jax.devices()[:n]), ("x",))
 
     def fn(xl, cpl, yl, hl, zl):
@@ -174,7 +188,26 @@ def test_consume_twin_matches_pallas_interpret(case):
                                    axis="c")
     np.testing.assert_array_equal(oy[0].numpy(), ry)
     np.testing.assert_array_equal(oh[0].numpy(), rh)
-    assert _rel_err(ox[0].numpy(), rx) <= tol_for(np.float32, 8)
+    assert _rel_err(ox[0].numpy(), rx) <= tol_for(np.float32, mb)
+
+
+@pytest.mark.parametrize("case", list(CONSUME_CASES))
+def test_consume_twin_equals_one_shot_update(case):
+    """B6's twin on every rank gives bit for bit x minus the one-shot
+    update of its merged panel masked to the slots it applies (held on the
+    ring and not suppressed), every other slot zero: each output takes one
+    slot, and the hops' zero contributions leave x as it was.  This is the
+    identity the card's kernel is held to against B3."""
+    n, slots = CONSUME_CASES[case][:2]
+    n, arrays, _ = _consume_case_of(case, seed=97 + n + slots)
+    x, cp, y, h, z = (torch.from_numpy(v)[None] for v in arrays)
+    ox, oy, oh = _consume_on_ranks(Grid.create((1, n), device="cpu"), x, cp, y, h, z, "c")
+    zero = torch.zeros((), dtype=oy.dtype)
+    for r in range(n):
+        applied = (oh[0, r, :, 0] != 0) & (z[0, r, :, 0] == 0)
+        want = x[0, r] - tile.contract(tu.CHOLESKY_SUBSCRIPTS, cp[0, r],
+                                       torch.where(applied[:, None, None], oy[0, r], zero))
+        np.testing.assert_array_equal(ox[0, r].numpy(), want.numpy())
 
 
 @pytest.mark.parametrize("n", [2, 3, 5])
@@ -495,17 +528,49 @@ def _cuda():
     return torch.device("cuda")
 
 
+def _assert_b3_bitwise(got_x, x0, cp, panel, applied):
+    """x after B6 or B8 (stacked [Pr, Pc, ...] on the card) bit for bit B3
+    at the 'default' tier applied once on every rank to ``x0`` with the
+    merged ``panel`` masked to the ``applied`` slots, every other slot zero;
+    the same check rejects B3 with the last k slice of one applied slot
+    dropped."""
+    dev = got_x.device
+    x0, cp, panel, applied = (t.to(dev) for t in (x0, cp, panel, applied))
+    masked = torch.where(applied[..., None, None], panel, torch.zeros((), dtype=panel.dtype,
+                                                                      device=dev))
+    want = x0.clone()
+    for r in range(x0.shape[0]):
+        for c in range(x0.shape[1]):
+            tu.trailing_update(want[r, c], cp[r, c].contiguous(), masked[r, c].contiguous(),
+                               tu.CHOLESKY_SUBSCRIPTS, "default")
+    # the first applied slot whose last k slice meets a non-zero one of cp
+    kd = (panel.shape[-1] - 1) // 16 * 16
+    live = (masked[..., kd:] != 0).flatten(-2).any(-1) & (cp[..., kd:] != 0).flatten(2).any(-1)[
+        ..., None]
+    r, c, s = (int(v) for v in (applied & live).nonzero()[0])
+    dropped = masked[r, c].clone()
+    dropped[s, :, kd:] = 0
+    wrong = tu.trailing_update(x0[r, c].clone(), cp[r, c].contiguous(), dropped,
+                               tu.CHOLESKY_SUBSCRIPTS, "default")
+    torch.cuda.synchronize()
+    words = torch.int32 if got_x.dtype == torch.float32 else torch.int64
+    assert not torch.equal(wrong.view(words), want[r, c].view(words))
+    assert torch.equal(got_x.view(words), want.view(words))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("mb", [96, 128, 192])
 @pytest.mark.parametrize("skew", [False, True])
 @pytest.mark.parametrize("axis,dtype", [("r", torch.float32), ("c", torch.float32),
                                         ("c", torch.float64)])
-def test_cuda_consume_matches_twin(axis, dtype, skew, monkeypatch):
+def test_cuda_consume_matches_twin(axis, dtype, skew, mb, monkeypatch):
     """B6 on a 2x4 grid against its twin on a CPU grid of the same shape:
     the merged panel and have bitwise, the trailing matrix within
-    tol_for(dtype, K); the ring over 'c' has 3 hops (acks in use); with
+    tol_for(dtype, K) and bit for bit B3 on the merged panel masked to the
+    applied slots; the ring over 'c' has 3 hops (acks in use); with
     ``skew`` rank (0, 1) sleeps 50 ms before each launch."""
     dev = _cuda()
-    pr, pc, ltr, slots, mb = 2, 4, 3, 6, 96
+    pr, pc, ltr, slots = 2, 4, 3, 6
     n = pr if axis == "r" else pc
     gen = torch.Generator().manual_seed(13)
     x = torch.randn(pr, pc, ltr, slots, mb, mb, generator=gen, dtype=dtype)
@@ -531,16 +596,20 @@ def test_cuda_consume_matches_twin(axis, dtype, skew, monkeypatch):
     assert torch.equal(got[1].cpu(), ref[1]) and torch.equal(got[2].cpu(), ref[2])
     err = _rel_err((got[0].cpu() - x).numpy(), (ref[0] - x).numpy())
     assert err <= tol_for(np.float32 if dtype == torch.float32 else np.float64, mb)
+    _assert_b3_bitwise(got[0], x, cp, got[1], (ref[2][..., 0] != 0) & (z[..., 0] == 0))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mb", [128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_fused_step_matches_twin(dtype):
-    """B8 on a 2x4 grid (mb = 128) against its twin on a CPU grid, on the
-    same inputs (panel k made by B7's twin), every output within
-    tol_for(dtype, mb)."""
+def test_cuda_fused_step_matches_twin(dtype, mb):
+    """B8 on a 2x4 grid (mb a multiple of 128, as its gate asks) against
+    its twin on a CPU grid, on the same inputs (panel k made by B7's twin),
+    every output within tol_for(dtype, mb), and x bit for bit B3 on the
+    merged panel masked to the slots B8 applies (held on the ring over 'r'
+    and not suppressed, and the narrow slot on column k+1's ranks)."""
     dev = _cuda()
-    n, mb, k = 1536, 128, 3
+    n, k = 12 * mb, 3
     a = torch.from_numpy(np.tril(random_hermitian_pd(n, np.float64, 17))).to(dtype)
     cpu = Grid.create((2, 4), device="cpu")
     mat = dtt.DistributedMatrix.from_global(cpu, a, (mb, mb))
@@ -584,6 +653,20 @@ def test_cuda_fused_step_matches_twin(dtype):
         err = torch.linalg.vector_norm((got.cpu() - want).double()) / torch.linalg.vector_norm(
             want.double())
         assert err <= tol
+    haves = torch.empty(2, 4, g.ltc, dtype=torch.bool)
+    supps = torch.empty_like(haves)
+
+    def masks(cp, hv, sp):
+        gj = _spmd.local_col_tiles(g, coll.my_rank()[1], cp.device)
+        hv.copy_(coll.transpose_panel_parts(cp, g.mt, g.ltc)[1])
+        sp.copy_(gj == k + 1)
+
+    coll.spmd(cpu, masks, cps, haves, supps)
+    narrow = torch.zeros_like(supps)
+    narrow[:, (k + 1) % g.pc, (k + 1) // g.pc] = True
+    held = haves.any(dim=0, keepdim=True).expand_as(haves)
+    _assert_b3_bitwise(outs["cuda"][0], mat.data, cps, outs["cuda"][1],
+                       held & (~supps | narrow))
 
 
 @pytest.mark.cuda

@@ -424,9 +424,10 @@ def test_cuda_merge_matches_twin_bitwise(dtype):
                                   (16, 4096, "mixed"), (6, 256, "all held"),
                                   (6, 256, "none held"), (6, 256, "all incoming")])
 def test_cuda_merge_matches_reference_bitwise(case, dtype, off):
-    """B4's select (``merge_select_kernel``) gives its first body's bits and
-    its plain version's: 16-byte vectors with a head and a tail of words on
-    a ragged w, element accesses at an offset of one element."""
+    """B4's select (``merge_select_kernel``) gives its plain version's bits
+    (the reference: a pure select has no other): 16-byte vectors with a
+    head and a tail of words on a ragged w, element accesses at an offset
+    of one element."""
     dev = _cuda()
     y, y_in, h, h_in = (torch.from_numpy(a) for a in _merge_case(case, dtype, seed=9))
     ref = px.merge_hop_plain(y, y_in, h, h_in)
@@ -438,11 +439,9 @@ def test_cuda_merge_matches_reference_bitwise(case, dtype, off):
     args = (*yo, h.to(dev), h_in.to(dev))
     before = px.merge_launches
     got = px.merge_hop(*args)
-    old = px.merge_hop_reference(*args)
     torch.cuda.synchronize()
     assert px.merge_launches == before + 1
     words = torch.int32 if dtype == np.float32 else torch.int64
-    assert torch.equal(got[0].view(words), old[0].view(words)) and torch.equal(got[1], old[1])
     assert torch.equal(got[0].cpu().view(words), ref[0].view(words))
     assert torch.equal(got[1].cpu(), ref[1])
 
