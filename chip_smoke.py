@@ -1122,14 +1122,50 @@ def ring_phases(stamp: dict, bound, kgen) -> dict:
            "bound_counts": "potrf nb^3/3 on every rank, the solve rows*nb^2 on the root "
                            "column; bytes: d and lkk per rank, xc on the root, cp per rank",
            **stamp}
+    # ---- B7 at M5's nb = NB_M5, the shape of its launches on M5, S6 and S7:
+    # d 192 x 192, xc [43, 192, 192] (N padded to a whole number of tiles),
+    # ring P = 4, every tile below the diagonal; bit for bit the unfused
+    # composition and timed beside it (inputs of their own, from SEED + 7)
+    nb5 = NB_M5
+    ltr5 = -(-N // nb5) // pr
+    gen5 = torch.Generator(device=dev).manual_seed(SEED + 7)
+    g5 = torch.randn(nb5, 2 * nb5, generator=gen5, device=dev)
+    d5 = (g5 @ g5.T / (2 * nb5)).expand(pr, pc, nb5, nb5).contiguous()
+    xc5 = torch.randn(pr, pc, ltr5, nb5, nb5, generator=gen5, device=dev)
+    below5 = torch.arange(ltr5, device=dev) >= 1
+
+    def fused5(dl, xl):
+        return px.fused_factor_bcast(dl, xl, below5, root, "c")
+
+    def unfused5(dl, xl):
+        lkk = potrf.potrf_tile(dl)
+        pan = panel_trsm.panel_trsm_right_lower_t(lkk, xl.reshape(-1, nb5)).reshape(xl.shape)
+        cp = torch.where(below5[:, None, None], pan, torch.zeros_like(pan))
+        return lkk, px.ring_bcast(cp, coll.my_rank()[1] == root, "c")
+
+    got5 = on_ranks(gpu, fused5, [d5, xc5])
+    ref5 = on_ranks(gpu, unfused5, [d5, xc5])
+    torch.cuda.synchronize()
+    same5 = all(torch.equal(a, b) for a, b in zip(got5, ref5))
+    rows5 = (ltr5 - 1) * nb5 * pr
+    b5_ms, b5_by = bound(pr * pc * nb5 ** 3 / 3 + rows5 * nb5 * nb5,
+                         pr * pc * 2 * nb5 * nb5 * 4 + pr * ltr5 * nb5 * nb5 * 4
+                         + pr * pc * ltr5 * nb5 * nb5 * 4)
+    rec["at_M5"] = {"shape": {"d": [nb5, nb5], "xc": [ltr5, nb5, nb5]},
+                    "bitwise_vs_unfused": same5,
+                    "kernel_ms": grid_span_ms(gpu, fused5, [d5, xc5], 3)[0],
+                    "unfused_ms": grid_span_ms(gpu, unfused5, [d5, xc5], 3)[0],
+                    "bound_ms": b5_ms, "bound_by": b5_by}
     emit(rec)
     if not rel <= tol:
         fail(f"fused_factor_bcast vs its plain twin: rel err {rel:.3e} > {tol:.3e}")
     if not same:
         fail(f"fused_factor_bcast vs the unfused composition: not bitwise equal "
              f"(rel err {rel_unfused:.3e})")
+    if not same5:
+        fail(f"fused_factor_bcast at nb={nb5} vs the unfused composition: not bitwise equal")
     report["fused_factor_bcast"] = rec
-    del d, xc, got, ref, plain
+    del d, xc, got, ref, plain, d5, xc5, got5, ref5
     torch.cuda.empty_cache()
     return report
 
@@ -1270,17 +1306,18 @@ def digest(t) -> str:
     return hashlib.sha256(t.detach().contiguous().cpu().view(torch.uint8).numpy()).hexdigest()
 
 
-def b3_bitwise_verdict(label: str, xk, x0, cp, panel, applied) -> dict:
+def b3_bitwise_verdict(label: str, xk, x0, cp, panel, applied, tier: str = "default") -> dict:
     """The ring consumers' bitwise check: ``xk`` (x after B6, or after B8,
     whose later phases leave x as its consume phase wrote it; stacked
-    [Pr, Pc, ltr, ltc, M, N]) bit for bit B3 at the 'default' tier applied
-    once on every rank to ``x0`` with ``panel`` (the merged panel the kernel
-    returned, [Pr, Pc, ltc, N, K]) masked to the ``applied`` slots ([Pr, Pc,
-    ltc] bool), every other slot zero.  Each output of a consume update
-    takes one slot, so the kernel's chain is B3's.  The check is first shown
-    to reject B3's output with the last k slice of one applied slot dropped
-    (the first applied slot whose last k slice meets a non-zero one of cp:
-    the rows above step k are zero)."""
+    [Pr, Pc, ltr, ltc, M, N]) bit for bit B3 at ``tier`` (B3-split under
+    'bf16x3' / 'bf16x6') applied once on every rank to ``x0`` with
+    ``panel`` (the merged panel the kernel returned, [Pr, Pc, ltc, N, K])
+    masked to the ``applied`` slots ([Pr, Pc, ltc] bool), every other slot
+    zero.  Each output of a consume update takes one slot, so the kernel's
+    chain is B3's.  The check is first shown to reject B3's output with the
+    last k16 slice of one applied slot dropped (the first applied slot whose
+    last k16 slice meets a non-zero one of cp: the rows above step k are
+    zero)."""
     import torch
 
     from dlaf_tpu_torch.ops import trailing_update as tu
@@ -1292,7 +1329,7 @@ def b3_bitwise_verdict(label: str, xk, x0, cp, panel, applied) -> dict:
     for r in range(pr):
         for c in range(pc):
             tu.trailing_update(want[r, c], cp[r, c].contiguous(), masked[r, c].contiguous(),
-                               tu.CHOLESKY_SUBSCRIPTS, "default")
+                               tu.CHOLESKY_SUBSCRIPTS, tier)
     # the first applied slot whose last k slice meets a non-zero one of cp
     kd = _k_dropped(panel.shape[-1])
     live = (masked[..., kd:] != 0).flatten(-2).any(-1) & (cp[..., kd:] != 0).flatten(2).any(-1)[
@@ -1301,18 +1338,18 @@ def b3_bitwise_verdict(label: str, xk, x0, cp, panel, applied) -> dict:
     dropped = masked[r, c].clone()
     dropped[s_, :, kd:] = 0
     wrong = tu.trailing_update(x0[r, c].clone(), cp[r, c].contiguous(), dropped,
-                               tu.CHOLESKY_SUBSCRIPTS, "default")
+                               tu.CHOLESKY_SUBSCRIPTS, tier)
     torch.cuda.synchronize()
     rejects = not torch.equal(_bits(wrong), _bits(want[r, c]))
     bitwise = torch.equal(_bits(xk), _bits(want))
     differ = 0 if bitwise else int((_bits(xk) != _bits(want)).sum())
     del want, wrong, masked, dropped
     problems = [f"{label}: {p}" for p, bad in (
-        ("the bitwise check accepts B3 with the last k slice of one applied slot dropped",
-         not rejects),
-        (f"x not bit for bit B3 on the merged, masked panel ({differ} elements differ)",
-         not bitwise)) if bad]
-    return {"bitwise_vs_b3": bitwise, "elements_differing_vs_b3": differ,
+        (f"the bitwise check accepts B3 at {tier} with the last k16 slice of one applied slot "
+         "dropped", not rejects),
+        (f"x not bit for bit B3 at {tier} on the merged, masked panel ({differ} elements "
+         "differ)", not bitwise)) if bad]
+    return {"bitwise_vs_b3": bitwise, "b3_tier": tier, "elements_differing_vs_b3": differ,
             "dropped_slice_rejected": rejects, "applied_slots": int(applied.sum()),
             "problems": problems}
 
@@ -2449,6 +2486,134 @@ def _ptxas_of(kernel: str) -> dict:
 CONSUME_SPLIT_KERNELS = ("dma_ring_consume_split", "fused_step_split")
 
 
+def _split_b6_body(x, y, have, supp, cp):
+    """One rank's B6 call of a split case (``x`` updated in place)."""
+    import torch
+
+    from dlaf_tpu_torch.ops import trailing_update as tu
+
+    _, yy, hh = tu.dma_ring_consume(x, y, have.to(torch.int32).reshape(-1, 1), cp,
+                                    supp.to(torch.int32).reshape(-1, 1), "r")
+    return yy, hh
+
+
+def _split_b6_post(outs, rest):
+    """B6's merged panel masked to the slots it applied (held after the
+    ring and not suppressed), those slots, its bitwise outputs, and none
+    held within tolerance."""
+    import torch
+
+    yy, hh = outs
+    applied = (hh.reshape(hh.shape[:3]) != 0) & ~rest[1].to(hh.device)
+    zero = torch.zeros((), dtype=yy.dtype, device=yy.device)
+    return torch.where(applied[..., None, None], yy, zero), applied, [yy, hh], []
+
+
+def consume_split_cases(gpu, a_glob, only=CONSUME_SPLIT_KERNELS):
+    """The cases of B6's and B8's split bodies on the 2x4 card grid ``gpu``
+    (:func:`consume_split_phase`, ``scripts/consume_ab.py``), made and
+    yielded one at a time, each a dict: ``kernel``, ``key``, ``label``,
+    ``body(x, y, *rest)`` (one rank's call, ``x`` updated in place),
+    ``post(outs, rest)`` (the merged panel masked to the applied slots, the
+    applied slots [Pr, Pc, slots], the outputs held bit for bit and those
+    held within tolerance), ``x0``, ``y``, ``rest``, ``cp``, ``flops`` (of
+    the split products' GEMM shape), ``other_flops``, ``nbytes`` and
+    ``iters``.  B6 at step 0 of M5, at red2band's first window (K = 128)
+    and in float64 at step 0 of the leading N_TIERS block at NB_M5; B8 at
+    step 0 of M4 and in float64 at step 0 of the leading N_TIERS block.
+    The caller drops a case before asking for the next."""
+    import torch
+
+    from dlaf_tpu_torch.ops import trailing_update as tu
+
+    dev = a_glob.device
+    pr, pc = GRID_M
+    ranks = pr * pc
+
+    def b6(key, label, x0, cp, taken, have, supp, iters):
+        nb, k_ = x0.shape[-1], taken.shape[-1]
+        ltr, ltc = x0.shape[2], x0.shape[3]
+        esz = x0.element_size()
+        applied = int((have.any(dim=0, keepdim=True).expand_as(have) & ~supp).sum())
+        return {"kernel": "dma_ring_consume_split", "key": key, "label": label,
+                "body": _split_b6_body, "post": _split_b6_post, "x0": x0, "y": taken,
+                "rest": [have, supp, cp], "cp": cp,
+                "flops": 2.0 * x0.shape[-2] * nb * k_ * ltr * applied, "other_flops": 0.0,
+                "nbytes": ranks * (2 * ltr * ltc * nb * nb + ltr * nb * k_ + 2 * ltc * nb * k_)
+                * esz, "iters": iters}
+
+    if "dma_ring_consume_split" in only:
+        # ---- M5's step 0 (nb = NB_M5 on its padded geometry), f32
+        _, x5, cp5, tk5, hv5, sp5, _ = _step0(gpu, a_glob, NB_M5)
+        yield b6("M5_step0", "step 0 of M5", x5, cp5, tk5, hv5, sp5, 2)
+        del x5, cp5, tk5, hv5, sp5
+        # ---- red2band's first window at path H's geometry on 2x4: L = ltr,
+        # C = ltc, K = 128, the transposed W2 panel's parts
+        nbh, band = NBH, 128
+        mth = NH // NBH
+        L, C = mth // pr, mth // pc
+        gen = torch.Generator(device=dev).manual_seed(SEED_H)
+        xw = torch.randn(pr, pc, L, C, nbh, nbh, generator=gen, device=dev)
+        vr = torch.randn(pr, pc, L, nbh, band, generator=gen, device=dev)
+        w2 = torch.randn(pr, pc, L, nbh, band, generator=gen, device=dev)
+
+        def parts(w):
+            from dlaf_tpu_torch.comm import collectives as coll
+
+            _, myc = coll.my_rank()
+            gj = torch.arange(C, device=w.device) * pc + myc
+            taken, have = coll.transpose_panel_windowed_parts(w, gj, 0, mth)
+            return taken, have, torch.zeros_like(have)
+
+        tkw, hvw, spw = on_ranks(gpu, parts, [w2])
+        del w2
+        yield b6("red2band_window", f"red2band's first window, K={band}", xw, vr, tkw, hvw, spw,
+                 3)
+        del xw, vr, tkw, hvw, spw
+        # ---- float64: step 0 of the leading N_TIERS block at NB_M5
+        a64 = a_glob[:N_TIERS, :N_TIERS].double()
+        _, x6, cp6, tk6, hv6, sp6, _ = _step0(gpu, a64, NB_M5)
+        del a64
+        yield b6("f64_step0", f"float64, step 0 at N={N_TIERS}, nb={NB_M5}", x6, cp6, tk6, hv6,
+                 sp6, 3)
+        del x6, cp6, tk6, hv6, sp6
+
+    if "fused_step_split" in only:
+        for key, label, iters in (("M4_step0", "step 0 of M4", 2),
+                                  ("f64_step0", f"float64, step 0 at N={N_TIERS}, nb={NB}", 3)):
+            a = a_glob if key == "M4_step0" else a_glob[:N_TIERS, :N_TIERS].double()
+            g, x0, cp, taken, have, supp, below1 = _step0(gpu, a, NB)
+            del a
+            k1 = 1
+            params = (k1 % g.pc, k1 % g.pr, k1 // g.pc, k1 // g.pr, k1 // g.pc)
+
+            def b8_body(x, y, hv, z, c, bl, params=params):
+                return tu.fused_step(x, y, hv, z, c, bl, params)[1:]
+
+            def b8_post(outs, rest, params=params):
+                # B8 applies the slots held on the ring over 'r' and not
+                # suppressed, and on column k+1's ranks the narrow slot
+                rp, lkk1, cp1, d1 = outs
+                hv, sp = (t.to(rp.device) for t in rest[:2])
+                narrow = torch.zeros_like(sp)
+                narrow[:, params[0], params[2]] = True
+                applied = hv.any(dim=0, keepdim=True).expand_as(hv) & (~sp | narrow)
+                return rp, applied, [rp], [lkk1, cp1, d1]
+
+            nb, esz = NB, x0.element_size()
+            applied = int(have.any(dim=0, keepdim=True).expand_as(have).sum())
+            rows_solved = int(below1[:, params[0]].sum()) * nb
+            tile_b = nb * nb * esz
+            yield {"kernel": "fused_step_split", "key": key, "label": label, "body": b8_body,
+                   "post": b8_post, "x0": x0, "y": taken, "rest": [have, supp, cp, below1],
+                   "cp": cp, "flops": 2.0 * nb ** 3 * g.ltr * applied,
+                   "other_flops": ranks * nb ** 3 / 3 + rows_solved * nb * nb,
+                   "nbytes": (ranks * (2 * g.ltr * g.ltc + g.ltr + 2 * g.ltc) * tile_b
+                              + ranks * 3 * tile_b + pr * g.ltr * tile_b
+                              + ranks * g.ltr * tile_b), "iters": iters}
+            del g, x0, cp, taken, have, supp, below1
+
+
 def consume_split_phase(stamp: dict, timed_ms, a_glob, only=CONSUME_SPLIT_KERNELS) -> dict:
     """Phase 2e: B6's and B8's split bodies (gemm_precision bf16x3 on f32,
     bf16x6 on f64) against their twins at the tier on a CPU grid of the
@@ -2467,6 +2632,11 @@ def consume_split_phase(stamp: dict, timed_ms, a_glob, only=CONSUME_SPLIT_KERNEL
       every output is one product (B8's narrow update of column k+1
       included): x bit for bit the twin's, and farther than 1e-6 (f32;
       1e-10 in f64) from the 'default'-tier kernel's.
+
+    On normal operands x is also bit for bit B3-split at the tier applied
+    once on every rank to the merged panel masked to the slots the kernel
+    applies (:func:`b3_bitwise_verdict`, first shown to reject B3-split
+    with the last k16 slice of one applied slot dropped).
 
     B8's factor, new panel and diagonal tile are held to the twin's within
     tol_for(dtype, nb).  Every launch of the checks must run the split
@@ -2522,11 +2692,12 @@ def consume_split_phase(stamp: dict, timed_ms, a_glob, only=CONSUME_SPLIT_KERNEL
         return metrics, rejected
 
     def case(kernel, label, body, x0, y, rest, post, flops, other_flops, nbytes, iters):
-        """Both checks and the times of one case.  ``body(x, y, *rest)`` is
+        """The checks and the times of one case.  ``body(x, y, *rest)`` is
         one rank's call of the wrapper (the kernel on the card grid, its
         twin on the CPU grid), updating ``x`` in place; ``post(outs, rest)``
-        gives the merged panel masked to the applied slots, the outputs that
-        must be bitwise and those held within tolerance."""
+        gives the merged panel masked to the applied slots, the applied
+        slots ([Pr, Pc, slots] bool), the outputs that must be bitwise and
+        those held within tolerance."""
         f64 = x0.dtype == torch.float64
         tier = "bf16x6" if f64 else "bf16x3"
         tol = tol_for("float32", y.shape[-1])
@@ -2547,12 +2718,14 @@ def consume_split_phase(stamp: dict, timed_ms, a_glob, only=CONSUME_SPLIT_KERNEL
             with tune.gemm_precision_scope(tier):
                 outs = on_ranks(cpu, body, [x, y_.cpu()] + rest_c)
             ms = (time.perf_counter() - t0) * 1e3
-            _, same, near = post(outs, rest_c)
+            _, _, same, near = post(outs, rest_c)
             return x.to(dev), [t.to(dev) for t in same], [t.to(dev) for t in near], ms
 
         before = tu.consume_split_launches + tu.fused_step_split_launches
         # normal operands
-        xk, (ymask, same_k, near_k) = card(tier, y)
+        xk, (ymask, applied_k, same_k, near_k) = card(tier, y)
+        b3 = b3_bitwise_verdict(f"{kernel} [{label}]", xk, x0, cp, ymask, applied_k, tier)
+        bad.extend(b3.pop("problems"))
         xt, same_t, near_t, plain_ms = twin(y)
         bitwise = all(torch.equal(a, b) for a, b in zip(same_k, same_t))
         near = {nm: _rel_dev(a, b)[1] for nm, a, b in zip(("lkk1", "cp1", "d1"), near_k, near_t)}
@@ -2569,7 +2742,7 @@ def consume_split_phase(stamp: dict, timed_ms, a_glob, only=CONSUME_SPLIT_KERNEL
         del xk, xt, upd_t
         # the split probe
         yp = probe(y)
-        xk_p, (ymask_p, same_kp, _) = card(tier, yp)
+        xk_p, (ymask_p, _, same_kp, _) = card(tier, yp)
         xt_p, same_tp, _, _ = twin(yp)
         xd_p, _ = card("default", yp)
         bitwise = bitwise and all(torch.equal(a, b) for a, b in zip(same_kp, same_tp))
@@ -2612,14 +2785,14 @@ def consume_split_phase(stamp: dict, timed_ms, a_glob, only=CONSUME_SPLIT_KERNEL
         inst = (f"consume_kernel<{t_name}, {ns}>" if b6
                 else f"fused_step_kernel<{t_name}, {16 if f64 else 32}, {ns}>")
         per_sm = (_build.lib().dlaf_ring_consumer_blocks_per_sm(
-            0 if b6 else 1, int(f64), ns, int(y.shape[-3]), int(x0.shape[-1]))
-            if dev.type == "cuda" else None)
+            0 if b6 else 1, int(f64), ns, int(y.shape[-3]), int(x0.shape[-1]),
+            int(y.shape[-1])) if dev.type == "cuda" else None)
         rec = {"kernel": kernel, "case": label, "dtype": "float64" if f64 else "float32",
                "tier": tier, "nslices": ns, "products": nterms,
                "shape": {"x": list(x0.shape[2:]), "cp": list(cp.shape[2:]),
                          "y": list(y.shape[2:])}, "ranks": ranks,
                "bitwise_vs_plain_panel_have": bitwise, "max_abs_err": err_abs, **normal,
-               "rel_err_vs_default": vs_default, **probed, "rel_err_vs_plain_outputs": near,
+               "rel_err_vs_default": vs_default, **probed, **b3, "rel_err_vs_plain_outputs": near,
                "wrong_answers_pass": {"normal": rej_n, "split_probe": rej_p},
                "kernel_ms": min(spans[tier]), "default_tier_kernel_ms": min(spans["default"]),
                "spans_ms_in_turns": {"split": spans[tier], "default": spans["default"]},
@@ -2640,99 +2813,19 @@ def consume_split_phase(stamp: dict, timed_ms, a_glob, only=CONSUME_SPLIT_KERNEL
         emit(rec)
         return rec
 
-    def b6_body(x, y, have, supp, cp):
-        _, yy, hh = tu.dma_ring_consume(x, y, have.to(torch.int32).reshape(-1, 1), cp,
-                                        supp.to(torch.int32).reshape(-1, 1), "r")
-        return yy, hh
-
-    def b6_post(outs, rest):
-        yy, hh = outs
-        applied = (hh.reshape(hh.shape[:3]) != 0) & ~rest[1].to(hh.device)
-        return torch.where(applied[..., None, None], yy, zero_of(yy)), [yy, hh], []
-
-    def b6_case(label, x0, cp, taken, have, supp, iters):
-        nb, k_ = x0.shape[-1], taken.shape[-1]
-        ltr, ltc = x0.shape[2], x0.shape[3]
-        esz = x0.element_size()
-        applied = int((have.any(dim=0, keepdim=True).expand_as(have) & ~supp).sum())
-        flops = 2.0 * x0.shape[-2] * nb * k_ * ltr * applied
-        nbytes = ranks * (2 * ltr * ltc * nb * nb + ltr * nb * k_ + 2 * ltc * nb * k_) * esz
-        return case("dma_ring_consume_split", label, b6_body, x0, taken, [have, supp, cp],
-                    b6_post, flops, 0.0, nbytes, iters)
-
-    if "dma_ring_consume_split" in only:
-        recs = {}
-        # ---- M5's step 0 (nb = NB_M5 on its padded geometry), f32, bf16x3
-        g5, x5, cp5, tk5, hv5, sp5, _ = _step0(gpu, a_glob, NB_M5)
-        recs["M5_step0"] = b6_case("step 0 of M5", x5, cp5, tk5, hv5, sp5, 2)
-        del x5, cp5, tk5, hv5, sp5
-        # ---- red2band's first window at path H's geometry on 2x4: L = ltr,
-        # C = ltc, K = 128, the transposed W2 panel's parts
-        nbh, band = NBH, 128
-        mth = NH // NBH
-        L, C = mth // pr, mth // pc
-        gen = torch.Generator(device=dev).manual_seed(SEED_H)
-        xw = torch.randn(pr, pc, L, C, nbh, nbh, generator=gen, device=dev)
-        vr = torch.randn(pr, pc, L, nbh, band, generator=gen, device=dev)
-        w2 = torch.randn(pr, pc, L, nbh, band, generator=gen, device=dev)
-
-        def parts(w):
-            from dlaf_tpu_torch.comm import collectives as coll
-
-            _, myc = coll.my_rank()
-            gj = torch.arange(C, device=w.device) * pc + myc
-            taken, have = coll.transpose_panel_windowed_parts(w, gj, 0, mth)
-            return taken, have, torch.zeros_like(have)
-
-        tkw, hvw, spw = on_ranks(gpu, parts, [w2])
-        recs["red2band_window"] = b6_case(f"red2band's first window, K={band}", xw, vr, tkw,
-                                          hvw, spw, 3)
-        del xw, vr, w2, tkw, hvw, spw
-        # ---- float64, bf16x6: step 0 of the leading N_TIERS block at NB_M5
-        a64 = a_glob[:N_TIERS, :N_TIERS].double()
-        g6, x6, cp6, tk6, hv6, sp6, _ = _step0(gpu, a64, NB_M5)
-        recs["f64_step0"] = b6_case(f"float64, step 0 at N={N_TIERS}, nb={NB_M5}", x6, cp6,
-                                    tk6, hv6, sp6, 3)
-        del a64, x6, cp6, tk6, hv6, sp6
+    for spec in consume_split_cases(gpu, a_glob, only):
+        report.setdefault(spec["kernel"], {})[spec["key"]] = case(
+            spec["kernel"], spec["label"], spec["body"], spec["x0"], spec["y"], spec["rest"],
+            spec["post"], spec["flops"], spec["other_flops"], spec["nbytes"], spec["iters"])
+        del spec
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        report["dma_ring_consume_split"] = {
-            **recs["M5_step0"], "cases": recs,
-            "max_abs_err": worst(r["max_abs_err"] for r in recs.values())}
-
-    if "fused_step_split" in only:
-        recs = {}
-        for label, a, iters in (("step 0 of M4", a_glob, 2),
-                                (f"float64, step 0 at N={N_TIERS}, nb={NB}",
-                                 a_glob[:N_TIERS, :N_TIERS].double(), 3)):
-            g, x0, cp, taken, have, supp, below1 = _step0(gpu, a, NB)
-            k1 = 1
-            params = (k1 % g.pc, k1 % g.pr, k1 // g.pc, k1 // g.pr, k1 // g.pc)
-
-            def b8_body(x, y, hv, z, c, bl, params=params):
-                return tu.fused_step(x, y, hv, z, c, bl, params)[1:]
-
-            def b8_post(outs, rest):
-                rp, lkk1, cp1, d1 = outs
-                return rp, [rp], [lkk1, cp1, d1]
-
-            nb, esz = NB, x0.element_size()
-            applied = int(have.any(dim=0, keepdim=True).expand_as(have).sum())
-            flops = 2.0 * nb ** 3 * g.ltr * applied
-            rows_solved = int(below1[:, params[0]].sum()) * nb
-            other = ranks * nb ** 3 / 3 + rows_solved * nb * nb
-            tile_b = nb * nb * esz
-            nbytes = (ranks * (2 * g.ltr * g.ltc + g.ltr + 2 * g.ltc) * tile_b
-                      + ranks * 3 * tile_b + pr * g.ltr * tile_b + ranks * g.ltr * tile_b)
-            key = "M4_step0" if a is a_glob else "f64_step0"
-            recs[key] = case("fused_step_split", label, b8_body, x0, taken,
-                             [have, supp, cp, below1], b8_post, flops, other, nbytes, iters)
-            del x0, cp, taken, have, supp, below1, a
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
-        report["fused_step_split"] = {
-            **recs["M4_step0"], "cases": recs,
-            "max_abs_err": worst(r["max_abs_err"] for r in recs.values())}
+    for kernel, first in (("dma_ring_consume_split", "M5_step0"),
+                          ("fused_step_split", "M4_step0")):
+        if kernel in report:
+            recs = report[kernel]
+            report[kernel] = {**recs[first], "cases": recs,
+                              "max_abs_err": worst(r["max_abs_err"] for r in recs.values())}
     if bad:
         fail("B6's and B8's split bodies vs their twins: " + "; ".join(bad))
     return report

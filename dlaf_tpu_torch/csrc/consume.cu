@@ -49,12 +49,15 @@
 // the launch), with B3's bits (csrc/fma_gemm.cuh): x after B6 is bit for
 // bit B3 applied once to the merged panel with the slots not applied set
 // to zero.  Under the split tiers the update is the split body of
-// csrc/split_gemm.cuh (bf16 slices cut as the tiles load, mma.sync
-// products, one float32 accumulator per term, added in the JAX package's
-// order), NS = 2 slices per operand for 'bf16x3' and 3 for 'bf16x6', with
-// the whole block on one tile (16 warps of 16 x 16 outputs), which keeps
-// the accumulators within the 128 registers a thread of a 512-thread block
-// may use.  The slice count is a template parameter of B6 and of B8's
+// csrc/consume_split.cuh (NS = 2 bf16 slices per operand for 'bf16x3' and
+// 3 for 'bf16x6'): the segment cut once into its slices and kept in shared
+// memory, the column panel streamed by cp.async.cg through four pipelines
+// of 32-deep slices cut in place, one per part of 4 warps, mma.sync
+// products with one float32 accumulator per term, added in the JAX
+// package's order, with B3-split's bits (csrc/split_gemm.cuh): x after B6
+// is bit for bit B3-split applied once to the merged panel with the slots
+// not applied set to zero.  The slice count is a template parameter of B6
+// and of B8's
 // consume phase only: B8's factor and panel-solve phases are the same code
 // at every tier.  Each rank takes at most SMs / ranks blocks, as every ring
 // kernel, so all ranks' launches are resident at once; the launchers refuse
@@ -78,7 +81,7 @@
 #include "panel_trsm.cuh"
 #include "potrf.cuh"
 #include "ring.cuh"
-#include "split_gemm.cuh"
+#include "consume_split.cuh"
 
 // the dynamic shared memory of every kernel here: the work area of its
 // block bodies, then its int scratch
@@ -89,15 +92,24 @@ namespace {
 using namespace dlaf_ring;
 
 constexpr int kThreads = 512;
-static_assert(dlaf_split::threads_of(1) == kThreads, "the split body's MI = 1 layout is a block");
+static_assert(dlaf_consume_split::kThreads == kThreads, "the split body's layout is a block");
 static_assert(dlaf_ring_gemm::kThreads == kThreads, "the FMA body's layout is a block");
 
 // bytes of shared memory apply_rows needs: the FMA body's stages (NS = 0)
-// or one split body's bf16 staging
+// or the split body's stages and segment slices at pw columns a pass
 template <typename T, int NS>
-__host__ __device__ constexpr size_t gemm_smem() {
+__host__ __device__ inline size_t gemm_smem(int K, int pw) {
   if constexpr (NS == 0) return dlaf_ring_gemm::Geom<T>::SMEM_BYTES;
-  else return sizeof(dlaf_split::Smem<NS>);
+  else return dlaf_consume_split::smem_bytes<T, NS>(K, pw);
+}
+
+// the split body's columns a pass at depth K, beside `scratch` bytes of
+// int scratch in the dynamic shared memory (0 at 'default', or when not
+// even 2 columns fit: the launcher refuses)
+template <typename T, int NS>
+int split_pass_cols(int K, size_t scratch) {
+  if constexpr (NS == 0) return 0;
+  else return dlaf_consume_split::pass_cols<T, NS>(K, (dlaf_potrf::kSmemLimit - scratch) / 16 * 16);
 }
 
 // rows of one ring segment of a [slots][n][k] panel: the widest of 64,
@@ -114,44 +126,26 @@ struct Panel {
   T* x;          // the trailing stack [ltr][ltc][M][N], updated in place
   const T* cp;   // the column panel [ltr][M][K]
   int ltr, ltc, M, N, K, sr;
+  int pw;        // the split body's columns a pass (0 at 'default')
 };
 
 // x[i, j][:, r0 : r0 + sr] -= cp[i] @ src[0 : sr, :]^T for every i: the
 // trailing contribution of rows [r0, r0 + sr) of panel slot j, `src`
 // pointing at row r0 of the slot, at the tier of NS (0: the FMA body of
-// consume_gemm.cuh, one pipeline over the segment; 2, 3: the split body,
-// one 64 x 64 tile at a time).  Called by every thread of the block; `sm`
-// holds gemm_smem<T, NS>() bytes.
+// consume_gemm.cuh; 2, 3: the split body of consume_split.cuh, in passes of
+// p.pw columns), one pipeline over the segment.  Called by every thread of
+// the block; `sm` holds gemm_smem<T, NS>(p.K, p.pw) bytes.
 template <typename T, int NS>
 __device__ void apply_rows(const Panel<T>& p, const T* src, int j, int r0, void* sm) {
   if constexpr (NS != 0) {
-    const int mtiles = (p.M + dlaf_split::kBM - 1) / dlaf_split::kBM;
-    const int ntiles = p.ltr * mtiles;
-    auto& ssm = *static_cast<dlaf_split::Smem<NS>*>(sm);
-    for (int t = 0; t < ntiles; ++t) {
-      const int i = t / mtiles, m0 = (t % mtiles) * dlaf_split::kBM;
-      dlaf_split::Acc<NS, 1> acc;
-      dlaf_split::tile_gemm<T, NS, true, true, 1>(acc, p.cp + (long long)i * p.M * p.K, 0, p.K,
-                                                  src, 0, p.K, 1, p.M, p.sr, p.K, m0, 0,
-                                                  threadIdx.x, ssm);
-      dlaf_split::tile_store<T, NS, true, 1>(p.x + ((long long)i * p.ltc + j) * p.M * p.N + r0,
-                                             p.N, p.M, p.sr, m0, 0, acc, threadIdx.x);
-    }
+    for (int c = 0; c < p.sr; c += p.pw)
+      dlaf_consume_split::update_pass<T, NS>(p.x, p.cp, src + (long long)c * p.K, p.ltr, p.ltc,
+                                             j, p.M, p.N, p.K, min(p.pw, p.sr - c), r0 + c,
+                                             sm);
   } else {
     dlaf_ring_gemm::update_segment<T>(p.x, p.cp, src, p.ltr, p.ltc, j, p.M, p.N, p.K, p.sr, r0,
                                       static_cast<T*>(sm));
   }
-}
-
-// apply_rows behind a call, for B8's split instantiations: inlined into the
-// one-launch step, ptxas schedules the split body's loop with fewer
-// registers than in B6 (102 against 126 for bf16x3) and B8's bf16x3 step
-// ran 41.0 ms against 31.7 at M4's step 0 (H100, 700 W); called, the body
-// keeps its own schedule.
-template <typename T, int NS>
-__device__ __noinline__ void apply_rows_called(const Panel<T>& p, const T* src, int j, int r0,
-                                               void* sm) {
-  apply_rows<T, NS>(p, src, j, r0, sm);
 }
 
 // The consume schedule's updates, spliced into ring_hops: this block's
@@ -159,7 +153,7 @@ __device__ __noinline__ void apply_rows_called(const Panel<T>& p, const T* src, 
 // which holds this rank's payload until the first merge), then after each
 // hop's merge its segments of the fresh slots (out of the landing slot),
 // each only where sh_apply[slot] is set.
-template <typename T, int NS, bool kCalled = false>
+template <typename T, int NS>
 struct ConsumeHooks {
   Panel<T> p;
   const u32* acc;   // the accumulator (the block's segments: this rank's payload)
@@ -168,7 +162,7 @@ struct ConsumeHooks {
   int me;
   // the byte offset in dlaf_smem of have [slots] before the hop's merge,
   // then the hop's incoming have and the apply mask; the update's work
-  // area is dlaf_smem's first gemm_smem<T, NS>() bytes
+  // area is dlaf_smem's first gemm_smem<T, NS>(p.K, p.pw) bytes
   int sh;
 
   // segment q is rows [r0, r0 + sr) of slot q / (N / sr): a segment never
@@ -184,8 +178,7 @@ struct ConsumeHooks {
       const bool take = kFresh ? hop_take(sh_have[j], sh_hin[j]) : sh_have[j] != 0;
       if (!take || !sh_apply[j]) continue;
       const T* src = reinterpret_cast<const T*>(base) + (long long)q * p.sr * p.K;
-      if constexpr (kCalled) apply_rows_called<T, NS>(p, src, j, r0, dlaf_smem);
-      else apply_rows<T, NS>(p, src, j, r0, dlaf_smem);
+      apply_rows<T, NS>(p, src, j, r0, dlaf_smem);
     }
     __syncthreads();  // the caller may change sh_have next
   }
@@ -201,7 +194,8 @@ template <typename T, int NS>
 __global__ void __launch_bounds__(kThreads)
 consume_kernel(Ring r, Panel<T> p, const int* __restrict__ h, const int* __restrict__ z,
                int* __restrict__ oh) {
-  int* sh_have = reinterpret_cast<int*>(dlaf_smem + gemm_smem<T, NS>());
+  const int work = (int)gemm_smem<T, NS>(p.K, p.pw);
+  int* sh_have = reinterpret_cast<int*>(dlaf_smem + work);
   int* sh_hin = sh_have + r.slots;
   int* sh_apply = sh_hin + r.slots;
   int* sh_ok = sh_apply + r.slots;
@@ -211,7 +205,7 @@ consume_kernel(Ring r, Panel<T> p, const int* __restrict__ h, const int* __restr
   }
   copy_segments(r.acc, r.y, r);  // the merged panel starts as this rank's payload
   __syncthreads();
-  ConsumeHooks<T, NS> hooks{p, r.acc, r.land, r.total, r.me, (int)gemm_smem<T, NS>()};
+  ConsumeHooks<T, NS> hooks{p, r.acc, r.land, r.total, r.me, work};
   if (!ring_hops(r, sh_have, sh_hin, sh_ok, hooks)) return;
   if (blockIdx.x == 0)
     for (int i = threadIdx.x; i < r.slots; i += blockDim.x) oh[i] = sh_have[i];
@@ -271,7 +265,7 @@ fused_step_kernel(Step<T> a) {
   }
   copy_segments(a.rc.acc, a.rc.y, a.rc);
   __syncthreads();
-  ConsumeHooks<T, NS, NS != 0> hooks{a.p, a.rc.acc, a.rc.land, a.rc.total, a.rc.me,
+  ConsumeHooks<T, NS> hooks{a.p, a.rc.acc, a.rc.land, a.rc.total, a.rc.me,
                                      (int)a.work};
   if (!ring_hops(a.rc, sh_have, sh_hin, sh_ok, hooks)) return;
   if (b == 0)
@@ -335,7 +329,8 @@ fused_step_kernel(Step<T> a) {
 // so every block must be resident.  Returns blocks per SM, or a negated
 // CUDA error.
 // the update's 16-byte copies read cp, the accumulator and the landing
-// slots (every segment starts on 16 bytes when K * sizeof(T) does)
+// slots (every segment starts on 16 bytes when K * sizeof(T) does); the
+// split body's epilogue reads and writes x in pairs of elements
 inline bool aligned16(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
@@ -352,15 +347,19 @@ int prepare(Kernel kernel, size_t smem) {
   return per_sm >= 1 ? per_sm : -(int)cudaErrorInvalidConfiguration;
 }
 
+inline size_t consume_scratch(int ltc) { return (3 * (size_t)ltc + 1) * sizeof(int); }
+
 template <typename T, int NS>
-size_t consume_smem(int ltc) {
-  return gemm_smem<T, NS>() + (3 * (size_t)ltc + 1) * sizeof(int);
+size_t consume_smem(int ltc, int K, int pw) {
+  return gemm_smem<T, NS>(K, pw) + consume_scratch(ltc);
 }
 
 template <typename T, int NS>
-int launch_consume_ns(const Ring& r, const Panel<T>& p, const void* h, const void* z, void* oh,
-                      int G, void* stream) {
-  const size_t smem = consume_smem<T, NS>(p.ltc);
+int launch_consume_ns(const Ring& r, Panel<T> p, const void* h, const void* z, void* oh, int G,
+                      void* stream) {
+  p.pw = split_pass_cols<T, NS>(p.K, consume_scratch(p.ltc));
+  if (NS != 0 && p.pw == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = consume_smem<T, NS>(p.ltc, p.K, p.pw);
   const int per_sm = prepare(consume_kernel<T, NS>, smem);
   if (per_sm < 0) return -per_sm;
   consume_kernel<T, NS><<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -377,14 +376,14 @@ int launch_consume(const void* y, const void* h, const void* z, void* out, void*
   if (sr == 0 || ltr <= 0 || ltc <= 0 || M <= 0 || K <= 0 || G <= 0 || P < 1 ||
       (K * sizeof(T)) % 16)
     return (int)cudaErrorInvalidValue;
-  if (!aligned16(cp) || !aligned16(out) || !aligned16(land))
+  if (!aligned16(cp) || !aligned16(out) || !aligned16(land) || (nslices && !aligned16(x)))
     return (int)cudaErrorMisalignedAddress;
   const long long words_per_slot = (long long)N * K * sizeof(T) / 4;
   const long long total = ltc * words_per_slot;
   const long long seg = (long long)sr * K * sizeof(T) / 4;
   Ring r = make_ring(y, out, land, land_h, entry, rflag, aflag, err, total, words_per_slot, ltc,
                      seg, P, me, epoch, timeout_ns);
-  Panel<T> p{static_cast<T*>(x), static_cast<const T*>(cp), ltr, ltc, M, N, K, sr};
+  Panel<T> p{static_cast<T*>(x), static_cast<const T*>(cp), ltr, ltc, M, N, K, sr, 0};
   switch (nslices) {
     case 0: return launch_consume_ns<T, 0>(r, p, h, z, oh, G, stream);
     case 2: return launch_consume_ns<T, 2>(r, p, h, z, oh, G, stream);
@@ -434,24 +433,28 @@ Ring ring_of(const long long* d, int which, const void* y, void* acc, long long 
 // B8's shared memory: the work area of B1's and B2's bodies and of the
 // consume update, then the int scratch of the rings
 template <typename T, int R, int NS>
-size_t step_work(int mb) {
+size_t step_work(int mb, int pw) {
   size_t work = dlaf_potrf::smem_bytes<T>(mb);
   const size_t trsm = dlaf_panel_trsm::smem_bytes<T, R>(mb);
-  const size_t gemm = gemm_smem<T, NS>();
+  const size_t gemm = gemm_smem<T, NS>(mb, pw);
   if (trsm > work) work = trsm;
   if (gemm > work) work = gemm;
   return (work + 15) / 16 * 16;
 }
 
+inline size_t step_scratch(int ltc) { return (3 * (size_t)ltc + 3) * sizeof(int); }
+
 template <typename T, int R, int NS>
-size_t step_smem(int ltc, int mb) {
-  return step_work<T, R, NS>(mb) + (3 * (size_t)ltc + 3) * sizeof(int);
+size_t step_smem(int ltc, int mb, int pw) {
+  return step_work<T, R, NS>(mb, pw) + step_scratch(ltc);
 }
 
 template <typename T, int R, int NS>
 int launch_fused_step_ns(Step<T>& a, int G, void* stream) {
-  a.work = step_work<T, R, NS>(a.p.M);
-  const size_t smem = step_smem<T, R, NS>(a.p.ltc, a.p.M);
+  a.p.pw = split_pass_cols<T, NS>(a.p.M, step_scratch(a.p.ltc));
+  if (NS != 0 && a.p.pw == 0) return (int)cudaErrorInvalidValue;
+  a.work = step_work<T, R, NS>(a.p.M, a.p.pw);
+  const size_t smem = step_smem<T, R, NS>(a.p.ltc, a.p.M, a.p.pw);
   const int per_sm = prepare(fused_step_kernel<T, R, NS>, smem);
   if (per_sm < 0) return -per_sm;
   fused_step_kernel<T, R, NS><<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
@@ -467,7 +470,8 @@ int launch_fused_step(const long long* d, int nslices, void* stream) {
   const int sr = segment_rows(mb);
   if (G <= 0 || ltr <= 0 || ltc <= 0 || pw == 0 || sr == 0 || mb % dlaf_panel_trsm::kW || mb % R)
     return (int)cudaErrorInvalidValue;
-  if (!aligned16(ptr(d[kCp])) || !aligned16(ptr(d[kRp])) || !aligned16(ptr(d[kRings + kLand])))
+  if (!aligned16(ptr(d[kCp])) || !aligned16(ptr(d[kRp])) || !aligned16(ptr(d[kRings + kLand])) ||
+      (nslices && !aligned16(ptr(d[kX]))))
     return (int)cudaErrorMisalignedAddress;
   const long long tile_words = (long long)mb * mb * sizeof(T) / 4;
   Step<T> a;
@@ -479,7 +483,7 @@ int launch_fused_step(const long long* d, int nslices, void* stream) {
   a.rs = ring_of<T>(d, 3, ptr(d[kCp1]), ptr(d[kCp1]), ltr * tile_words, ltr * tile_words, 1,
                     (long long)R * mb * sizeof(T) / 4);
   a.p = Panel<T>{static_cast<T*>(ptr(d[kX])), static_cast<const T*>(ptr(d[kCp])), ltr, ltc, mb,
-                 mb, mb, sr};
+                 mb, mb, sr, 0};
   a.h = static_cast<const int*>(ptr(d[kH]));
   a.z = static_cast<const int*>(ptr(d[kZ]));
   a.oh = static_cast<int*>(ptr(d[kOh]));
@@ -507,20 +511,24 @@ int launch_fused_step(const long long* d, int nslices, void* stream) {
   }
 }
 
-// blocks per SM of one instantiation (B6: step = 0, B8: step = 1), or a
-// negated CUDA error
+// blocks per SM of one instantiation (B6: step = 0, at depth K; B8: step
+// = 1, at depth mb), or a negated CUDA error
 template <typename T, int R, int NS>
-int blocks_per_sm_ns(int step, int ltc, int mb) {
-  return step ? prepare(fused_step_kernel<T, R, NS>, step_smem<T, R, NS>(ltc, mb))
-              : prepare(consume_kernel<T, NS>, consume_smem<T, NS>(ltc));
+int blocks_per_sm_ns(int step, int ltc, int mb, int K) {
+  if (step) {
+    const int pw = split_pass_cols<T, NS>(mb, step_scratch(ltc));
+    return prepare(fused_step_kernel<T, R, NS>, step_smem<T, R, NS>(ltc, mb, pw));
+  }
+  const int pw = split_pass_cols<T, NS>(K, consume_scratch(ltc));
+  return prepare(consume_kernel<T, NS>, consume_smem<T, NS>(ltc, K, pw));
 }
 
 template <typename T, int R>
-int blocks_per_sm(int step, int nslices, int ltc, int mb) {
+int blocks_per_sm(int step, int nslices, int ltc, int mb, int K) {
   switch (nslices) {
-    case 0: return blocks_per_sm_ns<T, R, 0>(step, ltc, mb);
-    case 2: return blocks_per_sm_ns<T, R, 2>(step, ltc, mb);
-    case 3: return blocks_per_sm_ns<T, R, 3>(step, ltc, mb);
+    case 0: return blocks_per_sm_ns<T, R, 0>(step, ltc, mb, K);
+    case 2: return blocks_per_sm_ns<T, R, 2>(step, ltc, mb, K);
+    case 3: return blocks_per_sm_ns<T, R, 3>(step, ltc, mb, K);
     default: return -(int)cudaErrorInvalidValue;
   }
 }
@@ -577,10 +585,11 @@ int dlaf_fused_step_f64(const long long* desc, int nslices, void* stream) {
 }
 
 // Blocks per SM of B6 (step = 0) or B8 (step = 1) at nslices, for ltc slots
-// of mb-wide tiles (B8's work area depends on mb), or a negated CUDA error.
-int dlaf_ring_consumer_blocks_per_sm(int step, int f64, int nslices, int ltc, int mb) {
-  return f64 ? blocks_per_sm<double, 16>(step, nslices, ltc, mb)
-             : blocks_per_sm<float, 32>(step, nslices, ltc, mb);
+// of mb-wide tiles and B6's update depth K (B8's work areas depend on mb,
+// B6's split body's on K; B8 ignores K), or a negated CUDA error.
+int dlaf_ring_consumer_blocks_per_sm(int step, int f64, int nslices, int ltc, int mb, int K) {
+  return f64 ? blocks_per_sm<double, 16>(step, nslices, ltc, mb, K)
+             : blocks_per_sm<float, 32>(step, nslices, ltc, mb, K);
 }
 
 }  // extern "C"

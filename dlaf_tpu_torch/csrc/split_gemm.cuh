@@ -3,10 +3,9 @@
 // tile.contract's split (dlaf_tpu/ops/tile.py:124-229) as the TPU kernels
 // B3 and B9 trace it inside their bodies (dlaf_tpu/ops/
 // pallas_trailing_update.py: _update_kernel :127, _contract_kernel :185).
-// Used by csrc/trailing_update.cu (B3, B9) and by the ring consumers of
-// csrc/consume.cu (B6, B8), where it updates x out of the ring's landing
-// slots (kCG: loads through L2, as other ranks write the slots during the
-// launch) with the whole 512-thread block on one tile (MI = 1).
+// Used by csrc/trailing_update.cu (B3, B9); the ring consumers B6 and B8
+// run their own split body, csrc/consume_split.cuh, with these bits, and
+// take nterms, term_a, term_b and mma from here.
 //
 // What it computes, for one 64 x 64 output tile: each real operand element
 // v (float or double) is cut into NS bf16 slices as its tile is loaded,
@@ -31,12 +30,8 @@
 // distinct banks), then mma.sync m16n8k16 (bf16 in, float32 out) from
 // those fragments.  No wgmma, no TMA, no double buffering: the loads and
 // the slicing are not overlapped with the products (a later PR's work).
-// The warp layout is a template parameter: MI = 2 (B3, B9) gives each warp
-// 32 x 16 outputs, eight warps a tile; MI = 1 (B6, B8) 16 x 16 outputs,
-// sixteen warps a tile, which halves the accumulators a thread holds
-// (nterms x 8 floats) so that the split body fits the 128 registers a
-// thread of the ring consumers' 512-thread blocks may use.  Every output
-// element takes the same products in the same order under either layout.
+// Each warp holds kMI = 2 m16 row blocks: 32 x 16 outputs, eight warps a
+// tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,10 +43,10 @@ namespace dlaf_split {
 constexpr int kBM = 64, kBN = 64, kBK = 32;
 constexpr int kLds = kBK + 8;  // staged row length in bf16 values (80 bytes)
 
-// threads of one tile with MI m16 row blocks per warp: kBM / (16 MI) warps
-// down the tile by 4 across (each 16 columns wide)
-__host__ __device__ constexpr int threads_of(int mi) { return 32 * 4 * (kBM / (16 * mi)); }
-constexpr int kThreads = threads_of(2);  // B3's and B9's blocks
+constexpr int kMI = 2;  // m16 row blocks a warp
+// B3's and B9's blocks: kBM / (16 kMI) warps down the tile by 4 across
+// (each 16 columns wide)
+constexpr int kThreads = 32 * 4 * (kBM / (16 * kMI));
 
 // products of a split with ns slices per operand
 __host__ __device__ constexpr int nterms(int ns) { return ns * (ns + 1) / 2; }
@@ -70,8 +65,8 @@ struct Smem {
   unsigned short b[NS][kBN][kLds];
 };
 
-template <int NS, int MI = 2>
-using Acc = float[nterms(NS)][MI][2][4];
+template <int NS>
+using Acc = float[nterms(NS)][kMI][2][4];
 
 template <typename T, int NS>
 __device__ __forceinline__ void cut(T v, unsigned short (&s)[NS]) {
@@ -104,23 +99,22 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const
 //   B_s(k, n) = b[s * sb + n * ldb + k]  (kBNK: each slot stored N x K)
 //             = b[s * sb + k * ldb + n]  (otherwise: K x N)
 // Rows m >= M, columns n >= N and depths k >= K read as zero.  tid in
-// [0, threads_of(MI)) is the thread's place in the block; every
-// __syncthreads() is met by the whole block.  Offsets within a slot are 32
-// bits.  kCG loads a and b through L2 only.
-template <typename T, int NS, bool kBNK, bool kCG = false, int MI = 2>
-__device__ __forceinline__ void tile_gemm(Acc<NS, MI>& acc, const T* __restrict__ a,
+// [0, kThreads) is the thread's place in the block; every __syncthreads()
+// is met by the whole block.  Offsets within a slot are 32 bits.
+template <typename T, int NS, bool kBNK>
+__device__ __forceinline__ void tile_gemm(Acc<NS>& acc, const T* __restrict__ a,
                                           long long sa, int lda, const T* __restrict__ b,
                                           long long sb, int ldb, int S, int M, int N, int K,
                                           int m0, int n0, int tid, Smem<NS>& sm) {
   constexpr int kT = nterms(NS);
-  constexpr int kNT = threads_of(MI);
+  constexpr int kNT = kThreads;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const int wm = (warp >> 2) * (16 * MI), wn = (warp & 3) * 16;
+  const int wm = (warp >> 2) * (16 * kMI), wn = (warp & 3) * 16;
 #pragma unroll
   for (int q = 0; q < kT; ++q)
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
+    for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
       for (int ni = 0; ni < 2; ++ni)
 #pragma unroll
@@ -130,20 +124,15 @@ __device__ __forceinline__ void tile_gemm(Acc<NS, MI>& acc, const T* __restrict_
     const T* as_s = a + s * sa;
     const T* bs_s = b + s * sb;
     for (int k0 = 0; k0 < K; k0 += kBK) {
-      // load, cut and stage: 64 x 32 of A and of B, 8 (MI = 2) or 4 (MI = 1)
-      // elements of each a thread
+      // load, cut and stage: 64 x 32 of A and of B, 8 elements of each a
+      // thread
 #pragma unroll
       for (int q = 0; q < kBM * kBK / kNT; ++q) {
         const int idx = tid + q * kNT;
         const int mm = idx / kBK, kk = idx % kBK;
         const int gm = m0 + mm, gk = k0 + kk;
         unsigned short sl[NS];
-        // kCG: through L2 only, for operands that other blocks or ranks
-        // wrote during the same launch (a ring's landing slots)
-        if constexpr (kCG)
-          cut<T, NS>((gm < M && gk < K) ? __ldcg(as_s + gm * lda + gk) : T(0), sl);
-        else
-          cut<T, NS>((gm < M && gk < K) ? as_s[gm * lda + gk] : T(0), sl);
+        cut<T, NS>((gm < M && gk < K) ? as_s[gm * lda + gk] : T(0), sl);
 #pragma unroll
         for (int i = 0; i < NS; ++i) sm.a[i][mm][kk] = sl[i];
       }
@@ -160,10 +149,7 @@ __device__ __forceinline__ void tile_gemm(Acc<NS, MI>& acc, const T* __restrict_
         }
         const int gn = n0 + nn, gk = k0 + kk;
         T v = T(0);
-        if (gn < N && gk < K) {
-          if constexpr (kCG) v = __ldcg(kBNK ? bs_s + gn * ldb + gk : bs_s + gk * ldb + gn);
-          else v = kBNK ? bs_s[gn * ldb + gk] : bs_s[gk * ldb + gn];
-        }
+        if (gn < N && gk < K) v = kBNK ? bs_s[gn * ldb + gk] : bs_s[gk * ldb + gn];
         unsigned short sl[NS];
         cut<T, NS>(v, sl);
 #pragma unroll
@@ -172,11 +158,11 @@ __device__ __forceinline__ void tile_gemm(Acc<NS, MI>& acc, const T* __restrict_
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < kBK; kk += 16) {
-        uint32_t af[NS][MI][4], bf[NS][2][2];
+        uint32_t af[NS][kMI][4], bf[NS][2][2];
 #pragma unroll
         for (int i = 0; i < NS; ++i) {
 #pragma unroll
-          for (int mi = 0; mi < MI; ++mi) {
+          for (int mi = 0; mi < kMI; ++mi) {
             const unsigned short* p = &sm.a[i][wm + mi * 16 + g][kk + 2 * t4];
             af[i][mi][0] = ld32(p);
             af[i][mi][1] = ld32(p + 8 * kLds);
@@ -193,7 +179,7 @@ __device__ __forceinline__ void tile_gemm(Acc<NS, MI>& acc, const T* __restrict_
 #pragma unroll
         for (int q = 0; q < kT; ++q)
 #pragma unroll
-          for (int mi = 0; mi < MI; ++mi)
+          for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
             for (int ni = 0; ni < 2; ++ni)
               mma(acc[q][mi][ni], af[term_a(NS, q)][mi], bf[term_b(NS, q)][ni]);
@@ -205,14 +191,14 @@ __device__ __forceinline__ void tile_gemm(Acc<NS, MI>& acc, const T* __restrict_
 
 // The terms added at T in their order, then x[m * ldx + n] -= sum (kSub)
 // or x[m * ldx + n] = sum, over the tile's in-range elements.
-template <typename T, int NS, bool kSub, int MI = 2>
+template <typename T, int NS, bool kSub>
 __device__ __forceinline__ void tile_store(T* __restrict__ x, long long ldx, int M, int N, int m0,
-                                           int n0, const Acc<NS, MI>& acc, int tid) {
+                                           int n0, const Acc<NS>& acc, int tid) {
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const int wm = (warp >> 2) * (16 * MI), wn = (warp & 3) * 16;
+  const int wm = (warp >> 2) * (16 * kMI), wn = (warp & 3) * 16;
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
+  for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 2; ++ni)
 #pragma unroll

@@ -74,8 +74,9 @@ SIGNATURES = {
     # (the int64 argument array named by dlaf_fused_step_fields, nslices, stream)
     "dlaf_fused_step_f32": [_P, _I, _P],
     "dlaf_fused_step_f64": [_P, _I, _P],
-    # (step, f64, nslices, ltc, mb): blocks per SM of B6 (step 0) or B8 (step 1)
-    "dlaf_ring_consumer_blocks_per_sm": [_I, _I, _I, _I, _I],
+    # (step, f64, nslices, ltc, mb, K): blocks per SM of B6 (step 0, at depth K) or B8
+    # (step 1)
+    "dlaf_ring_consumer_blocks_per_sm": [_I, _I, _I, _I, _I, _I],
     # (dw, z2, rho, anchor, lo0, hi0, out, K, S, iters, stream)
     "dlaf_secular_bisect_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (y, y_in, h, h_in, oy, oh, total, w, slots, stream)

@@ -20,9 +20,9 @@ pairs of slices with float32 accumulation, and add the products at the
 operand dtype, in the JAX package's slice and term order.  Here each
 product is a library einsum of the slices upcast to float32 (a bf16 x bf16
 product is exact in float32, so this is a bf16 product with float32
-accumulation); the trailing-update kernels B3 and B9 run the same
-decomposition on the card's bf16 tensor cores
-(``csrc/split_gemm.cuh``).
+accumulation); the trailing-update kernels run the same decomposition on
+the card's bf16 tensor cores (B3 and B9: ``csrc/split_gemm.cuh``; B6 and
+B8: ``csrc/consume_split.cuh``).
 """
 from __future__ import annotations
 

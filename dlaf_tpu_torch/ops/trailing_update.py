@@ -42,13 +42,17 @@ same bits: B6's update is bit for bit B3's applied once to the merged
 panel with the slots not applied set to zero.  The first body,
 ``csrc/trailing_update.cuh`` (64 x 64 tiles), gives the same bits too:
 :func:`trailing_update_reference` and :func:`panel_contract_reference`
-launch B3 and B9 on it, for the card's before/after checks only.  Under 'bf16x3' / 'bf16x6' they run the split-tier body instead
-(``csrc/split_gemm.cuh``: the bf16 slices made as the tiles are loaded,
-the products on the tensor cores with float32 accumulators, one per
-term): B3 and B9 as kernels of their own, B6 and B8 (whose update is
-spliced into a ring) as an instantiation of the same kernel at 2 or 3
-slices per operand (:func:`ring_slices`), B8's factor and panel-solve
-phases unchanged.  See ``PERF.md`` for the measured times.
+launch B3 and B9 on it, for the card's before/after checks only.  Under 'bf16x3' / 'bf16x6' they run a split-tier body instead
+(the bf16 slices of each operand, the products on the tensor cores with
+float32 accumulators, one per term): B3 and B9 as kernels of their own
+(``csrc/split_gemm.cuh``), B6 and B8 (whose update is spliced into a
+ring) as an instantiation of the same kernel at 2 or 3 slices per operand
+(:func:`ring_slices`) on ``csrc/consume_split.cuh`` (each ring segment cut
+once into its slices, the column panel streamed through cp.async
+pipelines), with B3-split's bits: B6's split update is bit for bit
+B3-split's applied once to the merged panel with the slots not applied
+set to zero.  B8's factor and panel-solve phases are unchanged.  See
+``PERF.md`` for the measured times.
 """
 from __future__ import annotations
 

@@ -12,18 +12,25 @@ trees face the same checks: B6 on step 0 of M5 and of M4 and on a ring of
 4, B8 on step 0 of M4, each against its twin and bit for bit B3 on the
 merged panel masked to the slots it applies (the check first shown to
 reject a planted wrong answer), B6 also with every slot suppressed (the
-ring alone).  Each run then times B6 (step 0 of M5) and B8 (step 0 of M4)
-under bf16x3, their split bodies, and path M4 (lookahead Cholesky under
-the fused tier on 2x4, B8 every step: two walls after a warm-up; its
-``kernel_ms`` entry is the better wall).  Every output is digested (sha256 of
-its raw bytes: x, the merged panel and have; B8's rp, lkk1, cp1 and d1).
+ring alone).  Each run then runs their split bodies on NEW's
+``chip_smoke.consume_split_cases`` (B6 at step 0 of M5, at red2band's
+first window and in float64; B8 at step 0 of M4 and in float64) under
+bf16x3 and under bf16x6: x bit for bit B3-split at the tier applied once to
+the merged panel masked to the applied slots (``b3_bitwise_verdict``,
+first shown to reject B3-split with the last k16 slice of one applied slot
+dropped), each case timed at the tier and at 'default'; then path M4
+(lookahead Cholesky under the fused tier on 2x4, B8 every step: two walls
+after a warm-up; its ``kernel_ms`` entry is the better wall).  Every
+output is digested (sha256 of its raw bytes: x, the merged panel and
+have; B8's rp, lkk1, cp1 and d1).
 
 Prints one JSON line per run (the checkout, the card, the times, the
 checks, the digests, and ptxas's registers and spills of every
 consume_kernel and fused_step_kernel instantiation from the checkout's
 first run), then a summary: each output bit for bit between OLD and
-NEW, the times in turns, and NEW's worst registers and spills.  Exits
-non-zero if a run fails, an output differs between the trees, or an
+NEW, the checks against B3 on both trees, the times in turns, and the
+worst registers and spills.  Exits non-zero if a run fails, an output
+differs between the trees, a check against B3 fails on either tree, or an
 instantiation of NEW spills or takes more than 128 registers.  Needs a
 CUDA device.
 """
@@ -66,31 +73,38 @@ out = {{"M5_step0": {{k: b6.get(k) for k in keys}},
         "ring_of_4": {{k: b6["ring_of_4"].get(k) for k in keys}},
         "fused_step": {{k: rep["fused_step"].get(k) for k in keys + ("two_piece_ms",)}}}}
 
-# the split bodies (bf16x3) on the same steps: outputs and times
+# the split bodies on every case of consume_split_phase, at both split
+# tiers: the check against B3-split, the outputs, the times
 gpu = Grid.create(cs.GRID_M, device=dev)
 tune.initialize(**cs.PATH_M4)
-for nb, kernel in ((cs.NB_M5, "dma_ring_consume"), (cs.NB, "fused_step")):
-    g, x0, cp, taken, have, supp, below1 = cs._step0(gpu, a_glob, nb)
-    params = (1 % g.pc, 1 % g.pr, 1 // g.pc, 1 // g.pr, 1 // g.pc)
-
-    def fn(x, tk, hv, c, z, bl, kernel=kernel, params=params):
-        if kernel == "fused_step":
-            return tu.fused_step(x, tk, hv, z, c, bl, params)[1:]
-        _, y, h = tu.dma_ring_consume(x, tk, hv.to(torch.int32).reshape(-1, 1), c,
-                                      z.to(torch.int32).reshape(-1, 1), "r")
-        return y, h
-
-    args = [taken, have, cp, supp, below1]
-    x = x0.clone()
-    with tune.gemm_precision_scope("bf16x3"):
-        got = cs.on_ranks(gpu, fn, [x] + args)
+names = {{"dma_ring_consume_split": ("x", "yf", "h"),
+          "fused_step_split": ("x", "rp", "lkk1", "cp1", "d1")}}
+for tier in ("bf16x3", "bf16x6"):
+    for spec in cs.consume_split_cases(gpu, a_glob):
+        body, rest, x0 = spec["body"], spec["rest"], spec["x0"]
+        label = f"{{spec['kernel']}} [{{spec['label']}}] at {{tier}}"
+        x = x0.clone()
+        with tune.gemm_precision_scope(tier):
+            outs = cs.on_ranks(gpu, body, [x, spec["y"]] + rest)
         torch.cuda.synchronize()
-        names = ("x", "rp", "lkk1", "cp1", "d1") if kernel == "fused_step" else ("x", "yf", "h")
-        digests = {{nm: cs.digest(t) for nm, t in zip(names, [x] + list(got))}}
-        ms, _ = cs.grid_span_ms(gpu, fn, [x] + args, 3)
-    out[kernel + "_bf16x3"] = {{"kernel_ms": ms, "digests": digests}}
-    del g, x0, cp, taken, have, supp, below1, x, got
-    torch.cuda.empty_cache()
+        panel, applied, same, near = spec["post"](outs, rest)
+        verdict = cs.b3_bitwise_verdict(label, x, x0, spec["cp"], panel, applied, tier)
+        kept = [x] + list(outs) if spec["kernel"] == "dma_ring_consume_split" else [x] + same + near
+        digests = {{nm: cs.digest(t) for nm, t in zip(names[spec["kernel"]], kept)}}
+        del x, outs, panel, applied, same, near, kept
+        ms = {{}}
+        for t_ in (tier, "default"):
+            xs = x0.clone()
+            with tune.gemm_precision_scope(t_):
+                ms[t_] = cs.grid_span_ms(gpu, body, [xs, spec["y"]] + rest, 3)[0]
+            del xs
+        out[f"{{spec['kernel']}}/{{spec['key']}}/{{tier}}"] = {{
+            "kernel_ms": ms[tier], "default_tier_ms": ms["default"],
+            "bitwise_vs_b3": verdict["bitwise_vs_b3"],
+            "dropped_slice_rejected": verdict["dropped_slice_rejected"],
+            "problems": verdict["problems"], "digests": digests}}
+        del spec, body, rest, x0
+        torch.cuda.empty_cache()
 
 # path M4 (lookahead Cholesky under the fused tier on 2x4, B8 every step):
 # its wall as chip_smoke.py times it, after a warm-up that makes the rings
@@ -167,10 +181,16 @@ def main() -> int:
     worst = worst_of(ptx_new)
     b3 = {label: {case: r["runs"][case].get("bitwise_vs_b3") for case in o}
           for label, r in (("old", runs[0]), ("new", runs[1]))}
+    rejected = {label: {case: r["runs"][case].get("dropped_slice_rejected") for case in o}
+                for label, r in (("old", runs[0]), ("new", runs[1]))}
+    b3_ok = all(v is not False for c in list(b3.values()) + list(rejected.values())
+                for v in c.values())
     all_same = all(v for c in same.values() for v in c.values())
-    ok = all_same and bool(ptx_new) and worst["registers"] <= 128 and worst["spill_bytes"] == 0
+    ok = (all_same and b3_ok and bool(ptx_new) and worst["registers"] <= 128
+          and worst["spill_bytes"] == 0)
     print(json.dumps({"summary": {"bitwise_between_trees": same, "all_bitwise": all_same,
-                                  "bitwise_vs_b3": b3, "turns_ms": turns,
+                                  "bitwise_vs_b3": b3, "b3_check_rejects": rejected,
+                                  "turns_ms": turns,
                                   "new_worst_ptxas": worst,
                                   "old_worst_ptxas": worst_of(runs[0]["ptxas"]),
                                   "card": runs[0]["card"]}}), flush=True)

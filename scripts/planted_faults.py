@@ -9,11 +9,14 @@ of dlaf_tpu_torch/ and chip_smoke.py under _faults/<name>/ (listed in
 .gitignore; the repository's own files are never edited).  The copy builds
 its kernels at first use as the repository does, then runs chip_smoke.py's
 kernel phase of the one kernel the fault is in (consume_phases for B6, B8,
-their FMA body and B9, consume_split_phase for B6's and B8's split bodies,
+their FMA body and B9, consume_split_phase for B6's and B8's split bodies
+(csrc/consume_split.cuh),
 pull_phase for B5 and the rings' merge, potrf_phase for B1,
 panel_trsm_phase for B2, merge_phase for B4, trailing_update_phase and
 fma_edge_phase for B3's and B9's FMA body), on the main path's shapes, in
-a process of its own.
+a process of its own; or ("split_tests") the CUDA tests that hold B6's and
+B8's split bodies bit for bit to B3-split at ragged and deep shapes
+(tests/test_torch_consume.py, copied with the package).
 The script prints one JSON line per fault: whether the phase failed, as
 it must, and the errors the phase measured.  Needs a CUDA device; it
 exits non-zero if a fault that must fail went unseen (faults marked latent are run and reported, with the
@@ -29,6 +32,9 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORK = os.path.join(ROOT, "_faults")
+
+_NO_SLICE_WAIT = ("      dlaf_fma::cp_async_wait<kStages - 3>();  // this thread's copies of slice "
+                  "t + 1 have landed\n", "")
 
 #: name -> (file under dlaf_tpu_torch/csrc/, [(text, its replacement)],
 #: kernel whose chip_smoke.py phase runs, what must happen).  A fault
@@ -120,12 +126,68 @@ FAULTS = {
         [("      __syncthreads();\n    }\n    cluster.sync();\n    // 2. the factor",
           "      __syncthreads();\n    }\n    // 2. the factor")],
         "potrf", "fails"),
-    # B6's split body (bf16x3, the consumers' 512-thread layout MI = 1) adds
-    # its terms without the (0, 1) product
+    # B6's split body (csrc/consume_split.cuh, bf16x3) adds its terms
+    # without the (0, 1) product
     "b6_split_drop_term01": (
-        "split_gemm.cuh",
-        [("        T sum = static_cast<T>(acc[0][mi][ni][c]);\n",
-          "        T sum = (NS == 2 && MI == 1) ? T(0) : static_cast<T>(acc[0][mi][ni][c]);\n")],
+        "consume_split.cuh",
+        [("            sum[e] = static_cast<T>(acc[0][m0 + mi][ni][2 * hf + e]);\n",
+          "            sum[e] = NS == 2 ? T(0) : static_cast<T>(acc[0][m0 + mi][ni][2 * hf + e]);\n")],
+        "dma_ring_consume_split", "fails"),
+    # the split body drops the last k16 chunk of one term (the first, (0, 1)
+    # at bf16x3): the last chunk of a tile's last slice
+    "b6_split_drop_last_k16_of_a_term": (
+        "consume_split.cuh",
+        [("                                              int ncols, int kt) {\n",
+          "                                              int ncols, int kt, int nk_ = 0) {\n"),
+         ("              dlaf_split::mma(acc[q][mi][ni], af, bf[dlaf_split::term_b(NS, q)][ni]);\n",
+          "              if (q != 0 || kc == 0 || kt + 1 < nk_)\n"
+          "                dlaf_split::mma(acc[q][mi][ni], af, bf[dlaf_split::term_b(NS, q)][ni]);\n"),
+         ("      if (active()) compute_slice<T, NS>(acc, st0 + (t % kStages) * G::STAGE, sb, rp, ncols, kt);\n",
+          "      if (active()) compute_slice<T, NS>(acc, st0 + (t % kStages) * G::STAGE, sb, rp, ncols, kt, ns);\n")],
+        "dma_ring_consume_split", "fails"),
+    # the split body cuts each part's first cp stage right after issuing its
+    # copies, before any cp.async wait or barrier: the stage is read before
+    # its copies (other threads') can have landed
+    "b6_split_read_before_wait": (
+        "consume_split.cuh",
+        [("  for (int t = 0; t < kStages - 1; ++t) issue(t);\n",
+          "  for (int t = 0; t < kStages - 1; ++t) issue(t);\n  cut_stage(0);\n"),
+         ("  __syncthreads();  // and the segment's slices are visible to every part\n"
+          "  cut_stage(0);\n",
+          "  __syncthreads();  // and the segment's slices are visible to every part\n")],
+        "dma_ring_consume_split", "fails"),
+    # the split body's prologue waits for neither the segment's nor the first
+    # stage's copies
+    "b6_split_no_prologue_wait": (
+        "consume_split.cuh",
+        [("  dlaf_fma::cp_async_wait<kStages - 1>();  // the segment has landed\n",
+          "  dlaf_fma::cp_async_wait<kStages>();\n"),
+         ("  dlaf_fma::cp_async_wait<kStages - 2>();  // slice 0 has landed\n",
+          "  dlaf_fma::cp_async_wait<kStages>();\n")],
+        "dma_ring_consume_split",
+        "latent: a race. The copies come from L2 and the block meets a barrier after issuing "
+        "them and before the first cut; the phase passed with it in one of the two runs made "
+        "(the first under the name b6_split_read_before_wait, which now names a fault the "
+        "phase sees every run)"),
+    # the split body's slice loop drops its cp.async wait: a part's barrier
+    # no longer orders the cut of slice t + 1 after its copies (issued two
+    # slices earlier) have landed.  At B8's shape of M4, where each part's
+    # pipeline turns over thousands of times, and in the CUDA tests of the
+    # split bodies, whose deep updates run passes of 2 to 8 columns: one
+    # warp of a part computes, so a slice's turn is short
+    "b8_split_no_slice_wait": (
+        "consume_split.cuh", [_NO_SLICE_WAIT], "fused_step_split",
+        "latent: a race. A slice's copies are issued two slices before its cut, and at M4's "
+        "shape the part's barrier and products of those slices outlast them: the phase "
+        "passed with it in the one run made"),
+    "b6_split_no_slice_wait_deep": (
+        "consume_split.cuh", [_NO_SLICE_WAIT], "split_tests", "fails"),
+    # the split body's cut truncates to bf16 instead of rounding to nearest
+    # (the split probe, one product per output, must see it)
+    "b6_split_cut_truncates": (
+        "consume_split.cuh",
+        [("  return __float22bfloat162_rn(make_float2(a, b));\n",
+          "  return __halves2bfloat162(__float2bfloat16_rz(a), __float2bfloat16_rz(b));\n")],
         "dma_ring_consume_split", "fails"),
     # B8's split body leaves column k+1 out of the consume ring and applies
     # it after the ring with the 'default'-tier body (each block its own
@@ -144,17 +206,20 @@ FAULTS = {
           "                         (int)((lo - lo0) / (long long)(sizeof(T) / sizeof(u32)) / a.p.K), work);\n"
           "  }\n")],
         "fused_step_split", "fails"),
-    # B6's split body reads the landing slots with plain loads (through L1)
-    # instead of __ldcg
-    "b6_split_plain_loads": (
-        "consume.cu",
-        [("      dlaf_split::tile_gemm<T, NS, true, true, 1>(",
-          "      dlaf_split::tile_gemm<T, NS, true, false, 1>(")],
+    # the split body copies the segment (a landing slot's rows) with
+    # cp.async.ca, through L1, instead of .cg
+    "b6_split_landing_slot_through_l1": (
+        "consume_split.cuh",
+        [("    cp_async16(sb + r * rp + gi * G::GB + h * 16, ok ? seg + (long long)r * K + k : seg,\n"
+          "               ok ? 16 : 0);\n",
+          "    asm volatile(\"cp.async.ca.shared.global [%0], [%1], 16, %2;\\n\" ::\"r\"(\n"
+          "                     sb + r * rp + gi * G::GB + h * 16),\n"
+          "                 \"l\"(ok ? seg + (long long)r * K + k : seg), \"r\"(ok ? 16 : 0) : \"memory\");\n")],
         "dma_ring_consume_split",
-        "latent: a block reads each landing-slot byte at most once per launch (a slot is fresh "
-        "at one hop only, and a segment is whole 128-byte lines of one slot), so no stale line "
-        "can be in its L1, which holds nothing across launches; the rings here are 2 ranks long "
-        "(one hop)"),
+        "latent: a block reads a landing slot's rows only for the slots fresh at that hop, and a "
+        "slot is fresh at one hop only, so when landing slot s % 2 is rewritten for hop s + 2 "
+        "the block reads other rows of it (other segments, whole 128-byte lines of one slot); "
+        "a segment is read once a pass, and L1 holds nothing across launches"),
     # B9 (the FMA body): the lower form's sum over j drops the last slot
     "b9_drop_one_j": (
         "trailing_update.cu",
@@ -304,6 +369,11 @@ def plant(name: str) -> dict:
     shutil.copytree(os.path.join(ROOT, "dlaf_tpu_torch"), os.path.join(copy, "dlaf_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     shutil.copy(os.path.join(ROOT, "chip_smoke.py"), copy)
+    if kernel == "split_tests":
+        os.makedirs(os.path.join(copy, "tests"))
+        shutil.copy(os.path.join(ROOT, "tests", "test_torch_consume.py"),
+                    os.path.join(copy, "tests"))
+        shutil.copy(os.path.join(ROOT, "pyproject.toml"), copy)
     src = os.path.join(copy, "dlaf_tpu_torch", "csrc", fname)
     text = open(src).read()
     for old, new in edits:
@@ -311,8 +381,11 @@ def plant(name: str) -> dict:
             raise RuntimeError(f"{name}: a text to replace occurs {text.count(old)} times in {fname}")
         text = text.replace(old, new)
     open(src, "w").write(text)
-    proc = subprocess.run([sys.executable, "-c", _RUN.format(copy=copy, kernel=kernel)],
-                          capture_output=True, text=True, timeout=900, cwd=copy)
+    cmd = ([sys.executable, "-m", "pytest", "tests/test_torch_consume.py", "--noconftest", "-m",
+            "cuda", "-q", "-p", "no:cacheprovider", "-k", "split_is_b3_split"]
+           if kernel == "split_tests" else
+           [sys.executable, "-c", _RUN.format(copy=copy, kernel=kernel)])
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=copy)
     lines = proc.stdout.splitlines()
     measured = [json.loads(ln) for ln in lines if ln.startswith("{")]
     failed = [ln for ln in lines if "FAILED" in ln]
@@ -328,6 +401,7 @@ def plant(name: str) -> dict:
                 "skewed_run", "input_lifetime_bitwise_vs_plain", "input_lifetime_wrong_elements",
                 "elements", "bitwise_vs_one_block", "bitwise_vs_reference", "elements_differing",
                 "dropped_slice_rejected", "checks")} for m in measured],
+            "pytest": lines[-1] if kernel == "split_tests" and lines else None,
             "stderr_tail": proc.stderr[-600:] if proc.returncode and not failed else ""}
 
 

@@ -8,10 +8,13 @@ chip_smoke.py and dlaf_tpu_torch/).  Runs chip_smoke.py's ``split_phase``
 (B3's and B9's split bodies against their plain versions, with their times
 and the default-tier kernel's in the same process) of OLD, NEW, NEW, OLD,
 each in a process of its own that builds and loads that checkout's
-kernels (a checkout's second run reuses its build).  Prints one JSON line
-per run: the checkout, the card, and per kernel and form the split body's
-and the default-tier kernel's times in ms.  Needs a CUDA device; exits
-non-zero if a run fails.
+kernels (a checkout's second run reuses its build), then digests (sha256
+of the raw bytes) the outputs of B3 in both forms and B9 in both forms at
+bf16x3 and bf16x6, f32 and f64, on ragged shapes made from one seed.
+Prints one JSON line per run: the checkout, the card, per kernel and form
+the split body's and the default-tier kernel's times in ms, and the
+digests; then whether every digest is the same in all four runs.  Needs a
+CUDA device; exits non-zero if a run fails or a digest differs.
 """
 from __future__ import annotations
 
@@ -40,8 +43,28 @@ def timed_ms(fn, iters, warmup=1):
 
 kgen = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
 rep = cs.split_phase({{"card": cs.card_line()}}, timed_ms, kgen)
-print("AB " + json.dumps({{k: {{s: [f["kernel_ms"], f["default_tier_kernel_ms"]]
-                             for s, f in r["forms"].items()}} for k, r in rep.items()}}))
+ms = {{k: {{s: [f["kernel_ms"], f["default_tier_kernel_ms"]] for s, f in r["forms"].items()}}
+      for k, r in rep.items()}}
+
+# the split bodies' bits: B3 and B9 in both forms at both tiers, ragged
+from dlaf_tpu_torch.ops import trailing_update as tu
+gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 11)
+L, C, M, N, K = 4, 3, 200, 136, 168
+digests = {{}}
+for dt in (torch.float32, torch.float64):
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dt)
+    for tier in ("bf16x3", "bf16x6"):
+        for sub, bshape in ((tu.CHOLESKY_SUBSCRIPTS, (C, N, K)), (tu.TRSM_SUBSCRIPTS, (C, K, N))):
+            x = randn(L, C, M, N)
+            tu.trailing_update(x, randn(L, M, K), randn(*bshape), sub, tier)
+            digests[f"B3 {{sub}} {{dt}} {{tier}}"] = cs.digest(x)
+        for sub, ashape, bshape in ((tu.TRTRI_LOWER_SUBSCRIPTS, (L, C, M, K), (C, K, N)),
+                                    (tu.TRTRI_UPPER_SUBSCRIPTS, (L, M, K), (L, C, K, N))):
+            out = tu.panel_contract(randn(*ashape), randn(*bshape), sub, tier)
+            digests[f"B9 {{sub}} {{dt}} {{tier}}"] = cs.digest(out)
+torch.cuda.synchronize()
+print("AB " + json.dumps({{"ms": ms, "digests": digests}}))
 """
 
 
@@ -54,8 +77,9 @@ def run(root: str) -> dict:
                            f"{proc.stderr[-2000:]}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
-    return {"checkout": root, "card": card.strip(),
-            "ms_split_and_default": json.loads(lines[0][3:])}
+    res = json.loads(lines[0][3:])
+    return {"checkout": root, "card": card.strip(), "ms_split_and_default": res["ms"],
+            "digests": res["digests"]}
 
 
 def main() -> int:
@@ -63,9 +87,16 @@ def main() -> int:
         print(__doc__)
         return 2
     old, new = sys.argv[1:]
+    runs = []
     for root in (old, new, new, old):
-        print(json.dumps(run(root)), flush=True)
-    return 0
+        runs.append(run(root))
+        print(json.dumps(runs[-1]), flush=True)
+    same = {k: all(r["digests"][k] == runs[0]["digests"][k] for r in runs)
+            for k in runs[0]["digests"]}
+    print(json.dumps({"summary": {"digests_same_in_all_runs": same,
+                                  "all_bitwise": all(same.values()), "card": runs[0]["card"]}}),
+          flush=True)
+    return 0 if all(same.values()) else 1
 
 
 if __name__ == "__main__":

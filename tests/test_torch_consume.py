@@ -17,9 +17,12 @@ hand their launch at every tier, with the library handle replaced.
 
 On a card only (``-m cuda``, skipped here): B6 and B8 against their twins
 at every tier (under the split tiers also on the split probe, one product
-per output, bit for bit), a skewed B6 run, and the fused tier's
-factorization against 'xla'.  The JAX side is imported inside the tests
-that use it:
+per output, bit for bit), B6's and B8's split bodies bit for bit B3-split
+on the merged panel masked to the applied slots at ragged shapes and both
+split tiers, a skewed B6 run, and the fused tier's factorization against
+'xla'.  On the CPU the same identity holds for the twin at every tier
+(``test_consume_twin_equals_one_shot_update``).  The JAX side is imported
+inside the tests that use it:
 ``python -m pytest tests/test_torch_consume.py --noconftest -m cuda``
 runs the CUDA tests on a machine with no JAX.
 """
@@ -191,22 +194,25 @@ def test_consume_twin_matches_pallas_interpret(case):
     assert _rel_err(ox[0].numpy(), rx) <= tol_for(np.float32, mb)
 
 
+@pytest.mark.parametrize("tier", ["default", "bf16x3", "bf16x6"])
 @pytest.mark.parametrize("case", list(CONSUME_CASES))
-def test_consume_twin_equals_one_shot_update(case):
-    """B6's twin on every rank gives bit for bit x minus the one-shot
-    update of its merged panel masked to the slots it applies (held on the
-    ring and not suppressed), every other slot zero: each output takes one
-    slot, and the hops' zero contributions leave x as it was.  This is the
-    identity the card's kernel is held to against B3."""
+def test_consume_twin_equals_one_shot_update(case, tier):
+    """B6's twin on every rank, under ``gemm_precision_scope(tier)``, gives
+    bit for bit x minus the one-shot update at the tier of its merged panel
+    masked to the slots it applies (held on the ring and not suppressed),
+    every other slot zero: each output takes one slot, and the hops' zero
+    contributions leave x as it was.  This is the identity the card's
+    kernel is held to against B3 (B3-split at a split tier)."""
     n, slots = CONSUME_CASES[case][:2]
     n, arrays, _ = _consume_case_of(case, seed=97 + n + slots)
     x, cp, y, h, z = (torch.from_numpy(v)[None] for v in arrays)
-    ox, oy, oh = _consume_on_ranks(Grid.create((1, n), device="cpu"), x, cp, y, h, z, "c")
+    with tune.gemm_precision_scope(tier):
+        ox, oy, oh = _consume_on_ranks(Grid.create((1, n), device="cpu"), x, cp, y, h, z, "c")
     zero = torch.zeros((), dtype=oy.dtype)
     for r in range(n):
         applied = (oh[0, r, :, 0] != 0) & (z[0, r, :, 0] == 0)
         want = x[0, r] - tile.contract(tu.CHOLESKY_SUBSCRIPTS, cp[0, r],
-                                       torch.where(applied[:, None, None], oy[0, r], zero))
+                                       torch.where(applied[:, None, None], oy[0, r], zero), tier)
         np.testing.assert_array_equal(ox[0, r].numpy(), want.numpy())
 
 
@@ -528,12 +534,12 @@ def _cuda():
     return torch.device("cuda")
 
 
-def _assert_b3_bitwise(got_x, x0, cp, panel, applied):
+def _assert_b3_bitwise(got_x, x0, cp, panel, applied, tier="default"):
     """x after B6 or B8 (stacked [Pr, Pc, ...] on the card) bit for bit B3
-    at the 'default' tier applied once on every rank to ``x0`` with the
-    merged ``panel`` masked to the ``applied`` slots, every other slot zero;
-    the same check rejects B3 with the last k slice of one applied slot
-    dropped."""
+    at ``tier`` (B3-split at a split tier) applied once on every rank to
+    ``x0`` with the merged ``panel`` masked to the ``applied`` slots, every
+    other slot zero; the same check rejects B3 with the last k16 slice of
+    one applied slot dropped."""
     dev = got_x.device
     x0, cp, panel, applied = (t.to(dev) for t in (x0, cp, panel, applied))
     masked = torch.where(applied[..., None, None], panel, torch.zeros((), dtype=panel.dtype,
@@ -542,7 +548,7 @@ def _assert_b3_bitwise(got_x, x0, cp, panel, applied):
     for r in range(x0.shape[0]):
         for c in range(x0.shape[1]):
             tu.trailing_update(want[r, c], cp[r, c].contiguous(), masked[r, c].contiguous(),
-                               tu.CHOLESKY_SUBSCRIPTS, "default")
+                               tu.CHOLESKY_SUBSCRIPTS, tier)
     # the first applied slot whose last k slice meets a non-zero one of cp
     kd = (panel.shape[-1] - 1) // 16 * 16
     live = (masked[..., kd:] != 0).flatten(-2).any(-1) & (cp[..., kd:] != 0).flatten(2).any(-1)[
@@ -551,7 +557,7 @@ def _assert_b3_bitwise(got_x, x0, cp, panel, applied):
     dropped = masked[r, c].clone()
     dropped[s, :, kd:] = 0
     wrong = tu.trailing_update(x0[r, c].clone(), cp[r, c].contiguous(), dropped,
-                               tu.CHOLESKY_SUBSCRIPTS, "default")
+                               tu.CHOLESKY_SUBSCRIPTS, tier)
     torch.cuda.synchronize()
     words = torch.int32 if got_x.dtype == torch.float32 else torch.int64
     assert not torch.equal(wrong.view(words), want[r, c].view(words))
@@ -844,6 +850,109 @@ def test_cuda_fused_step_split_matches_twin(dtype, tier):
     for gv, wv in zip(got[2:], want[2:]):
         err = torch.linalg.vector_norm((gv - wv).double()) / torch.linalg.vector_norm(wv.double())
         assert err <= tol
+
+
+#: B6's split body at ragged shapes, (mb, K): segments of 32 rows and
+#: ltr * M not a multiple of the body's tile rows (96); segments of 16 rows
+#: and a last 32-deep slice half zero-filled (80); red2band's band-deep row
+#: panel (K = 128); deep updates whose segment runs in passes of fewer than
+#: 16 columns (K = 1536 and 2048: passes of 8 in f64, and in f32 at bf16x6
+#: at 2048; K = 4096: passes of 4 in f64 and in f32 at bf16x6, of 8 in f32
+#: at bf16x3; K = 8192: passes of 2 in f64 and in f32 at bf16x6, of 4 in
+#: f32 at bf16x3)
+SPLIT_RAGGED = {"mb96": (96, 96), "mb80": (80, 80), "red2band_K128": (192, 128),
+                "deep_K1536": (64, 1536), "deep_K2048": (64, 2048), "deep_K4096": (32, 4096),
+                "deep_K8192": (16, 8192)}
+SPLIT_TIERS = [(torch.float32, "bf16x3"), (torch.float32, "bf16x6"), (torch.float64, "bf16x6"),
+               (torch.float64, "bf16x3")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tier", SPLIT_TIERS)
+@pytest.mark.parametrize("shape", list(SPLIT_RAGGED))
+def test_cuda_consume_split_is_b3_split_on_the_merged_panel(shape, dtype, tier):
+    """B6's split body on a 2x4 grid (the ring over 'c': 3 hops, landing
+    slots reused): x bit for bit B3-split at the tier applied once on every
+    rank to the merged panel masked to the applied slots (held on the ring
+    and not suppressed), every other slot zero; the check rejects B3-split
+    with the last k16 slice of one applied slot dropped.  Every launch runs
+    the split instantiation."""
+    dev = _cuda()
+    mb, K = SPLIT_RAGGED[shape]
+    pr, pc, ltr, slots = 2, 4, 3, 6
+    gen = torch.Generator().manual_seed(37)
+    x = torch.randn(pr, pc, ltr, slots, mb, mb, generator=gen, dtype=dtype)
+    cp = torch.randn(pr, pc, ltr, mb, K, generator=gen, dtype=dtype)
+    y = torch.randn(pr, pc, slots, mb, K, generator=gen, dtype=dtype)
+    h = torch.zeros(pr, pc, slots, 1, dtype=torch.int32)
+    z = torch.zeros(pr, pc, slots, 1, dtype=torch.int32)
+    for s in range(slots - 1):
+        h[:, s % pc, s] = 1
+    z[:, :, 1] = 1
+    with knobs(jax_too=False, gemm_precision=tier):
+        before = tu.consume_split_launches
+        got = _consume_on_ranks(Grid.create((pr, pc), device=dev),
+                                *(t.to(dev) for t in (x, cp, y, h, z)), axis="c",
+                                consume=tu.dma_ring_consume)
+        torch.cuda.synchronize()
+    assert tu.consume_split_launches == before + pr * pc
+    applied = (got[2][..., 0] != 0) & (z[..., 0].to(dev) == 0)
+    _assert_b3_bitwise(got[0], x, cp, got[1], applied, tier)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tier", SPLIT_TIERS)
+@pytest.mark.parametrize("mb", [128, 384])
+def test_cuda_fused_step_split_is_b3_split_on_the_merged_panel(mb, dtype, tier):
+    """B8 with its consume phase split, on a 2x4 grid (mb a multiple of
+    128, as its gate asks; at 384 the f64 tiers run the segment in passes
+    of fewer columns): x bit for bit B3-split at the tier applied once on
+    every rank to the merged panel masked to the slots B8 applies (held on
+    the ring over 'r' and not suppressed, and the narrow slot on column
+    k+1's ranks); the check rejects B3-split with the last k16 slice of one
+    applied slot dropped."""
+    dev = _cuda()
+    n, k = 8 * mb, 3
+    a = torch.from_numpy(np.tril(random_hermitian_pd(n, np.float64, 41))).to(dtype)
+    cpu, gpu = Grid.create((2, 4), device="cpu"), Grid.create((2, 4), device=dev)
+    mat = dtt.DistributedMatrix.from_global(cpu, a, (mb, mb))
+    g = _spmd.Geometry.of(mat.dist)
+    cps = torch.empty(2, 4, g.ltr, mb, mb, dtype=dtype)
+    haves = torch.empty(2, 4, g.ltc, dtype=torch.bool)
+    supps = torch.empty_like(haves)
+
+    def panel(x, cpo, hv, sp):
+        myr, myc = coll.my_rank()
+        gi = _spmd.local_row_tiles(g, myr, x.device)
+        gj = _spmd.local_col_tiles(g, myc, x.device)
+        d = _spmd.bcast_diag_tile(x, k, g, myr, myc)
+        cpo.copy_(px.fused_factor_bcast(d, x[:, k // g.pc].contiguous(), gi > k, k % g.pc)[1])
+        hv.copy_(coll.transpose_panel_parts(cpo, g.mt, g.ltc)[1])
+        sp.copy_(gj == k + 1)
+
+    def step(x, cp, rp):
+        myr, myc = coll.my_rank()
+        gi = _spmd.local_row_tiles(g, myr, x.device)
+        gj = _spmd.local_col_tiles(g, myc, x.device)
+        k1 = k + 1
+        params = (k1 % g.pc, k1 % g.pr, k1 // g.pc, k1 // g.pr, k1 // g.pc)
+        got = tu.fused_step(x, *coll.transpose_panel_parts(cp, g.mt, g.ltc), gj == k1, cp,
+                            gi > k1, params)
+        rp.copy_(got[1])
+
+    with knobs(jax_too=False, collectives_impl="pallas"):
+        coll.spmd(cpu, panel, mat.data, cps, haves, supps)
+        xg, cpg = mat.data.clone().to(dev), cps.to(dev)
+        rpg = torch.empty(2, 4, g.ltc, mb, mb, dtype=dtype, device=dev)
+        with tune.gemm_precision_scope(tier):
+            before = tu.fused_step_split_launches
+            coll.spmd(gpu, step, xg, cpg, rpg)
+            torch.cuda.synchronize()
+    assert tu.fused_step_split_launches == before + 8
+    narrow = torch.zeros_like(supps)
+    narrow[:, (k + 1) % g.pc, (k + 1) // g.pc] = True
+    held = haves.any(dim=0, keepdim=True).expand_as(haves)
+    _assert_b3_bitwise(xg, mat.data, cps, rpg, held & (~supps | narrow), tier)
 
 
 @pytest.mark.cuda
