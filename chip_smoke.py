@@ -1034,15 +1034,9 @@ def ring_phases(stamp: dict, bound, kgen) -> dict:
     run on a CPU grid of the same shape).  Returns their report entries."""
     import torch
 
-    from dlaf_tpu_torch.comm import collectives as coll
     from dlaf_tpu_torch.comm.grid import Grid
-    from dlaf_tpu_torch.ops import panel_exchange as px
-    from dlaf_tpu_torch.ops import panel_trsm, potrf
-    from dlaf_tpu_torch.testing import tol_for
 
     dev = torch.device("cuda")
-    nb, ltr, ltc = NB, N // NB // GRID_M[0], N // NB // GRID_M[1]
-    pr, pc = GRID_M
     gpu, cpu = Grid.create(GRID_M, device=dev), Grid.create(GRID_M, device="cpu")
     report = {}
 
@@ -1066,12 +1060,80 @@ def ring_phases(stamp: dict, bound, kgen) -> dict:
     # with it (hop ring, pull, pull, hop ring)
     report["ring_exchange"] = pull_phase(stamp, bound, kgen, gpu, cpu, timed_ms)
 
-    # ---- B7 at path M's shapes: d 512 x 512, xc [16, 512, 512], ring P = 4
-    g = torch.randn(nb, 2 * nb, generator=kgen, device=dev)
+    # ---- B7 at path M's shapes, at M5's nb and at S7's f64 shapes
+    report["fused_factor_bcast"] = fused_phase(stamp, bound, kgen, gpu, cpu)
+    torch.cuda.empty_cache()
+    return report
+
+
+#: B7's cases beyond path M's (label, dtype, nb, local row tiles, tiles
+#: above the diagonal): M5's nb = 192 (N padded to a whole number of tiles),
+#: S7's f64 Cholesky at N = N_TIERS on the 2x4 grid at nb = 192 and 512 (the
+#: latter on B1's one-block factor, by B1's gate)
+FUSED_CASES = (("M5", "float32", NB_M5, -(-N // NB_M5) // GRID_M[0], 1),
+               ("S7_nb192", "float64", NB_M5, -(-N_TIERS // NB_M5) // GRID_M[0], 3),
+               ("S7_nb512", "float64", NB, N_TIERS // NB // GRID_M[0], 1))
+
+
+def residency_record() -> dict:
+    """The residency arithmetic of B7's and B8's launches on this card at
+    path M's grid: G = SMs // ranks blocks a rank, one each an SM, all the
+    grid's at once; B7's blocks per SM and factor team at each shape it
+    runs; and, for the cluster design B7 did not take, how many clusters
+    of 8 the card holds at B7's tile on an empty card against the clusters
+    every rank would need at once (G / 8 a rank) and the ring blocks that
+    may spin beside them."""
+    import torch
+
+    from dlaf_tpu_torch.ops import _build
+    from dlaf_tpu_torch.ops import panel_exchange as px
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ranks = GRID_M[0] * GRID_M[1]
+    g, fb = px.fused_geometry(sms, ranks, NB, 4)
+    shapes = {"M": ("float32", NB, N // NB // GRID_M[0])}
+    shapes.update({c[0]: c[1:4] for c in FUSED_CASES})
+    b8 = {f"{t}_nslices{ns}": _build.lib().dlaf_ring_consumer_blocks_per_sm(
+        1, int(t == "float64"), ns, n_ // NB // GRID_M[0], n_ // NB // GRID_M[1], NB, NB, g)
+        for t, n_ in (("float32", N), ("float64", N_TIERS)) for ns in (0, 2, 3)}
+    return {"phase": "residency", "sms": sms, "ranks": ranks, "blocks_per_rank": g,
+            "blocks_of_the_grid": g * ranks, "factor_team": fb,
+            "b7": {lab: px.fused_occupancy(getattr(torch, t), nb, ltr, g)
+                   for lab, (t, nb, ltr) in shapes.items()},
+            "b8_blocks_per_sm_at_mb512": b8,
+            "cluster_design": {
+                "clusters_of_8_on_an_empty_card": px.fused_occupancy(
+                    torch.float32, NB, N // NB // GRID_M[0], g)["clusters_of_8_on_an_empty_card"],
+                "clusters_needed_at_once": ranks * (g // 8),
+                "ring_blocks_that_may_spin_beside_them": (ranks - 1) * g},
+            "design": "flag team: B1's cluster body on the plain blocks of the launch"}
+
+
+def fused_case(gpu, dtype_name: str, nb: int, ltr: int, above: int, gen, root: int = 1):
+    """B7 on the 2x4 grid ``gpu`` (both rings over 'c' at once, root
+    position ``root``) at tile side nb, ltr local tiles a rank, the first
+    ``above`` of them above the diagonal (d SPD and xc standard normal from
+    ``gen``): bit for bit against the unfused composition on the card
+    (potrf_tile -> panel_trsm_right_lower_t -> mask -> ring_bcast: B1, B2,
+    B5), the check first shown to reject the unfused result with the last
+    word of rank (0, 0)'s panel flipped in its lowest bit; timed in turns
+    with it (unfused, B7, B7, unfused; each the grid's span after a 1 s
+    gate, ``grid_span_ms``); digests of lkk and cp (every rank).  Returns
+    the record and (d, xc, below, B7's outputs, the unfused outputs)."""
+    import torch
+
+    from dlaf_tpu_torch.comm import collectives as coll
+    from dlaf_tpu_torch.ops import panel_exchange as px
+    from dlaf_tpu_torch.ops import panel_trsm, potrf
+
+    dev = torch.device("cuda")
+    pr, pc = GRID_M
+    dtype = getattr(torch, dtype_name)
+    g = torch.randn(nb, 2 * nb, generator=gen, device=dev, dtype=dtype)
     d = (g @ g.T / (2 * nb)).expand(pr, pc, nb, nb).contiguous()
-    xc = torch.randn(pr, pc, ltr, nb, nb, generator=kgen, device=dev)
-    below = torch.arange(ltr, device=dev) >= 4  # the first 4 tiles above the diagonal
-    root = 1
+    xc = torch.randn(pr, pc, ltr, nb, nb, generator=gen, device=dev, dtype=dtype)
+    below = torch.arange(ltr, device=dev) >= above
+    del g
 
     def fused(dl, xl):
         return px.fused_factor_bcast(dl, xl, below, root, "c")
@@ -1082,92 +1144,122 @@ def ring_phases(stamp: dict, bound, kgen) -> dict:
         cp = torch.where(below[:, None, None], pan, torch.zeros_like(pan))
         return lkk, px.ring_bcast(cp, coll.my_rank()[1] == root, "c")
 
-    def errs(outs, refs):
-        """Max abs error and relative (Frobenius) error, the worse of lkk, cp."""
-        outs = [o.cpu().double() for o in outs]
-        refs = [r_.cpu().double() for r_ in refs]
-        return (worst((o - r_).abs().max().item() for o, r_ in zip(outs, refs)),
-                worst((torch.linalg.vector_norm(o - r_) / torch.linalg.vector_norm(r_)).item()
-                    for o, r_ in zip(outs, refs)))
-
     got = on_ranks(gpu, fused, [d, xc])
     ref = on_ranks(gpu, unfused, [d, xc])
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(got, ref))
-    err_unfused, rel_unfused = errs(got, ref)
+    cp_flip = ref[1].clone()
+    w = cp_flip[0, 0].reshape(-1).view(torch.int32 if dtype == torch.float32 else torch.int64)
+    w[-1] ^= 1
+    rejects = not torch.equal(got[1], cp_flip)
+    del cp_flip, w
+    spans = {"unfused": [], "fused": []}
+    for which in ("unfused", "fused", "fused", "unfused"):
+        spans[which].append(grid_span_ms(gpu, fused if which == "fused" else unfused,
+                                         [d, xc], 3)[0])
+    es = d.element_size()
+    solved = int(below.sum()) * nb * pr  # rows solved, once a ring
+    flops = pr * pc * nb ** 3 / 3 + solved * nb * nb
+    nbytes = (pr * pc * 2 * nb * nb + solved * nb + pr * pc * ltr * nb * nb) * es
+    b_ms, b_by = bound(flops, nbytes)
+    rec = {"dtype": dtype_name, "shape": {"d": [nb, nb], "xc": [ltr, nb, nb]},
+           "tiles_solved_per_ring": int(below.sum()), "bitwise_vs_unfused": same,
+           "flipped_bit_rejected": rejects, "kernel_ms": min(spans["fused"]),
+           "unfused_ms": min(spans["unfused"]), "spans_ms_in_turns": spans,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "digests": {"lkk": digest(got[0]), "cp": digest(got[1])}}
+    return rec, (d, xc, below, got, ref)
+
+
+def fused_phase(stamp: dict, bound, kgen, gpu, cpu) -> dict:
+    """B7 (the factor-and-send body, csrc/factor_send.cuh) on the 2x4 grid
+    of rank threads (``fused_case``): at path M's shape (d 512 x 512, xc
+    [16, 512, 512], the first 4 tiles above the diagonal) also against its
+    plain twin on a CPU grid within tol_for; then at FUSED_CASES.  Also
+    B7's residency at each shape (blocks per SM, the factor's team) and
+    ptxas's registers and spills."""
+    import torch
+
+    from dlaf_tpu_torch.ops import panel_exchange as px
+    from dlaf_tpu_torch.testing import tol_for
+
+    dev = torch.device("cuda")
+    pr, pc = GRID_M
+    root = 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def residency(dtype_name, nb, ltr):
+        es = torch.empty((), dtype=getattr(torch, dtype_name)).element_size()
+        return px.fused_occupancy(getattr(torch, dtype_name), nb, ltr,
+                                  px.fused_geometry(sms, pr * pc, nb, es)[0])
+
+    nb, ltr = NB, N // NB // pr
+    rec, (d, xc, below, got, ref) = fused_case(gpu, "float32", nb, ltr, 4, kgen, root)
+    rec["residency"] = residency("float32", nb, ltr)
     tol = tol_for("float32", nb)
-    fused_ms, fused_enqueue_ms = grid_span_ms(gpu, fused, [d, xc], 3)
-    unfused_ms, unfused_enqueue_ms = grid_span_ms(gpu, unfused, [d, xc], 3)
+    err_unfused = worst((a.double() - b.double()).abs().max().item() for a, b in zip(got, ref))
     # B7's plain twin on the same inputs (a CPU grid of the same shape)
     below_c = below.cpu()
     t0 = time.perf_counter()
     plain = on_ranks(cpu, lambda dl, xl: px.fused_factor_bcast(dl, xl, below_c, root, "c"),
                      [d.cpu(), xc.cpu()])
     plain_ms = (time.perf_counter() - t0) * 1e3
-    err, rel = errs(got, plain)
-    rows_solved = int(below_c.sum()) * nb * pr  # the root column's ranks solve
-    flops = pr * pc * nb ** 3 / 3 + rows_solved * nb * nb
-    nbytes = pr * pc * 2 * nb * nb * 4 + pr * ltr * nb * nb * 4 + pr * pc * ltr * nb * nb * 4
-    b_ms, b_by = bound(flops, nbytes)
-    rec = {"kernel": "fused_factor_bcast", "shape": {"d": [nb, nb], "xc": [ltr, nb, nb]},
-           "ranks": pr * pc, "ring": pc, "max_abs_err": err, "rel_err": rel, "tol": tol,
-           "vs": "the plain twin on a CPU grid (lkk and cp of every rank)",
-           "bitwise_vs_unfused": same, "max_abs_err_vs_unfused": err_unfused,
-           "rel_err_vs_unfused": rel_unfused, "kernel_ms": fused_ms, "unfused_ms": unfused_ms,
-           "enqueue_ms_of_3_calls": {"fused": fused_enqueue_ms, "unfused": unfused_enqueue_ms},
-           "unfused": "potrf_tile -> panel_trsm -> mask -> ring_bcast (B1, B2, B5)",
-           "plain_ms": plain_ms, "plain_on": "cpu (the twin's ring is host objects)",
-           "library_ms": None, "library_call": "none: no single PyTorch call computes it",
-           "bound_ms": b_ms, "bound_by": b_by,
-           "bound_counts": "potrf nb^3/3 on every rank, the solve rows*nb^2 on the root "
-                           "column; bytes: d and lkk per rank, xc on the root, cp per rank",
-           **stamp}
-    # ---- B7 at M5's nb = NB_M5, the shape of its launches on M5, S6 and S7:
-    # d 192 x 192, xc [43, 192, 192] (N padded to a whole number of tiles),
-    # ring P = 4, every tile below the diagonal; bit for bit the unfused
-    # composition and timed beside it (inputs of their own, from SEED + 7)
-    nb5 = NB_M5
-    ltr5 = -(-N // nb5) // pr
-    gen5 = torch.Generator(device=dev).manual_seed(SEED + 7)
-    g5 = torch.randn(nb5, 2 * nb5, generator=gen5, device=dev)
-    d5 = (g5 @ g5.T / (2 * nb5)).expand(pr, pc, nb5, nb5).contiguous()
-    xc5 = torch.randn(pr, pc, ltr5, nb5, nb5, generator=gen5, device=dev)
-    below5 = torch.arange(ltr5, device=dev) >= 1
+    outs = [o.cpu().double() for o in got]
+    refs = [r_.double() for r_ in plain]
+    err = worst((o - r_).abs().max().item() for o, r_ in zip(outs, refs))
+    rel = worst((torch.linalg.vector_norm(o - r_) / torch.linalg.vector_norm(r_)).item()
+                for o, r_ in zip(outs, refs))
+    rec.update({"kernel": "fused_factor_bcast", "ranks": pr * pc, "ring": pc,
+                "max_abs_err": err, "rel_err": rel, "tol": tol,
+                "vs": "the plain twin on a CPU grid (lkk and cp of every rank)",
+                "max_abs_err_vs_unfused": err_unfused,
+                "unfused": "potrf_tile -> panel_trsm -> mask -> ring_bcast (B1, B2, B5)",
+                "plain_ms": plain_ms, "plain_on": "cpu (the twin's ring is host objects)",
+                "library_ms": None, "library_call": "none: no single PyTorch call computes it",
+                "bound_counts": "potrf nb^3/3 on every rank, the solve rows*nb^2 once a ring; "
+                                "bytes: d and lkk per rank, the solved tiles of the root's xc "
+                                "once a ring, cp per rank",
+                "ptxas": {t_: _ptxas_of(f"fused_kernel<{t_}>") for t_ in ("float", "double")},
+                "body": "dlaf_tpu_torch/csrc/factor_send.cuh", **stamp})
+    # the inputs' lifetime: every rank overwrites its panel and its output
+    # with NaN right after its launch, on its stream; the ranks solve the
+    # root's panel and copy each other's outputs where they lie, so only
+    # B7's exit barrier keeps an overwrite behind the last reader.  The
+    # overwritten outputs stay allocated until the check: freed, the
+    # allocator would hand their memory to the next copy on the stream,
+    # which writes the right bytes back
+    held = []
 
-    def fused5(dl, xl):
-        return px.fused_factor_bcast(dl, xl, below5, root, "c")
+    def fused_then_nan(dl, xl):
+        res = px.fused_factor_bcast(dl, xl, below, root, "c")
+        out = [t.clone() for t in res]
+        xl.fill_(float("nan"))
+        res[1].fill_(float("nan"))
+        held.append(res)
+        return out
 
-    def unfused5(dl, xl):
-        lkk = potrf.potrf_tile(dl)
-        pan = panel_trsm.panel_trsm_right_lower_t(lkk, xl.reshape(-1, nb5)).reshape(xl.shape)
-        cp = torch.where(below5[:, None, None], pan, torch.zeros_like(pan))
-        return lkk, px.ring_bcast(cp, coll.my_rank()[1] == root, "c")
-
-    got5 = on_ranks(gpu, fused5, [d5, xc5])
-    ref5 = on_ranks(gpu, unfused5, [d5, xc5])
+    life = on_ranks(gpu, fused_then_nan, [d, xc.clone()])
     torch.cuda.synchronize()
-    same5 = all(torch.equal(a, b) for a, b in zip(got5, ref5))
-    rows5 = (ltr5 - 1) * nb5 * pr
-    b5_ms, b5_by = bound(pr * pc * nb5 ** 3 / 3 + rows5 * nb5 * nb5,
-                         pr * pc * 2 * nb5 * nb5 * 4 + pr * ltr5 * nb5 * nb5 * 4
-                         + pr * pc * ltr5 * nb5 * nb5 * 4)
-    rec["at_M5"] = {"shape": {"d": [nb5, nb5], "xc": [ltr5, nb5, nb5]},
-                    "bitwise_vs_unfused": same5,
-                    "kernel_ms": grid_span_ms(gpu, fused5, [d5, xc5], 3)[0],
-                    "unfused_ms": grid_span_ms(gpu, unfused5, [d5, xc5], 3)[0],
-                    "bound_ms": b5_ms, "bound_by": b5_by}
+    rec["input_lifetime_bitwise"] = all(torch.equal(a, b) for a, b in zip(life, got))
+    del d, xc, got, ref, plain, life, held
+    bad = [] if rec["bitwise_vs_unfused"] and rec["flipped_bit_rejected"] else ["M"]
+    if not rec["input_lifetime_bitwise"]:
+        bad.append("M, the inputs overwritten after the launch")
+    for label, dtype_name, nb_, ltr_, above in FUSED_CASES:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7 + nb_)
+        r_, _ = fused_case(gpu, dtype_name, nb_, ltr_, above, gen, root)
+        r_["residency"] = residency(dtype_name, nb_, ltr_)
+        rec[f"at_{label}"] = r_
+        if not (r_["bitwise_vs_unfused"] and r_["flipped_bit_rejected"]):
+            bad.append(label)
+        torch.cuda.empty_cache()
     emit(rec)
     if not rel <= tol:
         fail(f"fused_factor_bcast vs its plain twin: rel err {rel:.3e} > {tol:.3e}")
-    if not same:
-        fail(f"fused_factor_bcast vs the unfused composition: not bitwise equal "
-             f"(rel err {rel_unfused:.3e})")
-    if not same5:
-        fail(f"fused_factor_bcast at nb={nb5} vs the unfused composition: not bitwise equal")
-    report["fused_factor_bcast"] = rec
-    del d, xc, got, ref, plain, d5, xc5, got5, ref5
-    torch.cuda.empty_cache()
-    return report
+    if bad:
+        fail(f"fused_factor_bcast vs the unfused composition: not bitwise equal, or the check "
+             f"took a flipped bit, at {bad}")
+    return rec
 
 
 def tier_equality(stamp: dict, a_glob) -> None:
@@ -1610,7 +1702,7 @@ def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS,
             bad.extend(b3_8.pop("problems"))
             worst_twin = worst(e[1] for e in errs.values())
             worst_unf = worst(e[1] for e in errs_unf.values())
-            rows_solved = int(below1[:, params[0]].sum()) * nb  # the root column's ranks solve
+            rows_solved = int(below1[:, params[0]].sum()) * nb  # once a ring over 'c'
             flops8 = flops + ranks * nb ** 3 / 3 + rows_solved * nb * nb
             nbytes8 = nbytes + ranks * 3 * tile + pr * g.ltr * tile + ranks * g.ltr * tile
             b_ms8, b_by8 = bound(flops8, nbytes8)
@@ -1633,11 +1725,38 @@ def consume_phases(stamp: dict, bound, timed_ms, a_glob, only=CONSUME_KERNELS,
                    "library_ms": None, "library_call": "none: no single PyTorch call computes it",
                    "bound_ms": b_ms8, "bound_by": b_by8,
                    "bound_counts": "B6's, plus potrf nb^3/3 on every rank and the solve "
-                                   "rows*nb^2 on the root column; bytes: B6's, d, lkk and the "
-                                   "diagonal tile per rank, the panel column on the root, cp1 "
-                                   "per rank", **stamp}
+                                   "rows*nb^2 once a ring over 'c'; bytes: B6's, d, lkk and "
+                                   "the diagonal tile per rank, the root's panel column once "
+                                   "a ring, cp1 per rank",
+                   "ptxas": {f"fused_step_kernel<float, {ns}>":
+                             _ptxas_of(f"fused_step_kernel<float, {ns}>") for ns in (0, 2, 3)},
+                   "body": "dlaf_tpu_torch/csrc/consume_gemm.cuh; the tail "
+                           "dlaf_tpu_torch/csrc/factor_send.cuh", **stamp}
             if outs8 is not None:
                 rec["digests"] = outs8
+            # the inputs' lifetime: every rank overwrites its trailing stack and
+            # its cp1 with NaN right after its launch, on its stream; the tail
+            # reads the owner's diagonal tile, the root's column k+1 and the
+            # other ranks' cp1 where they lie, so only B8's exit barrier keeps
+            # an overwrite behind the last reader (the overwritten cp1 stays
+            # allocated until the check, as in fused_phase)
+            held = []
+
+            def b8_then_nan(x, tk, hv, c, z, bl):
+                res = tu.fused_step(x, tk, hv, z, c, bl, params)
+                out = [t.clone() for t in res[1:]]
+                x.fill_(float("nan"))
+                res[3].fill_(float("nan"))
+                held.append(res)
+                return out
+
+            life = on_ranks(gpu, b8_then_nan, [x0.clone()] + args)
+            torch.cuda.synchronize()
+            rec["input_lifetime_bitwise"] = all(torch.equal(a, b) for a, b in zip(life, got))
+            del life, held
+            if not rec["input_lifetime_bitwise"]:
+                bad.append("fused_step: its outputs differ when every rank overwrites its stack "
+                           "right after its launch")
             emit(rec)
             if not (worst_twin <= tol and rp_same and worst_unf <= tol):
                 bad.append(f"fused_step: rel err vs twin {worst_twin:.3e}, vs the two-piece step "
@@ -2783,10 +2902,12 @@ def consume_split_phase(stamp: dict, timed_ms, a_glob, only=CONSUME_SPLIT_KERNEL
         t_name = "double" if f64 else "float"
         b6 = kernel.startswith("dma")
         inst = (f"consume_kernel<{t_name}, {ns}>" if b6
-                else f"fused_step_kernel<{t_name}, {16 if f64 else 32}, {ns}>")
+                else f"fused_step_kernel<{t_name}, {ns}>")
         per_sm = (_build.lib().dlaf_ring_consumer_blocks_per_sm(
-            0 if b6 else 1, int(f64), ns, int(y.shape[-3]), int(x0.shape[-1]),
-            int(y.shape[-1])) if dev.type == "cuda" else None)
+            0 if b6 else 1, int(f64), ns, int(x0.shape[2]), int(y.shape[-3]),
+            int(x0.shape[-1]), int(y.shape[-1]),
+            torch.cuda.get_device_properties(dev).multi_processor_count // ranks)
+                  if dev.type == "cuda" else None)
         rec = {"kernel": kernel, "case": label, "dtype": "float64" if f64 else "float32",
                "tier": tier, "nslices": ns, "products": nterms,
                "shape": {"x": list(x0.shape[2:]), "cp": list(cp.shape[2:]),
@@ -3266,10 +3387,19 @@ def main() -> int:
     emit({"phase": "ptxas", "kernels": [e for e in _build.ptxas_report
                                         if "consume_kernel" in e["kernel"]
                                         or "fused_step_kernel" in e["kernel"]
+                                        or "fused_kernel" in e["kernel"]
+                                        or "potrf" in e["kernel"]
+                                        or e.get("device_function")
                                         or "split_kernel" in e["kernel"]
                                         or "_fma_kernel" in e["kernel"]
                                         or "panel_trsm" in e["kernel"]
                                         or "merge" in e["kernel"]]})
+
+    # B7's and B8's residency on this card (csrc/factor_send.cuh): every
+    # rank's G blocks spin at once, so each block must fit an SM alone;
+    # cudaOccupancyMaxActiveClusters of B1's cluster of 8 at the same tile
+    # is what a cluster design would have had on an empty card
+    emit(residency_record())
 
     def rel_err(got, ref) -> tuple[float, float]:
         """Max abs error, and the Frobenius norm of the error over ref's."""
@@ -3596,7 +3726,13 @@ def main() -> int:
                                                      "library_ms", "bound_ms", "max_abs_err")}
                                for s, f in r["shapes"].items()}
         if name == "fused_factor_bcast":
+            # the factor-and-send body; the unfused composition (B1, B2, the
+            # mask, B5) timed in turns with it in this run, at every shape
+            entry["body"] = "dlaf_tpu_torch/csrc/factor_send.cuh"
             entry["unfused_ms"] = r["unfused_ms"]
+            entry["shapes"] = {lab: {k: q[k] for k in (
+                "dtype", "kernel_ms", "unfused_ms", "bound_ms", "bitwise_vs_unfused")}
+                for lab, q in [("M", r)] + [(c[0], r[f"at_{c[0]}"]) for c in FUSED_CASES]}
         if name == "dma_ring_consume":
             # the record of the path that launches B6 (step 0 of M5) gives the
             # entry's numbers; step 0 of M4 is B8's consume part.  The body is

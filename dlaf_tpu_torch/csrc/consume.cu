@@ -27,19 +27,21 @@
 // B8.  The whole lookahead body in one launch per rank, spanning both grid
 // axes: (1) the consume ring over 'r' as B6, the narrow column k+1
 // included (on the ranks of column k+1 its slot is the suppressed one, so
-// the bulk and the narrow update together are every slot); (2) the
-// diagonal tile of step k+1 from its owner over 'c', then over 'r' (the
-// bcast_diag_tile order); (3) B1's body on it in block 0; (4) on the ranks
-// of column k+1 the panel solve of that column with B2's body, masked to
-// the tiles below the diagonal, and the ring of the new panel over 'c'
-// (the B7 tail).  The phases hand over through device-scope flags of this
-// rank's launch, as B7 hands over its factor: column k+1 is complete when
-// every block has published the end of its consume phase; block 0 factors
-// once every block has published its part of the landed diagonal tile; the
-// solving blocks wait for the factor's flag.  Each of the four rings has
-// its own landing slots, flags and entry barrier (the TPU kernel's four
-// semaphore sets), so a rank ahead in phase p + 1 never signals into a
-// neighbour still in phase p.
+// the bulk and the narrow update together are every slot); then the tail,
+// on the factor-and-send body of csrc/factor_send.cuh that B7 runs:
+// (2) every rank pulls the diagonal tile of step k+1 straight out of its
+// owner's trailing stack into od, once the owner's column k+1 is complete;
+// (3) every rank factors it with B1's cluster body on the blocks of its
+// launch (flag-synchronised; B1's one-block body where B1's gate takes it);
+// (4) the ranks of each ring over 'c' share the panel solve of the ring's
+// root's column k+1 (B2's body, masked to the tiles below the diagonal),
+// each reading the root's tiles where they lie, and pull the chunks they
+// did not solve from the rank that did; an exit barrier over the grid.
+// The phases hand over through device-scope flags: a rank of column k+1
+// publishes that its column is complete once every block of its launch
+// ended phase 1 (p1all), and the ranks that read its tiles wait for it.
+// The consume ring keeps its landing slots, flags and entry barrier; the
+// tail has no ring of landing slots left.
 //
 // Both launch 512 threads per block.  At the 'default' tier (NS = 0) a
 // segment's update is the body of csrc/consume_gemm.cuh: the column panel
@@ -57,9 +59,7 @@
 // package's order, with B3-split's bits (csrc/split_gemm.cuh): x after B6
 // is bit for bit B3-split applied once to the merged panel with the slots
 // not applied set to zero.  The slice count is a template parameter of B6
-// and of B8's
-// consume phase only: B8's factor and panel-solve phases are the same code
-// at every tier.  Each rank takes at most SMs / ranks blocks, as every ring
+// and of B8's consume phase only: B8's tail is the same code at every tier.  Each rank takes at most SMs / ranks blocks, as every ring
 // kernel, so all ranks' launches are resident at once; the launchers refuse
 // an instantiation that cannot hold one block on an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
@@ -78,10 +78,10 @@
 #include <string>
 
 #include "consume_gemm.cuh"
-#include "panel_trsm.cuh"
+#include "consume_split.cuh"
+#include "factor_send.cuh"
 #include "potrf.cuh"
 #include "ring.cuh"
-#include "consume_split.cuh"
 
 // the dynamic shared memory of every kernel here: the work area of its
 // block bodies, then its int scratch
@@ -216,47 +216,89 @@ consume_kernel(Ring r, Panel<T> p, const int* __restrict__ h, const int* __restr
 template <typename T>
 struct Step {
   Ring rc;    // 1: the consume ring over 'r' (y = the row-panel parts, acc = rp)
-  Ring rdc;   // 2: the diagonal tile over 'c' (acc = od)
-  Ring rdr;   // 2: the diagonal tile over 'r' (acc = od)
-  Ring rs;    // 4: the next panel over 'c' (acc = cp1)
   Panel<T> p;
   const int* h;
   const int* z;
   int* oh;
-  const int* below;  // [ltr]: tiles of column k+1 strictly below the diagonal
-  T* od;             // the diagonal tile of step k+1 [mb][mb]
+  dlaf_fsend::Send<T> s;  // 4: the ring over 'c': its root's column k+1, every cp1
+  const T* dtile;    // the diagonal tile of step k+1 in its owner's stack
+  T* od;             // its copy on this rank [mb][mb]
   T* lkk;            // its factor
-  T* cp1;            // the next column panel [ltr][mb][mb]
   u64* p1done;       // [G] of this rank: the block's consume phase is over
-  u64* ddone;        // [G] of this rank: the block's part of od has landed
-  u64* ready;        // this rank's factor is written
+  u64* p1all;        // [ranks]: the rank's column k+1 is complete
+  u64* fflags;       // [G] of this rank: the tail's barriers
+  u64* done;         // [ranks][G]: the exit barrier
+  T* dscr;           // [32][32] of this rank: the factor's diagonal block
+  dlaf_fsend::Bound bd;
   u64 epoch;         // this rank's step count << 16
-  int kc1, kr1, l_next, lkr1, lkc1, me_r, me_c, pw;
+  int kc1, kr1, l_next, me_r, me_c, pc, ranks, fb;
   size_t work;       // bytes of the shared work area before the int scratch
 };
 
-// thread 0: wait for every block's flag of this rank's launch
-__device__ bool wait_all(u64* flags, u64 target, const Ring& r) {
-  for (int q = 0; q < (int)gridDim.x; ++q)
-    if (!wait_flag(flags + q, target, r, kErrPhase)) return false;
-  __threadfence();
-  return true;
+// B8's consume phase (phase 1's ring with its update hooks) out of line.
+// A thread of B8 has 128 registers; the consume body takes up to 128 and
+// the tail (step_tail) as many, and in one body they spill into each other
+// (f64: 64 bytes at 'default'), while the consume phase called out of line
+// keeps none of its registers past the call.  f32 at 'default' (118
+// registers) stays in line.  How the ring reaches the function decides the
+// rest: through a pointer to the kernel's parameter at 'default', as a
+// copy under the split tiers; the other ways spill 4-8 bytes in one
+// instantiation or another (ptxas; PERF.md §6, B8).
+template <typename T, int NS>
+__device__ __noinline__ bool step_consume(const Ring* __restrict__ rq, const Panel<T> p, int work,
+                                          int* sh_have, int* sh_hin, int* sh_ok) {
+  if constexpr (NS == 0) {
+    const Ring& r = *rq;
+    ConsumeHooks<T, NS> hooks{p, r.acc, r.land, r.total, r.me, work};
+    return ring_hops(r, sh_have, sh_hin, sh_ok, hooks);
+  } else {
+    const Ring r = *rq;
+    ConsumeHooks<T, NS> hooks{p, r.acc, r.land, r.total, r.me, work};
+    return ring_hops(r, sh_have, sh_hin, sh_ok, hooks);
+  }
 }
 
-template <typename T, int R, int NS>
+// B8's tail (phases 2-4 and the exit barrier) on the factor-and-send body,
+// in line: it reads the kernel's parameters from the constant bank.
+template <typename T>
+__device__ __forceinline__ void step_tail(const Step<T>& a) {
+  const int mb = a.p.M, ltc = a.p.ltc, b = blockIdx.x, G = gridDim.x;
+  // -- 2. the diagonal tile of step k+1 from its owner, a part a block
+  if (!dlaf_fsend::block_wait(a.p1all + a.kr1 * a.pc + a.kc1, a.epoch, a.bd, kErrPhase)) return;
+  {
+    const long long words = (long long)mb * mb * sizeof(T) / 16;
+    const long long per = (words + G - 1) / G, lo = b * per, n = min(words, lo + per) - lo;
+    if (n > 0) dlaf_fsend::copy_l2(a.od + lo * 16 / (long long)sizeof(T),
+                                   a.dtile + lo * 16 / (long long)sizeof(T),
+                                   n * 16 / (long long)sizeof(T));
+  }
+  if (!dlaf_fsend::team_barrier(a.fflags, G, b, a.epoch | 1, a.bd, kErrFactor)) return;
+
+  // -- 3. its factor on this launch's blocks
+  if (!dlaf_fsend::factor_stage<T>(a.od, a.lkk, mb, a.fb, a.fflags, a.epoch, 1, a.dscr, a.bd,
+                                   dlaf_smem))
+    return;
+
+  // -- 4. the panel solve of the root's column k+1, shared by the ring
+  // over 'c', and the pull of the other shares
+  // (sidx [ltr + 1], the solved tiles, after the ring's int scratch)
+  int* sidx = reinterpret_cast<int*>(dlaf_smem + a.work) + 3 * ltc + 1;
+  if (!dlaf_fsend::solve_send<T>(a.s, a.lkk, a.p1all + a.me_r * a.pc + a.kc1, a.epoch, a.epoch,
+                                 a.bd, sidx, reinterpret_cast<T*>(dlaf_smem)))
+    return;
+  dlaf_fsend::team_barrier(a.done, a.ranks * G, (a.me_r * a.pc + a.me_c) * G + b, a.epoch | 2,
+                           a.bd, kErrDone);
+}
+
+template <typename T, int NS>
 __global__ void __launch_bounds__(kThreads)
-fused_step_kernel(Step<T> a) {
-  T* work = reinterpret_cast<T*>(dlaf_smem);
-  const int ltc = a.p.ltc, mb = a.p.M, b = blockIdx.x, G = gridDim.x, tid = threadIdx.x;
+fused_step_kernel(const __grid_constant__ Step<T> a) {
+  const int ltc = a.p.ltc, b = blockIdx.x, G = gridDim.x, tid = threadIdx.x;
   int* sh_have = reinterpret_cast<int*>(dlaf_smem + a.work);
   int* sh_hin = sh_have + ltc;
   int* sh_apply = sh_hin + ltc;
   int* sh_ok = sh_apply + ltc;
-  int* sh_h1 = sh_ok + 1;  // have of the one-slot rings
-  int* sh_hin1 = sh_h1 + 1;
   const bool col1 = a.me_c == a.kc1;          // this rank holds column k+1
-  const bool own = col1 && a.me_r == a.kr1;   // ... and its diagonal tile
-  bool ok = true;
 
   // -- 1. consume ring over 'r', the narrow column k+1 included
   for (int i = tid; i < ltc; i += blockDim.x) {
@@ -265,61 +307,28 @@ fused_step_kernel(Step<T> a) {
   }
   copy_segments(a.rc.acc, a.rc.y, a.rc);
   __syncthreads();
-  ConsumeHooks<T, NS> hooks{a.p, a.rc.acc, a.rc.land, a.rc.total, a.rc.me,
-                                     (int)a.work};
-  if (!ring_hops(a.rc, sh_have, sh_hin, sh_ok, hooks)) return;
+  if constexpr (NS == 0 && sizeof(T) == 4) {
+    ConsumeHooks<T, NS> hooks{a.p, a.rc.acc, a.rc.land, a.rc.total, a.rc.me, (int)a.work};
+    if (!ring_hops(a.rc, sh_have, sh_hin, sh_ok, hooks)) return;
+  } else if (!step_consume<T, NS>(&a.rc, a.p, (int)a.work, sh_have, sh_hin, sh_ok)) {
+    return;
+  }
   if (b == 0)
     for (int i = tid; i < ltc; i += blockDim.x) a.oh[i] = sh_have[i];
   __syncthreads();
   if (tid == 0) publish(a.p1done + b, a.epoch);
-
-  // -- 2. the diagonal tile of step k+1 to every rank: 'c' ring, then 'r'
-  // (column k+1 is complete once every block of this rank ended phase 1)
-  if (col1 && tid == 0) ok = wait_all(a.p1done, a.epoch, a.rc);
-  if (!block_ok(ok, sh_ok)) return;
-  const u32* dsrc = reinterpret_cast<const u32*>(
-      a.p.x + ((long long)a.lkr1 * ltc + a.lkc1) * mb * mb);
-  for (long long lo = (long long)b * a.rdc.seg; lo < a.rdc.total; lo += (long long)G * a.rdc.seg) {
-    const long long hi = min(lo + a.rdc.seg, a.rdc.total);
-    for (long long i = lo + tid; i < hi; i += blockDim.x) a.rdc.acc[i] = own ? __ldcg(dsrc + i) : 0u;
-  }
-  if (tid == 0) *sh_h1 = own;
-  __syncthreads();
-  if (!ring_hops(a.rdc, sh_h1, sh_hin1, sh_ok)) return;
-  if (!ring_hops(a.rdr, sh_h1, sh_hin1, sh_ok)) return;
-  if (tid == 0) publish(a.ddone + b, a.epoch);
-
-  // -- 3. B1 in block 0, once every block's part of the tile has landed
-  if (b == 0) {
-    if (tid == 0) ok = wait_all(a.ddone, a.epoch, a.rc);
-    if (!block_ok(ok, sh_ok)) return;
-    dlaf_potrf::factor_tile<T, kThreads>(a.od, a.lkk, mb, a.pw, work);
-    __syncthreads();
-    if (tid == 0) publish(a.ready, a.epoch);
-  }
-
-  // -- 4. column k+1's panel solve (B2's body) on its ranks, masked to the
-  // tiles below the diagonal, then the ring of the new panel over 'c'
-  if (col1) {
-    ok = b == 0 || tid != 0 || wait_flag(a.ready, a.epoch, a.rc, kErrFactor);
-    if (tid == 0) __threadfence();
-    if (!block_ok(ok, sh_ok)) return;
-    const long long strips = (long long)a.p.ltr * mb / R;
-    for (long long st = b; st < strips; st += G) {
-      const int i = (int)(st * R / mb);
-      const long long in_tile = st - (long long)i * (mb / R);
-      T* out = a.cp1 + (long long)i * mb * mb;
-      if (a.below[i]) {
-        const T* xc = a.p.x + ((long long)i * ltc + a.l_next) * mb * mb;
-        dlaf_panel_trsm::solve_strip<T, R, kThreads>(a.lkk, xc, out, mb, mb, in_tile, work);
-      } else {
-        for (long long e = tid; e < (long long)R * mb; e += blockDim.x) out[in_tile * R * mb + e] = T(0);
-      }
+  // column k+1 of this rank is complete once every block ended phase 1
+  if (col1 && b == 0) {
+    int ok = 1;
+    if (tid == 0) {
+      for (int q = 0; q < G && ok; ++q)
+        ok = dlaf_fsend::wait_ge(a.p1done + q, a.epoch, a.bd, kErrPhase);
+      if (ok) publish(a.p1all + a.me_r * a.pc + a.me_c, a.epoch);
     }
+    if (!__syncthreads_and(ok)) return;
   }
-  if (tid == 0) *sh_h1 = col1;
-  __syncthreads();
-  ring_hops(a.rs, sh_h1, sh_hin1, sh_ok);
+
+  step_tail<T>(a);
 }
 
 // -------------------------------------------------------------- launchers
@@ -392,22 +401,25 @@ int launch_consume(const void* y, const void* h, const void* z, void* out, void*
   }
 }
 
-// The fused step's arguments as one int64 array: the head, four rings of
-// DLAF_RING_FIELDS (rc, rdc, rdr, rs: ring q's field f is named ring<q>_f)
-// and the tail.  Each X-macro entry is (index, name); the library exports
-// the names in this order (dlaf_fused_step_fields) and the wrapper in
-// ops/trailing_update.py fills the array by name.
+// The fused step's arguments as one int64 array: the head, the consume
+// ring's DLAF_RING_FIELDS (named ring0_<field>) and the tail.  Each X-macro
+// entry is (index, name); the library exports the names in this order
+// (dlaf_fused_step_fields) and the wrapper in ops/trailing_update.py fills
+// the array by name.  cp1_peers is a host array of the 'c' ring's cp1
+// pointers, by ring position.
 #define DLAF_STEP_HEAD(X) X(kCount, count) X(kErr, err) X(kTimeout, timeout) X(kG, G)
 #define DLAF_RING_FIELDS(X)                                                             \
   X(kLand, land) X(kLandH, land_h) X(kEntry, entry) X(kRflag, rflag) X(kAflag, aflag) \
   X(kP, P) X(kMe, me) X(kRingEpoch, epoch)
-#define DLAF_STEP_TAIL(X)                                                               \
-  X(kX, x) X(kCp, cp) X(kY, y) X(kH, h) X(kZ, z) X(kRp, rp) X(kOh, oh) X(kBelow, below) \
-  X(kOd, od) X(kLkk, lkk) X(kCp1, cp1) X(kP1done, p1done) X(kDdone, ddone)              \
-  X(kReady, ready) X(kEpoch, epoch) X(kLtr, ltr) X(kLtc, ltc) X(kMb, mb) X(kKc1, kc1)    \
-  X(kKr1, kr1) X(kLnext, l_next) X(kLkr1, lkr1) X(kLkc1, lkc1) X(kMeR, me_r) X(kMeC, me_c)
+#define DLAF_STEP_TAIL(X)                                                                  \
+  X(kX, x) X(kCp, cp) X(kY, y) X(kH, h) X(kZ, z) X(kRp, rp) X(kOh, oh) X(kBelow, below)    \
+  X(kOd, od) X(kLkk, lkk) X(kCp1Peers, cp1_peers) X(kXroot, xroot) X(kXstride, xstride)   \
+  X(kDtile, dtile) X(kP1done, p1done) X(kP1all, p1all) X(kFflags, fflags) X(kDone, done)  \
+  X(kChunk, chunk) X(kDscr, dscr) X(kEpoch, epoch) X(kLtr, ltr) X(kLtc, ltc) X(kMb, mb)    \
+  X(kKc1, kc1) X(kKr1, kr1) X(kLnext, l_next) X(kMeR, me_r) X(kMeC, me_c) X(kPr, pr)       \
+  X(kPc, pc)
 #define DLAF_ENUM(e, name) e,
-constexpr int kRingCount = 4;
+constexpr int kRingCount = 1;
 // one ring: landing slots, their have, entry, recv and ack flags, ring
 // length, position, epoch << 16
 enum : int { DLAF_RING_FIELDS(DLAF_ENUM) kRingLen };
@@ -430,105 +442,126 @@ Ring ring_of(const long long* d, int which, const void* y, void* acc, long long 
                    (u64)q[kRingEpoch], (u64)d[kTimeout]);
 }
 
-// B8's shared memory: the work area of B1's and B2's bodies and of the
-// consume update, then the int scratch of the rings
-template <typename T, int R, int NS>
-size_t step_work(int mb, int pw) {
-  size_t work = dlaf_potrf::smem_bytes<T>(mb);
-  const size_t trsm = dlaf_panel_trsm::smem_bytes<T, R>(mb);
+// B8's shared memory: the work area of the consume update and of the tail
+// (the factor's and the solve's), then the int scratch of the ring and the
+// solved-tile list
+template <typename T, int NS>
+size_t step_work(int mb, int pw, int fb) {
+  size_t work = dlaf_fsend::factor_smem<T>(mb, fb);
+  const size_t solve = dlaf_fsend::solve_smem<T>(mb);
   const size_t gemm = gemm_smem<T, NS>(mb, pw);
-  if (trsm > work) work = trsm;
+  if (solve > work) work = solve;
   if (gemm > work) work = gemm;
   return (work + 15) / 16 * 16;
 }
 
-inline size_t step_scratch(int ltc) { return (3 * (size_t)ltc + 3) * sizeof(int); }
-
-template <typename T, int R, int NS>
-size_t step_smem(int ltc, int mb, int pw) {
-  return step_work<T, R, NS>(mb, pw) + step_scratch(ltc);
+inline size_t step_scratch(int ltr, int ltc) {
+  return (3 * (size_t)ltc + 1 + (size_t)ltr + 1) * sizeof(int);
 }
 
-template <typename T, int R, int NS>
+template <typename T, int NS>
+size_t step_smem(int ltr, int ltc, int mb, int pw, int fb) {
+  return step_work<T, NS>(mb, pw, fb) + step_scratch(ltr, ltc);
+}
+
+template <typename T, int NS>
 int launch_fused_step_ns(Step<T>& a, int G, void* stream) {
-  a.p.pw = split_pass_cols<T, NS>(a.p.M, step_scratch(a.p.ltc));
+  a.p.pw = split_pass_cols<T, NS>(a.p.M, step_scratch(a.p.ltr, a.p.ltc));
   if (NS != 0 && a.p.pw == 0) return (int)cudaErrorInvalidValue;
-  a.work = step_work<T, R, NS>(a.p.M, a.p.pw);
-  const size_t smem = step_smem<T, R, NS>(a.p.ltc, a.p.M, a.p.pw);
-  const int per_sm = prepare(fused_step_kernel<T, R, NS>, smem);
+  a.work = step_work<T, NS>(a.p.M, a.p.pw, a.fb);
+  const size_t smem = step_smem<T, NS>(a.p.ltr, a.p.ltc, a.p.M, a.p.pw, a.fb);
+  const int per_sm = prepare(fused_step_kernel<T, NS>, smem);
   if (per_sm < 0) return -per_sm;
-  fused_step_kernel<T, R, NS><<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  fused_step_kernel<T, NS><<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int R>
+template <typename T>
 int launch_fused_step(const long long* d, int nslices, void* stream) {
   if (d[kCount] != kDescLen) return (int)cudaErrorInvalidValue;
   auto ptr = [](long long v) { return reinterpret_cast<void*>(v); };
   const int G = (int)d[kG], ltr = (int)d[kLtr], ltc = (int)d[kLtc], mb = (int)d[kMb];
-  const int pw = dlaf_potrf::panel_width<T>(mb);
+  const int pr = (int)d[kPr], pc = (int)d[kPc];
   const int sr = segment_rows(mb);
-  if (G <= 0 || ltr <= 0 || ltc <= 0 || pw == 0 || sr == 0 || mb % dlaf_panel_trsm::kW || mb % R)
+  const int fb = dlaf_fsend::factor_blocks<T>(mb, G);
+  if (G <= 0 || ltr <= 0 || ltc <= 0 || dlaf_potrf::panel_width<T>(mb) == 0 || sr == 0 ||
+      mb % dlaf_panel_trsm::kW || mb > dlaf_fsend::kMaxNb || pc < 1 ||
+      pc > dlaf_fsend::kMaxRanks || pr < 1 || fb < 0)
     return (int)cudaErrorInvalidValue;
   if (!aligned16(ptr(d[kCp])) || !aligned16(ptr(d[kRp])) || !aligned16(ptr(d[kRings + kLand])) ||
+      !aligned16(ptr(d[kOd])) || !aligned16(ptr(d[kLkk])) || !aligned16(ptr(d[kDtile])) ||
       (nslices && !aligned16(ptr(d[kX]))))
     return (int)cudaErrorMisalignedAddress;
   const long long tile_words = (long long)mb * mb * sizeof(T) / 4;
   Step<T> a;
   a.rc = ring_of<T>(d, 0, ptr(d[kY]), ptr(d[kRp]), ltc * tile_words, tile_words, ltc,
                     (long long)sr * mb * sizeof(T) / 4);
-  const long long dseg = (tile_words + 4LL * G - 1) / (4LL * G) * 4;
-  a.rdc = ring_of<T>(d, 1, ptr(d[kOd]), ptr(d[kOd]), tile_words, tile_words, 1, dseg);
-  a.rdr = ring_of<T>(d, 2, ptr(d[kOd]), ptr(d[kOd]), tile_words, tile_words, 1, dseg);
-  a.rs = ring_of<T>(d, 3, ptr(d[kCp1]), ptr(d[kCp1]), ltr * tile_words, ltr * tile_words, 1,
-                    (long long)R * mb * sizeof(T) / 4);
   a.p = Panel<T>{static_cast<T*>(ptr(d[kX])), static_cast<const T*>(ptr(d[kCp])), ltr, ltc, mb,
                  mb, mb, sr, 0};
   a.h = static_cast<const int*>(ptr(d[kH]));
   a.z = static_cast<const int*>(ptr(d[kZ]));
   a.oh = static_cast<int*>(ptr(d[kOh]));
-  a.below = static_cast<const int*>(ptr(d[kBelow]));
+  a.s.xc = static_cast<const T*>(ptr(d[kXroot]));
+  a.s.xstride = d[kXstride];
+  const long long* peers = reinterpret_cast<const long long*>(d[kCp1Peers]);
+  for (int q = 0; q < dlaf_fsend::kMaxRanks; ++q) {
+    a.s.cp[q] = q < pc ? static_cast<T*>(ptr(peers[q])) : nullptr;
+    if (q < pc && !aligned16(a.s.cp[q])) return (int)cudaErrorMisalignedAddress;
+  }
+  a.s.below = static_cast<const int*>(ptr(d[kBelow]));
+  a.s.chunk = static_cast<u64*>(ptr(d[kChunk]));
+  a.s.ltr = ltr;
+  a.s.nb = mb;
+  a.s.P = pc;
+  a.s.me = (int)d[kMeC];
+  a.s.root = (int)d[kKc1];
+  a.dtile = static_cast<const T*>(ptr(d[kDtile]));
   a.od = static_cast<T*>(ptr(d[kOd]));
   a.lkk = static_cast<T*>(ptr(d[kLkk]));
-  a.cp1 = static_cast<T*>(ptr(d[kCp1]));
   a.p1done = static_cast<u64*>(ptr(d[kP1done]));
-  a.ddone = static_cast<u64*>(ptr(d[kDdone]));
-  a.ready = static_cast<u64*>(ptr(d[kReady]));
+  a.p1all = static_cast<u64*>(ptr(d[kP1all]));
+  a.fflags = static_cast<u64*>(ptr(d[kFflags]));
+  a.done = static_cast<u64*>(ptr(d[kDone]));
+  a.dscr = static_cast<T*>(ptr(d[kDscr]));
+  a.bd = dlaf_fsend::Bound{static_cast<int*>(ptr(d[kErr])), (u64)d[kTimeout]};
   a.epoch = (u64)d[kEpoch];
   a.kc1 = (int)d[kKc1];
   a.kr1 = (int)d[kKr1];
   a.l_next = (int)d[kLnext];
-  a.lkr1 = (int)d[kLkr1];
-  a.lkc1 = (int)d[kLkc1];
   a.me_r = (int)d[kMeR];
   a.me_c = (int)d[kMeC];
-  a.pw = pw;
+  a.pc = pc;
+  a.ranks = pr * pc;
+  a.fb = fb;
   switch (nslices) {
-    case 0: return launch_fused_step_ns<T, R, 0>(a, G, stream);
-    case 2: return launch_fused_step_ns<T, R, 2>(a, G, stream);
-    case 3: return launch_fused_step_ns<T, R, 3>(a, G, stream);
+    case 0: return launch_fused_step_ns<T, 0>(a, G, stream);
+    case 2: return launch_fused_step_ns<T, 2>(a, G, stream);
+    case 3: return launch_fused_step_ns<T, 3>(a, G, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // blocks per SM of one instantiation (B6: step = 0, at depth K; B8: step
-// = 1, at depth mb), or a negated CUDA error
-template <typename T, int R, int NS>
-int blocks_per_sm_ns(int step, int ltc, int mb, int K) {
+// = 1, at side mb, ltr row tiles and G blocks a launch), or a negated CUDA
+// error
+template <typename T, int NS>
+int blocks_per_sm_ns(int step, int ltr, int ltc, int mb, int K, int G) {
   if (step) {
-    const int pw = split_pass_cols<T, NS>(mb, step_scratch(ltc));
-    return prepare(fused_step_kernel<T, R, NS>, step_smem<T, R, NS>(ltc, mb, pw));
+    const int pw = split_pass_cols<T, NS>(mb, step_scratch(ltr, ltc));
+    const int fb = dlaf_fsend::factor_blocks<T>(mb, G);
+    if (fb < 0) return -(int)cudaErrorInvalidConfiguration;
+    return prepare(fused_step_kernel<T, NS>, step_smem<T, NS>(ltr, ltc, mb, pw, fb));
   }
   const int pw = split_pass_cols<T, NS>(K, consume_scratch(ltc));
   return prepare(consume_kernel<T, NS>, consume_smem<T, NS>(ltc, K, pw));
 }
 
-template <typename T, int R>
-int blocks_per_sm(int step, int nslices, int ltc, int mb, int K) {
+template <typename T>
+int blocks_per_sm(int step, int nslices, int ltr, int ltc, int mb, int K, int G) {
   switch (nslices) {
-    case 0: return blocks_per_sm_ns<T, R, 0>(step, ltc, mb, K);
-    case 2: return blocks_per_sm_ns<T, R, 2>(step, ltc, mb, K);
-    case 3: return blocks_per_sm_ns<T, R, 3>(step, ltc, mb, K);
+    case 0: return blocks_per_sm_ns<T, 0>(step, ltr, ltc, mb, K, G);
+    case 2: return blocks_per_sm_ns<T, 2>(step, ltr, ltc, mb, K, G);
+    case 3: return blocks_per_sm_ns<T, 3>(step, ltr, ltc, mb, K, G);
     default: return -(int)cudaErrorInvalidValue;
   }
 }
@@ -577,19 +610,21 @@ const char* dlaf_fused_step_fields() {
 // B8: this rank's launch of the fused lookahead step (the Desc array
 // above), its consume phase at nslices 0, 2 or 3 as B6.
 int dlaf_fused_step_f32(const long long* desc, int nslices, void* stream) {
-  return launch_fused_step<float, 32>(desc, nslices, stream);
+  return launch_fused_step<float>(desc, nslices, stream);
 }
 
 int dlaf_fused_step_f64(const long long* desc, int nslices, void* stream) {
-  return launch_fused_step<double, 16>(desc, nslices, stream);
+  return launch_fused_step<double>(desc, nslices, stream);
 }
 
-// Blocks per SM of B6 (step = 0) or B8 (step = 1) at nslices, for ltc slots
-// of mb-wide tiles and B6's update depth K (B8's work areas depend on mb,
-// B6's split body's on K; B8 ignores K), or a negated CUDA error.
-int dlaf_ring_consumer_blocks_per_sm(int step, int f64, int nslices, int ltc, int mb, int K) {
-  return f64 ? blocks_per_sm<double, 16>(step, nslices, ltc, mb, K)
-             : blocks_per_sm<float, 32>(step, nslices, ltc, mb, K);
+// Blocks per SM of B6 (step = 0) or B8 (step = 1) at nslices, for ltr x
+// ltc tiles of side mb, B6's update depth K and G blocks a launch (B8's work
+// areas depend on mb, ltr and G, B6's split body's on K; B8 ignores K), or
+// a negated CUDA error.
+int dlaf_ring_consumer_blocks_per_sm(int step, int f64, int nslices, int ltr, int ltc, int mb,
+                                     int K, int G) {
+  return f64 ? blocks_per_sm<double>(step, nslices, ltr, ltc, mb, K, G)
+             : blocks_per_sm<float>(step, nslices, ltr, ltc, mb, K, G);
 }
 
 }  // extern "C"

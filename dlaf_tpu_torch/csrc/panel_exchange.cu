@@ -32,8 +32,9 @@
 // Block b of every rank copies the same segments, so the flags are per
 // block and rank, and block b's cover every read of those segments.
 //
-// The hop ring (ring_kernel; B7 and the consumers of csrc/consume.cu, B6
-// and B8, run the same protocol): in P - 1 unidirectional hops each rank
+// The hop ring (ring_kernel, B5's reference kernel; the consume rings of
+// csrc/consume.cu, B6 and B8's consume phase, run the same protocol): in
+// P - 1 unidirectional hops each rank
 // sends its pair into its downstream neighbour's landing slot s % 2 and
 // merges what its upstream neighbour sent into its own:
 //     take = !have && have_in;  y = take ? y_in : y;  have |= have_in.
@@ -77,15 +78,22 @@
 // 2 (P - 1) + 2 times the payload per rank through HBM; the pull moves
 // the 2 payloads per rank (read the input, write the output) that any
 // one-card implementation must move, keeps no landing slots, and has one
-// flag round trip in place of P - 1.  B7 adds B1's and B2's work, in their
-// own block bodies (potrf.cuh, panel_trsm.cuh), so its factor and panel
-// carry B1's and B2's bits.
+// flag round trip in place of P - 1.
+//
+// B7, the fused factor-and-send (fused_kernel): the body of
+// csrc/factor_send.cuh, shared with B8's tail.  Every rank factors the
+// broadcast diagonal tile with B1's cluster body on the blocks of its
+// launch (flag-synchronised, not a thread-block cluster: factor_send.cuh
+// says why), the root's panel below the diagonal is solved with B2's body
+// in P shares, one per rank of the ring, and every rank pulls the chunks it
+// did not solve from the rank that did; B5's exit barrier.  So lkk and cp
+// carry B1's and B2's bits, and no landing slot or hop is left.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "panel_trsm.cuh"
+#include "factor_send.cuh"
 #include "potrf.cuh"
 #include "ring.cuh"
 
@@ -97,9 +105,8 @@ constexpr int kMergeThreads = 256;
 constexpr int kRingThreads = 256;
 constexpr int kFusedThreads = 512;
 constexpr int kPullThreads = 512;
-constexpr int kPullUnroll = 4;     // 16-byte loads in flight per thread
 constexpr int kPullMaxRanks = 32;  // ranks of a ring (a grid has at most 30)
-constexpr int kErrDone = 6;        // the pull's exit barrier ran out
+static_assert(kFusedThreads == dlaf_fsend::kThreads, "B7's blocks are the body's");
 
 // ---------------------------------------------------------------- B4
 //
@@ -191,30 +198,14 @@ struct Pull {
   u64 epoch, timeout_ns;        // this call's epoch << 16; the spins' bound
 };
 
-// Thread 0: wait until *flag >= target, bounded as ring.cuh's wait_flag.
-__device__ inline bool wait_until(u64* flag, u64 target, const Pull& p, int code) {
-  flag_ref f(*flag);
-  err_ref e(*p.err);
-  const u64 t0 = globaltimer();
-  while (f.load(cuda::memory_order_acquire) < target) {
-    if (e.load(cuda::memory_order_relaxed) != 0) return false;
-    if (globaltimer() - t0 > p.timeout_ns) {
-      int zero = 0;
-      e.compare_exchange_strong(zero, code, cuda::memory_order_relaxed);
-      return false;
-    }
-    __nanosleep(128);
-  }
-  return true;
-}
-
 // Thread 0: store this block's flag of `phase`, then wait for the same
 // block's flag of every other rank of the ring.
 __device__ inline bool barrier_all(u64* flags, u64 phase, const Pull& p, int code) {
   const int b = blockIdx.x, G = gridDim.x;
   publish(&flags[(long long)p.me * G + b], p.epoch | phase);
   for (int q = 1; q < p.P; ++q)
-    if (!wait_until(&flags[(long long)((p.me + q) % p.P) * G + b], p.epoch | phase, p, code))
+    if (!wait_ge(&flags[(long long)((p.me + q) % p.P) * G + b], p.epoch | phase, p.err,
+                 p.timeout_ns, code))
       return false;
   return true;
 }
@@ -222,22 +213,10 @@ __device__ inline bool barrier_all(u64* flags, u64 phase, const Pull& p, int cod
 // dst[a0, a1) = src[a0, a1), a0 and a1 multiples of 4 words when vec.
 __device__ inline void pull_range(u32* __restrict__ dst, const u32* __restrict__ src,
                                   long long a0, long long a1, bool vec) {
-  const long long nt = blockDim.x;
   if (vec) {
-    const uint4* s4 = reinterpret_cast<const uint4*>(src + a0);
-    uint4* d4 = reinterpret_cast<uint4*>(dst + a0);
-    const long long n4 = (a1 - a0) / 4;
-    for (long long i = threadIdx.x; i < n4; i += kPullUnroll * nt) {
-      uint4 v[kPullUnroll];
-#pragma unroll
-      for (int u = 0; u < kPullUnroll; ++u)
-        if (i + u * nt < n4) v[u] = __ldcg(s4 + i + u * nt);
-#pragma unroll
-      for (int u = 0; u < kPullUnroll; ++u)
-        if (i + u * nt < n4) d4[i + u * nt] = v[u];
-    }
+    dlaf_fsend::copy_l2(dst + a0, src + a0, a1 - a0);
   } else {
-    for (long long i = a0 + threadIdx.x; i < a1; i += nt) dst[i] = __ldcg(src + i);
+    for (long long i = a0 + threadIdx.x; i < a1; i += blockDim.x) dst[i] = __ldcg(src + i);
   }
 }
 
@@ -282,76 +261,129 @@ pull_kernel(const Pull p) {
 
 // ---------------------------------------------------------------- B7
 
-// One launch per rank of the column ring: block 0 factors the (broadcast)
-// diagonal tile d into lkk with B1's body and publishes it through `ready`;
-// on the root rank every block then solves its strips of the panel xc
-// against lkk with B2's body, writing zeros for the strips of tiles that
-// are not below the diagonal (below[tile] == 0); the other ranks'
-// contributions are masked out entirely (have = 0), so they solve nothing.
-// Then each block runs the ring over its strips (segment = one strip), so
-// the root's masked panel reaches every rank of the column ring.
-template <typename T, int R>
-__global__ void __launch_bounds__(kFusedThreads)
-fused_kernel(Ring r, const T* __restrict__ d, const T* __restrict__ xc,
-             const int* __restrict__ below, T* __restrict__ lkk, int nb, int pw, int is_root,
-             u64* ready, size_t work_smem) {
-  extern __shared__ unsigned char smem_raw[];
-  T* work = reinterpret_cast<T*>(smem_raw);
-  int* sh_have = reinterpret_cast<int*>(smem_raw + work_smem);
-  int* sh_hin = sh_have + 1;
-  int* sh_ok = sh_have + 2;
-  T* cp = reinterpret_cast<T*>(r.acc);
-  const long long rows = r.total * (long long)sizeof(u32) / sizeof(T) / nb;
+template <typename T>
+struct Fused {
+  dlaf_fsend::Send<T> s;  // the root's panel, every position's cp, the chunk flags
+  const T* d;             // the broadcast diagonal tile
+  T* lkk;                 // its factor
+  u64* entry;             // the ring's root flag: the root's launch has begun
+  u64* done;              // [P][G] the exit barrier
+  u64* fflags;            // [G] this rank's factor barrier
+  T* dscr;                // [32][32] this rank's diagonal-block scratch
+  dlaf_fsend::Bound bd;
+  u64 epoch;              // this call's epoch << 16
+  int fb;                 // the factor's team (0: the one-block body)
+  size_t work;            // bytes of shared work area before the int scratch
+};
 
-  if (blockIdx.x == 0) {
-    dlaf_potrf::factor_tile<T, kFusedThreads>(d, lkk, nb, pw, work);
-    __syncthreads();
-    if (threadIdx.x == 0) publish(ready + r.me, r.epoch);
-  }
-  if (is_root) {
-    bool ok = blockIdx.x == 0 || threadIdx.x != 0 ||
-              wait_flag(ready + r.me, r.epoch, r, kErrFactor);
-    if (!block_ok(ok, sh_ok)) return;
-    if (threadIdx.x == 0) __threadfence();
-    const long long strips = (rows + R - 1) / R;
-    for (long long st = blockIdx.x; st < strips; st += gridDim.x) {
-      if (below[(st * R) / nb]) {
-        dlaf_panel_trsm::solve_strip<T, R, kFusedThreads>(lkk, xc, cp, rows, nb, st, work);
-      } else {
-        for (long long i = threadIdx.x; i < (long long)R * nb; i += blockDim.x) cp[st * R * nb + i] = T(0);
-      }
-    }
-  }
-  if (threadIdx.x == 0) *sh_have = is_root;
-  __syncthreads();
-  ring_hops(r, sh_have, sh_hin, sh_ok);
+// One launch per rank of the column ring (csrc/factor_send.cuh): the
+// factor of d into lkk on this launch's blocks, this rank's share of the
+// root's panel below the diagonal solved into its cp against it, the other
+// shares pulled, the exit barrier.
+template <typename T>
+__global__ void __launch_bounds__(kFusedThreads)
+fused_kernel(const Fused<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* sidx = reinterpret_cast<int*>(smem_raw + a.work);
+  const int b = blockIdx.x, G = gridDim.x;
+  // the root's launch has begun, so its stream has written its panel
+  if (a.s.me == a.s.root && b == 0 && threadIdx.x == 0) publish(a.entry, a.epoch | 1);
+  if (!dlaf_fsend::factor_stage<T>(a.d, a.lkk, a.s.nb, a.fb, a.fflags, a.epoch, 0, a.dscr, a.bd,
+                                   smem_raw))
+    return;
+  if (!dlaf_fsend::solve_send<T>(a.s, a.lkk, a.entry, a.epoch | 1, a.epoch, a.bd, sidx,
+                                      reinterpret_cast<T*>(smem_raw)))
+    return;
+  dlaf_fsend::team_barrier(a.done, a.s.P * G, a.s.me * G + b, a.epoch | 2, a.bd, kErrDone);
 }
 
+// bytes of B7's shared work area (the factor's or the solve's, the larger)
+// and of the whole block (the work area, then the solved-tile list)
+template <typename T>
+size_t fused_work(int nb, int fb) {
+  size_t w = dlaf_fsend::factor_smem<T>(nb, fb);
+  const size_t solve = dlaf_fsend::solve_smem<T>(nb);
+  if (solve > w) w = solve;
+  return (w + 15) / 16 * 16;
+}
 
-template <typename T, int R>
-int launch_fused(const void* d, const void* xc, const void* below, void* lkk, void* cp, int nb,
-                 long long rows, int is_root, void* ready, void* land, void* land_h, void* entry,
-                 void* rflag, void* aflag, void* err, int P, int me, int G, u64 epoch,
-                 u64 timeout_ns, void* stream) {
-  const int pw = dlaf_potrf::panel_width<T>(nb);
-  if (pw == 0 || nb % dlaf_panel_trsm::kW || rows % nb || G <= 0) return (int)cudaErrorInvalidValue;
-  size_t work = dlaf_potrf::smem_bytes<T>(nb);
-  const size_t trsm = dlaf_panel_trsm::smem_bytes<T, R>(nb);
-  if (trsm > work) work = trsm;
-  work = (work + 15) / 16 * 16;
-  const size_t smem = work + 16;
-  if (smem > dlaf_potrf::kSmemLimit) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(fused_kernel<T, R>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long total = rows * nb * (long long)sizeof(T) / 4;
-  const long long seg = (long long)R * nb * sizeof(T) / 4;  // one strip
-  Ring r = make_ring(cp, cp, land, land_h, entry, rflag, aflag, err, total, total, 1, seg, P, me,
-                     epoch, timeout_ns);
-  fused_kernel<T, R><<<G, kFusedThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      r, static_cast<const T*>(d), static_cast<const T*>(xc), static_cast<const int*>(below),
-      static_cast<T*>(lkk), nb, pw, is_root, static_cast<u64*>(ready), work);
+// Done once per instantiation: its dynamic shared memory opted in at the
+// most a block may take, so that no rank thread's launch changes the
+// attribute while another's is between its check and its start.
+template <typename T>
+cudaError_t fused_setup() {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dlaf_potrf::kSmemLimit);
+  return e;
+}
+
+// blocks of B7 an SM holds at tile side nb and ltr tiles (0: none), or a
+// negated CUDA error
+template <typename T>
+int fused_per_sm(int nb, int ltr, int G, size_t* smem_out) {
+  const int fb = dlaf_fsend::factor_blocks<T>(nb, G);
+  if (fb < 0) return -(int)cudaErrorInvalidConfiguration;
+  const size_t smem = fused_work<T>(nb, fb) + ((size_t)ltr + 1) * sizeof(int);
+  if (smem > dlaf_potrf::kSmemLimit) return -(int)cudaErrorInvalidValue;
+  cudaError_t e = fused_setup<T>();
+  if (e != cudaSuccess) return -(int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_kernel<T>, kFusedThreads,
+                                                   smem);
+  if (e != cudaSuccess) return -(int)e;
+  if (smem_out) *smem_out = smem;
+  return per_sm;
+}
+
+template <typename T>
+int launch_fused(Fused<T>& a, int G, void* stream) {
+  a.fb = dlaf_fsend::factor_blocks<T>(a.s.nb, G);
+  a.work = fused_work<T>(a.s.nb, a.fb);
+  size_t smem = 0;
+  const int per_sm = fused_per_sm<T>(a.s.nb, a.s.ltr, G, &smem);
+  if (per_sm < 0) return -per_sm;
+  // every block spins on the others: each must fit an SM on its own
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  fused_kernel<T><<<G, kFusedThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int fused_factor_bcast(const void* d, const void* xc_root, const void* const* cps,
+                       const void* below, void* lkk, int nb, int ltr, int root, void* flags,
+                       void* scratch, void* err, int P, int me, int G, u64 epoch, u64 timeout_ns,
+                       void* stream) {
+  if (nb <= 0 || nb % dlaf_panel_trsm::kW || nb > dlaf_fsend::kMaxNb || ltr <= 0 ||
+      G <= 0 || P < 1 || P > dlaf_fsend::kMaxRanks || me < 0 || me >= P || root < 0 ||
+      root >= P || dlaf_potrf::panel_width<T>(nb) == 0)
+    return (int)cudaErrorInvalidValue;
+  Fused<T> a;
+  a.s.xc = static_cast<const T*>(xc_root);
+  a.s.xstride = (long long)nb * nb;
+  for (int q = 0; q < dlaf_fsend::kMaxRanks; ++q) {
+    a.s.cp[q] = q < P ? static_cast<T*>(const_cast<void*>(cps[q])) : nullptr;
+    if (q < P && reinterpret_cast<size_t>(cps[q]) % 16) return (int)cudaErrorMisalignedAddress;
+  }
+  if (reinterpret_cast<size_t>(lkk) % 16 || reinterpret_cast<size_t>(d) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  a.s.below = static_cast<const int*>(below);
+  u64* f = static_cast<u64*>(flags);
+  a.entry = f;
+  a.done = f + 1;
+  a.fflags = a.done + (long long)P * G + (long long)me * G;
+  a.s.chunk = a.done + 2LL * P * G;
+  a.s.ltr = ltr;
+  a.s.nb = nb;
+  a.s.P = P;
+  a.s.me = me;
+  a.s.root = root;
+  a.d = static_cast<const T*>(d);
+  a.lkk = static_cast<T*>(lkk);
+  a.dscr = static_cast<T*>(scratch) + (long long)me * dlaf_potrf::kPw * dlaf_potrf::kPw;
+  a.bd = dlaf_fsend::Bound{static_cast<int*>(err), timeout_ns};
+  a.epoch = epoch;
+  return launch_fused<T>(a, G, stream);
 }
 
 }  // namespace
@@ -444,22 +476,40 @@ int dlaf_ring_exchange(const void* y, const void* h, void* out, void* oh, void* 
   return (int)cudaGetLastError();
 }
 
-int dlaf_fused_factor_bcast_f32(const void* d, const void* xc, const void* below, void* lkk,
-                                void* cp, int nb, long long rows, int is_root, void* ready,
-                                void* land, void* land_h, void* entry, void* rflag, void* aflag,
-                                void* err, int P, int me, int G, unsigned long long epoch,
-                                unsigned long long timeout_ns, void* stream) {
-  return launch_fused<float, 32>(d, xc, below, lkk, cp, nb, rows, is_root, ready, land, land_h,
-                                 entry, rflag, aflag, err, P, me, G, epoch, timeout_ns, stream);
+// B7: this rank's launch of the fused factor-and-send on a ring of P
+// positions: d [nb][nb], the root's panel xc_root [ltr][nb][nb], cps a host
+// array of the P positions' outputs [ltr][nb][nb] (device pointers),
+// below [ltr] int; flags of fused_flag_words() 64-bit words (ops/
+// panel_exchange.py: entry 1, done [P][G], the factor's barriers [P][G],
+// the chunk flags [ltr][ceil(nb / 16)]) and scratch of P x 32 x 32
+// elements, both the ring's, zero at first and never reset.
+int dlaf_fused_factor_bcast_f32(const void* d, const void* xc_root, const void* const* cps,
+                                const void* below, void* lkk, int nb, int ltr, int root,
+                                void* flags, void* scratch, void* err, int P, int me, int G,
+                                unsigned long long epoch, unsigned long long timeout_ns,
+                                void* stream) {
+  return fused_factor_bcast<float>(d, xc_root, cps, below, lkk, nb, ltr, root, flags, scratch,
+                                   err, P, me, G, epoch, timeout_ns, stream);
 }
 
-int dlaf_fused_factor_bcast_f64(const void* d, const void* xc, const void* below, void* lkk,
-                                void* cp, int nb, long long rows, int is_root, void* ready,
-                                void* land, void* land_h, void* entry, void* rflag, void* aflag,
-                                void* err, int P, int me, int G, unsigned long long epoch,
-                                unsigned long long timeout_ns, void* stream) {
-  return launch_fused<double, 16>(d, xc, below, lkk, cp, nb, rows, is_root, ready, land, land_h,
-                                  entry, rflag, aflag, err, P, me, G, epoch, timeout_ns, stream);
+int dlaf_fused_factor_bcast_f64(const void* d, const void* xc_root, const void* const* cps,
+                                const void* below, void* lkk, int nb, int ltr, int root,
+                                void* flags, void* scratch, void* err, int P, int me, int G,
+                                unsigned long long epoch, unsigned long long timeout_ns,
+                                void* stream) {
+  return fused_factor_bcast<double>(d, xc_root, cps, below, lkk, nb, ltr, root, flags, scratch,
+                                    err, P, me, G, epoch, timeout_ns, stream);
+}
+
+// B7's occupancy at a shape: out[0] its blocks per SM (or a negated CUDA
+// error), out[1] its factor's team (blocks; 0 for the one-block body),
+// out[2] its dynamic shared memory in bytes.
+int dlaf_fused_occupancy(int f64, int nb, int ltr, int G, int* out) {
+  size_t smem = 0;
+  out[0] = f64 ? fused_per_sm<double>(nb, ltr, G, &smem) : fused_per_sm<float>(nb, ltr, G, &smem);
+  out[1] = f64 ? dlaf_fsend::factor_blocks<double>(nb, G) : dlaf_fsend::factor_blocks<float>(nb, G);
+  out[2] = (int)smem;
+  return 0;
 }
 
 }  // extern "C"

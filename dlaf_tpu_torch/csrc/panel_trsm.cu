@@ -43,7 +43,10 @@
 // Every element keeps the first body's arithmetic (panel_trsm.cuh), so the
 // first body, panel_trsm_kernel over solve_strip, stays as B2's reference
 // kernel (dlaf_panel_trsm_ref_*): the before/after check holds them bit for
-// bit.  The fused kernels B7 and B8 run solve_strip.
+// bit.  B7 and B8's tail run solve_rows on runs of rows of their own
+// (csrc/factor_send.cuh); no main-path kernel runs solve_strip.  b is read
+// through L2 (ld.global.cg): it is read once, and B7 and B8 read a peer's
+// panel that other SMs wrote.
 
 #include <cuda_runtime.h>
 
@@ -92,7 +95,8 @@ panel_trsm_rows_kernel(const T* __restrict__ ell, const T* __restrict__ b, T* __
                        long long rows, int nb, int vec) {
   extern __shared__ __align__(16) unsigned char smem_rows[];
   dlaf_panel_trsm::solve_rows<T, NKB, RW>(ell, b, x, rows, nb, vec != 0,
-                                          reinterpret_cast<T*>(smem_rows));
+                                          reinterpret_cast<T*>(smem_rows),
+                                          (long long)blockIdx.x * (blockDim.x / 32) * RW);
 }
 
 // Done once per instantiation: its dynamic shared memory opted in at the

@@ -1,12 +1,11 @@
 // The strip bodies of the panel-TRSM kernel (B2).
 //
-// solve_strip: the first body, shared by csrc/panel_trsm.cu (as B2's
-// reference kernel) and by the fused kernels that compose B2, B7
-// (csrc/panel_exchange.cu) and B8 (csrc/consume.cu), as the TPU's fused
-// kernel composes pallas_panel_trsm._kernel.  Every row's arithmetic is the
-// same whatever the block size NT, so these kernels give the same bits.
+// solve_strip: the first body, the body of B2's reference kernel
+// (csrc/panel_trsm.cu, panel_trsm_reference) only: no main-path kernel runs
+// it.  Every row's arithmetic is the same whatever the block size NT.
 //
-// solve_rows: the Hopper body B2 launches (csrc/panel_trsm.cu), bit for bit
+// solve_rows: the Hopper body B2 launches (csrc/panel_trsm.cu), and B7 and
+// B8's tail run on any run of rows (csrc/factor_send.cuh), bit for bit
 // solve_strip.  Every element x[r, j] (j = c0 + t, c0 = 32 * (j / 32)) is
 //   acc = one FMA chain from +0 over s < c0, s ascending;
 //   v = b[r, j] - acc;
@@ -206,7 +205,7 @@ __device__ __forceinline__ void solve_row_exact(const T* __restrict__ ell,
     const T* lj = ell + (long long)(c0 + lane) * nb;
     T acc = T(0);
     for (int s = 0; s < c0; ++s) acc = dlaf_fma::madd(x[r * nb + s], lj[s], acc);
-    const T v = b[r * nb + c0 + lane] - acc;
+    const T v = __ldcg(b + r * nb + c0 + lane) - acc;
     T contrib = T(0), xt = T(0);
     for (int sp = 0; sp < kW; ++sp) {
       if (lane == sp) {
@@ -223,7 +222,8 @@ __device__ __forceinline__ void solve_row_exact(const T* __restrict__ ell,
   }
 }
 
-// Solve rows [(blockIdx.x * warps + warp) * RW, + RW) of X op(L) = B: each
+// Solve rows [row0 + warp * RW, + RW) of X op(L) = B (row0: the first row
+// of this block's run; rows < `rows` only): each
 // warp owns RW rows and keeps, in registers, every later column block's acc
 // of its rows (lane t holds column 32 j + t of block j, j < NKB, nb <= 32
 // NKB); the block shares L, streamed slab by slab through two stages by
@@ -240,14 +240,15 @@ __device__ __forceinline__ void solve_row_exact(const T* __restrict__ ell,
 // smem holds rows_smem_bytes<T, RW>(nb, blockDim.x / 32).
 template <typename T, int NKB, int RW>
 __device__ void solve_rows(const T* __restrict__ ell, const T* __restrict__ b,
-                           T* __restrict__ x, long long rows, int nb, bool vec, T* smem) {
+                           T* __restrict__ x, long long rows, int nb, bool vec, T* smem,
+                           long long row0) {
   using S = Slab<T>;
   constexpr int V = S::V, KS = S::KS, LD = S::LD;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   T* stage[2] = {smem, smem + (size_t)nb * LD};
   T* xb = smem + 2 * (size_t)nb * LD + (size_t)warp * kW * RW;  // [32][RW]
   const int nkb = nb / kW, nslabs = nb / KS;
-  const long long r0 = ((long long)blockIdx.x * warps + warp) * RW;
+  const long long r0 = row0 + (long long)warp * RW;
 
   T acc[RW][NKB];
 #pragma unroll
@@ -258,7 +259,7 @@ __device__ void solve_rows(const T* __restrict__ ell, const T* __restrict__ b,
   bool tiny = false;  // a kept quotient the product may not round as the division
 #pragma unroll
   for (int q = 0; q < RW; ++q) {
-    bnext[q] = r0 + q < rows ? b[(r0 + q) * nb + lane] : T(0);
+    bnext[q] = r0 + q < rows ? __ldcg(b + (r0 + q) * nb + lane) : T(0);
     v[q] = contrib[q] = T(0);
   }
 
@@ -283,7 +284,7 @@ __device__ void solve_rows(const T* __restrict__ ell, const T* __restrict__ b,
       if (k + 1 < nkb) {
 #pragma unroll
         for (int q = 0; q < RW; ++q)
-          bnext[q] = r0 + q < rows ? b[(r0 + q) * nb + (k + 1) * kW + lane] : T(0);
+          bnext[q] = r0 + q < rows ? __ldcg(b + (r0 + q) * nb + (k + 1) * kW + lane) : T(0);
       }
     }
 

@@ -1,7 +1,9 @@
 // Cholesky of one (n, n) real tile, lower factor: on a thread-block
 // cluster (the kernel every path launches), and on one thread block (the
-// kernel it replaced, kept as the reference of its before/after check; its
-// body, potrf.cuh, also runs inside B7 and B8).
+// kernel it replaced, kept as the reference of its before/after check, and
+// the kernel B1's gate takes where the cluster's rows do not fit).  Both
+// bodies are in potrf.cuh; the cluster body (factor_team) also runs inside
+// B7 and B8's tail, on the blocks of their launch (csrc/factor_send.cuh).
 //
 // Replaces dlaf_tpu/ops/pallas_potrf.py (potrf_tile / _potrf_kernel): the
 // tile is hermitized from its lower triangle (only the lower triangle is
@@ -33,7 +35,8 @@
 //      and applies the rank-32 update to its own trailing rows, 4 x 4
 //      register tiles per thread; cluster.sync().
 // The tile is read once and written once.  A cluster is scheduled as a
-// unit, so no block ever waits for one that cannot be scheduled.
+// unit, so no block ever waits for one that cannot be scheduled.  The body
+// is potrf.cuh's factor_team on a ClusterTeam.
 //
 // Both give the same bits: every element sees the same operations in the
 // same order as in the one-block body.  A panel element:
@@ -45,237 +48,24 @@
 //
 // The caller owns the output buffer; nothing is allocated here.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "potrf.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
-
 constexpr int kThreads = 512;
 constexpr int kClusterThreads = 512;
-constexpr int kPw = 32;         // panel width of the cluster kernel
-constexpr int kLdP = kPw + 1;   // +1: conflict-free column reads
-constexpr int kTileRows = 4;    // local rows of a thread's update tile
-constexpr int kTileCols = 4;    // columns of it, 32 apart (one per lane)
+using dlaf_potrf::cluster_elems;
+using dlaf_potrf::kPw;
 
-// Shared memory of one cluster block, in elements: its rows [ceil(n/cs)][n],
-// the gathered panel [n - 32][33], the diagonal factor [32][33] and its
-// reciprocals [32].
-__host__ __device__ inline size_t cluster_elems(int n, int cs) {
-  const size_t rows = (size_t)((n + cs - 1) / cs) * n;
-  const size_t pan = (size_t)(n > kPw ? n - kPw : 0) * kLdP;
-  return rows + pan + (size_t)kPw * kLdP + kPw;
-}
-
-// Block 0, warp 0: factor the w x w diagonal block d in place, the
-// one-block body's column loop on it (the reciprocal of the pivot, the
-// column scaled, the trailing lower triangle of the block updated), with
-// row r in lane r's registers and each column handed over by shuffles, so
-// that no step waits on shared memory.  inv[t] keeps each column's
-// reciprocal.
-template <typename T>
-__device__ void factor_diag(T* d, T* inv, int w) {
-  const int r = threadIdx.x;
-  T x[kPw];
-#pragma unroll
-  for (int u = 0; u < kPw; ++u) x[u] = (r < w && u < w) ? d[r * kLdP + u] : T(0);
-#pragma unroll
-  for (int t = 0; t < kPw; ++t) {
-    if (t < w) {
-      const T iv = T(1) / sqrt(__shfl_sync(0xffffffffu, x[t], t));
-      if (r >= t) x[t] *= iv;
-      if (r == 0) inv[t] = iv;
-      const T lrt = x[t];
-#pragma unroll
-      for (int u = t + 1; u < kPw; ++u) {
-        const T lut = __shfl_sync(0xffffffffu, x[t], u);
-        if (u <= r && r < w) x[u] -= lrt * lut;
-      }
-    }
-  }
-  if (r < w)
-    for (int u = 0; u < w; ++u) d[r * kLdP + u] = x[u];
-}
-
-// Block-wide copy of this block's rows between the tile in device memory
-// (row i at g[i * n]) and its shared memory (row i = me + li * cs at
-// s[li * n]), in 16-byte pieces when both are aligned; on the way in, the
-// upper triangle is zeroed.
-template <typename T, bool kIn>
-__device__ inline void move_rows(T* g, T* s, int n, int nr, int me, int cs) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  if (reinterpret_cast<size_t>(g) % 16 == 0) {  // n % 8 == 0: every row is aligned too
-    const int per_row = n / kVec;
-#pragma unroll 4
-    for (int idx = tid; idx < nr * per_row; idx += nt) {
-      const int li = idx / per_row, c = (idx % per_row) * kVec, i = me + li * cs;
-      uint4* gp = reinterpret_cast<uint4*>(g + (size_t)i * n + c);
-      uint4* sp = reinterpret_cast<uint4*>(s + (size_t)li * n + c);
-      if (kIn) {
-        uint4 raw = *gp;
-        T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-        for (int k = 0; k < kVec; ++k)
-          if (c + k > i) e[k] = T(0);
-        *sp = raw;
-      } else {
-        *gp = *sp;
-      }
-    }
-  } else {
-#pragma unroll 4
-    for (int idx = tid; idx < nr * n; idx += nt) {
-      const int li = idx / n, c = idx % n, i = me + li * cs;
-      if (kIn)
-        s[idx] = (c <= i) ? g[(size_t)i * n + c] : T(0);
-      else
-        g[(size_t)i * n + c] = s[idx];
-    }
-  }
-}
-
+// B1's cluster: the team body of potrf.cuh on the blocks of one cluster
 template <typename T>
 __global__ void __launch_bounds__(kClusterThreads, 2)
 potrf_cluster_kernel(const T* __restrict__ a, T* __restrict__ out, int n) {
-  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int cs = (int)cluster.num_blocks();
-  const int me = (int)cluster.block_rank();
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int warp = tid / 32, lane = tid % 32, nwarps = nt / 32;
-  T* rows = reinterpret_cast<T*>(smem_raw);  // row i = me + li * cs at rows[li * n]
-  T* pan = rows + (size_t)((n + cs - 1) / cs) * n;
-  T* d = pan + (size_t)(n > kPw ? n - kPw : 0) * kLdP;
-  T* inv = d + kPw * kLdP;
-  const int nr = (n - me + cs - 1) / cs;  // rows this block owns
-
-  // own rows of the lower triangle of a, upper triangle zero
-  move_rows<T, true>(const_cast<T*>(a), rows, n, nr, me, cs);
-  cluster.sync();
-
-  for (int c0 = 0; c0 < n; c0 += kPw) {
-    const int w = min(kPw, n - c0);
-    // 1. block 0 gathers and factors the diagonal block
-    if (me == 0) {
-      for (int idx = tid; idx < w * w; idx += nt) {
-        const int r = idx / w, u = idx % w, i = c0 + r;
-        const T* src = cluster.map_shared_rank(rows, i % cs);
-        d[r * kLdP + u] = src[(size_t)(i / cs) * n + c0 + u];
-      }
-      __syncthreads();
-      if (warp == 0) factor_diag(d, inv, w);
-      __syncthreads();
-    }
-    cluster.sync();
-    // 2. the factor and its reciprocals from block 0; this block's rows of
-    // the diagonal block from it, then its rows below it solved
-    if (me != 0) {
-      const T* src = cluster.map_shared_rank(d, 0);
-      for (int idx = tid; idx < kPw * kLdP + kPw; idx += nt) d[idx] = src[idx];
-      __syncthreads();
-    }
-    for (int idx = tid; idx < w * w; idx += nt) {
-      const int r = idx / w, u = idx % w, i = c0 + r;
-      if (i % cs == me) rows[(size_t)(i / cs) * n + c0 + u] = (u <= r) ? d[r * kLdP + u] : T(0);
-    }
-    if (w == kPw && c0 + kPw < n) {
-      const int li0 = (c0 + kPw - me + cs - 1) / cs;  // first own row below the block
-      for (int li = li0 + tid; li < nr; li += nt) {
-        T* x = rows + (size_t)li * n + c0;
-        T v[kPw];
-#pragma unroll
-        for (int u = 0; u < kPw; ++u) v[u] = x[u];
-#pragma unroll
-        for (int u = 0; u < kPw; ++u) {
-#pragma unroll
-          for (int t = 0; t < u; ++t) v[u] -= v[t] * d[u * kLdP + t];
-          v[u] *= inv[u];
-        }
-#pragma unroll
-        for (int u = 0; u < kPw; ++u) x[u] = v[u];
-      }
-    }
-    cluster.sync();
-    if (w < kPw || c0 + kPw >= n) break;  // the last panel has no trailing rows
-    // 3. the factored panel below the diagonal block from every block, then
-    // the rank-32 update of this block's trailing rows
-    const int base = c0 + kPw, m2 = n - base;
-    constexpr int kVec = 16 / sizeof(T);
-    constexpr int kChunks = kPw / kVec;
-    constexpr int kInFlight = 4;  // DSMEM loads in flight per thread
-    for (int idx0 = tid; idx0 < m2 * kChunks; idx0 += kInFlight * nt) {
-      uint4 raw[kInFlight];
-#pragma unroll
-      for (int k = 0; k < kInFlight; ++k) {
-        const int idx = idx0 + k * nt;
-        if (idx < m2 * kChunks) {
-          const int i = base + idx / kChunks, q = idx % kChunks;
-          raw[k] = *reinterpret_cast<const uint4*>(cluster.map_shared_rank(rows, i % cs) +
-                                                   (size_t)(i / cs) * n + c0 + q * kVec);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kInFlight; ++k) {
-        const int idx = idx0 + k * nt;
-        if (idx < m2 * kChunks) {
-          const T* e = reinterpret_cast<const T*>(&raw[k]);
-          T* dst = pan + (idx / kChunks) * kLdP + (idx % kChunks) * kVec;
-#pragma unroll
-          for (int v = 0; v < kVec; ++v) dst[v] = e[v];
-        }
-      }
-    }
-    __syncthreads();
-    const int li0 = (base - me + cs - 1) / cs;
-    const int groups = (nr - li0 + kTileRows - 1) / kTileRows;
-    const int strips = (m2 + 32 * kTileCols - 1) / (32 * kTileCols);
-    for (int wt = warp; wt < groups * strips; wt += nwarps) {
-      const int lr = li0 + (wt / strips) * kTileRows;
-      const int jb = base + (wt % strips) * 32 * kTileCols;
-      const int i_last = me + min(lr + kTileRows - 1, nr - 1) * cs;
-      if (jb > i_last) continue;  // the tile lies above the diagonal
-      int pi[kTileRows], pj[kTileCols];
-#pragma unroll
-      for (int q = 0; q < kTileRows; ++q) pi[q] = (me + min(lr + q, nr - 1) * cs - base) * kLdP;
-#pragma unroll
-      for (int c = 0; c < kTileCols; ++c) pj[c] = (min(jb + lane + 32 * c, n - 1) - base) * kLdP;
-      T acc[kTileRows][kTileCols];
-#pragma unroll
-      for (int q = 0; q < kTileRows; ++q)
-#pragma unroll
-        for (int c = 0; c < kTileCols; ++c) acc[q][c] = T(0);
-#pragma unroll 8
-      for (int t = 0; t < kPw; ++t) {
-        T li[kTileRows], lj[kTileCols];
-#pragma unroll
-        for (int q = 0; q < kTileRows; ++q) li[q] = pan[pi[q] + t];
-#pragma unroll
-        for (int c = 0; c < kTileCols; ++c) lj[c] = pan[pj[c] + t];
-#pragma unroll
-        for (int q = 0; q < kTileRows; ++q)
-#pragma unroll
-          for (int c = 0; c < kTileCols; ++c) acc[q][c] += li[q] * lj[c];
-      }
-#pragma unroll
-      for (int q = 0; q < kTileRows; ++q) {
-        const int li_q = lr + q, i = me + li_q * cs;
-#pragma unroll
-        for (int c = 0; c < kTileCols; ++c) {
-          const int j = jb + lane + 32 * c;
-          if (li_q < nr && j <= i && j < n) rows[(size_t)li_q * n + j] -= acc[q][c];
-        }
-      }
-    }
-    cluster.sync();
-  }
-
-  // every block's reads of this block's rows are over (the last
-  // cluster.sync() above); write the rows out
-  move_rows<T, false>(out, rows, n, nr, me, cs);
+  dlaf_potrf::ClusterTeam tm;
+  dlaf_potrf::factor_team<T>(tm, a, out, n, static_cast<T*>(nullptr), smem_raw);
 }
 
 template <typename T>
@@ -314,6 +104,35 @@ int launch_potrf_cluster(const void* a, void* out, int n, int cs, void* stream) 
                          static_cast<T*>(out), n);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// cudaOccupancyMaxActiveClusters of B1's cluster at side n: how many
+// clusters of cs blocks the card holds at once (on an empty card), or a
+// negated CUDA error
+template <typename T>
+int cluster_occupancy(int n, int cs) {
+  const size_t smem = cluster_elems(n, cs) * sizeof(T);
+  if (n <= 0 || cs < 1 || smem > dlaf_potrf::kSmemLimit) return -(int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(potrf_cluster_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess && cs > 8)
+    e = cudaFuncSetAttribute(potrf_cluster_kernel<T>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, 1, 1);
+  cfg.blockDim = dim3(kClusterThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, potrf_cluster_kernel<T>, &cfg);
+  return e == cudaSuccess ? clusters : -(int)e;
 }
 
 template <typename T>
@@ -356,6 +175,12 @@ int dlaf_potrf_cluster_f32(const void* a, void* out, int n, int cs, void* stream
 
 int dlaf_potrf_cluster_f64(const void* a, void* out, int n, int cs, void* stream) {
   return launch_potrf_cluster<double>(a, out, n, cs, stream);
+}
+
+// clusters of cs blocks of B1's cluster kernel at side n the card holds at
+// once (cudaOccupancyMaxActiveClusters), or a negated CUDA error
+int dlaf_potrf_cluster_occupancy(int f64, int n, int cs) {
+  return f64 ? cluster_occupancy<double>(n, cs) : cluster_occupancy<float>(n, cs);
 }
 
 const char* dlaf_error_string(int err) {

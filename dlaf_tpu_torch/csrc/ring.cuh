@@ -1,6 +1,7 @@
-// The ring protocol of the 'pallas' collectives tier, shared by the ring
-// kernels (csrc/panel_exchange.cu: B5, B7) and the ring consumers
-// (csrc/consume.cu: B6, B8), as the TPU kernels share
+// The ring protocol of the 'pallas' collectives tier, shared by the hop
+// ring (csrc/panel_exchange.cu: B5's reference kernel) and the ring
+// consumers (csrc/consume.cu: B6, B8's consume phase), as the TPU kernels
+// share
 // pallas_panel_exchange._ring_hops.  See panel_exchange.cu for the protocol:
 // landing slots in device memory, 64-bit flags valued (epoch << 16) | hop
 // that never reset, an entry barrier, a recv flag per hop and a capacity
@@ -25,7 +26,15 @@ using flag_ref = cuda::atomic_ref<u64, cuda::thread_scope_device>;
 using err_ref = cuda::atomic_ref<int, cuda::thread_scope_device>;
 
 // which wait ran out (the error word's value; -1 is set by the host)
-enum : int { kErrEntry = 1, kErrAck = 2, kErrRecv = 3, kErrFactor = 4, kErrPhase = 5 };
+enum : int {
+  kErrEntry = 1,   // an entry barrier, or the root's panel
+  kErrAck = 2,
+  kErrRecv = 3,
+  kErrFactor = 4,  // a barrier of the factor (factor_send.cuh)
+  kErrPhase = 5,
+  kErrDone = 6,    // an exit barrier (a reader's done flag never came)
+  kErrChunk = 7,   // a chunk flag of the shared panel solve (factor_send.cuh)
+};
 
 __device__ __forceinline__ u64 globaltimer() {
   u64 t;
@@ -35,7 +44,7 @@ __device__ __forceinline__ u64 globaltimer() {
 
 // The hop merge of one slot: take the incoming word only where this rank
 // has no contribution yet and the sender has one (B4's select; the pull
-// and every hop of the rings, B6, B7 and B8 decide a slot's take with it).
+// and every hop of the rings of B6 and B8 decide a slot's take with it).
 __device__ __forceinline__ bool hop_take(int have, int have_in) {
   return have == 0 && have_in != 0;
 }
@@ -58,15 +67,16 @@ struct Ring {
   u64 timeout_ns;
 };
 
-// Thread 0: wait until *flag >= target; false when the bound ran out (the
-// error word is then set to `code`) or another block set the error word.
-__device__ inline bool wait_flag(u64* flag, u64 target, const Ring& r, int code) {
-  flag_ref f(*flag);
-  err_ref e(*r.err);
+// This thread: wait until *flag >= target; false when `timeout_ns` ran out
+// (the error word is then set to `code`) or another block set the error
+// word.  Every spin of the ring kernels is this one.
+__device__ inline bool wait_ge(const u64* flag, u64 target, int* err, u64 timeout_ns, int code) {
+  flag_ref f(*const_cast<u64*>(flag));
+  err_ref e(*err);
   const u64 t0 = globaltimer();
   while (f.load(cuda::memory_order_acquire) < target) {
     if (e.load(cuda::memory_order_relaxed) != 0) return false;
-    if (globaltimer() - t0 > r.timeout_ns) {
+    if (globaltimer() - t0 > timeout_ns) {
       int zero = 0;
       e.compare_exchange_strong(zero, code, cuda::memory_order_relaxed);
       return false;
@@ -74,6 +84,11 @@ __device__ inline bool wait_flag(u64* flag, u64 target, const Ring& r, int code)
     __nanosleep(128);
   }
   return true;
+}
+
+// Thread 0 of a hop ring's block: wait_ge under the ring's bound.
+__device__ inline bool wait_flag(u64* flag, u64 target, const Ring& r, int code) {
+  return wait_ge(flag, target, r.err, r.timeout_ns, code);
 }
 
 __device__ __forceinline__ void publish(u64* flag, u64 value) {

@@ -74,9 +74,9 @@ SIGNATURES = {
     # (the int64 argument array named by dlaf_fused_step_fields, nslices, stream)
     "dlaf_fused_step_f32": [_P, _I, _P],
     "dlaf_fused_step_f64": [_P, _I, _P],
-    # (step, f64, nslices, ltc, mb, K): blocks per SM of B6 (step 0, at depth K) or B8
-    # (step 1)
-    "dlaf_ring_consumer_blocks_per_sm": [_I, _I, _I, _I, _I, _I],
+    # (step, f64, nslices, ltr, ltc, mb, K, G): blocks per SM of B6 (step 0, at depth K)
+    # or B8 (step 1)
+    "dlaf_ring_consumer_blocks_per_sm": [_I, _I, _I, _I, _I, _I, _I, _I],
     # (dw, z2, rho, anchor, lo0, hi0, out, K, S, iters, stream)
     "dlaf_secular_bisect_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (y, y_in, h, h_in, oy, oh, total, w, slots, stream)
@@ -88,12 +88,16 @@ SIGNATURES = {
     #  G, P, me, epoch, timeout_ns, stream): B5 as the hop ring
     "dlaf_ring_exchange": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _LL,
                            _I, _I, _I, _ULL, _ULL, _P],
-    # (d, xc, below, lkk, cp, nb, rows, is_root, ready, land, land_h, entry, rflag,
-    #  aflag, err, P, me, G, epoch, timeout_ns, stream)
-    "dlaf_fused_factor_bcast_f32": [_P, _P, _P, _P, _P, _I, _LL, _I, _P, _P, _P, _P, _P,
-                                    _P, _P, _I, _I, _I, _ULL, _ULL, _P],
-    "dlaf_fused_factor_bcast_f64": [_P, _P, _P, _P, _P, _I, _LL, _I, _P, _P, _P, _P, _P,
-                                    _P, _P, _I, _I, _I, _ULL, _ULL, _P],
+    # (d, xc_root, cps, below, lkk, nb, ltr, root, flags, scratch, err, P, me, G, epoch,
+    #  timeout_ns, stream): B7; cps a host array of P device pointers
+    "dlaf_fused_factor_bcast_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I,
+                                    _ULL, _ULL, _P],
+    "dlaf_fused_factor_bcast_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I,
+                                    _ULL, _ULL, _P],
+    # (f64, nb, ltr, G, out[3]): B7's blocks per SM, factor team, shared memory
+    "dlaf_fused_occupancy": [_I, _I, _I, _I, _P],
+    # (f64, n, cluster_blocks): clusters of B1's cluster kernel the card holds at once
+    "dlaf_potrf_cluster_occupancy": [_I, _I, _I],
 }
 
 _lib = None
@@ -149,7 +153,9 @@ def _demangle(names: list) -> list:
 def parse_ptxas(source: str, text: str) -> list:
     """The entry functions of one ``-Xptxas -v`` log: registers from their
     "Used N registers" line, stack and spills from their "Function
-    properties" lines."""
+    properties" lines; then the functions called out of line (``__noinline__``
+    device functions: ``"device_function": True``, their own stack and
+    spills, registers None), whose spills an entry's line does not show."""
     props, entries, cur, named = {}, [], None, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -172,6 +178,9 @@ def parse_ptxas(source: str, text: str) -> list:
             cur["registers"] = int(m.group(1))
     for e in entries:
         e.update(props.get(e["kernel"], {}))
+    kernels = {e["kernel"] for e in entries}
+    entries += [{"source": source, "kernel": name, "device_function": True, "registers": None,
+                 **p} for name, p in props.items() if name not in kernels and p]
     for e, name in zip(entries, _demangle([e["kernel"] for e in entries])):
         e["kernel"] = name
     return entries

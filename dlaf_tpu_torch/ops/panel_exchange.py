@@ -22,12 +22,17 @@ Replaces ``dlaf_tpu/ops/pallas_panel_exchange.py``:
   slots) stays as :func:`ring_exchange_hops`, the reference of the pull's
   before/after check; no path calls it.
 - B7, :func:`fused_factor_bcast` (``fused_factor_bcast`` / ``_fused_kernel``):
-  potrf of the broadcast diagonal tile, the panel solve of this rank's
-  column, the mask to the rows below the diagonal on the root column, and
-  the ring over 'c', in one launch per rank.
+  potrf of the broadcast diagonal tile, the panel solve of the root's
+  column, the mask to the rows below the diagonal, and the send over 'c',
+  in one launch per rank, on the factor-and-send body of
+  ``csrc/factor_send.cuh`` that B8's tail runs too: every rank factors the
+  tile with B1's cluster body on the blocks of its launch (flag barriers
+  in place of a cluster), solves a share of the root's rows with B2's
+  body, and pulls the other shares from the ranks that solved them
+  (:func:`fused_geometry`, :func:`solve_shares`).
 
 The ranks of a grid are threads of one process on one card
-(``comm/_ranks.py``); the ring state a collective needs (landing slots,
+(``comm/_ranks.py``); the ring state a collective needs (landing slots or
 flags, epoch counters) is made once per collective class, axis, ring and
 payload size, under the runtime's lock, and kept for the grid's lifetime.
 Distinct classes (the ``collective_id`` table of the JAX package) get
@@ -120,9 +125,10 @@ def describe_error(code: int) -> str:
         1: "ring kernel: entry barrier (a partner's launch never came)",
         2: "ring kernel: capacity ack of a landing slot",
         3: "ring kernel: recv flag of a landing slot",
-        4: "fused kernel: the diagonal factor",
-        5: "fused step kernel: a phase flag of its own launch",
-        6: "ring kernel (pull): exit barrier (a reader's done flag never came)",
+        4: "fused kernel: a barrier of the diagonal factor",
+        5: "fused step kernel: a phase flag (a rank's consume phase never ended)",
+        6: "ring kernel (pull, fused): exit barrier (a reader's done flag never came)",
+        7: "fused kernel: a chunk flag of the shared panel solve",
     }.get(code, f"ring kernel error {code}")
 
 
@@ -213,22 +219,35 @@ class _HostRing:
 
 
 class _DeviceRing:
-    """The ring kernels' state on the card: landing slots [P][2][total]
-    words, their have [P][2][G][slots], and the flags (entry [P][G], recv
-    and ack [P][2][G], the fused kernel's factor flag [P]) as 64-bit
-    words, all zero at first and never reset."""
+    """The hop rings' state on the card (B5's reference kernel, B6, B8's
+    consume phase): landing slots [P][2][total] words, their have
+    [P][2][G][slots], and the flags (entry [P][G], recv and ack [P][2][G])
+    as 64-bit words, all zero at first and never reset."""
 
     def __init__(self, rt, n: int, total: int, slots: int, blocks: int):
         self.epoch = [0] * n
         self.blocks = blocks
         self.land = rt.zeros(n * 2 * total, torch.int32)
         self.land_h = rt.zeros(n * 2 * blocks * slots, torch.int32)
-        self.flags = rt.zeros(n * blocks + 2 * (n * 2 * blocks) + n, torch.int64)
+        self.flags = rt.zeros(n * blocks + 2 * (n * 2 * blocks), torch.int64)
         base, w = self.flags.data_ptr(), 8
         self.entry = base
         self.rflag = base + w * n * blocks
         self.aflag = self.rflag + w * n * 2 * blocks
-        self.ready = self.aflag + w * n * 2 * blocks
+
+
+class _FusedRing:
+    """B7's state on the card: its flags (:func:`fused_flag_words`: the
+    root's entry flag, the exit barrier [P][G], each rank's factor barrier
+    [P][G], the chunk flags) as 64-bit words and each rank's scratch for
+    the factor's diagonal block [P][32][32] (room for f64), zero at first
+    and never reset.  No landing slots: the ranks read each other's panels."""
+
+    def __init__(self, rt, n: int, blocks: int, ltr: int, nb: int):
+        self.epoch = [0] * n
+        self.blocks = blocks
+        self.flags = rt.zeros(fused_flag_words(n, blocks, ltr, nb), torch.int64)
+        self.scratch = rt.zeros(n * 32 * 32 * 2, torch.int32)
 
 
 class _PullRing:
@@ -435,9 +454,9 @@ def fusion_supported(d, xc) -> bool:
     """The fused factor-and-send covers the lookahead Cholesky panel: real
     f32/f64 tiles, a square tile ``d`` whose side passes B1's gate, and a
     panel ``xc`` that is a stack of such tiles.  The JAX gate's multiple of
-    128 is Mosaic's; the card's kernel needs B2's column blocks of 32, so
-    CUDA tiles need a side that is a multiple of 32 (the CPU twin takes any
-    multiple of 8)."""
+    128 is Mosaic's; the card's kernel needs B2's column blocks of 32 and
+    at most :data:`FUSED_MAX_NB`, so CUDA tiles need a side that is a
+    multiple of 32 up to 512 (the CPU twin takes any multiple of 8)."""
     if d.dtype not in (torch.float32, torch.float64) or xc.dtype != d.dtype:
         return False
     if d.dim() != 2 or xc.dim() != 3 or tuple(xc.shape[1:]) != tuple(d.shape):
@@ -445,7 +464,7 @@ def fusion_supported(d, xc) -> bool:
     nb = d.shape[0]
     if not _potrf.supported(d) or nb > _ptrsm.MAX_NB:
         return False
-    return d.device.type == "cpu" or nb % _ptrsm.W == 0
+    return d.device.type == "cpu" or (nb % _ptrsm.W == 0 and nb <= FUSED_MAX_NB)
 
 
 def fused_factor_bcast_plain(d, xc, below, root: int, axis: str = "c"):
@@ -465,14 +484,95 @@ def fused_factor_bcast_plain(d, xc, below, root: int, axis: str = "c"):
     return lkk, y
 
 
+#: the factor's team: at most this many blocks of a launch (B7 and B8's
+#: tail, ``csrc/factor_send.cuh``: kFactorBlocks)
+FACTOR_BLOCKS = 16
+#: the widest tile B7 and B8 take on the card: their solve is B2's body at
+#: 16 column blocks, the most whose sums leave a 512-thread block's 128
+#: registers a thread room for the rest (``csrc/factor_send.cuh``: kMaxNb);
+#: wider tiles take the unfused path, the same math
+FUSED_MAX_NB = 512
+#: a warp's 32 lanes; B7's and B8's blocks have 16 warps
+_WARPS = 512 // 32
+
+
+def fused_geometry(sms: int, ranks: int, nb: int, itemsize: int) -> tuple:
+    """B7's launch (and B8's tail's): ``(G, FB)``, G blocks per rank, as
+    every ring kernel (``sms // ranks``, :func:`_max_blocks`, so that every
+    rank's blocks fit the card at once, one block an SM), and the factor's
+    team of FB blocks (``min(G, FACTOR_BLOCKS)``) where B1's gate
+    (:func:`potrf.cluster_fits <dlaf_tpu_torch.ops.potrf.cluster_fits>`)
+    takes the cluster body, 0 where it takes the one-block body, as the
+    launchers compute it (``csrc/factor_send.cuh``: factor_blocks).  Raises
+    where the card cannot give the cluster body B1's 8 blocks a rank (the
+    launchers refuse it)."""
+    g = max(1, sms // ranks)
+    if not _potrf.cluster_fits_shape(nb, itemsize):
+        return g, 0
+    fb = min(g, FACTOR_BLOCKS)
+    if fb < _potrf.CLUSTER_BLOCKS:
+        raise ValueError(f"fused_factor_bcast: {ranks} ranks on {sms} SMs leave {g} blocks a "
+                         f"rank, fewer than B1's cluster of {_potrf.CLUSTER_BLOCKS}")
+    return g, fb
+
+
+def chunk_rows(itemsize: int) -> int:
+    """Rows of one chunk of the shared panel solve: 16 warps of B2's body,
+    each 2 (f32) or 1 (f64) rows (``csrc/factor_send.cuh``:
+    rows_per_warp)."""
+    return _WARPS * (2 if itemsize == 4 else 1)
+
+
+def share_lo(nc: int, q: int, p: int) -> int:
+    """The first chunk of ring position q's share of nc chunks."""
+    return nc * q // p
+
+
+def solve_shares(below, nb: int, p: int, rows: int) -> tuple:
+    """The shared panel solve of B7 and B8's tail: ``(chunks, shares)``.
+    ``chunks`` lists, in order, the (tile, first row) of every run of
+    ``rows`` rows of the tiles with ``below`` set (the others are zeros,
+    not solved); ring position q solves ``chunks[lo:hi]`` for ``(lo, hi) =
+    shares[q]`` and publishes a flag for each, which every other position
+    waits for before it copies the chunk from q's output.  The kernel
+    computes the same in ``csrc/factor_send.cuh`` (solve_send)."""
+    runs = -(-nb // rows)
+    chunks = [(i, r * rows) for i, b in enumerate(below) if b for r in range(runs)]
+    nc = len(chunks)
+    return chunks, [(share_lo(nc, q, p), share_lo(nc, q + 1, p)) for q in range(p)]
+
+
+def fused_flag_words(p: int, blocks: int, ltr: int, nb: int) -> int:
+    """64-bit flag words of B7's ring state (``dlaf_fused_flag_words``):
+    the root's entry flag, the exit barrier and the factor's barriers
+    ([P][G] each), a chunk flag per run of 16 rows (the narrowest chunk)."""
+    return 1 + 2 * p * blocks + ltr * -(-nb // 16)
+
+
+def fused_occupancy(dtype, nb: int, ltr: int, blocks: int) -> dict:
+    """B7's residency at a shape on this card: blocks per SM of its kernel,
+    its factor's team and shared memory, and, for the cluster design it
+    did not take, ``cudaOccupancyMaxActiveClusters`` of B1's cluster of 8
+    at this tile (``dlaf_potrf_cluster_occupancy``)."""
+    lib = _build.lib()
+    out = (ctypes.c_int * 3)()
+    f64 = int(dtype == torch.float64)
+    _build.check(lib.dlaf_fused_occupancy(f64, nb, ltr, blocks, out), "fused_occupancy")
+    clusters = lib.dlaf_potrf_cluster_occupancy(f64, nb, _potrf.CLUSTER_BLOCKS)
+    return {"blocks_per_sm": out[0], "factor_blocks": out[1], "smem_bytes": out[2],
+            "clusters_of_8_on_an_empty_card": clusters}
+
+
 def fused_factor_bcast(d, xc, below, root: int, axis: str = "c"):
     """Fused lookahead panel step inside a rank of ``spmd``: ``(lkk, cp)``
     from the broadcast diagonal tile ``d`` (lower triangle read) and this
     rank's panel column ``xc[ltr, nb, nb]``; ``below[ltr]`` (bool) masks the
     tiles strictly below the diagonal and ``root`` is the owning position
     on ``axis``.  The same as ``potrf_tile(d)``, the panel solve, the mask
-    and ``ring_bcast``.  CPU tensors take :func:`fused_factor_bcast_plain`;
-    CUDA tensors launch B7 or raise."""
+    and ``ring_bcast``, bit for bit.  CPU tensors take
+    :func:`fused_factor_bcast_plain`; CUDA tensors launch B7 or raise.  The
+    ranks exchange their ``xc`` and output pointers at the host rendezvous:
+    each solves a share of the root's ``xc`` and pulls the others' shares."""
     global fused_launches
     if d.device.type == "cpu" and xc.device.type == "cpu":
         return fused_factor_bcast_plain(d, xc, below, root, axis)
@@ -486,22 +586,23 @@ def fused_factor_bcast(d, xc, below, root: int, axis: str = "c"):
     ctx = _ranks.current()
     world, rt = ctx.world, ctx.world.rt
     pos, n, ring = ctx.axis(axis)
-    nb, rows = d.shape[0], xc.shape[0] * d.shape[0]
-    total = xc.numel() * xc.element_size() // 4
-    st = rt.ring((_class_id("fused", axis), ring, total, 1, "card"),
-                 lambda: _DeviceRing(rt, n, total, 1, _max_blocks(rt)))
+    nb, ltr = d.shape[0], xc.shape[0]
+    st = rt.ring((_class_id("fused", axis), ring, ltr, nb, "card-pull"),
+                 lambda: _FusedRing(rt, n, _max_blocks(rt), ltr, nb))
     st.epoch[pos] += 1
     lkk, cp = torch.empty_like(d), torch.empty_like(xc)
     below_i = below.to(torch.int32)
-    _before_launch(ctx, axis, "fused")
+    ptrs = _before_launch(ctx, axis, "fused", (xc.data_ptr(), cp.data_ptr()))
+    cps = (ctypes.c_void_p * n)(*[p_[1] for p_ in ptrs])
     lib = _build.lib()
     fn = lib.dlaf_fused_factor_bcast_f32 if d.dtype == torch.float32 \
         else lib.dlaf_fused_factor_bcast_f64
-    rc = fn(d.data_ptr(), xc.data_ptr(), below_i.data_ptr(), lkk.data_ptr(), cp.data_ptr(),
-            nb, rows, int(pos == root), st.ready, st.land.data_ptr(), st.land_h.data_ptr(),
-            st.entry, st.rflag, st.aflag, rt.error_word().data_ptr(), n, pos, st.blocks,
-            st.epoch[pos] << 16, int(RING_TIMEOUT_S * 1e9), _build.stream_of(d))
-    _build.check(rc, "fused_factor_bcast")
+    rc = fn(d.data_ptr(), ptrs[root][0], ctypes.addressof(cps), below_i.data_ptr(),
+            lkk.data_ptr(), nb, ltr, root, st.flags.data_ptr(), st.scratch.data_ptr(),
+            rt.error_word().data_ptr(), n, pos, st.blocks, st.epoch[pos] << 16,
+            int(RING_TIMEOUT_S * 1e9), _build.stream_of(d))
+    _build.check(rc, f"fused_factor_bcast ({st.blocks} blocks a rank: B1's cluster body takes "
+                     f"{_potrf.CLUSTER_BLOCKS} or more)")
     world.ring_launched = True
     with _build.COUNT_LOCK:
         fused_launches += 1

@@ -14,9 +14,11 @@ few rows and keeps every later column block's GEMM sum of them in
 registers, grown as each block is solved; the substitution runs on every
 lane (lane = column, the solved value handed on by a warp shuffle); L
 streams through shared memory in slabs by ``cp.async``; a block takes 1 to
-8 warps, so short panels still spread over the SMs.  Its first body
-(``solve_strip``: one block per 32-row strip), which the fused kernels B7
-and B8 run, stays as :func:`panel_trsm_reference`, with the same bits.
+8 warps, so short panels still spread over the SMs.  B7 and B8's tail run
+the same body on runs of rows of the root's panel (``csrc/factor_send.cuh``).
+Its first body (``solve_strip``: one block per 32-row strip), which no
+main-path kernel runs any more, stays as :func:`panel_trsm_reference`, with
+the same bits.
 See ``PERF.md`` for the measured times.
 """
 from __future__ import annotations

@@ -18,8 +18,10 @@ does not fit the blocks' shared memory (f32 above n = 560, f64 above
 n = 360; see :func:`cluster_fits`) goes to the one-block kernel, which
 factors a 32-wide panel in shared memory at a time and keeps the trailing
 triangle in device memory; that routing is static, by shape and dtype.
-Both kernels give the same bits (``csrc/potrf.cu`` says why), so B7 and
-B8, which run the one-block body inside their launches, agree with B1
+Both kernels give the same bits (``csrc/potrf.cu`` says why).  B7 and B8's
+tail run the cluster body on the blocks of their own launch, meeting at
+flag barriers in place of ``cluster.sync`` (``csrc/factor_send.cuh``), and
+the one-block body where the same gate takes it, so they agree with B1
 bitwise.  See ``PERF.md`` for their times.
 """
 from __future__ import annotations
@@ -95,6 +97,14 @@ def cluster_smem_bytes(n: int, itemsize: int, blocks: int) -> int:
     return (rows + pan + _PANEL * (_PANEL + 1) + _PANEL) * itemsize
 
 
+def cluster_fits_shape(n: int, itemsize: int) -> bool:
+    """:func:`cluster_fits` of an n x n tile of ``itemsize``-byte elements
+    (``csrc/factor_send.cuh``: cluster_fits, the same gate in B7 and B8's
+    tail)."""
+    return (_one_block_panel(n, itemsize) == _PANEL
+            and cluster_smem_bytes(n, itemsize, CLUSTER_BLOCKS) <= _SMEM_BYTES)
+
+
 def cluster_fits(a) -> bool:
     """The static gate between the two kernels: the cluster kernel takes a
     tile whose rows, split over :data:`CLUSTER_BLOCKS` blocks, fit a block's
@@ -102,9 +112,7 @@ def cluster_fits(a) -> bool:
     f64 up to n = 360 with 8 blocks) and whose one-block panel width is 32;
     the one-block kernel takes the others.  By shape and dtype only: no
     launch is ever retried on the other kernel."""
-    n, itemsize = a.shape[-1], a.element_size()
-    return (_one_block_panel(n, itemsize) == _PANEL
-            and cluster_smem_bytes(n, itemsize, CLUSTER_BLOCKS) <= _SMEM_BYTES)
+    return cluster_fits_shape(a.shape[-1], a.element_size())
 
 
 def _check_cuda_tile(a, what: str) -> None:
@@ -119,9 +127,10 @@ def _check_cuda_tile(a, what: str) -> None:
 
 
 def potrf_tile_one_block(a: torch.Tensor) -> torch.Tensor:
-    """B1 on one thread block (the kernel the cluster kernel replaced, whose
-    body runs inside B7 and B8): the "before" of B1's before/after check.
-    No path calls it; it counts nothing."""
+    """B1 on one thread block (the kernel the cluster kernel replaced): the
+    "before" of B1's before/after check, and the kernel :func:`potrf_tile`
+    launches where :func:`cluster_fits` fails (its body runs inside B7 and
+    B8's tail where the same gate fails).  Counts nothing itself."""
     _check_cuda_tile(a, "potrf_tile_one_block")
     n = a.shape[0]
     if _one_block_panel(n, a.element_size()) == 0:

@@ -51,8 +51,9 @@ ring) as an instantiation of the same kernel at 2 or 3 slices per operand
 once into its slices, the column panel streamed through cp.async
 pipelines), with B3-split's bits: B6's split update is bit for bit
 B3-split's applied once to the merged panel with the slots not applied
-set to zero.  B8's factor and panel-solve phases are unchanged.  See
-``PERF.md`` for the measured times.
+set to zero.  B8's tail (the diagonal tile's factor, the panel solve and
+its send) runs B7's factor-and-send body at every tier.  See ``PERF.md``
+for the measured times.
 """
 from __future__ import annotations
 
@@ -411,7 +412,9 @@ def fused_step_supported(x, cp) -> bool:
     """The JAX package's gate of the one-launch lookahead step
     (``fused_step_supported``, :477), kept as it is so that the same inputs
     take the same route: a real floating dtype, square tiles, a side that
-    is a multiple of 128 and at most ``panel_trsm.MAX_NB``."""
+    is a multiple of 128 and at most ``panel_trsm.MAX_NB``; on the card
+    also at most ``panel_exchange.FUSED_MAX_NB`` (B8's tail is B7's body),
+    wider tiles taking the two-piece step, the same math."""
     mb = x.shape[-1]
     return (
         x.dtype.is_floating_point
@@ -422,6 +425,7 @@ def fused_step_supported(x, cp) -> bool:
         and tuple(cp.shape[-2:]) == (mb, mb)
         and mb % 128 == 0
         and mb <= _ptrsm.MAX_NB
+        and (x.device.type != "cuda" or mb <= _px.FUSED_MAX_NB)
     )
 
 
@@ -451,33 +455,46 @@ def fused_step_plain(x, taken, have, suppress, cp, below1, params):
 
 
 class _StepFlags:
-    """The fused step's flags between the blocks of one rank's launch:
-    per rank [G] consume-done, [G] diagonal-tile-landed and the factor's
-    ready flag, 64-bit, never reset (valued ``epoch << 16``)."""
+    """The fused step's flags on the card, 64-bit, never reset (valued
+    ``epoch << 16``): per rank [G] consume-done, the rank's column k+1
+    complete [ranks], per rank [G] the tail's barriers, the exit barrier
+    [ranks][G], per grid row the chunk flags of the shared panel solve
+    (:func:`panel_exchange.fused_flag_words`' sizing: a flag per 16 rows),
+    and per rank the factor's diagonal-block scratch [32][32] (room for
+    f64).  The stacked layout gives every rank the same ``ltr``."""
 
-    def __init__(self, rt, blocks: int):
+    def __init__(self, rt, blocks: int, pr: int, ltr: int, mb: int):
+        n = rt.size
         self.blocks = blocks
-        self.epoch = [0] * rt.size
-        self.words = 2 * blocks + 1
-        self.flags = rt.zeros(rt.size * self.words, torch.int64)
+        self.epoch = [0] * n
+        self.chunks = ltr * -(-mb // 16)
+        self.flags = rt.zeros(3 * n * blocks + n + pr * self.chunks, torch.int64)
+        self.scratch = rt.zeros(n * 32 * 32 * 2, torch.int32)
 
-    def of(self, rank: int):
-        base = self.flags.data_ptr() + 8 * rank * self.words
-        return base, base + 8 * self.blocks, base + 16 * self.blocks
+    def of(self, rank: int, row: int) -> dict:
+        """The flag addresses of ``rank`` (row-major) in grid row ``row``."""
+        n, g, base, w = len(self.epoch), self.blocks, self.flags.data_ptr(), 8
+        return {"p1done": base + w * rank * g, "p1all": base + w * n * g,
+                "fflags": base + w * (n * g + n + rank * g),
+                "done": base + w * (2 * n * g + n),
+                "chunk": base + w * (3 * n * g + n + row * self.chunks),
+                "dscr": self.scratch.data_ptr() + 8 * 32 * 32 * rank}
 
 
 def fused_step(x, taken, have, suppress, cp, below1, params):
     """One lookahead Cholesky step in one launch per rank (B8), inside a
     rank of ``spmd``: the consume of row panel ``(taken, have)`` of the
     column panel ``cp`` into ``x`` (column k+1's narrow update included),
-    the diagonal tile of step k+1 to every rank, its factor, and on column
-    k+1's ranks the panel solve masked by ``below1`` and the ring of the new
-    panel over 'c'.  ``suppress`` is the narrow column's slot mask,
-    ``params`` the ints ``(kc1, kr1, l_next, lkr1, lkc1)`` of step k+1.
-    ``x`` is updated in place; returns ``(x, rp, lkk1, cp1, d1)``, ``d1``
-    the broadcast diagonal tile for the owner's pivot scan.  CPU tensors
-    take :func:`fused_step_plain`; CUDA tensors launch B8 (its consume phase
-    at :func:`ring_slices`) or raise."""
+    the diagonal tile of step k+1 to every rank, its factor, and the panel
+    solve of column k+1 masked by ``below1`` and its send over 'c' (the
+    tail, on B7's factor-and-send body: every rank of the ring solves a
+    share of the root's rows and pulls the others).  ``suppress`` is the
+    narrow column's slot mask, ``params`` the ints ``(kc1, kr1, l_next,
+    lkr1, lkc1)`` of step k+1.  ``x`` is updated in place; returns ``(x,
+    rp, lkk1, cp1, d1)``, ``d1`` the broadcast diagonal tile for the
+    owner's pivot scan.  CPU tensors take :func:`fused_step_plain`; CUDA
+    tensors launch B8 (its consume phase at :func:`ring_slices`) or
+    raise."""
     if _plain(x, taken, cp):
         return fused_step_plain(x, taken, have, suppress, cp, below1, params)
     _check_cuda("fused_step", x, taken, cp)
@@ -496,40 +513,43 @@ def fused_step(x, taken, have, suppress, cp, below1, params):
     rt = ctx.world.rt
     G = _px._max_blocks(rt)
     tile = mb * mb * x.element_size() // 4
-    rings = []
-    for kind, axis, total, slots in (("fused_step", "r", ltc * tile, ltc),
-                                     ("fused_step_diag", "c", tile, 1),
-                                     ("fused_step_diag", "r", tile, 1),
-                                     ("fused_step", "c", ltr * tile, 1)):
-        pos, n, ring = ctx.axis(axis)
-        st = rt.ring((_px.collective_id_for(kind, axis), ring, total, slots, "card"),
-                     lambda n=n, total=total, slots=slots: _px._DeviceRing(rt, n, total, slots, G))
-        st.epoch[pos] += 1
-        rings.append((st, pos, n))
-    flags = rt.ring(("fused_step_flags", G), lambda: _StepFlags(rt, G))
+    pos, n, ring = ctx.axis("r")
+    st = rt.ring((_px.collective_id_for("fused_step", "r"), ring, ltc * tile, ltc, "card"),
+                 lambda: _px._DeviceRing(rt, n, ltc * tile, ltc, G))
+    st.epoch[pos] += 1
+    flags = rt.ring(("fused_step_flags", G, ltr, mb),
+                    lambda: _StepFlags(rt, G, ctx.pr, ltr, mb))
     me = ctx.myr * ctx.pc + ctx.myc
     flags.epoch[me] += 1
-    p1done, ddone, ready = flags.of(me)
     rp, oh = torch.empty_like(taken), torch.empty((ltc, 1), dtype=torch.int32, device=x.device)
     od, lkk1 = torch.empty_like(x[0, 0]), torch.empty_like(x[0, 0])
     cp1 = torch.empty_like(cp)
     h = have.to(torch.int32).reshape(ltc, 1).contiguous()
     z = suppress.to(torch.int32).reshape(ltc, 1).contiguous()
     below = below1.to(torch.int32).reshape(ltr).contiguous()
+    # the launch spans both axes: meet every rank of the grid first, and
+    # learn where the tiles the tail reads lie: every rank's stack and cp1
+    peers = _ranks.rendezvous(None, "fused step: launch", (x.data_ptr(), ltc, cp1.data_ptr()))
+    esz = x.element_size()
+    x_own, ltc_own, _ = peers[kr1 * ctx.pc + kc1]     # the diagonal tile's owner
+    x_root, ltc_root, _ = peers[ctx.myr * ctx.pc + kc1]  # this row's root of column k+1
+    cp1_peers = (ctypes.c_longlong * ctx.pc)(*[peers[ctx.myr * ctx.pc + q][2]
+                                               for q in range(ctx.pc)])
     vals = {"err": rt.error_word().data_ptr(),
             "timeout": int(_px.RING_TIMEOUT_S * 1e9), "G": G,
             "x": x.data_ptr(), "cp": cp.data_ptr(), "y": taken.data_ptr(), "h": h.data_ptr(),
             "z": z.data_ptr(), "rp": rp.data_ptr(), "oh": oh.data_ptr(),
             "below": below.data_ptr(), "od": od.data_ptr(), "lkk": lkk1.data_ptr(),
-            "cp1": cp1.data_ptr(), "p1done": p1done, "ddone": ddone, "ready": ready,
+            "cp1_peers": ctypes.addressof(cp1_peers),
+            "xroot": x_root + l_next * mb * mb * esz, "xstride": ltc_root * mb * mb,
+            "dtile": x_own + (lkr1 * ltc_own + lkc1) * mb * mb * esz,
+            **flags.of(me, ctx.myr),
             "epoch": flags.epoch[me] << 16, "ltr": ltr, "ltc": ltc, "mb": mb, "kc1": kc1,
-            "kr1": kr1, "l_next": l_next, "lkr1": lkr1, "lkc1": lkc1, "me_r": ctx.myr,
-            "me_c": ctx.myc}
-    for q, (st, pos, n) in enumerate(rings):
-        vals.update({f"ring{q}_land": st.land.data_ptr(), f"ring{q}_land_h": st.land_h.data_ptr(),
-                     f"ring{q}_entry": st.entry, f"ring{q}_rflag": st.rflag,
-                     f"ring{q}_aflag": st.aflag, f"ring{q}_P": n, f"ring{q}_me": pos,
-                     f"ring{q}_epoch": st.epoch[pos] << 16})
+            "kr1": kr1, "l_next": l_next, "me_r": ctx.myr, "me_c": ctx.myc, "pr": ctx.pr,
+            "pc": ctx.pc,
+            "ring0_land": st.land.data_ptr(), "ring0_land_h": st.land_h.data_ptr(),
+            "ring0_entry": st.entry, "ring0_rflag": st.rflag, "ring0_aflag": st.aflag,
+            "ring0_P": n, "ring0_me": pos, "ring0_epoch": st.epoch[pos] << 16}
     # the int64 argument array, filled by name in the order the library
     # states (csrc/consume.cu's DLAF_STEP_* lists)
     lib = _build.lib()
@@ -539,8 +559,6 @@ def fused_step(x, taken, have, suppress, cp, below1, params):
         raise RuntimeError("fused_step: the library's argument names and the wrapper's differ: "
                            f"{sorted(set(fields) ^ set(vals))}")
     desc = (ctypes.c_longlong * len(fields))(*(vals[f] for f in fields))
-    # the launch spans both axes: meet every rank of the grid first
-    _ranks.rendezvous(None, "fused step: launch")
     _px._skew(ctx)
     fn = lib.dlaf_fused_step_f32 if x.dtype == torch.float32 else lib.dlaf_fused_step_f64
     rc = fn(ctypes.addressof(desc), nslices, _build.stream_of(x))

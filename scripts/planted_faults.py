@@ -11,7 +11,9 @@ its kernels at first use as the repository does, then runs chip_smoke.py's
 kernel phase of the one kernel the fault is in (consume_phases for B6, B8,
 their FMA body and B9, consume_split_phase for B6's and B8's split bodies
 (csrc/consume_split.cuh),
-pull_phase for B5 and the rings' merge, potrf_phase for B1,
+pull_phase for B5 and the rings' merge, fused_phase for B7 (whose body,
+csrc/factor_send.cuh, B8's tail shares: its faults run consume_phases'
+B8 as well), potrf_phase for B1,
 panel_trsm_phase for B2, merge_phase for B4, trailing_update_phase and
 fma_edge_phase for B3's and B9's FMA body), on the main path's shapes, in
 a process of its own; or ("split_tests") the CUDA tests that hold B6's and
@@ -35,6 +37,20 @@ WORK = os.path.join(ROOT, "_faults")
 
 _NO_SLICE_WAIT = ("      dlaf_fma::cp_async_wait<kStages - 3>();  // this thread's copies of slice "
                   "t + 1 have landed\n", "")
+
+def _late_pulls(ms: int) -> tuple:
+    """The delay that opens the exit barrier's race: the ranks at odd ring
+    positions start pulling the other shares ``ms`` late (factor_send.cuh),
+    long enough for the punctual ranks' threads to have queued their
+    overwrites (eight rank threads queue a few operations each after their
+    launch through one interpreter: several ms; 3 ms opened B7's race in
+    one run of two)."""
+    return ("factor_send.cuh",
+            "  // 3. every other position's chunks, round j of each share in turn\n",
+            "  if (s.me % 2 && tid == 0)\n"
+            f"    for (int i = 0; i < {ms * 1000}; ++i) __nanosleep(1000);\n"
+            "  __syncthreads();\n"
+            "  // 3. every other position's chunks, round j of each share in turn\n")
 
 #: name -> (file under dlaf_tpu_torch/csrc/, [(text, its replacement)],
 #: kernel whose chip_smoke.py phase runs, what must happen).  A fault
@@ -61,39 +77,6 @@ FAULTS = {
           "                     kErrRecv);\n",
           "      ok = true;\n")],
         "dma_ring_consume", "fails"),
-    # B8: block 0 factors the diagonal tile before the tile's rings have
-    # landed it (on every rank but its owner, before any byte of it came)
-    "b8_factor_before_ring": (
-        "consume.cu",
-        [("    dlaf_potrf::factor_tile<T, kThreads>(a.od, a.lkk, mb, a.pw, work);\n"
-          "    __syncthreads();\n    if (tid == 0) publish(a.ready, a.epoch);\n",
-          "    __syncthreads();\n    if (tid == 0) publish(a.ready, a.epoch);\n"),
-         ("  if (!ring_hops(a.rdc, sh_h1, sh_hin1, sh_ok)) return;\n",
-          "  if (b == 0) dlaf_potrf::factor_tile<T, kThreads>(a.od, a.lkk, mb, a.pw, work);\n"
-          "  __syncthreads();\n  if (!ring_hops(a.rdc, sh_h1, sh_hin1, sh_ok)) return;\n")],
-        "fused_step", "fails"),
-    # B8: block 0 factors without waiting for the other blocks' parts of the
-    # landed tile.  The blocks ring equal segments in step, so the race's
-    # window is short; the other blocks start the tile's ring over 'r' 20 ms
-    # late, which opens it on every rank off the tile's process row
-    "b8_factor_before_tile_landed": (
-        "consume.cu",
-        [("    if (tid == 0) ok = wait_all(a.ddone, a.epoch, a.rc);\n", "    ok = true;\n"),
-         ("  if (!ring_hops(a.rdr, sh_h1, sh_hin1, sh_ok)) return;\n",
-          "  if (b != 0 && tid == 0) {\n"
-          "    const u64 t0 = globaltimer();\n"
-          "    while (globaltimer() - t0 < 20000000ull) __nanosleep(1000);\n"
-          "  }\n"
-          "  __syncthreads();\n"
-          "  if (!ring_hops(a.rdr, sh_h1, sh_hin1, sh_ok)) return;\n")],
-        "fused_step", "fails"),
-    # B8: the root column solves without waiting for the factor of the
-    # landed diagonal tile
-    "b8_solve_before_factor": (
-        "consume.cu",
-        [("    ok = b == 0 || tid != 0 || wait_flag(a.ready, a.epoch, a.rc, kErrFactor);\n",
-          "    ok = true;\n")],
-        "fused_step", "fails"),
     # B5 (the pull): a reader copies from its peers without waiting for
     # their entry flags; the phase's late source fills its fresh input with
     # NaN and writes it only after a 100 ms sleep on its stream
@@ -122,10 +105,65 @@ FAULTS = {
     # B1 (the cluster): the other blocks copy the diagonal block's factor
     # from block 0 without the cluster.sync() that follows its factoring
     "b1_drop_cluster_sync": (
-        "potrf.cu",
-        [("      __syncthreads();\n    }\n    cluster.sync();\n    // 2. the factor",
-          "      __syncthreads();\n    }\n    // 2. the factor")],
+        "potrf.cuh",
+        [("      tm.sync();\n      // 2. the factor and its reciprocals from block 0\n",
+          "      // 2. the factor and its reciprocals from block 0\n")],
         "potrf", "fails"),
+    # B7 (csrc/factor_send.cuh): the solve starts without the barrier that
+    # ends the factor, and every block but 0 writes its rows of the factor
+    # 2 ms late; f64 at nb = 512 (block 0 alone factors, for ms) needs no
+    # delay to show it
+    "b7_solve_before_factor": (
+        "factor_send.cuh",
+        [("  return team_barrier(flags, gridDim.x, b, epoch | kReady, bd, dlaf_ring::kErrFactor);\n",
+          "  return true;\n"),
+         ("potrf.cuh", "  move_rows<T, false>(out, rows, n, nr, me, cs);\n  return true;\n",
+          "  if (!kDsmem && me != 0)\n"
+          "    for (int i = 0; i < 2000; ++i) __nanosleep(1000);\n"
+          "  move_rows<T, false>(out, rows, n, nr, me, cs);\n  return true;\n")],
+        "fused_factor_bcast", "fails"),
+    # B7: a chunk is copied from the rank that solves it without waiting for
+    # its flag; the solvers start each chunk 2 ms late
+    "b7_pull_before_chunk_flag": (
+        "factor_send.cuh",
+        [("      if (!block_wait(s.chunk + k, epoch | 1, bd, dlaf_ring::kErrChunk)) return false;\n",
+          ""),
+         ("    const int i = sidx[k / runs], r0 = k % runs * C;\n    dlaf_panel_trsm::solve_rows",
+          "    if (tid == 0) {\n"
+          "      const unsigned long long t0 = dlaf_ring::globaltimer();\n"
+          "      while (dlaf_ring::globaltimer() - t0 < 2000000ull) __nanosleep(1000);\n"
+          "    }\n"
+          "    __syncthreads();\n"
+          "    const int i = sidx[k / runs], r0 = k % runs * C;\n    dlaf_panel_trsm::solve_rows")],
+        "fused_factor_bcast", "fails"),
+    # B7: a rank's kernel ends without B5's exit barrier, so its stream
+    # overwrites its panel and its output (the phase's lifetime run) while
+    # other ranks still read them; ranks at odd positions start pulling
+    # the others' chunks late, which opens the race
+    "b7_no_exit_barrier": (
+        "panel_exchange.cu",
+        [("  dlaf_fsend::team_barrier(a.done, a.s.P * G, a.s.me * G + b, a.epoch | 2, a.bd, kErrDone);\n",
+          "  publish(a.done + a.s.me * G + b, a.epoch | 2);\n"),
+         _late_pulls(30)],
+        "fused_factor_bcast", "fails"),
+    # B7 (and B1's cluster, the same body): the team gathers the panel's
+    # rows without the sync that follows their publication
+    "b7_drop_team_sync": (
+        "potrf.cuh",
+        [("    if (!tm.sync()) return false;\n    if (w < kPw || c0 + kPw >= n) break;",
+          "    if (w < kPw || c0 + kPw >= n) break;")],
+        "fused_factor_bcast", "fails"),
+    # the same four in B8's tail (csrc/consume.cu, step_tail), at M4's step 0
+    "b8_solve_before_factor": ("factor_send.cuh", None, "fused_step", "fails"),
+    "b8_pull_before_chunk_flag": ("factor_send.cuh", None, "fused_step", "fails"),
+    "b8_no_exit_barrier": (
+        "consume.cu",
+        [("  dlaf_fsend::team_barrier(a.done, a.ranks * G, (a.me_r * a.pc + a.me_c) * G + b, a.epoch | 2,\n"
+          "                           a.bd, kErrDone);\n",
+          "  publish(a.done + (a.me_r * a.pc + a.me_c) * G + b, a.epoch | 2);\n"),
+         _late_pulls(30)],
+        "fused_step", "fails"),
+    "b8_drop_team_sync": ("potrf.cuh", None, "fused_step", "fails"),
     # B6's split body (csrc/consume_split.cuh, bf16x3) adds its terms
     # without the (0, 1) product
     "b6_split_drop_term01": (
@@ -324,6 +362,11 @@ FAULTS = {
         "merge_hop", "fails"),
 }
 
+for _b8, _b7 in (("b8_solve_before_factor", "b7_solve_before_factor"),
+                 ("b8_pull_before_chunk_flag", "b7_pull_before_chunk_flag"),
+                 ("b8_drop_team_sync", "b7_drop_team_sync")):
+    FAULTS[_b8] = (FAULTS[_b7][0], FAULTS[_b7][1]) + FAULTS[_b8][2:]
+
 _RUN = """
 import sys, json
 sys.path.insert(0, {copy!r})
@@ -350,6 +393,11 @@ elif kernel == "panel_trsm":
     cs.panel_trsm_phase(stamp, bound, timed_ms, kgen, ell)
 elif kernel == "merge_hop":
     cs.merge_phase(stamp, bound, torch.Generator(device=dev).manual_seed(cs.SEED + 1))
+elif kernel == "fused_factor_bcast":
+    from dlaf_tpu_torch.comm.grid import Grid
+    kgen = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
+    cs.fused_phase(stamp, bound, kgen, Grid.create(cs.GRID_M, device=dev),
+                   Grid.create(cs.GRID_M, device="cpu"))
 elif kernel == "potrf":
     cs.potrf_phase(stamp, bound, timed_ms, torch.Generator(device=dev).manual_seed(cs.SEED + 1))
 elif kernel in cs.CONSUME_SPLIT_KERNELS:
@@ -374,13 +422,13 @@ def plant(name: str) -> dict:
         shutil.copy(os.path.join(ROOT, "tests", "test_torch_consume.py"),
                     os.path.join(copy, "tests"))
         shutil.copy(os.path.join(ROOT, "pyproject.toml"), copy)
-    src = os.path.join(copy, "dlaf_tpu_torch", "csrc", fname)
-    text = open(src).read()
-    for old, new in edits:
+    for edit in edits:  # (old, new) in fname, or (file, old, new)
+        f, old, new = edit if len(edit) == 3 else (fname, *edit)
+        src = os.path.join(copy, "dlaf_tpu_torch", "csrc", f)
+        text = open(src).read()
         if text.count(old) != 1:
-            raise RuntimeError(f"{name}: a text to replace occurs {text.count(old)} times in {fname}")
-        text = text.replace(old, new)
-    open(src, "w").write(text)
+            raise RuntimeError(f"{name}: a text to replace occurs {text.count(old)} times in {f}")
+        open(src, "w").write(text.replace(old, new))
     cmd = ([sys.executable, "-m", "pytest", "tests/test_torch_consume.py", "--noconftest", "-m",
             "cuda", "-q", "-p", "no:cacheprovider", "-k", "split_is_b3_split"]
            if kernel == "split_tests" else

@@ -440,8 +440,9 @@ def _step_fields() -> list:
         body = re.search(rf"#define {macro}\(X\)((?:[^\n]*\\\n)*[^\n]*)", src).group(1)
         return re.findall(r"X\(\w+, (\w+)\)", body)
 
+    rings = int(re.search(r"constexpr int kRingCount = (\d+);", src).group(1))
     return (names("DLAF_STEP_HEAD")
-            + [f"ring{q}_{f}" for q in range(4) for f in names("DLAF_RING_FIELDS")]
+            + [f"ring{q}_{f}" for q in range(rings) for f in names("DLAF_RING_FIELDS")]
             + names("DLAF_STEP_TAIL"))
 
 

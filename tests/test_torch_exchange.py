@@ -394,6 +394,77 @@ def test_fusion_gate():
     assert not px.fusion_supported(f32, torch.zeros(3, 32, 16))
 
 
+@pytest.mark.parametrize("sms,ranks,nb,itemsize,want", [
+    (132, 8, 512, 4, (16, 16)),   # path M on the H100: 16 blocks a rank, all factor
+    (132, 2, 512, 4, (66, 16)),   # a 1x2 grid: the factor's team stays at 16
+    (132, 8, 192, 8, (16, 16)),   # S7's f64 at nb = 192: the cluster body fits
+    (132, 8, 512, 8, (16, 0)),    # S7's f64 at nb = 512: B1's gate takes one block
+    (132, 16, 560, 4, (8, 8)),    # B1's cluster of 8, exactly
+    (132, 8, 1024, 4, (16, 0)),   # f32 past n = 560: one block
+])
+def test_fused_geometry(sms, ranks, nb, itemsize, want):
+    """B7's launch and factor team from the card's SMs and the grid's ranks
+    (B1's gate decides between the cluster body and the one-block body)."""
+    assert px.fused_geometry(sms, ranks, nb, itemsize) == want
+    assert (want[1] > 0) == potrf.cluster_fits(
+        torch.zeros(nb, nb, dtype=torch.float32 if itemsize == 4 else torch.float64))
+
+
+def test_fused_geometry_refuses_too_few_blocks():
+    """17 ranks on 132 SMs leave 7 blocks a rank: fewer than B1's cluster of
+    8 for a tile the cluster body takes, so the launch raises; a tile the
+    one-block body takes still launches."""
+    with pytest.raises(ValueError, match="fewer than B1's cluster"):
+        px.fused_geometry(132, 17, 512, 4)
+    assert px.fused_geometry(132, 17, 512, 8) == (7, 0)
+
+
+@pytest.mark.parametrize("itemsize,rows", [(4, 32), (8, 16)])
+def test_chunk_rows(itemsize, rows):
+    """A chunk is 16 warps of B2's rows, 2 a warp in f32 and 1 in f64."""
+    assert px.chunk_rows(itemsize) == rows
+
+
+def test_fused_gate_on_the_card_stops_at_512():
+    """B7 and B8 take tiles up to 512 on the card (their solve's sums fill
+    the registers past that); wider ones take the unfused path.  The CPU
+    twins take them all."""
+    meta = torch.device("meta")
+    assert px.fusion_supported(torch.zeros(512, 512, device=meta),
+                               torch.zeros(2, 512, 512, device=meta))
+    assert not px.fusion_supported(torch.zeros(640, 640, device=meta),
+                                   torch.zeros(2, 640, 640, device=meta))
+    assert px.fusion_supported(torch.zeros(640, 640), torch.zeros(2, 640, 640))
+
+
+@pytest.mark.parametrize("below,nb,p,rows", [
+    ([0, 0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1], 512, 4, 32),  # path M, ring of 4
+    ([0] + [1] * 42, 192, 4, 32),                                     # M5
+    ([0, 0, 0] + [1] * 8, 192, 4, 16),                                # S7's f64
+    ([1] * 5, 192, 4, 32),                                            # every tile
+    ([0] * 5, 192, 4, 32),                                            # no tile
+    ([0, 1, 0, 1], 96, 3, 64),                                        # a ragged last run
+    ([1, 1], 192, 1, 16),                                             # a ring of one
+    ([1], 32, 8, 32),                                                 # fewer chunks than ranks
+])
+def test_solve_shares(below, nb, p, rows):
+    """The shared panel solve's chunks and shares: every row of every tile
+    below the diagonal is in exactly one chunk, every chunk in exactly one
+    share, the shares in ring order and within one chunk of each other; a
+    tile not below the diagonal has no chunk; the chunk flags fit the ring
+    state's (a flag per 16 rows)."""
+    chunks, shares = px.solve_shares(below, nb, p, rows)
+    covered = {(i, r) for i, r0 in chunks for r in range(r0, min(r0 + rows, nb))}
+    assert covered == {(i, r) for i, b in enumerate(below) if b for r in range(nb)}
+    assert len(covered) == sum(min(rows, nb - r0) for _, r0 in chunks)
+    assert [lo for lo, _ in shares] == [0] + [hi for _, hi in shares[:-1]]
+    assert shares[-1][1] == len(chunks)
+    sizes = [hi - lo for lo, hi in shares]
+    assert max(sizes) - min(sizes) <= 1
+    assert len(chunks) <= len(below) * -(-nb // 16)
+    assert px.fused_flag_words(p, 16, len(below), nb) == 1 + 2 * p * 16 + len(below) * -(-nb // 16)
+
+
 # ------------------------------------------------------ card only: B4, B5, B7
 
 
@@ -589,21 +660,31 @@ def test_cuda_ring_deadline_raises(monkeypatch):
     assert torch.all(out == 2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_fused_matches_unfused(dtype):
-    """B7 on a 2x4 grid against the unfused composition on the card (B1,
-    B2 on the root column, the mask, B5 over 'c'), bitwise, as B7 runs B1's
-    and B2's block bodies; and against its plain twin on a CPU grid within
-    tol_for(dtype, nb)."""
-    dev = _cuda()
-    nb, ltr, root = 64, 5, 3
-    d = torch.from_numpy(random_hermitian_pd(nb, np.float64, 10)).to(dtype)
-    gen = torch.Generator().manual_seed(11)
-    xc = torch.randn(2, 4, ltr, nb, nb, generator=gen, dtype=dtype)
-    below = torch.tensor([False, False, True, True, True])
-    dd = d.expand(2, 4, nb, nb).contiguous()
+#: B7's card cases (dtype, nb, ltr, below): the first body's small tile,
+#: path M's (nb = 512, 16 tiles a rank, the first 4 above the diagonal),
+#: M5's (nb = 192, 43 tiles), S7's f64 shapes (N = 4096 at nb = 192 and 512
+#: on 2 x 4: 11 and 4 tiles a rank; nb = 512 takes the one-block factor),
+#: and the mask's extremes (every tile, no tile below the diagonal)
+FUSED_CASES = [
+    (torch.float32, 64, 5, "2:"), (torch.float64, 64, 5, "2:"),
+    (torch.float32, 512, 16, "4:"), (torch.float32, 192, 43, "1:"),
+    (torch.float64, 192, 11, "3:"), (torch.float64, 512, 4, "1:"),
+    (torch.float32, 192, 12, "all"), (torch.float32, 192, 12, "none"),
+]
 
+
+def _fused_inputs(dtype, nb, ltr, mask, seed):
+    """d on every rank of a 2x4 grid, every rank's xc, and below."""
+    d = torch.from_numpy(random_hermitian_pd(nb, np.float64, seed)).to(dtype)
+    gen = torch.Generator().manual_seed(seed + 1)
+    xc = torch.randn(2, 4, ltr, nb, nb, generator=gen, dtype=dtype)
+    below = (torch.ones(ltr, dtype=torch.bool) if mask == "all"
+             else torch.zeros(ltr, dtype=torch.bool) if mask == "none"
+             else torch.arange(ltr) >= int(mask[:-1]))
+    return d.expand(2, 4, nb, nb).contiguous(), xc, below
+
+
+def _fused_fns(below, root, nb):
     def fused(dl, xl):
         return px.fused_factor_bcast(dl, xl, below.to(dl.device), root, "c")
 
@@ -613,6 +694,23 @@ def test_cuda_fused_matches_unfused(dtype):
         cp = torch.where(below.to(dl.device)[:, None, None], pan, torch.zeros_like(pan))
         return lkk, px.ring_bcast(cp, coll.my_rank()[1] == root, "c")
 
+    return fused, unfused
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,nb,ltr,mask", FUSED_CASES,
+                         ids=[f"{str(c[0])[6:]}-nb{c[1]}-ltr{c[2]}-{c[3].strip(':')}"
+                              for c in FUSED_CASES])
+def test_cuda_fused_matches_unfused(dtype, nb, ltr, mask):
+    """B7 on a 2x4 grid against the unfused composition on the card (B1,
+    B2 on the root column, the mask, B5 over 'c'), bitwise, as B7 runs B1's
+    and B2's bodies; and against its plain twin on a CPU grid within
+    tol_for(dtype, nb).  Every rank of a ring ends with the root's masked
+    panel."""
+    dev = _cuda()
+    root = 3 if nb == 64 else 1
+    dd, xc, below = _fused_inputs(dtype, nb, ltr, mask, 10 + nb)
+    fused, unfused = _fused_fns(below, root, nb)
     grid = Grid.create((2, 4), device=dev)
     before = px.fused_launches
     got = _on(grid, [dd.to(dev), xc.to(dev)], fused)
@@ -620,10 +718,38 @@ def test_cuda_fused_matches_unfused(dtype):
     torch.cuda.synchronize()
     assert px.fused_launches == before + 8
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    for r in range(2):
+        for c in range(4):
+            assert torch.equal(got[1][r, c], got[1][r, root])
+    if mask == "none":
+        assert not got[1].any()
     plain = _on(Grid.create((2, 4), device="cpu"), [dd, xc], fused)
     for g, p in zip(got, plain):
-        err = torch.linalg.vector_norm((g.cpu() - p).double()) / torch.linalg.vector_norm(p.double())
+        err = torch.linalg.vector_norm((g.cpu() - p).double()) / torch.linalg.vector_norm(
+            p.double()).clamp_min(1e-300)
         assert err <= tol_for(np.float32 if dtype == torch.float32 else np.float64, nb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("late", ["root", "non-root"])
+def test_cuda_fused_skewed_launch(late, monkeypatch):
+    """B7 at M5's shape with one rank of each ring launching 0.2 s after
+    the others (the root, whose panel the others solve, then a rank that
+    is not): the punctual ranks' factor, solve and pulls wait on the card
+    for the late one, and the result is still bit for bit the unfused
+    composition's."""
+    dev = _cuda()
+    nb, ltr, root = 192, 43, 1
+    dd, xc, below = _fused_inputs(torch.float32, nb, ltr, "1:", 31)
+    fused, unfused = _fused_fns(below, root, nb)
+    grid = Grid.create((2, 4), device=dev)
+    ref = _on(grid, [dd.to(dev), xc.to(dev)], unfused)
+    late_c = root if late == "root" else (root + 2) % 4
+    for r in range(2):
+        monkeypatch.setitem(px.launch_delay_s, (r, late_c), 0.2)
+    got = _on(grid, [dd.to(dev), xc.to(dev)], fused)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 @pytest.mark.cuda
