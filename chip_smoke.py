@@ -66,7 +66,8 @@ on failure:
    B9 also bit for bit its reference kernel on every rank and timed in
    turns with it;
    B3's and B9's split-tier bodies (gemm_precision bf16x3 / bf16x6; csrc/
-   split_gemm.cuh) at the same shapes as their default-tier checks (B3 f32
+   split_gemm.cuh: a pre-pass cutting each operand into bf16 planes, then a
+   pipelined mma.sync GEMM over them, each also timed alone) at the same shapes as their default-tier checks (B3 f32
    bf16x3 at path B's two shapes and red2band's, f64 bf16x6 at 16 x 16 x
    512^2; B9 f32 bf16x3 in both forms at path I's widest step) against
    their plain versions (tile.contract at the tier, on the card), within
@@ -2358,19 +2359,27 @@ def split_phase(stamp: dict, timed_ms, kgen, only=SPLIT_KERNELS) -> dict:
       noise is as large as the split's own truncation, so distances there
       cannot tell the two apart.)
 
-    Times: the kernel, the default-tier kernel (in the same call), the
-    plain version and the yardstick ``tile.contract`` at the tier (no
-    single PyTorch call computes a split product); bounds at the bf16
-    tensor cores' rate."""
+    Times: the kernel (a call: the pre-pass that cuts both operands into
+    their bf16 planes, then the body), each of its two kernels alone
+    (``cut_ms``, ``body_ms``; ``cut_share`` the pre-pass's part of their
+    sum), the default-tier kernel (in the same call), the plain version and
+    the yardstick ``tile.contract`` at the tier (no single PyTorch call
+    computes a split product); bounds at the bf16 tensor cores' rate, with
+    each input read and each output written once (the planes' traffic is
+    the design's own cost)."""
     import torch
 
     import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch.comm import collectives as coll
     from dlaf_tpu_torch.ops import tile
     from dlaf_tpu_torch.ops import trailing_update as tu
     from dlaf_tpu_torch.testing import tol_for
 
     dev = kgen.device
     report, bad = {}, []
+
+    def parts_ms(cut_ms, body_ms):
+        return {"cut_ms": cut_ms, "body_ms": body_ms, "cut_share": cut_ms / (cut_ms + body_ms)}
 
     def bound16(flops, nbytes):
         t_ops, t_bytes = flops / BF16_PEAK * 1e3, nbytes / HBM_RATE * 1e3
@@ -2479,6 +2488,7 @@ def split_phase(stamp: dict, timed_ms, kgen, only=SPLIT_KERNELS) -> dict:
                 bad.append(f"trailing_update[{label}]: {tu.split_launches - before} split "
                            "launches, want 2 (normal operands, probe)")
             xk = x0.clone()
+            cut, body = tu.split_parts(a, b, sub, tier, x=xk)
             nterms = len(tile.split_terms(tile.SPLIT_SLICES[tier]))
             b_ms, b_by = bound16(nterms * 2.0 * L * C * M * N_ * K,
                                  (2 * L * C * M * N_ + L * M * K + C * N_ * K) * x0.element_size())
@@ -2486,6 +2496,7 @@ def split_phase(stamp: dict, timed_ms, kgen, only=SPLIT_KERNELS) -> dict:
                 "shape": {"x": [L, C, M, N_], "a": list(a.shape), "b": list(b.shape)},
                 "dtype": str(dt).replace("torch.", ""), "tier": tier, "products": nterms, **rec,
                 "kernel_ms": timed_ms(lambda: tu.trailing_update(xk, a, b, sub, tier), iters),
+                **parts_ms(timed_ms(cut, iters), timed_ms(body, iters)),
                 "default_tier_kernel_ms": timed_ms(
                     lambda: tu.trailing_update(xk, a, b, sub, "default"), iters),
                 "plain_ms": timed_ms(lambda: tu.trailing_update_plain(xk, a, b, sub, tier),
@@ -2499,7 +2510,7 @@ def split_phase(stamp: dict, timed_ms, kgen, only=SPLIT_KERNELS) -> dict:
                                "einsum per product)",
                   "bound_counts": f"{nterms} bf16 products at {BF16_PEAK:.3g} FLOP/s; x read and "
                                   "written, a and b read once", **stamp})
-            del x0, a, b, xk
+            del x0, a, b, xk, cut, body
             torch.cuda.empty_cache()
         first = forms[cases[0][0]]
         report["trailing_update_split"] = {**first, "forms": forms,
@@ -2537,11 +2548,21 @@ def split_phase(stamp: dict, timed_ms, kgen, only=SPLIT_KERNELS) -> dict:
             b9, by9 = bound16(ranks * 3 * 2.0 * 16 * 8 * nb ** 3,
                               ranks * (big[0, 0].numel() + small[0, 0].numel() + out_numel) * 4)
             span, _ = grid_span_ms(gpu, run(True, tier), ops_, 5)
+            parts = {}
+
+            def prepare(a_, b_, sub=sub):
+                parts[coll.my_rank()] = tu.split_parts(a_, b_, sub, tier)
+
+            coll.spmd(gpu, prepare, *ops_)
+            span_cut, _ = grid_span_ms(gpu, lambda *_: parts[coll.my_rank()][0](), ops_, 5)
+            span_body, _ = grid_span_ms(gpu, lambda *_: parts[coll.my_rank()][1](), ops_, 5)
+            del parts
             span_def, _ = grid_span_ms(gpu, run(True, "default"), ops_, 5)
             span_plain, _ = grid_span_ms(gpu, run(False, tier), ops_, 2)
             forms[sub] = {"shape": {"a": list(ops_[0].shape[2:]), "b": list(ops_[1].shape[2:])},
                           "dtype": "float32", "tier": tier, "products": 3, **rec,
-                          "kernel_ms": span, "default_tier_kernel_ms": span_def,
+                          "kernel_ms": span, **parts_ms(span_cut, span_body),
+                          "default_tier_kernel_ms": span_def,
                           "plain_ms": span_plain, "yardstick_ms": span_plain, "library_ms": None,
                           "bound_ms": b9, "bound_by": by9}
             emit({"kernel": "panel_contract_split", "subscripts": sub, "ranks": ranks,
@@ -3382,15 +3403,18 @@ def main() -> int:
           "chase_library": os.path.relpath(chase_path, HERE),
           "chase_build_and_load_s": round(time.perf_counter() - t1, 3),
           "chase_source": os.path.relpath(native.SOURCE, HERE)})
-    # registers and spills of the ring consumers', the split bodies' and the
-    # FMA body's instantiations (-Xptxas -v)
+    # registers and spills of the ring consumers', the split bodies' (B3's
+    # and B9's pre-pass and body at <float|double, 2|3> slices, subtracting
+    # or writing; B6's and B8's) and the FMA body's instantiations
+    # (-Xptxas -v)
     emit({"phase": "ptxas", "kernels": [e for e in _build.ptxas_report
                                         if "consume_kernel" in e["kernel"]
                                         or "fused_step_kernel" in e["kernel"]
                                         or "fused_kernel" in e["kernel"]
                                         or "potrf" in e["kernel"]
                                         or e.get("device_function")
-                                        or "split_kernel" in e["kernel"]
+                                        or "split_gemm_kernel" in e["kernel"]
+                                        or "split_cut_kernel" in e["kernel"]
                                         or "_fma_kernel" in e["kernel"]
                                         or "panel_trsm" in e["kernel"]
                                         or "merge" in e["kernel"]]})
@@ -3750,16 +3774,28 @@ def main() -> int:
             entry["two_piece_ms"] = r["two_piece_ms"]
             entry["bitwise_vs_b3"] = r["bitwise_vs_b3"]
         if name in SPLIT_KERNELS + CONSUME_SPLIT_KERNELS:
-            # the split-tier body (csrc/split_gemm.cuh) of B3, B9, B6 and B8, its
-            # launches a share of theirs; the yardstick is tile.contract at the tier
-            entry["body"] = "dlaf_tpu_torch/csrc/split_gemm.cuh"
+            # the split-tier bodies of B3 and B9 (csrc/split_gemm.cuh: a
+            # pre-pass and a body a call, cut_ms and body_ms each alone) and
+            # of B6 and B8 (csrc/consume_split.cuh), their launches a share of
+            # theirs; the yardstick is tile.contract at the tier
+            split_gemm = name in SPLIT_KERNELS
+            entry["body"] = ("dlaf_tpu_torch/csrc/split_gemm.cuh" if split_gemm
+                             else "dlaf_tpu_torch/csrc/consume_split.cuh")
             entry["yardstick_ms"] = r["yardstick_ms"]
             entry["default_tier_kernel_ms"] = r["default_tier_kernel_ms"]
             keys = ("tier", "kernel_ms", "default_tier_kernel_ms", "plain_ms", "yardstick_ms",
                     "bound_ms", "bound_by", "max_abs_err", "rel_err_vs_plain",
                     "rel_err_vs_default", "probe_bitwise_vs_plain", "probe_rel_err_vs_default")
+            keys += ("cut_ms", "body_ms", "cut_share") if split_gemm else ()
             entry["forms"] = {s: {k: f[k] for k in keys}
                               for s, f in r.get("forms", r.get("cases", {})).items()}
+            if split_gemm:
+                sub = "true" if name == "trailing_update_split" else "false"
+                entry["ptxas"] = {
+                    f"{k}<{t_}, {ns}, {f}>": _ptxas_of(f"{k}<{t_}, {ns}, {f}>")
+                    for t_ in ("float", "double") for ns in (2, 3)
+                    for k, f in (("split_gemm_kernel", sub), ("split_cut_kernel", "false"),
+                                 ("split_cut_kernel", "true"))}
         if name == "secular_bisect":
             entry["max_abs_err"] = max(f["max_abs_err"] for f in r["shapes"].values())
             entry["shapes"] = {f"{K_B10}x{s}": {k: f[k] for k in (

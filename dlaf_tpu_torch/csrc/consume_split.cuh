@@ -9,7 +9,7 @@
 // It applies one ring segment: x[i, j][m, c0 + n] -= sum over the terms of
 // sum over k of cp[i][m, k]_a * seg[n, k]_b for every i and m and the
 // segment's n < ncols, with the bits of B3-split (csrc/split_gemm.cuh):
-// every operand element cut as split_gemm.cuh's cut does (the residual at
+// every operand element cut by split_gemm.cuh's cut8 (the residual at
 // the operand's type, a double rounded through float), one float32
 // accumulator per term started at +0, mma.sync m16n8k16 (bf16 in, float32
 // out) over k16 chunks in ascending order up to K rounded up to 32
@@ -65,6 +65,10 @@
 #include "split_gemm.cuh"
 
 namespace dlaf_consume_split {
+
+using dlaf_split::cp_async16;
+using dlaf_split::cut_group;
+using dlaf_split::ldsm_x4;
 
 constexpr int kThreads = 512;  // a ring kernel's block, 16 warps
 constexpr int kParts = 4;      // parts of the block with a pipeline each
@@ -147,77 +151,6 @@ __device__ __forceinline__ void part_sync(int part) {
 // sub-partitions
 __device__ __forceinline__ int col_of(int t) {
   return ((t % kPart >> 5) / kWD + t / kPart) % 4;
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t a) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-
-// 16 bytes, of which the first `src_bytes` (16 or 0) are read through L2
-// only and the rest zero-filled
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ uint4 lds128(uint32_t a) {
-  uint4 v;
-  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(a)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void sts128(uint32_t a, const uint32_t (&w)[4]) {
-  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "r"(w[0]), "r"(w[1]),
-               "r"(w[2]), "r"(w[3])
-               : "memory");
-}
-
-// bf16(a), bf16(b), each rounded to nearest even: one cvt.rn.bf16x2.f32,
-// which rounds each half as cvt.rn.bf16.f32 (__float2bfloat16_rn) does
-__device__ __forceinline__ __nv_bfloat162 round2(float a, float b) {
-  return __float22bfloat162_rn(make_float2(a, b));
-}
-
-// The 8 values of the group at g cut into NS bf16 slices written over
-// them, slice s's 8 values at g + 16 s, each written as soon as it is cut:
-// as split_gemm.cuh's cut, s0 = bf16(v), s1 = bf16(v - s0), s2 = bf16(v -
-// s0 - s1), the residuals at T and a double rounded to float first.
-template <typename T, int NS>
-__device__ __forceinline__ void cut_group(uint32_t g) {
-  T v[8];
-#pragma unroll
-  for (int c = 0; c < (int)sizeof(T) / 2; ++c) {
-    const uint4 w = lds128(g + 16 * c);
-    if constexpr (sizeof(T) == 4) {
-      v[4 * c] = __uint_as_float(w.x), v[4 * c + 1] = __uint_as_float(w.y);
-      v[4 * c + 2] = __uint_as_float(w.z), v[4 * c + 3] = __uint_as_float(w.w);
-    } else {
-      v[2 * c] = __hiloint2double((int)w.y, (int)w.x);
-      v[2 * c + 1] = __hiloint2double((int)w.w, (int)w.z);
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    uint32_t w[4];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const __nv_bfloat162 h =
-          round2(static_cast<float>(v[2 * p]), static_cast<float>(v[2 * p + 1]));
-      w[p] = (uint32_t)__bfloat16_as_ushort(h.x) | ((uint32_t)__bfloat16_as_ushort(h.y) << 16);
-      if (s + 1 < NS) {
-        v[2 * p] = v[2 * p] - static_cast<T>(__bfloat162float(h.x));
-        v[2 * p + 1] = v[2 * p + 1] - static_cast<T>(__bfloat162float(h.y));
-      }
-    }
-    sts128(g + 16 * s, w);
-  }
 }
 
 // x's lines of the tile whose first flattened row is r0, columns [c0,
@@ -346,12 +279,9 @@ __device__ __forceinline__ void store(T* __restrict__ x, int ltc, int j, int M, 
           if (!xr[mi][hf] || n >= ncols) continue;
           T sum[2];
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            sum[e] = static_cast<T>(acc[0][m0 + mi][ni][2 * hf + e]);
-#pragma unroll
-            for (int q = 1; q < dlaf_split::nterms(NS); ++q)
-              sum[e] = sum[e] + static_cast<T>(acc[q][m0 + mi][ni][2 * hf + e]);
-          }
+          for (int e = 0; e < 2; ++e)
+            sum[e] = dlaf_split::term_sum<T, NS>(
+                [&](int q) { return acc[q][m0 + mi][ni][2 * hf + e]; });
           P2 out = xv[mi][hf][ni];
           out.x = out.x - sum[0];
           out.y = out.y - sum[1];

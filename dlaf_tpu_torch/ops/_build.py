@@ -61,12 +61,15 @@ SIGNATURES = {
     "dlaf_trailing_update_ref_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dlaf_panel_contract_ref_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dlaf_panel_contract_ref_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (x, a, b, L, C, M, N, K, b_is_nk, nslices, stream): B3 under a split tier
-    "dlaf_trailing_update_split_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "dlaf_trailing_update_split_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # (a, b, out, form, L, C, M, N, K, nslices, stream): B9 under a split tier
-    "dlaf_panel_contract_split_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "dlaf_panel_contract_split_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (x, a, b, ws, ws_bytes, L, C, M, N, K, b_is_nk, nslices, phases, stream): B3 under a
+    # split tier; ws the workspace of the operands' bf16 planes, phases 1 the pre-pass,
+    # 2 the body, 3 both
+    "dlaf_trailing_update_split_f32": [_P, _P, _P, _P, _LL] + [_I] * 8 + [_P],
+    "dlaf_trailing_update_split_f64": [_P, _P, _P, _P, _LL] + [_I] * 8 + [_P],
+    # (a, b, out, ws, ws_bytes, form, L, C, M, N, K, nslices, phases, stream): B9 under
+    # a split tier
+    "dlaf_panel_contract_split_f32": [_P, _P, _P, _P, _LL] + [_I] * 8 + [_P],
+    "dlaf_panel_contract_split_f64": [_P, _P, _P, _P, _LL] + [_I] * 8 + [_P],
     # (y, h, z, out, oh, x, cp, land, land_h, entry, rflag, aflag, err, ltr, ltc, M, N, K,
     #  G, P, me, nslices, epoch, timeout_ns, stream): nslices 0, 2 or 3 (the split tiers)
     "dlaf_dma_ring_consume_f32": [_P] * 13 + [_I] * 9 + [_ULL, _ULL, _P],

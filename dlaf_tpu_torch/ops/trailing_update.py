@@ -42,16 +42,19 @@ same bits: B6's update is bit for bit B3's applied once to the merged
 panel with the slots not applied set to zero.  The first body,
 ``csrc/trailing_update.cuh`` (64 x 64 tiles), gives the same bits too:
 :func:`trailing_update_reference` and :func:`panel_contract_reference`
-launch B3 and B9 on it, for the card's before/after checks only.  Under 'bf16x3' / 'bf16x6' they run a split-tier body instead
-(the bf16 slices of each operand, the products on the tensor cores with
-float32 accumulators, one per term): B3 and B9 as kernels of their own
-(``csrc/split_gemm.cuh``), B6 and B8 (whose update is spliced into a
-ring) as an instantiation of the same kernel at 2 or 3 slices per operand
-(:func:`ring_slices`) on ``csrc/consume_split.cuh`` (each ring segment cut
-once into its slices, the column panel streamed through cp.async
-pipelines), with B3-split's bits: B6's split update is bit for bit
-B3-split's applied once to the merged panel with the slots not applied
-set to zero.  B8's tail (the diagonal tile's factor, the panel solve and
+launch B3 and B9 on it, for the card's before/after checks only.  Under
+'bf16x3' / 'bf16x6' they run a split-tier body instead (the bf16 slices
+of each operand, the products on the tensor cores with float32
+accumulators, one per term): B3 and B9 as two kernels a call
+(``csrc/split_gemm.cuh``: a pre-pass that cuts each operand once into
+bf16 planes in a workspace the wrapper allocates, then a pipelined GEMM
+over the planes; :func:`split_parts` launches each alone), B6 and B8
+(whose update is spliced into a ring) as an instantiation of the same
+kernel at 2 or 3 slices per operand (:func:`ring_slices`) on
+``csrc/consume_split.cuh`` (each ring segment cut once into its slices,
+the column panel streamed through cp.async pipelines), with B3-split's
+bits: B6's split update is bit for bit B3-split's applied once to the
+merged panel with the slots not applied set to zero.  B8's tail (the diagonal tile's factor, the panel solve and
 its send) runs B7's factor-and-send body at every tier.  See ``PERF.md``
 for the measured times.
 """
@@ -184,12 +187,69 @@ def trailing_update(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS, tier: str | 
         _build.check(rc, "trailing_update")
         _count("launches")
         return x
-    fn = lib.dlaf_trailing_update_split_f32 if f32 else lib.dlaf_trailing_update_split_f64
-    rc = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), L, C, M, N, K, int(b_is_nk), nslices,
-            _build.stream_of(x))
-    _build.check(rc, f"trailing_update[{tier}]")
+    _b3_split(x, a, b, (L, C, M, N, K, b_is_nk), nslices)
     _count("launches", "split_launches")
     return x
+
+
+def _split_workspace(rows: int, K: int, nslices: int, device) -> torch.Tensor:
+    """The workspace of one split call's bf16 planes: ``rows`` plane rows
+    (a's, then b's) of K rounded up to 32, ``2 * nslices`` bytes an element,
+    allocated on the caller's stream."""
+    pitch = -(-K // 32) * 32 * 2 * nslices
+    return torch.empty(rows * pitch, dtype=torch.uint8, device=device)
+
+
+def _b3_split(x, a, b, dims, nslices: int, phases: int = 3, ws=None):
+    """B3-split's pre-pass (``phases`` 1), body (2) or both (3) on CUDA
+    operands checked by :func:`_update_dims`; returns the workspace."""
+    L, C, M, N, K, b_is_nk = dims
+    if ws is None:
+        ws = _split_workspace(L * M + C * N, K, nslices, x.device)
+    lib = _build.lib()
+    fn = (lib.dlaf_trailing_update_split_f32 if x.dtype == torch.float32
+          else lib.dlaf_trailing_update_split_f64)
+    rc = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), ws.data_ptr(), ws.numel(), L, C, M, N, K,
+            int(b_is_nk), nslices, phases, _build.stream_of(x))
+    _build.check(rc, f"trailing_update[bf16 x {nslices} slices]")
+    return ws
+
+
+def _b9_split(out, a, b, dims, nslices: int, phases: int = 3, ws=None):
+    """B9-split's pre-pass, body or both (``phases`` as in :func:`_b3_split`)
+    on CUDA operands checked by :func:`_contract_dims`; returns the
+    workspace."""
+    form, L, C, M, N, K = dims
+    if ws is None:
+        rows = (L * C * M + C * N) if form == 0 else (L * M + L * C * N)
+        ws = _split_workspace(rows, K, nslices, a.device)
+    lib = _build.lib()
+    fn = (lib.dlaf_panel_contract_split_f32 if a.dtype == torch.float32
+          else lib.dlaf_panel_contract_split_f64)
+    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(), form, L, C,
+            M, N, K, nslices, phases, _build.stream_of(a))
+    _build.check(rc, f"panel_contract[bf16 x {nslices} slices]")
+    return ws
+
+
+def split_parts(a, b, subscripts: str, tier: str, x=None):
+    """The two kernels of one B3-split (``x`` given: updated in place) or
+    B9-split call on CUDA operands, as two callables that launch each alone
+    on one workspace: the pre-pass (each operand cut into its bf16 planes)
+    and the body (the products over the planes).  For timing each one's
+    share on the card; the pre-pass runs once here, so the body finds its
+    planes.  Counts nothing."""
+    nslices = t.SPLIT_SLICES[tier]
+    if x is not None:
+        dims = _update_dims(x, a, b, subscripts)
+        launch, target = _b3_split, x
+    else:
+        form, L, C, M, N, K, out_shape = _contract_dims(a, b, subscripts)
+        dims = (form, L, C, M, N, K)
+        launch, target = _b9_split, torch.empty(out_shape, dtype=a.dtype, device=a.device)
+    ws = launch(target, a, b, dims, nslices, 1)
+    return (lambda: launch(target, a, b, dims, nslices, 1, ws),
+            lambda: launch(target, a, b, dims, nslices, 2, ws))
 
 
 def trailing_update_reference(x, a, b, subscripts: str = CHOLESKY_SUBSCRIPTS):
@@ -629,10 +689,7 @@ def panel_contract(a, b, subscripts: str, tier: str | None = None):
         _build.check(rc, "panel_contract")
         _count("contract_launches")
         return out
-    fn = lib.dlaf_panel_contract_split_f32 if f32 else lib.dlaf_panel_contract_split_f64
-    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), form, L, C, M, N, K, nslices,
-            _build.stream_of(a))
-    _build.check(rc, f"panel_contract[{tier}]")
+    _b9_split(out, a, b, (form, L, C, M, N, K), nslices)
     _count("contract_launches", "split_contract_launches")
     return out
 

@@ -15,8 +15,9 @@ pull_phase for B5 and the rings' merge, fused_phase for B7 (whose body,
 csrc/factor_send.cuh, B8's tail shares: its faults run consume_phases'
 B8 as well), potrf_phase for B1,
 panel_trsm_phase for B2, merge_phase for B4, trailing_update_phase and
-fma_edge_phase for B3's and B9's FMA body), on the main path's shapes, in
-a process of its own; or ("split_tests") the CUDA tests that hold B6's and
+fma_edge_phase for B3's and B9's FMA body, split_phase for B3's and B9's
+split body (csrc/split_gemm.cuh)), on the main path's shapes, in a
+process of its own; or ("split_tests") the CUDA tests that hold B6's and
 B8's split bodies bit for bit to B3-split at ragged and deep shapes
 (tests/test_torch_consume.py, copied with the package).
 The script prints one JSON line per fault: whether the phase failed, as
@@ -168,8 +169,8 @@ FAULTS = {
     # without the (0, 1) product
     "b6_split_drop_term01": (
         "consume_split.cuh",
-        [("            sum[e] = static_cast<T>(acc[0][m0 + mi][ni][2 * hf + e]);\n",
-          "            sum[e] = NS == 2 ? T(0) : static_cast<T>(acc[0][m0 + mi][ni][2 * hf + e]);\n")],
+        [("                [&](int q) { return acc[q][m0 + mi][ni][2 * hf + e]; });\n",
+          "                [&](int q) { return NS == 2 && q == 0 ? 0.f : acc[q][m0 + mi][ni][2 * hf + e]; });\n")],
         "dma_ring_consume_split", "fails"),
     # the split body drops the last k16 chunk of one term (the first, (0, 1)
     # at bf16x3): the last chunk of a tile's last slice
@@ -223,7 +224,7 @@ FAULTS = {
     # the split body's cut truncates to bf16 instead of rounding to nearest
     # (the split probe, one product per output, must see it)
     "b6_split_cut_truncates": (
-        "consume_split.cuh",
+        "split_gemm.cuh",
         [("  return __float22bfloat162_rn(make_float2(a, b));\n",
           "  return __halves2bfloat162(__float2bfloat16_rz(a), __float2bfloat16_rz(b));\n")],
         "dma_ring_consume_split", "fails"),
@@ -258,6 +259,56 @@ FAULTS = {
         "slot is fresh at one hop only, so when landing slot s % 2 is rewritten for hop s + 2 "
         "the block reads other rows of it (other segments, whole 128-byte lines of one slot); "
         "a segment is read once a pass, and L1 holds nothing across launches"),
+    # B3's and B9's split body (csrc/split_gemm.cuh) adds its terms without
+    # the (0, 1) product (bf16x3)
+    "split_gemm_drop_term01": (
+        "split_gemm.cuh",
+        [("              v.v[e] = term_sum<T, G::NS>([&](int q) { return acc[q][mi][ni][2 * h + e]; });\n",
+          "              v.v[e] = term_sum<T, G::NS>(\n"
+          "                  [&](int q) { return G::NS == 2 && q == 0 ? 0.f : acc[q][mi][ni][2 * h + e]; });\n")],
+        "trailing_update_split", "fails"),
+    # B9-split's slot chain of the lower form stops before its last slot
+    "split_gemm_b9_drop_last_slot": (
+        "trailing_update.cu",
+        [("dlaf_split::Job{L, 1, C, 0, M, N, cm, 0, 0, 0, M, N, 0}",
+          "dlaf_split::Job{L, 1, C - 1, 0, M, N, cm, 0, 0, 0, M, N, 0}")],
+        "panel_contract_split", "fails"),
+    # the split body drops the second k16 chunk of the (0, 1) term (bf16x3)
+    # in each tile's last slice
+    "split_gemm_drop_last_k16_of_a_term": (
+        "split_gemm.cuh",
+        [("__device__ __forceinline__ void compute_stage(Acc<G>& acc, uint32_t st) {\n",
+          "__device__ __forceinline__ void compute_stage(Acc<G>& acc, uint32_t st, bool last_) {\n"),
+         ("            for (int ni = 0; ni < G::NI; ++ni) mma(acc[q][mi][ni], af, bf[term_b(NS, q)][ni]);\n",
+          "            for (int ni = 0; ni < G::NI; ++ni)\n"
+          "              if (q != 0 || kc == 0 || !last_) mma(acc[q][mi][ni], af, bf[term_b(NS, q)][ni]);\n"),
+         ("    compute_stage<G>(acc, sm + cring * G::STAGE);\n",
+          "    compute_stage<G>(acc, sm + cring * G::STAGE, cs + 1 == per);\n")],
+        "trailing_update_split", "fails"),
+    # the split body reads a stage before its cp.async group has landed: the
+    # wait lets one group more stay pending (at a block's first slice none
+    # is waited for).  The phase sees it; the deep and nine-slot CUDA tests,
+    # whose few tiles' copies land during the first barrier, did not
+    "split_gemm_read_before_wait": (
+        "split_gemm.cuh",
+        [("    dlaf_fma::cp_async_wait<G::kStages - 2>();  // this thread's copies of slice t have landed\n",
+          "    dlaf_fma::cp_async_wait<G::kStages - 1>();  // this thread's copies of slice t have landed\n")],
+        "trailing_update_split", "fails"),
+    # B3's and B9's pre-pass cuts by truncating to bf16 instead of rounding
+    # to nearest (B6's and B8's cut, the same cut8, rounds): the split probe,
+    # one product per output, must see it
+    "split_gemm_prepass_truncates": (
+        "split_gemm.cuh",
+        [("template <typename T, int NS, typename Put>\n__device__ __forceinline__ void cut8(",
+          "template <typename T, int NS, bool kRZ = false, typename Put>\n"
+          "__device__ __forceinline__ void cut8("),
+         ("          round2(static_cast<float>(v[2 * p]), static_cast<float>(v[2 * p + 1]));\n",
+          "          kRZ ? __halves2bfloat162(__float2bfloat16_rz(static_cast<float>(v[2 * p])),\n"
+          "                                   __float2bfloat16_rz(static_cast<float>(v[2 * p + 1])))\n"
+          "              : round2(static_cast<float>(v[2 * p]), static_cast<float>(v[2 * p + 1]));\n"),
+         ("  cut8<T, NS>(v, [&](int s, const uint32_t(&w)[4]) {\n    *reinterpret_cast<uint4*>",
+          "  cut8<T, NS, true>(v, [&](int s, const uint32_t(&w)[4]) {\n    *reinterpret_cast<uint4*>")],
+        "trailing_update_split", "fails"),
     # B9 (the FMA body): the lower form's sum over j drops the last slot
     "b9_drop_one_j": (
         "trailing_update.cu",
@@ -400,6 +451,9 @@ elif kernel == "fused_factor_bcast":
                    Grid.create(cs.GRID_M, device="cpu"))
 elif kernel == "potrf":
     cs.potrf_phase(stamp, bound, timed_ms, torch.Generator(device=dev).manual_seed(cs.SEED + 1))
+elif kernel in cs.SPLIT_KERNELS:
+    cs.split_phase(stamp, timed_ms, torch.Generator(device=dev).manual_seed(cs.SEED + 1),
+                   only=(kernel,))
 elif kernel in cs.CONSUME_SPLIT_KERNELS:
     a_glob, _ = cs.make_inputs(dev)
     cs.consume_split_phase(stamp, timed_ms, a_glob, only=(kernel,))

@@ -10,10 +10,12 @@ and the default-tier kernel's in the same process) of OLD, NEW, NEW, OLD,
 each in a process of its own that builds and loads that checkout's
 kernels (a checkout's second run reuses its build), then digests (sha256
 of the raw bytes) the outputs of B3 in both forms and B9 in both forms at
-bf16x3 and bf16x6, f32 and f64, on ragged shapes made from one seed.
+bf16x3 and bf16x6, f32 and f64, on ragged shapes made from one seed, and
+again at K = 1000 with nine slots.
 Prints one JSON line per run: the checkout, the card, per kernel and form
-the split body's and the default-tier kernel's times in ms, and the
-digests; then whether every digest is the same in all four runs.  Needs a
+the split body's and the default-tier kernel's times in ms (and its
+pre-pass's and body's alone, where the checkout's split_phase times them),
+and the digests; then whether every digest is the same in all four runs.  Needs a
 CUDA device; exits non-zero if a run fails or a digest differs.
 """
 from __future__ import annotations
@@ -45,26 +47,33 @@ kgen = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
 rep = cs.split_phase({{"card": cs.card_line()}}, timed_ms, kgen)
 ms = {{k: {{s: [f["kernel_ms"], f["default_tier_kernel_ms"]] for s, f in r["forms"].items()}}
       for k, r in rep.items()}}
+# the pre-pass's and the body's times alone, where the checkout's phase has them
+parts = {{k: {{s: [f["cut_ms"], f["body_ms"]] for s, f in r["forms"].items() if "cut_ms" in f}}
+         for k, r in rep.items()}}
 
-# the split bodies' bits: B3 and B9 in both forms at both tiers, ragged
+# the split bodies' bits: B3 and B9 in both forms at both tiers, ragged;
+# then deep (K = 1000) with nine slots
 from dlaf_tpu_torch.ops import trailing_update as tu
 gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 11)
-L, C, M, N, K = 4, 3, 200, 136, 168
 digests = {{}}
-for dt in (torch.float32, torch.float64):
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device="cuda", dtype=dt)
-    for tier in ("bf16x3", "bf16x6"):
-        for sub, bshape in ((tu.CHOLESKY_SUBSCRIPTS, (C, N, K)), (tu.TRSM_SUBSCRIPTS, (C, K, N))):
-            x = randn(L, C, M, N)
-            tu.trailing_update(x, randn(L, M, K), randn(*bshape), sub, tier)
-            digests[f"B3 {{sub}} {{dt}} {{tier}}"] = cs.digest(x)
-        for sub, ashape, bshape in ((tu.TRTRI_LOWER_SUBSCRIPTS, (L, C, M, K), (C, K, N)),
-                                    (tu.TRTRI_UPPER_SUBSCRIPTS, (L, M, K), (L, C, K, N))):
-            out = tu.panel_contract(randn(*ashape), randn(*bshape), sub, tier)
-            digests[f"B9 {{sub}} {{dt}} {{tier}}"] = cs.digest(out)
+for shape in ((4, 3, 200, 136, 168), (2, 9, 70, 90, 1000)):
+    L, C, M, N, K = shape
+    at = "" if shape[4] == 168 else f" {{list(shape)}}"
+    for dt in (torch.float32, torch.float64):
+        def randn(*s):
+            return torch.randn(*s, generator=gen, device="cuda", dtype=dt)
+        for tier in ("bf16x3", "bf16x6"):
+            for sub, bshape in ((tu.CHOLESKY_SUBSCRIPTS, (C, N, K)),
+                                (tu.TRSM_SUBSCRIPTS, (C, K, N))):
+                x = randn(L, C, M, N)
+                tu.trailing_update(x, randn(L, M, K), randn(*bshape), sub, tier)
+                digests[f"B3 {{sub}} {{dt}} {{tier}}{{at}}"] = cs.digest(x)
+            for sub, ashape, bshape in ((tu.TRTRI_LOWER_SUBSCRIPTS, (L, C, M, K), (C, K, N)),
+                                        (tu.TRTRI_UPPER_SUBSCRIPTS, (L, M, K), (L, C, K, N))):
+                out = tu.panel_contract(randn(*ashape), randn(*bshape), sub, tier)
+                digests[f"B9 {{sub}} {{dt}} {{tier}}{{at}}"] = cs.digest(out)
 torch.cuda.synchronize()
-print("AB " + json.dumps({{"ms": ms, "digests": digests}}))
+print("AB " + json.dumps({{"ms": ms, "parts_ms": parts, "digests": digests}}))
 """
 
 
@@ -79,7 +88,7 @@ def run(root: str) -> dict:
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     res = json.loads(lines[0][3:])
     return {"checkout": root, "card": card.strip(), "ms_split_and_default": res["ms"],
-            "digests": res["digests"]}
+            "ms_prepass_and_body": res["parts_ms"], "digests": res["digests"]}
 
 
 def main() -> int:

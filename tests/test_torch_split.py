@@ -365,3 +365,78 @@ def test_cuda_auto_splits_by_extent_and_width():
     before = tu.split_launches
     tu.trailing_update(x, a, a.clone(), tu.CHOLESKY_SUBSCRIPTS, tier="auto")
     assert tu.split_launches == before + 1
+
+
+def _split_and_plain(form, x, a, b, tier):
+    """B3-split's applied update (or B9-split's output) and its plain
+    version's, on the card."""
+    sub = FORMS[form][0]
+    if form.startswith("b9"):
+        return (tu.panel_contract(a, b, sub, tier=tier),
+                tu.panel_contract_plain(a, b, sub, tier))
+    return (tu.trailing_update(x.clone(), a, b, sub, tier=tier) - x,
+            tu.trailing_update_plain(x.clone(), a, b, sub, tier) - x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tier", [(torch.float32, "bf16x3"), (torch.float32, "bf16x6"),
+                                        (torch.float64, "bf16x3"), (torch.float64, "bf16x6")])
+@pytest.mark.parametrize("form", list(FORMS))
+def test_cuda_split_kernels_deep_k(form, dtype, tier):
+    """B3 and B9 under a split tier at K = 1000: many more 32-deep stages
+    than the body's ring holds, and a last stage half past K (zero-filled
+    planes), within tol_for(f32, K) of the plain split."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(23)
+    L, C, M, N, K = 2, 2, 70, 90, 1000
+    shapes = {"b3_cholesky": ((L, M, K), (C, N, K)), "b3_trsm": ((L, M, K), (C, K, N)),
+              "b9_lower": ((L, C, M, K), (C, K, N)), "b9_upper": ((L, M, K), (L, C, K, N))}
+    sa, sb = shapes[form]
+    a, b, x = (torch.randn(*s, generator=g, dtype=dtype).to(dev)
+               for s in (sa, sb, (L, C, M, N)))
+    got, plain = _split_and_plain(form, x, a, b, tier)
+    torch.cuda.synchronize()
+    got, plain = got.cpu().numpy(), plain.cpu().numpy()
+    assert np.isfinite(got).all()
+    assert _rel_err(got, plain) <= tol_for(np.float32, K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["bf16x3", "bf16x6"])
+@pytest.mark.parametrize("form", ["b9_lower", "b9_upper"])
+def test_cuda_b9_split_nine_slots(form, tier):
+    """B9-split summing over 9 slots of K = 40 (two stages each: 18 slices,
+    not a multiple of the body's 4 stages), within tol_for(f32, K) of the
+    plain split."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(29)
+    S, M, N, K = 9, 70, 90, 40
+    sa, sb = ((3, S, M, K), (S, K, N)) if form == "b9_lower" else ((S, M, K), (S, 3, K, N))
+    a, b = (torch.randn(*s, generator=g).to(dev) for s in (sa, sb))
+    got, plain = _split_and_plain(form, None, a, b, tier)
+    torch.cuda.synchronize()
+    got, plain = got.cpu().numpy(), plain.cpu().numpy()
+    assert np.isfinite(got).all()
+    assert _rel_err(got, plain) <= tol_for(np.float32, K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tier", [(torch.float32, "bf16x3"), (torch.float32, "bf16x6"),
+                                        (torch.float64, "bf16x3"), (torch.float64, "bf16x6")])
+def test_cuda_b9_split_is_one_chain_over_the_slots(dtype, tier):
+    """With K a multiple of 32, B9-split's 'ijab,jbc->iac' sums each output
+    in one chain over the slots in order, k ascending within each: bit for
+    bit B3-split 'iab,jbc->ijac' of zero with the slots laid end to end
+    along the depth (negated).  A misordered slot loop fails here."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(31)
+    L, C, M, N, K = 2, 3, 70, 90, 64
+    a = torch.randn(L, C, M, K, generator=g, dtype=dtype).to(dev)
+    b = torch.randn(C, K, N, generator=g, dtype=dtype).to(dev)
+    got = tu.panel_contract(a, b, tu.TRTRI_LOWER_SUBSCRIPTS, tier=tier)
+    a_cat = a.permute(0, 2, 1, 3).reshape(L, M, C * K).contiguous()
+    b_cat = b.reshape(1, C * K, N).contiguous()
+    x = torch.zeros(L, 1, M, N, dtype=dtype, device=dev)
+    tu.trailing_update(x, a_cat, b_cat, tu.TRSM_SUBSCRIPTS, tier=tier)
+    torch.cuda.synchronize()
+    assert torch.equal(got, -x[:, 0])
