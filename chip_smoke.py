@@ -34,8 +34,13 @@ on failure:
    reference with its last k slice dropped; both forms of B3 and B9 at
    ragged shapes (M, N off the 128 tile, K off the 16 slice) in f32 and
    f64, bit for bit their reference kernels; and B10, the secular bisection,
-   at each of path H's shapes (8192, S), S = 1024, 2048, 4096, 8192, on
-   true secular equations; then B4 (hop merge: its select bit for bit its
+   at each of path H's shapes (8192, S), S = 1024, 2048, 4096, 8192, and
+   at 2048 x 12288 (rows streamed every round), on true secular equations
+   (mu brackets, and a table with nu brackets, near-pole roots, a zero gap
+   and a NaN weight), its body bit for bit its first body (the reference
+   kernel) by digests and timed in turns with it, within its bracket
+   budget of the plain version, the rounds each row needs and the bound
+   counted from them; then B4 (hop merge: its select bit for bit its
    plain version at path M's panel, at a ragged w, in f64 words, at the
    have masks' extremes and at an offset of one element, each check first
    shown to reject a planted wrong answer; timed beside torch.where three
@@ -223,6 +228,10 @@ PATH_R = {**PATH_H, "collectives_impl": "pallas"}
 # B10 phase: (K, S) secular tables at path H's merge levels (leaf 512:
 # one compiled instantiation of the kernel per S), f32 bisection rounds
 K_B10, S_B10, ITERS_B10 = 8192, (1024, 2048, 4096, 8192), 42
+# the weight of a near-pole row's anchor pole, as a share of the row's mean
+B10_NEAR_POLE = 1e-6
+# rows longer than 8192 poles: the kernel's streaming form (not on path H)
+B10_STREAM = (2048, 12288)
 
 
 def make_inputs(dev):
@@ -2146,6 +2155,163 @@ def fma_verdict(label: str, new, ref, dropped, plain, tol: float, base=None,
             "problems": [f"{label}: {p}" for p in problems]}
 
 
+def secular_tables(kgen, gen, kk: int, ss: int) -> dict:
+    """B10's two tables at K = kk rows of S = ss poles, as (dw, z2, rho,
+    anchor, lo0, hi0) with the rows the bracket budget holds.  "mu": true
+    secular equations shaped like the D&C's: increasing poles d in [1, 5]
+    (a jittered grid, so no two coincide and every bracket is wider than
+    2 / S), weights z2 > 0 summing to about 1 per row, rho in [0.1, 1.6];
+    row r anchors at pole j = r mod (S - 1) with the bracket (0, d[j+1] -
+    d[j]), which holds exactly one root (f rises from -inf to +inf); drawn
+    from ``kgen`` as the phase always drew it.  "mixed": the same poles,
+    weights and rho, the even rows mu brackets and the odd rows nu ones
+    ((-gap, 0), anchored at pole j + 1, the D&C's second bisection); rows
+    r mod 8 < 2 give their anchor pole a weight of B10_NEAR_POLE of the
+    row's mean weight, so that where the other poles' terms do not change
+    sign in the bracket (in most mu rows here) the root sits next to that
+    pole and needs every round; row K - 2 has a zero gap (the bracket
+    (0, 0): its anchor pole's gap to mid is 0 in every round, FLT_MIN in
+    its place) and row K - 1 a NaN weight (drawn from ``gen``), both left
+    out of the budget."""
+    import torch
+
+    dev = kgen.device
+    jitter = torch.rand(ss, generator=kgen, device=dev)
+    poles = 1 + 4 * (torch.arange(ss, device=dev) + 0.25 + 0.5 * jitter) / ss
+    dw = poles.expand(kk, ss).contiguous()
+    z2 = (torch.rand(kk, ss, generator=kgen, device=dev) + 0.01) * (2.0 / ss)
+    rho = torch.rand(kk, generator=kgen, device=dev) * 1.5 + 0.1
+    rows = torch.arange(kk, device=dev)
+    jj = rows % (ss - 1)
+    width = (poles[jj + 1] - poles[jj]).contiguous()
+    zero = torch.zeros(kk, device=dev)
+    every = torch.ones(kk, dtype=torch.bool, device=dev)
+    mu = (dw, z2, rho, poles[jj].contiguous(), zero, width)
+
+    nu = rows % 2 == 1
+    a_idx = jj + nu.long()
+    near = rows % 8 < 2
+    z2m = z2.clone()
+    z2m[rows[near], a_idx[near]] = B10_NEAR_POLE * z2[near].mean(dim=1)
+    z2m[kk - 1, int(torch.randint(ss, (1,), generator=gen, device=dev))] = float("nan")
+    lo0 = torch.where(nu, -width, zero)
+    hi0 = torch.where(nu, zero, width)
+    lo0[kk - 2] = hi0[kk - 2] = 0.0
+    budget = every.clone()
+    budget[kk - 2:] = False
+    mixed = (dw, z2m, rho, poles[a_idx].contiguous(), lo0, hi0)
+    return {"mu": (mu, every), "mixed": (mixed, budget)}
+
+
+def secular_phase(stamp: dict, bound, timed_ms, kgen) -> dict:
+    """B10's phase: the secular bisection at path H's shapes, K_B10 rows of
+    S poles, S one merge level's subproblem size, and at B10_STREAM (rows
+    streamed from device memory every round), on both tables of
+    ``secular_tables``.  The body (stops each row at its bracket's fixed
+    point, one barrier a round) bit for bit its first body (the reference
+    kernel, every round), by digests of every output, the check first
+    shown to reject the reference's output with one bit flipped; within
+    its bracket budget of the plain version (tol_for(f32, S) relative to
+    the bracket width, S the length of the row sums) on the budget rows,
+    whose plain roots must lie inside their brackets; the rounds each row
+    needs (``secular_rounds_plain``) as a histogram, and the bound counted
+    from them beside the 42-round one; times of the body and the reference
+    in turns (reference, body, body, reference) and of the plain version;
+    ptxas's registers and spills of every instantiation of both bodies,
+    and the blocks an SM holds of the instantiation each S takes.
+    Every S and table is checked before any failure stops the script.
+    Returns the report entry (the mu table at the largest S first)."""
+    import torch
+
+    from dlaf_tpu_torch.ops import _build, secular
+    from dlaf_tpu_torch.testing import tol_for
+
+    dev = kgen.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    iters = ITERS_B10
+    lib = _build.lib()
+    ptxas = {f"{body}<{e}>": _ptxas_of(f"{body}<{e}>")
+             for body in ("first::secular_bisect_kernel", "namespace)::secular_bisect_kernel")
+             for e in (1, 2, 4, 8, 16, 32, 0)}
+    # blocks an SM holds of the instantiation each of the phase's S takes
+    occupancy = {ss: {"body": lib.dlaf_secular_blocks_per_sm(ss, 0),
+                      "reference": lib.dlaf_secular_blocks_per_sm(ss, 1)}
+                 for ss in S_B10 + (B10_STREAM[1],)}
+    emit({"phase": "secular_ptxas", "kernels": ptxas, "blocks_per_sm": occupancy, **stamp})
+    shapes, bad = {}, []
+    for kk, ss in [(K_B10, s) for s in S_B10] + [B10_STREAM]:
+        tol = tol_for("float32", ss)
+        tables = {}
+        # the streaming shape draws from gen, so that kgen's later draws
+        # (the next phases' inputs) stay as they were
+        for label, (args, budget) in secular_tables(kgen if kk == K_B10 else gen, gen, kk,
+                                                    ss).items():
+            b10 = (*args, iters)
+            lo0, hi0 = args[4], args[5]
+            new, ref = secular.secular_bisect(*b10), secular.secular_bisect_reference(*b10)
+            plain = secular.secular_bisect_plain(*b10)
+            need = secular.secular_rounds_plain(*b10)
+            torch.cuda.synchronize()
+            flipped = ref.clone()
+            flipped.view(torch.int32)[kk // 3] ^= 1
+            bitwise = digest(new) == digest(ref)
+            rejects = digest(flipped) != digest(ref)
+            width = (hi0 - lo0)[budget]
+            err = ((new - plain).abs()[budget] / width).max().item()
+            err_abs = (new - plain).abs()[budget].max().item()
+            inside = bool(((plain > lo0) & (plain < hi0))[budget].all())
+            b_ms, b_by = bound(4.0 * ss * need.sum().item(), (2 * kk * ss + 5 * kk) * 4)
+            b42_ms, _ = bound(4.0 * iters * kk * ss, (2 * kk * ss + 5 * kk) * 4)
+            turns = [timed_ms(lambda: secular.secular_bisect_reference(*b10), 10),
+                     timed_ms(lambda: secular.secular_bisect(*b10), 10),
+                     timed_ms(lambda: secular.secular_bisect(*b10), 10),
+                     timed_ms(lambda: secular.secular_bisect_reference(*b10), 10)]
+            hist = torch.bincount(need, minlength=iters + 1).tolist()
+            rec = {"kernel": "secular_bisect", "shape": [kk, ss], "table": label,
+                   "iters": iters, "bitwise_vs_reference": bitwise,
+                   "elements_differing": int((new.view(torch.int32)
+                                              != ref.view(torch.int32)).sum()),
+                   "flipped_bit_rejected": rejects,
+                   "digests": {"kernel": digest(new), "reference": digest(ref)},
+                   "max_abs_err": err_abs, "max_err_rel_to_bracket": err, "tol": tol,
+                   "plain_roots_inside_brackets": inside, "budget_rows": int(budget.sum()),
+                   "rounds_needed": {"mean": need.double().mean().item(),
+                                     "min": int(need.min()), "max": int(need.max()),
+                                     "share_needing_all": hist[iters] / kk,
+                                     "histogram": hist},
+                   "kernel_ms": (turns[1] + turns[2]) / 2,
+                   "reference_ms": (turns[0] + turns[3]) / 2,
+                   "turns_ms": {"reference": [turns[0], turns[3]], "kernel": turns[1:3]},
+                   "plain_ms": timed_ms(lambda: secular.secular_bisect_plain(*b10), 3),
+                   "library_ms": None,
+                   "library_call": "none: no single PyTorch call computes it",
+                   "bound_ms": b_ms, "bound_by": b_by, "bound_42_rounds_ms": b42_ms,
+                   "bound_counts": "4 flops per element and round (sub, IEEE div as 1, FMA as "
+                                   "2) over the rounds each row needs (the 42-round bound "
+                                   "beside it); bytes 2*K*S*4 + 5*K*4", **stamp}
+            emit(rec)
+            tables[label] = rec
+            problems = []
+            if not rejects:
+                problems.append("the digest check accepts a flipped bit")
+            if not bitwise:
+                problems.append(f"not bit for bit the reference ({rec['elements_differing']} "
+                                f"of {kk} rows differ)")
+            if not (err <= tol and inside):
+                problems.append(f"max err / bracket {err:.3e} (tol {tol:.3e}), plain roots "
+                                f"inside their brackets: {inside}")
+            bad += [f"{kk}x{ss} {label}: {p}" for p in problems]
+            del b10, args, new, ref, plain, need, flipped
+        shapes[f"{kk}x{ss}"] = {**tables["mu"], "tables": tables}
+    torch.cuda.empty_cache()
+    if bad:
+        fail("secular_bisect vs its reference and plain version: " + "; ".join(bad))
+    every = [tb for s in shapes.values() for tb in s["tables"].values()]
+    return {**shapes[f"{K_B10}x{max(S_B10)}"],
+            "max_abs_err": worst(r["max_abs_err"] for r in every),
+            "shapes": shapes, "ptxas": ptxas, "blocks_per_sm": occupancy}
+
+
 def trailing_update_phase(stamp: dict, bound, timed_ms, kgen) -> dict:
     """Phase 2b: B3 at the 'default' tier, the FMA body of csrc/fma_gemm.cuh,
     in both lookahead forms at path B's shapes (32 x 32 and 32 x 1 pairs of
@@ -3457,54 +3623,8 @@ def main() -> int:
     # B3 and B9 under the split tiers, at the same shapes
     report.update(split_phase(stamp, timed_ms, kgen))
 
-    # B10 secular bisection at path H's shapes: K rows of S poles, S one
-    # merge level's subproblem size.  True secular equations shaped like
-    # the D&C's: increasing poles d in [1, 5] (a jittered grid, so no two
-    # coincide and every bracket is wider than 2 / S), weights z2 > 0
-    # summing to about 1 per row, rho in [0.1, 1.6]; row r anchors at pole
-    # j = r mod (S - 1) with the bracket (0, d[j+1] - d[j]), which holds
-    # exactly one root (f rises from -inf to +inf).  The roots are compared
-    # relative to the bracket width; the tolerance is tol_for(f32, S), S
-    # the length of the row sums.  Every S is checked before any failure
-    # stops the script.
-    kk = K_B10
-    shapes, b10_bad = {}, []
-    for ss in S_B10:
-        jitter = torch.rand(ss, generator=kgen, device=dev)
-        poles = 1 + 4 * (torch.arange(ss, device=dev) + 0.25 + 0.5 * jitter) / ss
-        dw = poles.expand(kk, ss).contiguous()
-        z2 = (torch.rand(kk, ss, generator=kgen, device=dev) + 0.01) * (2.0 / ss)
-        rho = torch.rand(kk, generator=kgen, device=dev) * 1.5 + 0.1
-        jj = torch.arange(kk, device=dev) % (ss - 1)
-        anchor = poles[jj].contiguous()
-        width = (poles[jj + 1] - poles[jj]).contiguous()
-        lo0 = torch.zeros(kk, device=dev)
-        b10 = (dw, z2, rho, anchor, lo0, width, ITERS_B10)
-        k_out, p_out = secular.secular_bisect(*b10), secular.secular_bisect_plain(*b10)
-        torch.cuda.synchronize()
-        err = ((k_out - p_out).abs() / width).max().item()
-        err_abs = (k_out - p_out).abs().max().item()
-        inside = bool(((p_out > 0) & (p_out < width)).all())
-        tol = tol_for("float32", ss)
-        b_ms, b_by = bound(4.0 * ITERS_B10 * kk * ss, (2 * kk * ss + 5 * kk) * 4)
-        rec = {"kernel": "secular_bisect", "shape": [kk, ss], "iters": ITERS_B10,
-               "max_abs_err": err_abs, "max_err_rel_to_bracket": err, "tol": tol,
-               "plain_roots_inside_brackets": inside,
-               "kernel_ms": timed_ms(lambda: secular.secular_bisect(*b10), 10),
-               "plain_ms": timed_ms(lambda: secular.secular_bisect_plain(*b10), 3),
-               "library_ms": None, "library_call": "none: no single PyTorch call computes it",
-               "bound_ms": b_ms, "bound_by": b_by,
-               "bound_counts": "4 flops per element and round (sub, IEEE div as 1, FMA as 2); "
-                               "bytes 2*K*S*4 + 5*K*4", **stamp}
-        emit(rec)
-        del dw, z2, b10, k_out, p_out
-        shapes[ss] = rec
-        if not (err <= tol and inside):
-            b10_bad.append(f"S={ss}: max err / bracket {err:.3e} (tol {tol:.3e}), "
-                           f"plain roots inside their brackets: {inside}")
-    if b10_bad:
-        fail("secular_bisect kernel vs plain: " + "; ".join(b10_bad))
-    report["secular_bisect"] = {**shapes[max(S_B10)], "shapes": shapes}
+    # B10 secular bisection at path H's shapes, bit for bit its first body
+    report["secular_bisect"] = secular_phase(stamp, bound, timed_ms, kgen)
     torch.cuda.empty_cache()
 
     # B4, B5 and B7 at path M's shapes, on a 2x4 grid of rank threads
@@ -3797,10 +3917,16 @@ def main() -> int:
                     for k, f in (("split_gemm_kernel", sub), ("split_cut_kernel", "false"),
                                  ("split_cut_kernel", "true"))}
         if name == "secular_bisect":
-            entry["max_abs_err"] = max(f["max_abs_err"] for f in r["shapes"].values())
-            entry["shapes"] = {f"{K_B10}x{s}": {k: f[k] for k in (
-                "kernel_ms", "plain_ms", "bound_ms", "max_abs_err", "max_err_rel_to_bracket")}
-                for s, f in r["shapes"].items()}
+            # the body that stops at the fixed point; its first body (the
+            # reference kernel, same bits) timed in turns with it in this run
+            entry["reference_ms"] = r["reference_ms"]
+            entry["bound_42_rounds_ms"] = r["bound_42_rounds_ms"]
+            entry["shapes"] = {f"{s} {lab}": {k: f[k] for k in (
+                "kernel_ms", "reference_ms", "plain_ms", "bound_ms", "bound_42_rounds_ms",
+                "max_abs_err", "max_err_rel_to_bracket", "bitwise_vs_reference")}
+                for s, q in r["shapes"].items() for lab, f in q["tables"].items()}
+            entry["ptxas"] = r["ptxas"]
+            entry["blocks_per_sm"] = r["blocks_per_sm"]
         kernels.append(entry)
     emit({"kernels": kernels})
     print(card, flush=True)  # as nvidia-smi prints it: name, power limit

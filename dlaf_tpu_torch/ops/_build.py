@@ -82,6 +82,10 @@ SIGNATURES = {
     "dlaf_ring_consumer_blocks_per_sm": [_I, _I, _I, _I, _I, _I, _I, _I],
     # (dw, z2, rho, anchor, lo0, hi0, out, K, S, iters, stream)
     "dlaf_secular_bisect_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # the same on B10's first body (the before/after reference)
+    "dlaf_secular_bisect_ref_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # (S, reference): blocks per SM of the instantiation rows of S elements take
+    "dlaf_secular_blocks_per_sm": [_I, _I],
     # (y, y_in, h, h_in, oy, oh, total, w, slots, stream)
     "dlaf_merge_hop": [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P],
     # (ys, hs, out, oh, entry, done, err, total, w, slots, seg, G, P, me, epoch,

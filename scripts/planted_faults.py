@@ -16,7 +16,8 @@ csrc/factor_send.cuh, B8's tail shares: its faults run consume_phases'
 B8 as well), potrf_phase for B1,
 panel_trsm_phase for B2, merge_phase for B4, trailing_update_phase and
 fma_edge_phase for B3's and B9's FMA body, split_phase for B3's and B9's
-split body (csrc/split_gemm.cuh)), on the main path's shapes, in a
+split body (csrc/split_gemm.cuh), secular_phase for B10), on the main
+path's shapes, in a
 process of its own; or ("split_tests") the CUDA tests that hold B6's and
 B8's split bodies bit for bit to B3-split at ragged and deep shapes
 (tests/test_torch_consume.py, copied with the package).
@@ -411,6 +412,46 @@ FAULTS = {
         [("    if (t >= 0 && t < tail) dst[head + 4 * nvec + t]",
           "    if (t >= 0 && t < 0) dst[head + 4 * nvec + t]")],
         "merge_hop", "fails"),
+    # B10: a row stops when mid equals an end of its bracket, before the
+    # round's update, which could still set hi = lo: one round early
+    "b10_stop_at_mid_end": (
+        "secular.cu",
+        [("    const bool neg = fm < 0.0f;\n",
+          "    if (mid == lo || mid == hi) break;\n    const bool neg = fm < 0.0f;\n")],
+        "secular_bisect",
+        "latent: the answer 0.5 (lo + hi) is the expression mid is, so a row stopped where mid "
+        "equals an end answers that mid, and so does the bracket the skipped round leaves "
+        "(unchanged, or hi = lo = mid); only a bracket whose lo + hi overflows tells them apart"),
+    # B10: each thread decides the exit from its own partial sum, not the
+    # broadcast total, so the threads of a block may leave in different
+    # rounds (the rest wait at a barrier the others never reach, or read
+    # their stale sums)
+    "b10_exit_on_own_partial": (
+        "secular.cu",
+        [("    const unsigned moved = __float_as_uint(neg ? lo : hi);\n",
+          "    const unsigned moved =\n"
+          "        __float_as_uint(__fadd_rn(1.0f, __fmul_rn(rh, acc)) < 0.0f ? lo : hi);\n")],
+        "secular_bisect",
+        "latent: a thread leaves early only where mid equals an end of the shared bracket, "
+        "and thread 0's answer there is the one the full rule gives (as b10_stop_at_mid_end); "
+        "the threads that stay meet barriers that count exited threads as arrived"),
+    # B10: one buffer of warp sums under the one barrier a round: a warp
+    # that runs ahead overwrites its sum before a slow warp has read it
+    "b10_single_buffer": (
+        "secular.cu",
+        [("block_sum(acc, red[it & 1])", "block_sum(acc, red[0])")],
+        "secular_bisect",
+        "latent: the race needs a warp to reach its next round's store before another warp "
+        "has read the eight sums after the barrier, a whole round of divisions behind"),
+    # B10: the eight warp sums added in another order (neighbours first, as
+    # a butterfly from offset 1 up would)
+    "b10_warp_sums_reordered": (
+        "secular.cu",
+        [("  return __fadd_rn(__fadd_rn(__fadd_rn(a0, a4), __fadd_rn(a2, a6)),\n"
+          "                   __fadd_rn(__fadd_rn(a1, a5), __fadd_rn(a3, a7)));\n",
+          "  return __fadd_rn(__fadd_rn(__fadd_rn(a0, a1), __fadd_rn(a2, a3)),\n"
+          "                   __fadd_rn(__fadd_rn(a4, a5), __fadd_rn(a6, a7)));\n")],
+        "secular_bisect", "fails"),
 }
 
 for _b8, _b7 in (("b8_solve_before_factor", "b7_solve_before_factor"),
@@ -451,6 +492,8 @@ elif kernel == "fused_factor_bcast":
                    Grid.create(cs.GRID_M, device="cpu"))
 elif kernel == "potrf":
     cs.potrf_phase(stamp, bound, timed_ms, torch.Generator(device=dev).manual_seed(cs.SEED + 1))
+elif kernel == "secular_bisect":
+    cs.secular_phase(stamp, bound, timed_ms, torch.Generator(device=dev).manual_seed(cs.SEED + 1))
 elif kernel in cs.SPLIT_KERNELS:
     cs.split_phase(stamp, timed_ms, torch.Generator(device=dev).manual_seed(cs.SEED + 1),
                    only=(kernel,))
@@ -487,12 +530,19 @@ def plant(name: str) -> dict:
             "cuda", "-q", "-p", "no:cacheprovider", "-k", "split_is_b3_split"]
            if kernel == "split_tests" else
            [sys.executable, "-c", _RUN.format(copy=copy, kernel=kernel)])
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=copy)
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=copy)
+    except subprocess.TimeoutExpired as e:  # a kernel that never ends (B10's barrier faults)
+        proc = subprocess.CompletedProcess(cmd, None, e.stdout or "", e.stderr or "")
+        proc.stdout = proc.stdout if isinstance(proc.stdout, str) else proc.stdout.decode()
+        proc.stdout += "\nFAILED: the phase did not end within 900 s\n"
+        proc.stderr = proc.stderr if isinstance(proc.stderr, str) else proc.stderr.decode()
     lines = proc.stdout.splitlines()
     measured = [json.loads(ln) for ln in lines if ln.startswith("{")]
     failed = [ln for ln in lines if "FAILED" in ln]
     return {"fault": name, "file": f"dlaf_tpu_torch/csrc/{fname}", "kernel_phase": kernel,
-            "expect": expect, "phase_failed": proc.returncode != 0 and bool(failed),
+            "expect": expect, "phase_failed": proc.returncode is None or (proc.returncode != 0
+                                                                          and bool(failed)),
             "rc": proc.returncode, "failure": failed[0] if failed else None,
             "measured": [{k: v for k, v in m.items() if k in (
                 "kernel", "subscripts", "rel_err", "max_abs_err", "bitwise_vs_plain_yf_h",
@@ -502,7 +552,8 @@ def plant(name: str) -> dict:
                 "ring_of_4", "tol", "case", "bitwise_vs_plain", "bitwise_hop_ring_vs_plain",
                 "skewed_run", "input_lifetime_bitwise_vs_plain", "input_lifetime_wrong_elements",
                 "elements", "bitwise_vs_one_block", "bitwise_vs_reference", "elements_differing",
-                "dropped_slice_rejected", "checks")} for m in measured],
+                "dropped_slice_rejected", "checks", "table", "shape",
+                "max_err_rel_to_bracket", "flipped_bit_rejected")} for m in measured],
             "pytest": lines[-1] if kernel == "split_tests" and lines else None,
             "stderr_tail": proc.stderr[-600:] if proc.returncode and not failed else ""}
 
