@@ -8,7 +8,8 @@ Cholesky configuration of bench.py (N=16384, nb=512, f32, 1x1 grid,
 distributed kernel forced), on a random SPD matrix made from seed 0, the
 same inputs on a 2x4 grid of rank threads (path M), and
 bench.py's HEEV configuration (N=8192, nb=512, f32, 1x1 grid, the full
-pipeline) on random_hermitian_pd(8192, f32, seed=2).  Phases, each fatal
+pipeline) on random_hermitian_pd(8192, f32, seed=2), and the same on the
+2x4 grid (path H2).  Phases, each fatal
 on failure:
 
 0. header: the card's name and power limit (nvidia-smi), stamped on every
@@ -35,7 +36,8 @@ on failure:
    ragged shapes (M, N off the 128 tile, K off the 16 slice) in f32 and
    f64, bit for bit their reference kernels; and B10, the secular bisection,
    at each of path H's shapes (8192, S), S = 1024, 2048, 4096, 8192, and
-   at 2048 x 12288 (rows streamed every round), on true secular equations
+   at 2048 x 12288 (rows streamed every round) and at path H2's per-rank
+   shape 1024 x 8192 (its mu table only), on true secular equations
    (mu brackets, and a table with nu brackets, near-pole roots, a zero gap
    and a NaN weight), its body bit for bit its first body (the reference
    kernel) by digests and timed in turns with it, within its bracket
@@ -145,6 +147,12 @@ on failure:
    breakdown; eigenvalues, residual and orthogonality held in float64 on
    the card to tol_for(f32, N), each check first shown to reject a wrong
    answer;
+6b. path H2: path H's call on the 2x4 grid of rank threads under path H's
+   knobs and collectives_impl=pallas, every stage over the grid (B3, B5
+   and B6 in red2band, B5 in bt_red2band, B10 twice per merge level and
+   rank); the same runs, the launches of each stage, path H's checks and
+   H2's eigenvalues against path H's, each within tol_for(f32, N) and
+   first shown to reject a wrong answer;
 7. one {"kernels": [...]} JSON line, the card line again, and as the last
    line {"ok": true, "device": {...}}.
 
@@ -157,6 +165,7 @@ and scripts/planted_faults.py the kernel phases.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -232,6 +241,9 @@ K_B10, S_B10, ITERS_B10 = 8192, (1024, 2048, 4096, 8192), 42
 B10_NEAR_POLE = 1e-6
 # rows longer than 8192 poles: the kernel's streaming form (not on path H)
 B10_STREAM = (2048, 12288)
+# path H2's per-rank share of the top level's roots: RPD = NH / 8 rows of
+# S = NH poles, every rank at once on its own stream (its mu table only)
+B10_H2 = (-(-NH // (GRID_M[0] * GRID_M[1])), max(S_B10))
 
 
 def make_inputs(dev):
@@ -319,9 +331,49 @@ def launch_counts() -> dict:
     return {**ops.launch_counts(), **ops.sub_counts()}
 
 
-def path_h(stamp: dict) -> dict:
+def heev_check_fns(a64, w_ref):
+    """Path H's and H2's checks in float64 on the card against
+    ``w_ref = eigvalsh(a64)``: the eigenvalue error over ||A||_2, the
+    residual ||A V - V diag(w)||_F / ||A||_F and the orthogonality
+    ||V^T V - I||_F / sqrt(N)."""
+    import torch
+
+    n = a64.shape[0]
+    norm2 = w_ref.abs().max()
+    norm_f = torch.linalg.matrix_norm(a64)
+    eye = torch.eye(n, dtype=torch.float64, device=a64.device)
+
+    def eig_err(w, ref=w_ref):
+        return ((w - ref).abs().max() / norm2).item()
+
+    def residual(v, w):
+        return (torch.linalg.matrix_norm(a64 @ v - v * w[None, :]) / norm_f).item()
+
+    def orthogonality(v):
+        return (torch.linalg.matrix_norm(v.T @ v - eye) / n ** 0.5).item()
+
+    return eig_err, residual, orthogonality, eye
+
+
+def heev_wrong_answers(a64, w, v, eig_err, residual, orthogonality, eye) -> dict:
+    """The wrong answers each of path H's checks is first shown to reject."""
+    import torch
+
+    n = a64.shape[0]
+    w_diag = torch.sort(a64.diagonal()).values
+    swapped = v[:, [n - 1] + list(range(1, n - 1)) + [0]]
+    dup = v.clone()
+    dup[:, 0] = v[:, n - 1]
+    return {"eig_err of w = sort(diag A)": eig_err(w_diag),
+            "residual of V = I": residual(eye, w),
+            "residual of V with its first and last columns swapped": residual(swapped, w),
+            "orthogonality of V with its first column replaced by its last": orthogonality(dup)}
+
+
+def path_h(stamp: dict, kept: dict) -> dict:
     """Phase 6: hermitian_eigensolver("L", A, backend="pipeline") at NH,
-    NBH.  Returns the timed run's launch counts."""
+    NBH.  Returns the timed run's launch counts; keeps its eigenvalues and
+    eigvalsh's (float64, on the card) in ``kept`` for path H2."""
     import numpy as np
     import torch
 
@@ -367,34 +419,16 @@ def path_h(stamp: dict) -> dict:
     a64 = a_low.double()
     a64 = a64 + torch.tril(a64, -1).T
     w_ref = torch.linalg.eigvalsh(a64)
-    norm2 = w_ref.abs().max()
-    norm_f = torch.linalg.matrix_norm(a64)
-    eye = torch.eye(n, dtype=torch.float64, device=dev)
-
-    def eig_err(w):
-        return ((w - w_ref).abs().max() / norm2).item()
-
-    def residual(v, w):
-        return (torch.linalg.matrix_norm(a64 @ v - v * w[None, :]) / norm_f).item()
-
-    def orthogonality(v):
-        return (torch.linalg.matrix_norm(v.T @ v - eye) / n ** 0.5).item()
-
+    eig_err, residual, orthogonality, eye = heev_check_fns(a64, w_ref)
     tol = tol_for("float32", n)
     w = torch.from_numpy(np.asarray(res.eigenvalues, np.float64)).to(dev)
     v = layout.unpad_global(layout.unpack(res.eigenvectors.data, res.eigenvectors.dist),
                             res.eigenvectors.dist).double()
     got = {"eig_err": eig_err(w), "residual": residual(v, w), "orthogonality": orthogonality(v)}
     # each check first rejects a wrong answer
-    w_diag = torch.sort(a64.diagonal()).values
-    swapped = v[:, [n - 1] + list(range(1, n - 1)) + [0]]
-    dup = v.clone()
-    dup[:, 0] = v[:, n - 1]
-    wrong = {"eig_err of w = sort(diag A)": eig_err(w_diag),
-             "residual of V = I": residual(eye, w),
-             "residual of V with its first and last columns swapped": residual(swapped, w),
-             "orthogonality of V with its first column replaced by its last": orthogonality(dup)}
-    del a64, eye, v, swapped, dup
+    wrong = heev_wrong_answers(a64, w, v, eig_err, residual, orthogonality, eye)
+    kept.update(H_w=w, w_ref=w_ref)
+    del a64, eye, v
     torch.cuda.empty_cache()
     emit({"phase": "path_H", "config": "hermitian_eigensolver(L, pipeline), " + ", ".join(
               f"{k}={v_}" for k, v_ in PATH_H.items()),
@@ -414,6 +448,107 @@ def path_h(stamp: dict) -> dict:
              f"the B10 phase's {S_B10}")
     if counts["secular_bisect"] != 2 * levels or counts["trailing_update"] <= 0:
         fail(f"path H did not launch B10 twice per merge level ({levels} levels) and B3: {counts}")
+    return counts
+
+
+def path_h2(stamp: dict, kept: dict) -> dict:
+    """Phase 6b: path H's call on the GRID_M grid of rank threads under
+    PATH_R (path H's knobs and the 'pallas' collectives tier, on which R1
+    runs red2band): hermitian_eigensolver("L", A, backend="pipeline") at
+    NH, NBH, every stage over the grid (B3 and B6 in red2band, B5 there and
+    in bt_red2band's strip broadcast, B10 on each rank's share of every
+    level's roots).  A warm-up, one timed run (wall, GFlop/s at 4/3 N^3,
+    launches) and one instrumented run (stage seconds, and the launches of
+    each stage).  Path H's checks in float64 on the card, and H2's
+    eigenvalues against path H's (``kept``), each within tol_for(f32, N)
+    and first shown to reject a wrong answer.  Returns the timed run's
+    launch counts."""
+    import numpy as np
+    import torch
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import ops, tune
+    from dlaf_tpu_torch.algorithms.tridiag_dc_dist import _plan
+    from dlaf_tpu_torch.common import stagetimer
+    from dlaf_tpu_torch.matrix import layout
+    from dlaf_tpu_torch.testing import random_hermitian_pd, tol_for
+
+    n, nb = NH, NBH
+    dev = torch.device("cuda")
+    a_np = random_hermitian_pd(n, np.float32, seed=SEED_H)
+    a_low = torch.from_numpy(np.tril(a_np)).to(dev)
+    del a_np
+    tune.initialize(**PATH_R)
+    grid = dtt.Grid.create(GRID_M, device=dev)
+    ranks = grid.size
+    by_stage = {}
+    timer_stage = stagetimer.stage
+
+    @contextlib.contextmanager
+    def counted_stage(name, device=None):
+        """stagetimer.stage, and the launches made inside it."""
+        before = launch_counts()
+        with timer_stage(name, device):
+            yield
+        after = launch_counts()
+        by_stage[name] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    def run(instrumented: bool = False):
+        mat = dtt.DistributedMatrix.from_global(grid, a_low, (nb, nb))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        if instrumented:
+            stagetimer.start()
+            stagetimer.stage = counted_stage
+        t0 = time.perf_counter()
+        try:
+            res = dtt.hermitian_eigensolver("L", mat, backend="pipeline")
+            torch.cuda.synchronize()
+        finally:
+            stagetimer.stage = timer_stage
+        wall = time.perf_counter() - t0
+        times = stagetimer.stop() if instrumented else None
+        return res, wall, launch_counts(), times
+
+    run()  # warm-up, discarded
+    res, wall, counts, _ = run()
+    _, wall_i, _, times = run(instrumented=True)
+    gflop = 4.0 * n ** 3 / 3 / 1e9
+
+    a64 = a_low.double()
+    a64 = a64 + torch.tril(a64, -1).T
+    del a_low
+    eig_err, residual, orthogonality, eye = heev_check_fns(a64, kept["w_ref"])
+    tol = tol_for("float32", n)
+    w = torch.from_numpy(np.asarray(res.eigenvalues, np.float64)).to(dev)
+    v = layout.unpad_global(layout.unpack(res.eigenvectors.data, res.eigenvectors.dist),
+                            res.eigenvectors.dist).double()
+    del res
+    w_h = kept["H_w"]
+    got = {"eig_err": eig_err(w), "residual": residual(v, w), "orthogonality": orthogonality(v),
+           "eig_vs_path_H": eig_err(w, w_h)}
+    wrong = heev_wrong_answers(a64, w, v, eig_err, residual, orthogonality, eye)
+    wrong["eig_vs_path_H of w = sort(diag A)"] = eig_err(torch.sort(a64.diagonal()).values, w_h)
+    del a64, eye, v
+    torch.cuda.empty_cache()
+    s0, levels = _plan(n, nb, tune.get_tune_parameters().dc_leaf_size)[:2]
+    emit({"phase": "path_H2", "config": "hermitian_eigensolver(L, pipeline), " + ", ".join(
+              f"{k}={v_}" for k, v_ in PATH_R.items()),
+          "grid": list(GRID_M), "n": n, "nb": nb, "seed": SEED_H, "wall_s": wall,
+          "gflops": gflop / wall, "instrumented_wall_s": wall_i, "stage_s": times,
+          "launches_by_stage": by_stage, "checks": got, "tol": tol, "wrong_answers": wrong,
+          "launches": counts, "launches_per_rank": {k: v_ / ranks for k, v_ in counts.items()},
+          **stamp})
+    for name, val in wrong.items():
+        if not val > tol:
+            fail(f"path H2 check accepts a wrong answer: {name} = {val:.3e} <= {tol:.3e}")
+    for name, val in got.items():
+        if not val <= tol:
+            fail(f"path H2 {name} {val:.3e} > {tol:.3e}")
+    if counts["secular_bisect"] != 2 * levels * ranks or min(
+            counts["trailing_update"], counts["ring_exchange"], counts["dma_ring_consume"]) <= 0:
+        fail(f"path H2 did not launch B10 twice per merge level ({levels} levels) and rank "
+             f"({ranks}), and B3, B5 and B6: {counts}")
     return counts
 
 
@@ -2207,7 +2342,8 @@ def secular_phase(stamp: dict, bound, timed_ms, kgen) -> dict:
     """B10's phase: the secular bisection at path H's shapes, K_B10 rows of
     S poles, S one merge level's subproblem size, and at B10_STREAM (rows
     streamed from device memory every round), on both tables of
-    ``secular_tables``.  The body (stops each row at its bracket's fixed
+    ``secular_tables``, and at B10_H2 (path H2's per-rank shape at its top
+    level) on the mu table.  The body (stops each row at its bracket's fixed
     point, one barrier a round) bit for bit its first body (the reference
     kernel, every round), by digests of every output, the check first
     shown to reject the reference's output with one bit flipped; within
@@ -2239,13 +2375,15 @@ def secular_phase(stamp: dict, bound, timed_ms, kgen) -> dict:
                  for ss in S_B10 + (B10_STREAM[1],)}
     emit({"phase": "secular_ptxas", "kernels": ptxas, "blocks_per_sm": occupancy, **stamp})
     shapes, bad = {}, []
-    for kk, ss in [(K_B10, s) for s in S_B10] + [B10_STREAM]:
+    for kk, ss in [(K_B10, s) for s in S_B10] + [B10_STREAM, B10_H2]:
         tol = tol_for("float32", ss)
         tables = {}
-        # the streaming shape draws from gen, so that kgen's later draws
-        # (the next phases' inputs) stay as they were
-        for label, (args, budget) in secular_tables(kgen if kk == K_B10 else gen, gen, kk,
-                                                    ss).items():
+        # the streaming shape and H2's draw from gen, so that kgen's later
+        # draws (the next phases' inputs) stay as they were
+        drawn = secular_tables(kgen if kk == K_B10 else gen, gen, kk, ss)
+        for label, (args, budget) in drawn.items():
+            if (kk, ss) == B10_H2 and label != "mu":
+                continue
             b10 = (*args, iters)
             lo0, hi0 = args[4], args[5]
             new, ref = secular.secular_bisect(*b10), secular.secular_bisect_reference(*b10)
@@ -2302,6 +2440,7 @@ def secular_phase(stamp: dict, bound, timed_ms, kgen) -> dict:
                                 f"inside their brackets: {inside}")
             bad += [f"{kk}x{ss} {label}: {p}" for p in problems]
             del b10, args, new, ref, plain, need, flipped
+        del drawn
         shapes[f"{kk}x{ss}"] = {**tables["mu"], "tables": tables}
     torch.cuda.empty_cache()
     if bad:
@@ -3786,7 +3925,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. path H: the HEEV pipeline
-    by_path["H_heev"] = path_h(stamp)
+    kept_h = {}
+    by_path["H_heev"] = path_h(stamp, kept_h)
+    torch.cuda.empty_cache()
+
+    # ---- 6b. path H2: the HEEV pipeline on the 2x4 grid of rank threads
+    by_path["H2_heev"] = path_h2(stamp, kept_h)
+    del kept_h
 
     # ---- 7. summary
     meta = {

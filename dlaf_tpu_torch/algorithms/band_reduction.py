@@ -19,9 +19,11 @@ initialised with, so the stored Q chunks are the same.  The chunks stay
 on the device (the JAX package stages them to the host to spare TPU HBM;
 at N=8192 they take about 1 GiB of the card's 80 GB).
 
-``sbr_back_transform`` applies ``E := Q_sbr E`` to column panels: sweeps
-in reverse, each as one batched product over its disjoint row windows,
-skipping the identity slots (an exact no-op).
+``sbr_back_transform`` applies ``E := Q_sbr E`` to the column panels of
+the back-transform chain (``matrix/colpanels.py``), once per rank on its
+own columns (``coll.spmd``), as each JAX device does: sweeps in reverse,
+each as one batched product over its disjoint row windows, skipping the
+identity slots (an exact no-op).
 """
 from __future__ import annotations
 
@@ -31,8 +33,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from dlaf_tpu_torch.comm import collectives as coll
 from dlaf_tpu_torch.matrix import colpanels as cpan
-from dlaf_tpu_torch.matrix import layout
 
 _CHUNK = 16  # sweeps per chunk
 _K_ROUND = 16  # chase-step bucket granularity (the JAX package's compile bound)
@@ -185,33 +187,26 @@ def sbr_back_transform(tr: SbrTransforms, mat_e, out_cols: bool = False):
         if in_cols:
             return mat_e if out_cols else cpan.pack_to_matrix(mat_e)
         return mat_e
-    n, k = (mat_e.n, mat_e.k) if in_cols else tuple(mat_e.dist.size)
+    n = mat_e.n if in_cols else mat_e.dist.size.rows
     if n != tr.n:
         raise ValueError(f"sbr_back_transform: E rows {n} != transform n {tr.n}")
     b1, b2 = tr.b1, tr.b2
     # every sweep's [r0, r0 + span) slice must fit without clamping
     n_pad = max(n, max((s0 + q.shape[0] - 1) * b2 + b2 + q.shape[1] * b1 for s0, q in tr.chunks))
-    if in_cols:
-        e = mat_e.data
-        if e.shape[0] < n_pad:
-            e = torch.nn.functional.pad(e, (0, 0, 0, n_pad - e.shape[0]))
-        dist, grid = mat_e.dist, mat_e.grid
-    else:
-        if mat_e.grid.size != 1:
-            raise NotImplementedError(
-                "sbr_back_transform on a multi-rank grid is not ported yet "
-                "(ROADMAP.md §A, item 3: the HEEV stages on Pr×Pc)")
-        dist, grid = mat_e.dist, mat_e.grid
-        g = layout.unpad_global(layout.unpack(mat_e.data, dist), dist)
-        e = torch.nn.functional.pad(g, (0, 0, 0, n_pad - n))
-    for s0, q in reversed(tr.chunks):
-        for s_loc in range(q.shape[0] - 1, -1, -1):
-            s = s0 + s_loc
-            nblk = (tr.steps[s] if tr.steps else q.shape[1] - 1) + 1
-            r0 = s * b2 + b2
-            ew = e[r0:r0 + nblk * b1].view(nblk, b1, e.shape[1])
-            ew.copy_(torch.bmm(q[s_loc, :nblk], ew))
+    cp = cpan.pad_rows(mat_e, n_pad) if in_cols else cpan.from_matrix(mat_e, n_pad)
+
+    def body(e):
+        """Every sweep on this rank's column panel ``e[rows, kloc]``."""
+        for s0, q in reversed(tr.chunks):
+            for s_loc in range(q.shape[0] - 1, -1, -1):
+                s = s0 + s_loc
+                nblk = (tr.steps[s] if tr.steps else q.shape[1] - 1) + 1
+                r0 = s * b2 + b2
+                ew = e[r0:r0 + nblk * b1].view(nblk, b1, e.shape[1])
+                ew.copy_(torch.bmm(q[s_loc, :nblk], ew))
+
+    coll.spmd(cp.grid, body, cp.data)
     if out_cols:
-        return cpan.ColPanels(e, n, k, grid, dist)
-    out = cpan.pack_to_matrix(cpan.ColPanels(e, n, k, grid, dist))
+        return cp
+    out = cpan.pack_to_matrix(cp)
     return out if in_cols else mat_e._inplace(out.data)

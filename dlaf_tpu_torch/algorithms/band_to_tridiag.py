@@ -25,25 +25,24 @@ from dlaf_tpu_torch.matrix.matrix import DistributedMatrix
 def extract_band_storage(mat: DistributedMatrix, band: int) -> torch.Tensor:
     """The lower band of ``mat`` as compact storage ``ab[band+2, n]`` with
     ``ab[d, j] = A[j+d, j]`` (zero where ``j+d >= n``; the last row is zero
-    scratch for the chase), gathered on the matrix's device.  Only the
-    diagonal and first sub-diagonal tiles are read, the tiles the JAX
-    package gathers (1x1 grids)."""
-    if mat.grid.size != 1:
-        raise NotImplementedError(
-            "extract_band_storage on a multi-rank grid is not ported yet "
-            "(ROADMAP.md §A, item 3: the HEEV stages on Pr×Pc)"
-        )
+    scratch for the chase), gathered on the matrix's device in one indexing
+    op: each element is read from its owner's tile stack at its local
+    index.  Only the diagonal and first sub-diagonal tiles are read, the
+    tiles the JAX package gathers (``_gather_band_tiles``), on any grid."""
     m = mat.size.rows
     mb, nb = mat.block_size
+    pr, pc = mat.dist.grid_size
+    sr, sc = mat.dist.source_rank
     dev = mat.data.device
-    x = mat.data[0, 0]
+    x = mat.data
     off = torch.arange(band + 1, device=dev)[:, None]
     j = torch.arange(m, device=dev)[None, :]
     r = j + off
     valid = r < m
     rc = torch.clamp(r, max=m - 1)
     jb = j.expand_as(rc)
-    vals = x[rc // mb, jb // nb, rc % mb, jb % nb]
+    ti, tj = rc // mb, jb // nb
+    vals = x[(ti + sr) % pr, (tj + sc) % pc, ti // pr, tj // pc, rc % mb, jb % nb]
     ab = torch.zeros((band + 2, m), dtype=x.dtype, device=dev)
     ab[: band + 1] = torch.where(valid, vals, torch.zeros((), dtype=x.dtype, device=dev))
     return ab

@@ -8,13 +8,19 @@ Groups of ``g`` consecutive sweeps at one chase level form one compact-WY
 factor ``I - V T V^H`` over a window of ``w = b + g - 1`` rows, applied as
 three products, in the JAX package's order: sweep blocks descending, chase
 levels ascending.  ``T^{-1} = diag(1/tau) + triu(V^H V, 1)`` (larft,
-forward, columnwise).
+forward, columnwise).  Groups whose windows are disjoint commute; the port
+applies them a dependency level at a time (:func:`group_levels`: every
+overlapping pair keeps the JAX package's order), three batched products
+a level where the JAX package's loop runs three per group.
 
-E's columns are independent, so on the one rank of a 1x1 grid the whole
-padded E is the column panel.  The schedule and the padded factors are
-built with array operations (the JAX package assembles them in Python
-loops, one reflector at a time); the group loop is eager, three small
-products per group.
+E's columns are independent: E is relaid once into the column panels of
+the back-transform chain (``matrix/colpanels.py``), and every rank runs
+the whole group loop on its own ``kloc`` columns (``coll.spmd``), with
+no communication, as each JAX device does.  The schedule and the padded
+factors are built once on the device with array operations (the JAX
+package assembles them on the host in Python loops, one reflector at a
+time, and hands every device a copy), and so is the level schedule; each
+rank computes its T factors, as each JAX device does.
 """
 from __future__ import annotations
 
@@ -22,8 +28,8 @@ import numpy as np
 import torch
 
 from dlaf_tpu_torch import tune
+from dlaf_tpu_torch.comm import collectives as coll
 from dlaf_tpu_torch.matrix import colpanels as cpan
-from dlaf_tpu_torch.matrix import layout
 from dlaf_tpu_torch.matrix.matrix import DistributedMatrix
 
 
@@ -101,33 +107,65 @@ def _build_factors(v_refl, taus, base_s, cols, w: int, g: int, b: int, device, d
     return V_all, tau_all
 
 
-def _wy_group_loop(e_pad, V_all, tau_all, offs, w: int, g: int):
-    """Apply the grouped compact-WY factors to ``e_pad`` in place."""
-    G = V_all.shape[0]
-    if G == 0:
+def group_levels(base_s, w: int):
+    """Each group's level in the application order: one more than the
+    highest level of an earlier group whose window of ``w`` rows overlaps
+    its own (0 if none).  Groups of one level touch disjoint rows, so they
+    commute, and applying the levels in turn applies every overlapping
+    pair in the schedule's order: the same product, one batched update a
+    level.  At N = 8192, band 32 and groups of 32: 765 levels for 32,896
+    groups."""
+    last = [0] * (int(base_s.max()) + w if len(base_s) else 0)
+    levels = np.empty(len(base_s), np.int64)
+    for i, b0 in enumerate(base_s.tolist()):
+        lv = max(last[b0:b0 + w])
+        levels[i] = lv
+        last[b0:b0 + w] = [lv + 1] * w
+    return levels
+
+
+def level_schedule(V_all, tau_all, base_s, w: int):
+    """The factors in level order (:func:`group_levels`, stable), the rows
+    of their windows ``rows[G * w]`` on the factors' device, and the bounds
+    of each level's run of groups."""
+    levels = group_levels(base_s, w)
+    order = np.argsort(levels, kind="stable")
+    bounds = np.searchsorted(levels[order], np.arange(int(levels.max()) + 2)).tolist()
+    dev = V_all.device
+    perm = torch.from_numpy(order).to(dev)
+    rows = (torch.from_numpy(base_s[order]).to(dev)[:, None]
+            + torch.arange(w, device=dev)[None, :]).reshape(-1)
+    return V_all.index_select(0, perm), tau_all.index_select(0, perm), rows, bounds
+
+
+def _wy_group_loop(e_pad, V, tau, rows, bounds, w: int, g: int):
+    """Apply the grouped compact-WY factors of :func:`level_schedule` to
+    ``e_pad`` in place, one level at a time: the level's windows are
+    gathered, updated by three batched products and scattered back.
+    ``T^{-1} = diag(1/tau) + triu(V^H V, 1)`` (larft forward/columnwise)."""
+    if V.shape[0] == 0:
         return e_pad
-    M = V_all.conj().transpose(1, 2) @ V_all
-    eye = torch.eye(g, dtype=V_all.dtype, device=V_all.device)
-    tinv = torch.triu(M, 1) + eye[None] / tau_all[:, None, :]
-    T_all = torch.linalg.solve_triangular(tinv, eye.expand_as(tinv), upper=True)
-    Vh = V_all.conj().transpose(1, 2)
-    for i, off in enumerate(offs.tolist()):
-        ew = e_pad[off:off + w]
-        ew -= V_all[i] @ (T_all[i] @ (Vh[i] @ ew))
+    M = V.conj().transpose(1, 2) @ V
+    eye = torch.eye(g, dtype=V.dtype, device=V.device)
+    tinv = torch.triu(M, 1) + eye[None] / tau[:, None, :]
+    T = torch.linalg.solve_triangular(tinv, eye.expand_as(tinv), upper=True)
+    Vh = V.conj().transpose(1, 2)
+    k = e_pad.shape[1]
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        idx = rows[a * w:b * w]
+        ew = e_pad.index_select(0, idx).view(b - a, w, k)
+        ew -= V[a:b] @ (T[a:b] @ (Vh[a:b] @ ew))
+        e_pad.index_copy_(0, idx, ew.view(-1, k))
     return e_pad
 
 
 def bt_band_to_tridiagonal_hh_dist(hh, mat_e: DistributedMatrix, group_size: int | None = None,
                                    out_cols: bool = False):
-    """E := Q2 E with E a DistributedMatrix (1x1 grid).  ``out_cols=True``
+    """E := Q2 E with E a DistributedMatrix on any grid.  ``out_cols=True``
     returns the :class:`ColPanels` carrier for the next row-transform stage
     instead of packing."""
     d, e_, phases, v_refl, taus, band = hh
     grid, dist = mat_e.grid, mat_e.dist
-    if grid.size != 1:
-        raise NotImplementedError(
-            "bt_band_to_tridiagonal_hh_dist on a multi-rank grid is not ported yet "
-            "(ROADMAP.md §A, item 3: the HEEV stages on Pr×Pc)")
     n, k = dist.size
     dt = mat_e.dtype
     if dt.is_complex:
@@ -135,18 +173,14 @@ def bt_band_to_tridiagonal_hh_dist(hh, mat_e: DistributedMatrix, group_size: int
     dev = mat_e.data.device
     has_refl = v_refl.shape[0] > 0 and n > 2 and k > 0 and band > 1
     if not has_refl:
-        if not out_cols:
-            return mat_e
-        g_e = layout.unpad_global(layout.unpack(mat_e.data, dist), dist)
-        return cpan.ColPanels(g_e.clone(), n, k, grid, dist)
+        return cpan.from_matrix(mat_e, n) if out_cols else mat_e
     group_size = _resolve_group_size(group_size, dev)
     g = max(1, min(group_size, band, n - 2))
     base_s, cols, w = hh_schedule(n, band, g)
-    V_all, tau_all = _build_factors(v_refl, taus, base_s, cols, w, g, band, dev, dt)
-    n_pad = max(n, w)
-    e_glob = layout.unpad_global(layout.unpack(mat_e.data, dist), dist)
-    e_pad = torch.nn.functional.pad(e_glob, (0, 0, 0, n_pad - n))
-    _wy_group_loop(e_pad, V_all, tau_all, base_s, w, g)
+    V, tau, rows, bounds = level_schedule(
+        *_build_factors(v_refl, taus, base_s, cols, w, g, band, dev, dt), base_s, w)
+    cp = cpan.from_matrix(mat_e, max(n, w))
+    coll.spmd(grid, lambda e: _wy_group_loop(e, V, tau, rows, bounds, w, g), cp.data)
     if out_cols:
-        return cpan.ColPanels(e_pad, n, k, grid, dist)
-    return mat_e._inplace(cpan.pack_to_matrix(cpan.ColPanels(e_pad, n, k, grid, dist)).data)
+        return cp
+    return mat_e._inplace(cpan.pack_to_matrix(cp).data)

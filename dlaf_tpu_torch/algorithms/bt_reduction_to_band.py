@@ -2,13 +2,21 @@
 ``E <- Q1 E`` with ``Q1 = prod_p (I - V_p T_p V_p^H)`` (counterpart of
 ``dlaf_tpu/algorithms/bt_reduction_to_band.py``).
 
-Panels in reverse order; per panel the stored reflector strip is gathered
-from the band matrix, V rebuilt (unit heads, zero above, tau == 0 columns
-dropped), T recomputed (``reduction_to_band._t_factor``, as the reference
-recomputes it), and ``E -= V T (V^H E)``.  On the one rank of a 1x1 grid
-E is the whole padded column panel; V is zero above the panel's first
-eliminated row, so the products run on the rows from there down.  This
-stage packs the chain's column panels back to the stacked layout.
+Panels in reverse order, once per rank (``coll.spmd``); per panel every
+rank rebuilds the same V from the stored reflector strip (gathered over
+'r' from the band matrix's tiles, broadcast over 'c' from the tile
+column that holds it: B5 under the 'pallas' collectives tier), unit heads,
+zero above, tau == 0 columns dropped, recomputes T
+(``reduction_to_band._t_factor``, as the reference recomputes it) and
+applies ``E -= V T (V^H E)`` to its share of E:
+
+- the column panels of the back-transform chain (:class:`ColPanels`):
+  every rank holds all rows of its columns, so the update is three local
+  products; V is zero above the panel's first eliminated row, so they run
+  on the rows from there down.  This entry packs the chain's panels back
+  to the stacked layout;
+- a stacked matrix: each rank holds its tiles of E, and ``V^H E`` is
+  summed over 'r'.
 """
 from __future__ import annotations
 
@@ -19,12 +27,13 @@ from dlaf_tpu_torch.algorithms.reduction_to_band import _t_factor
 from dlaf_tpu_torch.comm import collectives as coll
 from dlaf_tpu_torch.comm.grid import COL_AXIS, ROW_AXIS
 from dlaf_tpu_torch.matrix import colpanels as cpan
-from dlaf_tpu_torch.matrix import layout
 from dlaf_tpu_torch.matrix.matrix import DistributedMatrix
+from dlaf_tpu_torch.ops import tile as t
 
 
 def _panel_v_tmat(a, taus, p: int, g_a: _spmd.Geometry, band: int):
-    """Panel ``p``'s reflector block ``V[np_, band]`` and its T factor."""
+    """Panel ``p``'s reflector block ``V[np_, band]`` and its T factor, the
+    same on every rank, from this rank's band tile stack ``a``."""
     np_ = g_a.ltr * g_a.pr * g_a.mb
     dev = a.device
     rows = torch.arange(np_, device=dev)
@@ -60,35 +69,40 @@ def bt_reduction_to_band(mat_e, mat_band: DistributedMatrix, taus: torch.Tensor)
     g_e = _spmd.Geometry.of(dist)
     if g_a.mb != g_e.mb or g_a.pr != g_e.pr or g_a.mt != g_e.mt:
         raise ValueError("bt_reduction_to_band: E row distribution must match A")
-    if mat_band.grid.size != 1:
-        raise NotImplementedError(
-            "bt_reduction_to_band on a multi-rank grid is not ported yet "
-            "(ROADMAP.md §A, item 3: the HEEV stages on Pr×Pc)")
     n_panels, band = int(taus.shape[0]), int(taus.shape[1])
     if n_panels == 0 or g_e.nt == 0:
         return cpan.pack_to_matrix(mat_e) if in_cols else mat_e
     np_ = g_a.ltr * g_a.pr * g_a.mb
-    if in_cols:
-        e = mat_e.data
-        n, k = mat_e.n, mat_e.k
-    else:
-        n, k = dist.size
-        e = layout.unpad_global(layout.unpack(mat_e.data, dist), dist)
+    if not in_cols:
+        def stacked(a, e):
+            """This rank's tiles of E; W = V^H E summed over 'r'."""
+            gi = _spmd.local_row_tiles(g_a, coll.my_rank()[0], a.device)
+            for s in range(n_panels):
+                p = n_panels - 1 - s
+                v, tmat = _panel_v_tmat(a, taus, p, g_a, band)
+                vr = v.reshape(np_ // g_a.mb, g_a.mb, band).index_select(0, gi)
+                w = coll.psum_axis(t.contract("iab,ijac->jbc", vr.conj(), e), ROW_AXIS)
+                e -= t.contract("iab,jbc->ijac", vr, t.contract("ab,jbc->jac", tmat, w))
+
+        coll.spmd(mat_e.grid, stacked, mat_band.data, mat_e.data)
+        return mat_e._inplace(mat_e.data)
+
     # align rows to np_ (V's extent): rows past n are zero and V has no
     # support there, so the slice loses nothing
-    r = e.shape[0]
-    if r < np_:
-        e = torch.nn.functional.pad(e, (0, 0, 0, np_ - r))
-    elif r > np_:
-        e = e[:np_]
-    if not in_cols:
-        e = e.contiguous()
-    a = coll.local(mat_band.data)
-    for s in range(n_panels):
-        p = n_panels - 1 - s
-        v, tmat = _panel_v_tmat(a, taus, p, g_a, band)
-        start = (p + 1) * band
-        vs, es = v[start:], e[start:]
-        es -= vs @ (tmat @ (vs.conj().transpose(0, 1) @ es))
-    out = cpan.pack_to_matrix(cpan.ColPanels(e, n, k, mat_e.grid, dist))
-    return out if in_cols else mat_e._inplace(out.data)
+    data = mat_e.data
+    if data.shape[2] < np_:
+        data = torch.nn.functional.pad(data, (0, 0, 0, np_ - data.shape[2]))
+    elif data.shape[2] > np_:
+        data = data[:, :, :np_].contiguous()
+
+    def cols(a, e):
+        """This rank's column panel, every row of it: three local products."""
+        for s in range(n_panels):
+            p = n_panels - 1 - s
+            v, tmat = _panel_v_tmat(a, taus, p, g_a, band)
+            start = (p + 1) * band
+            vs, es = v[start:], e[start:]
+            es -= t.contract("ab,bc->ac", vs, tmat @ t.contract("ka,kb->ab", vs.conj(), es))
+
+    coll.spmd(mat_e.grid, cols, mat_band.data, data)
+    return cpan.pack_to_matrix(cpan.ColPanels(data, mat_e.n, mat_e.k, mat_e.grid, dist))

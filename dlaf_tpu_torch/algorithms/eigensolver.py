@@ -11,12 +11,19 @@ full spectrum, real dtypes.
   sbr_back_transform       E <- Q_sbr E (device)
   bt_reduction_to_band     E <- Q1 E (device)
 
-``backend='auto'`` on a 1x1 grid is one ``torch.linalg.eigh`` of the
-hermitized dense matrix, as the JAX package calls XLA's ``eigh`` there.
-'U' runs through the hermitized mirror.  Stage clocks: run between
+Every stage runs on any ``Pr x Pc`` grid of rank threads, each rank
+computing what its JAX device computes: the band gather reads the
+diagonal and first sub-diagonal tiles from their owners; the SBR stage
+and the chase work on the O(N b) band, as in the JAX package; the D&C
+runs its leaves, its secular roots (B10) and its level products over the
+grid; the three back-transforms run on per-rank column panels
+(``matrix/colpanels.py``), packed back once.  ``backend='auto'`` on a 1x1
+grid is one ``torch.linalg.eigh`` of the hermitized dense matrix, as the
+JAX package calls XLA's ``eigh`` there, and the pipeline on any other
+grid.  'U' runs through the hermitized mirror.  Stage clocks: run between
 ``common.stagetimer.start()`` and ``stop()`` (red2band, sbr, chase,
 tridiag, bt_band, bt_sbr, bt_red2band); each boundary then synchronises
-the card.
+the card, after every rank's stream.
 
 Not ported (ROADMAP.md): the generalized problem, eigenvalues only,
 partial spectra, complex dtypes, the device chase and the dense host band
@@ -120,8 +127,8 @@ def hermitian_eigensolver(
 ) -> EigResult:
     """Eigendecomposition of the Hermitian matrix stored in the ``uplo``
     triangle of ``mat_a`` (not modified).  ``backend='auto'`` takes
-    ``torch.linalg.eigh`` on 1x1 grids; 'pipeline' forces the distributed
-    band-reduction pipeline."""
+    ``torch.linalg.eigh`` on 1x1 grids and the distributed band-reduction
+    pipeline on the others; 'pipeline' forces the pipeline everywhere."""
     if spectrum is not None:
         raise NotImplementedError(
             "hermitian_eigensolver: partial spectra are not ported yet "
@@ -133,12 +140,6 @@ def hermitian_eigensolver(
                                   "(ROADMAP.md §A, item 5: the rest of the eigensolver)")
     if mat_a.size.rows != mat_a.size.cols:
         raise ValueError("hermitian_eigensolver: matrix must be square")
-    if mat_a.grid.size != 1:
-        raise NotImplementedError(
-            "hermitian_eigensolver on a multi-rank grid: reduction_to_band runs there, the band "
-            "gather, SBR, the D&C and the back-transforms are not ported yet (ROADMAP.md §A, "
-            "item 3: the HEEV stages on Pr×Pc)"
-        )
     if uplo == t.UPPER:
         # lower-storage pipeline on the mirrored matrix
         mat_a = mutil.extract_triangle(mutil.hermitize(mat_a, "U"), "L")

@@ -2,23 +2,31 @@
 eigenproblem (counterpart of ``dlaf_tpu/algorithms/tridiag_dc_dist.py``).
 
 The JAX package re-expresses every merge step in closed form so that one
-merge level is a constant number of SPMD calls; the port keeps those
-closed forms and runs each level eagerly on the one rank of a 1x1 grid:
+merge level is a constant number of SPMD calls over the grid; the port
+keeps those closed forms and the SPMD structure, and runs the whole solve
+as one :func:`~dlaf_tpu_torch.comm.collectives.spmd` call, each rank
+computing what its JAX device computes:
 
-* leaves: a batched ``torch.linalg.eigh`` of the tile-aligned diagonal
-  blocks (XLA ``eigh`` in the JAX package), in float64;
-* per level, :func:`_params_kernel`: the rank-one vector z from the two
-  boundary rows of Q, a stable per-block sort, deflation (closed-form
-  rotation chain: the run-local prefix norms come from a true segmented
-  scan, never from a difference of global cumulative sums, which cancels
-  on clustered spectra), the secular solve by bisection (the hand-written
-  kernel of ``ops/secular.py`` for f32 on the card, the plain loop for
-  CPU tensors and f64), the anchor refinement, the Loewner z
-  recomputation in log space and the column norms of the eigenvector
-  basis U;
+* leaves (:func:`_leaves`): rank ``f = r * Pc + c`` solves leaves
+  ``f * nloc .. f * nloc + nloc - 1`` by a batched ``torch.linalg.eigh``
+  of the tile-aligned diagonal blocks (XLA ``eigh`` in the JAX package),
+  in float64; the eigenvalues are summed over the grid, the eigenvectors
+  all-gathered one leaf slot a round and placed into each rank's tiles;
+* per level, :func:`_params_kernel`: the rank-one vector z from each
+  rank's boundary rows, summed over the grid; a stable per-block sort,
+  deflation (closed-form rotation chain: the run-local prefix norms come
+  from a true segmented scan, never from a difference of global
+  cumulative sums, which cancels on clustered spectra), all replicated;
+  the secular solve by bisection on the rank's ``RPD = ceil(n_pad / P)``
+  roots (the hand-written kernel of ``ops/secular.py`` for f32 on the
+  card, the plain loop for CPU tensors and f64), the anchor refinement,
+  the Loewner z recomputation in log space and the column norms of the
+  eigenvector basis U on the same share, each all-gathered over the grid;
 * :func:`_level_kernel`: ``Q <- Q (P G) U`` as block-diagonal-restricted
-  GEMMs whose right operands are generated tile by tile from those
-  vectors (``torch.einsum``, as the JAX package leaves them to XLA).
+  SUMMA passes whose right operands are generated tile by tile from those
+  vectors; each contraction tile's panel is summed over 'c' on every rank
+  (``torch.einsum`` for the products, as the JAX package leaves them to
+  XLA).
 
 All subproblem sizes are powers of two times the leaf; padding poles are
 decoupled, above every true eigenvalue, and deflate to identity columns.
@@ -33,7 +41,7 @@ import torch
 from dlaf_tpu_torch import tune
 from dlaf_tpu_torch.algorithms import _spmd
 from dlaf_tpu_torch.comm import collectives as coll
-from dlaf_tpu_torch.comm.grid import Grid
+from dlaf_tpu_torch.comm.grid import COL_AXIS, Grid
 from dlaf_tpu_torch.matrix.distribution import Distribution
 from dlaf_tpu_torch.matrix.matrix import DistributedMatrix
 from dlaf_tpu_torch.ops import secular as _secular
@@ -49,28 +57,48 @@ def _plan(n: int, nb: int, leaf_target: int):
     return s0, L, s0 << L
 
 
-def _leaves(d_mod, e_pad, g: _spmd.Geometry, s0: int):
-    """Eigen-decompositions of the nleaf tridiagonal leaf blocks: returns
-    the local tile stack ``x[ltr, ltc, nb, nb]`` holding the block-diagonal
-    leaf eigenvectors and the leaf eigenvalues ``lam[n_pad]``."""
+def _leaves(d_mod, e_pad, x, g: _spmd.Geometry, s0: int, nloc: int):
+    """Rank body of the leaf stage (``tridiag_dc_dist.py:94``): this rank's
+    ``nloc`` leaves are solved, every leaf's eigenvectors are placed into
+    this rank's zeroed tile stack ``x[ltr, ltc, nb, nb]``, and the leaf
+    eigenvalues ``lam[n_pad]`` (the same on every rank) are returned."""
+    myr, myc = coll.my_rank()
+    nranks = g.pr * g.pc
     n_pad = d_mod.shape[0]
     nleaf = n_pad // s0
     dev, dt = d_mod.device, d_mod.dtype
-    dl = d_mod.reshape(nleaf, s0)
-    el = e_pad.reshape(nleaf, s0)[:, : s0 - 1]
+    b = (myr * g.pc + myc) * nloc + torch.arange(nloc, device=dev)
+    bs = torch.clamp(b, max=nleaf - 1)
+    valid = b < nleaf
+    dl = d_mod.reshape(nleaf, s0)[bs]
+    el = e_pad.reshape(nleaf, s0)[bs, : s0 - 1]
     # solved in float64 and rounded to the working dtype: on the H100,
     # cuSOLVER's float32 eigh leaves residuals of about 1.5e-4 on path H's
     # 512-leaves, LAPACK's float32 eigh about 2.7e-6
     # (scripts/leaf_eigh_accuracy.py)
     tris = torch.diag_embed(dl) + torch.diag_embed(el, 1) + torch.diag_embed(el, -1)
-    lam, q = torch.linalg.eigh(tris.to(torch.float64))
-    lam, q = lam.to(dt), q.to(dt)
+    lam_l, q = torch.linalg.eigh(tris.to(torch.float64))
+    lam_l, q = lam_l.to(dt), q.to(dt)
+    buf = torch.zeros((nleaf, s0), dtype=dt, device=dev)
+    buf[b[valid]] = lam_l[valid]
+    lam = coll.psum_axis(buf.reshape(-1), coll.BOTH)
     t0t = s0 // g.nb
-    x = torch.zeros((g.ltr, g.ltc, g.nb, g.nb), dtype=dt, device=dev)
-    qt = q.reshape(nleaf, t0t, g.nb, t0t, g.nb).permute(0, 1, 3, 2, 4)
-    for b in range(nleaf):
-        x[b * t0t:(b + 1) * t0t, b * t0t:(b + 1) * t0t] = qt[b]
-    return x, lam.reshape(-1)
+    for lb in range(nloc):
+        qg = coll.all_gather_axis(q[lb], coll.BOTH)  # [P, s0, s0]
+        for f in range(nranks):
+            b2 = f * nloc + lb
+            if b2 >= nleaf:
+                continue
+            lo = b2 * t0t  # the leaf block's first tile row and column
+            rows = [li for li in range(g.ltr) if lo <= li * g.pr + myr < lo + t0t]
+            cols = [lj for lj in range(g.ltc) if lo <= lj * g.pc + myc < lo + t0t]
+            if not rows or not cols:
+                continue
+            qt = qg[f].reshape(t0t, g.nb, t0t, g.nb).permute(0, 2, 1, 3)
+            qt = qt[rows[0] * g.pr + myr - lo::g.pr][:len(rows)]
+            x[rows[0]:rows[-1] + 1, cols[0]:cols[-1] + 1] = \
+                qt[:, cols[0] * g.pc + myc - lo::g.pc][:, :len(cols)]
+    return lam
 
 
 def _shift_left(v, fill):
@@ -102,10 +130,13 @@ def _segmented_sum(vals, starts):
 
 
 def _params_kernel(x, lam_prev, beta, *, g: _spmd.Geometry, S: int, B: int, n_pad: int,
-                   iters: int):
-    """Merge parameters of one level (``tridiag_dc_dist.py:160``).  Returns
-    the 16 arrays the JAX kernel returns, in its order."""
+                   RPD: int, iters: int):
+    """Merge parameters of one level on this rank's tile stack ``x``
+    (``tridiag_dc_dist.py:160``): this rank solves the secular equations
+    of roots ``f * RPD .. f * RPD + RPD - 1``.  Returns the 16 arrays the
+    JAX kernel returns, in its order, the same on every rank."""
     dev, dt = x.device, x.dtype
+    myr, myc = coll.my_rank()
     i64 = torch.int64
     s_half = S // 2
     tiny = torch.finfo(dt).tiny
@@ -114,14 +145,26 @@ def _params_kernel(x, lam_prev, beta, *, g: _spmd.Geometry, S: int, B: int, n_pa
     zero = torch.zeros((), dtype=dt, device=dev)
     one = torch.ones((), dtype=dt, device=dev)
 
-    # --- z extraction: z[j] = Q[r1(blk), j] + sgn * Q[r1(blk) + 1, j]
-    j = torch.arange(n_pad, device=dev)
-    blk = j // S
-    r1 = blk * S + (s_half - 1)
+    # --- z extraction: z[j] = Q[r1(blk), j] + sgn * Q[r1(blk) + 1, j], each
+    # rank's columns from the boundary rows it holds, summed over the grid
+    ge_col = (torch.arange(g.ltc, device=dev)[:, None] * g.pc + myc) * g.nb \
+        + torch.arange(g.nb, device=dev)[None, :]  # [ltc, nb] global columns
+    blk_col = torch.clamp(ge_col // S, max=B - 1)
+    r1 = blk_col * S + (s_half - 1)
     sgn = torch.sign(torch.where(beta == 0, torch.ones_like(beta), beta))
-    q1 = x[r1 // g.nb, j // g.nb, r1 % g.nb, j % g.nb]
-    q2 = x[(r1 + 1) // g.nb, j // g.nb, (r1 + 1) % g.nb, j % g.nb]
-    z = q1 + sgn[blk] * q2
+    lj = torch.arange(g.ltc, device=dev)[:, None]
+    cj = torch.arange(g.nb, device=dev)[None, :]
+
+    def boundary_row(r):
+        ti = r // g.nb
+        mine = (ti % g.pr == myr) & (ti // g.pr < g.ltr)
+        v = x[torch.clamp(ti // g.pr, max=g.ltr - 1), lj, r % g.nb, cj]
+        return torch.where(mine, v, zero)
+
+    zpart = boundary_row(r1) + sgn[blk_col] * boundary_row(r1 + 1)
+    live = ge_col < n_pad
+    z = torch.zeros(n_pad, dtype=dt, device=dev).index_add_(0, ge_col[live], zpart[live])
+    z = coll.psum_axis(z, coll.BOTH)
 
     # --- per-block sort + deflation (closed form, [B, S])
     d_blk = lam_prev.reshape(B, S)
@@ -160,11 +203,12 @@ def _params_kernel(x, lam_prev, beta, *, g: _spmd.Geometry, S: int, B: int, n_pa
     NCx = _shift_right(torch.cumsum((close & (sarr < 0)).to(i64), 1), 0)
     has_rot = torch.any(close)
 
-    # --- secular solve, every root on this rank (RPD = n_pad on 1x1)
+    # --- secular solve of this rank's RPD roots
     ds_flat = ds.reshape(-1)
     keep_flat = keep.reshape(-1)
     z2_flat = torch.where(keep, zpost * zpost, zero).reshape(-1)
-    pos = torch.arange(n_pad, device=dev)
+    flat = myr * g.pc + myc
+    pos = torch.clamp(flat * RPD + torch.arange(RPD, device=dev), max=n_pad - 1)
     bq = pos // S
     win = bq[:, None] * S + torch.arange(S, device=dev)[None, :]  # [RPD, S]
     dw = ds_flat[win]
@@ -236,8 +280,11 @@ def _params_kernel(x, lam_prev, beta, *, g: _spmd.Geometry, S: int, B: int, n_pa
     off_q = torch.where(kq, off_q, zero)
     lam_q = torch.where(kq, anchor_q + off_q, d_q)
 
-    # one rank holds every root: the JAX package's all_gather is the identity
-    anchor, off, lam = anchor_q, off_q, lam_q
+    def gather_flat(v):
+        """Every rank's share, in flat rank order: the whole vector."""
+        return coll.all_gather_axis(v, coll.BOTH).reshape(-1)[:n_pad]
+
+    anchor, off, lam = gather_flat(anchor_q), gather_flat(off_q), gather_flat(lam_q)
 
     # --- zhat via the Loewner formula in log space
     aw = anchor[win]
@@ -256,14 +303,14 @@ def _params_kernel(x, lam_prev, beta, *, g: _spmd.Geometry, S: int, B: int, n_pa
             + torch.sum(logratio, dim=1))
     zpost_flat = zpost.reshape(-1)
     sgn_z = torch.where(zpost_flat[pos] < 0, -one, one)
-    zhat = torch.where(kq, sgn_z * torch.exp(0.5 * lzh2), zero)
+    zhat = gather_flat(torch.where(kq, sgn_z * torch.exp(0.5 * lzh2), zero))
 
     # --- column norms of U
     zh2w = (zhat * zhat)[win]
     numw2 = (anchor[pos][:, None] - dw) + off[pos][:, None]
     safe2 = torch.where(numw2 == 0, tiny, numw2)
     nsum = torch.sum(torch.where(kw, zh2w / (safe2 * safe2), zero), dim=1)
-    norms = torch.where(kq & (nsum > 0), torch.sqrt(nsum), one)
+    norms = gather_flat(torch.where(kq & (nsum > 0), torch.sqrt(nsum), one))
 
     # --- final per-block ordering
     lam_blk = lam.reshape(B, S)
@@ -347,12 +394,15 @@ def _pg_tile(k: int, b: int, gj_w, cmask, prm, *, g: _spmd.Geometry, S: int, n_p
 
 def _gemm_pass(x, wbuilder, *, g: _spmd.Geometry, B: int, t2: int, half_restrict: bool,
                Lr: int, Lw: int, myr: int, myc: int):
-    """One block-diagonal-restricted pass with generated right operands:
-    ``acc[rows of block b, cols of block b] += x[.., k] W_k`` over the
-    contraction tiles k of each block.  Rows and columns outside the masks
-    of the JAX kernel are skipped rather than multiplied by zero."""
+    """One block-diagonal-restricted SUMMA pass with generated right
+    operands: ``acc[rows of block b, cols of block b] += Q[.., k] W_k`` over
+    the contraction tiles k of each block.  Tile column k's panel (the rows
+    of this rank's window) is summed over 'c' from its one owner on every
+    rank, for every k, as the JAX kernel's ``psum``: the ranks of a row
+    enter the same collectives.  Rows and columns outside the JAX kernel's
+    masks are then skipped rather than multiplied by zero."""
     th = t2 // 2
-    mt, nb = g.mt, g.nb
+    mt = g.mt
     dev = x.device
     acc = torch.zeros_like(x)
     for idx in range(B * t2):
@@ -363,11 +413,13 @@ def _gemm_pass(x, wbuilder, *, g: _spmd.Geometry, B: int, t2: int, half_restrict
         else:
             row_start, span = b * t2, t2
         rs = min(max((row_start + g.pr - 1 - myr) // g.pr, 0), max(g.ltr - Lr, 0))
-        if k % g.pc != myc:
-            continue
-        lkc = min(max(k // g.pc, 0), max(g.ltc - 1, 0))
         rows = [li for li in range(rs, rs + Lr)
                 if row_start <= li * g.pr + myr < min(row_start + span, mt)]
+        # the same rows on every rank of this rank's row (they depend on myr)
+        r0, r1 = (rows[0], rows[-1] + 1) if rows else (rs, rs)
+        lkc = min(max(k // g.pc, 0), max(g.ltc - 1, 0))
+        aw = x[r0:r1, lkc]
+        panel = coll.psum_axis(aw if myc == k % g.pc else torch.zeros_like(aw), COL_AXIS)
         cs = min(max((b * t2 + g.pc - 1 - myc) // g.pc, 0), max(g.ltc - Lw, 0))
         gj_w = (cs + torch.arange(Lw, device=dev)) * g.pc + myc
         cmask = (gj_w >= b * t2) & (gj_w < (b + 1) * t2) & (gj_w < mt)
@@ -375,10 +427,9 @@ def _gemm_pass(x, wbuilder, *, g: _spmd.Geometry, B: int, t2: int, half_restrict
                 if b * t2 <= cj * g.pc + myc < min((b + 1) * t2, mt)]
         if not rows or not cols:
             continue
-        r0, r1 = rows[0], rows[-1] + 1
         c0, c1 = cols[0], cols[-1] + 1
         w = wbuilder(k, b, gj_w[c0 - cs:c1 - cs], cmask[c0 - cs:c1 - cs])
-        acc[r0:r1, c0:c1] += torch.einsum("iab,jbc->ijac", x[r0:r1, lkc], w)
+        acc[r0:r1, c0:c1] += torch.einsum("iab,jbc->ijac", panel, w)
     return acc
 
 
@@ -429,10 +480,6 @@ def tridiag_dc_distributed(
         raise NotImplementedError(
             "tridiag_dc_distributed: partial spectra are not ported yet "
             "(ROADMAP.md §A, item 5: the rest of the eigensolver)")
-    if grid.size != 1:
-        raise NotImplementedError(
-            "tridiag_dc_distributed on a multi-rank grid is not ported yet "
-            "(ROADMAP.md §A, item 3: the HEEV stages on Pr×Pc)")
     dtype = np.dtype(dtype)
     if dtype.kind == "c":
         raise NotImplementedError("tridiag_dc_distributed: complex dtypes are not ported")
@@ -465,17 +512,34 @@ def tridiag_dc_distributed(
     dist = Distribution((n_pad, n_pad), (nb, nb), grid.grid_size, (0, 0))
     g = _spmd.Geometry.of(dist)
     dev = grid.device
-    x, lam = _leaves(torch.from_numpy(d_mod).to(dev), torch.from_numpy(e_pad).to(dev), g, s0)
+    nranks = grid.size
+    nloc = -(-(n_pad // s0) // nranks)
+    RPD = -(-n_pad // nranks)
+    d_dev = torch.from_numpy(d_mod).to(dev)
+    e_dev = torch.from_numpy(e_pad).to(dev)
+    betas = []
     for lvl in range(L):
         S = (s0 << lvl) * 2
-        B = n_pad // S
-        mids = np.arange(B) * S + S // 2
-        beta_l = torch.from_numpy(e_pad[mids - 1]).to(dev)
-        prm = _params_kernel(x, lam, beta_l, g=g, S=S, B=B, n_pad=n_pad, iters=iters)
-        lam = prm[0]
-        x = _level_kernel(x, prm[1:15], g=g, S=S, B=B, n_pad=n_pad, rot=bool(prm[15]))
+        mids = np.arange(n_pad // S) * S + S // 2
+        betas.append(torch.from_numpy(e_pad[mids - 1]).to(dev))
 
+    def body(out):
+        """The whole solve on this rank's tile stack ``out`` (zeros in,
+        eigenvectors out); returns the eigenvalues, the same on every rank."""
+        x = torch.zeros_like(out)
+        lam = _leaves(d_dev, e_dev, x, g, s0, nloc)
+        for lvl in range(L):
+            S = (s0 << lvl) * 2
+            B = n_pad // S
+            prm = _params_kernel(x, lam, betas[lvl], g=g, S=S, B=B, n_pad=n_pad, RPD=RPD,
+                                 iters=iters)
+            lam = prm[0]
+            x = _level_kernel(x, prm[1:15], g=g, S=S, B=B, n_pad=n_pad, rot=bool(prm[15]))
+        out.copy_(x)
+        return lam
+
+    mat = DistributedMatrix.zeros(grid, (n_pad, n_pad), (nb, nb), rdt)
+    lam = coll.spmd(grid, body, mat.data)
     w = lam.cpu().numpy()[:n]
-    mat = DistributedMatrix(dist, grid, coll.relocal(x))
     out = mutil.sub_matrix(mat, (0, 0), (n, n)) if n_pad != n else mat
     return w, out

@@ -125,13 +125,17 @@ class RankContext:
     #: call the exchanges in the same SPMD order, so their numbers agree)
     seq: dict = field(default_factory=dict)
 
-    def axis(self, axis: str):
+    def axis(self, axis):
         """(position on ``axis``, its size, ring index): the ranks of one
-        ring along 'c' share their row, along 'r' their column."""
+        ring along 'c' share their row, along 'r' their column; the axis
+        pair ``('r', 'c')`` is the whole grid, one ring in flat rank order
+        ``r * Pc + c`` (the JAX package's order of a tuple of mesh axes)."""
         if axis == "c":
             return self.myc, self.pc, self.myr
         if axis == "r":
             return self.myr, self.pr, self.myc
+        if axis == ("r", "c"):
+            return self.myr * self.pc + self.myc, self.pr * self.pc, 0
         raise ValueError(f"unknown grid axis {axis!r}")
 
 

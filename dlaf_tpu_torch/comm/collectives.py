@@ -3,8 +3,8 @@
 Every function runs inside a rank of :func:`spmd` (``comm/_ranks.py``):
 ``my_rank``/``axis_size`` read the calling rank thread's context, and a
 collective over an axis of size > 1 meets the other ranks of this rank's
-ring on that axis (the ranks of its row for 'c', of its column for 'r').
-Outside ``spmd`` a caller is the one rank of a 1x1 grid.  A size-1 axis
+ring on that axis (the ranks of its row for 'c', of its column for 'r',
+every rank of the grid for :data:`BOTH`).  Outside ``spmd`` a caller is the one rank of a 1x1 grid.  A size-1 axis
 is the identity everywhere, as in the JAX package.
 
 Every redistribution here has one contributor per output slot, so three
@@ -43,13 +43,14 @@ def my_rank():
     return ctx.myr, ctx.myc
 
 
-def axis_size(axis: str) -> int:
-    ctx = _ranks.current()
-    if axis == ROW_AXIS:
-        return ctx.pr
-    if axis == COL_AXIS:
-        return ctx.pc
-    raise ValueError(f"unknown grid axis {axis!r}")
+#: both grid axes, for the collectives over the whole grid (the JAX D&C's
+#: ``_BOTH``): one ring of every rank, in flat order ``r * Pc + c``
+BOTH = (ROW_AXIS, COL_AXIS)
+
+
+def axis_size(axis) -> int:
+    """Ranks along ``axis`` ('r', 'c' or :data:`BOTH`)."""
+    return _ranks.current().axis(axis)[1]
 
 
 def grid_shape():
@@ -132,9 +133,10 @@ def bcast2d(x, root_r, root_c):
     return bcast(bcast(x, root_c, COL_AXIS), root_r, ROW_AXIS)
 
 
-def psum_axis(x, axis: str):
-    """All-reduce along ``axis`` (a multi-contributor sum: psum in every
-    tier); the identity on a size-1 axis."""
+def psum_axis(x, axis):
+    """All-reduce along ``axis`` ('r', 'c' or :data:`BOTH`; a
+    multi-contributor sum: psum in every tier); the identity on a size-1
+    axis."""
     if axis_size(axis) == 1:
         return x
     return _psum(x, axis)
@@ -151,10 +153,10 @@ def shift(x, axis: str, offset: int = 1):
     return _ranks.exchange(axis, x, [src])[src]
 
 
-def all_gather_axis(x, axis: str):
-    """Gather the local blocks along ``axis`` into a new leading axis of
-    size P, ordered by position; on a size-1 axis that axis is just
-    added."""
+def all_gather_axis(x, axis):
+    """Gather the local blocks along ``axis`` ('r', 'c' or :data:`BOTH`)
+    into a new leading axis of size P, ordered by position (flat rank
+    order over :data:`BOTH`); on a size-1 axis that axis is just added."""
     if axis_size(axis) == 1:
         return x[None]
     _, n, _ = _ranks.current().axis(axis)
@@ -251,21 +253,3 @@ def transpose_panel_rows(rp, nr_col_tiles, ltr: int):
     src_slot = torch.clamp(iv // pc, 0, ltc - 1)
     have = (iv % pc == myc) & (iv < nr_col_tiles)
     return _panel_exchange(_take(rp, src_slot), have, COL_AXIS)
-
-
-def local(x):
-    """Strip the two size-1 leading grid axes of a stacked tensor (the
-    algorithms that run only on 1x1 grids; the multi-rank kernels get their
-    views ``x[r, c]`` from :func:`spmd`)."""
-    if x.shape[0] * x.shape[1] != 1:
-        raise NotImplementedError(
-            f"this algorithm runs on 1x1 grids only in the port (got a "
-            f"{x.shape[0]}x{x.shape[1]} stack); its multi-rank kernels are not ported "
-            "yet (ROADMAP.md §A, item 3: the HEEV stages on Pr×Pc)"
-        )
-    return x.reshape(x.shape[2:])
-
-
-def relocal(x):
-    """Restore the two size-1 leading grid axes (inverse of :func:`local`)."""
-    return x.reshape((1, 1) + tuple(x.shape))

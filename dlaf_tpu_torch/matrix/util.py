@@ -1,7 +1,8 @@
 """Matrix-level utilities on stacked block-cyclic storage (counterpart of
 ``dlaf_tpu/matrix/util.py``): triangle extraction, hermitization and
 sub-matrix copies, as elementwise masks on the stacked
-``[Pr, Pc, ltr, ltc, mb, nb]`` tensor or through the global form.
+``[Pr, Pc, ltr, ltc, mb, nb]`` tensor or through the global form (every
+rank's tiles lie on the grid's one device).
 """
 from __future__ import annotations
 
@@ -56,18 +57,16 @@ def hermitize(mat: DistributedMatrix, uplo: str) -> DistributedMatrix:
 
 
 def sub_matrix(mat: DistributedMatrix, origin, size) -> DistributedMatrix:
-    """Sub-matrix copy at any element origin (1x1 grids: a slice of the
-    global form, as the JAX package's 1x1 branch)."""
+    """Sub-matrix copy at any element origin, on any grid: a slice of the
+    global form, an index copy on the grid's one device (the JAX package
+    slices the global form on 1x1 grids and realigns the window by
+    ``ppermute`` on the others, ``matrix/window.py``); the result has source
+    rank (0, 0), as there."""
     origin = tuple(int(v) for v in origin)
     size = tuple(int(v) for v in size)
     if (origin[0] < 0 or origin[1] < 0 or origin[0] + size[0] > mat.size.rows
             or origin[1] + size[1] > mat.size.cols):
         raise ValueError(f"sub-matrix {origin}+{size} out of bounds {tuple(mat.size)}")
-    if mat.grid.size != 1:
-        raise NotImplementedError(
-            "sub_matrix on a multi-rank grid is not ported yet "
-            "(ROADMAP.md §A, item 3: the HEEV stages on Pr×Pc)"
-        )
     out_dist = Distribution(size, mat.dist.block_size, mat.dist.grid_size)
     if not all(DistributedMatrix.stacked_shape(out_dist)):
         return DistributedMatrix.zeros(mat.grid, out_dist.size, out_dist.block_size, mat.dtype)

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch/CUDA port's main path goes, on one GPU.
 
-    python3 scripts/port_profile.py [PATH ...]   # A B M1 M4 M5; all by default
+    python3 scripts/port_profile.py [PATH ...]   # A B M1 M4 M5 H; all by default
 
 Runs the factorization paths of chip_smoke.py (A: bucketed, panel-TRSM
 kernel on; B: lookahead, fused trailing-update tier; M1: A's knobs on a
 2x4 grid of rank threads under collectives_impl=pallas; M4 and M5: the
 lookahead kernel under the fused tier on that grid, at nb=512 and 192),
 on its inputs and its knobs (chip_smoke.N, NB, NB_M5, make_inputs,
-PATH_A, PATH_B, GRID_M, PATH_M1, PATH_M4), once as warm-up and once
-under torch.profiler, then prints one
+PATH_A, PATH_B, GRID_M, PATH_M1, PATH_M4), and its HEEV path H (the
+pipeline on 1x1; NH, NBH, SEED_H, PATH_H; the card's activity only), once
+as warm-up and once under torch.profiler, then prints one
 JSON line per path: wall time, device time summed over kernels, the
 union of the kernels' intervals on the card's timeline (on M1 the ranks'
 streams overlap, and a ring kernel that spins on a late neighbour counts
@@ -40,6 +41,7 @@ GROUPS = (
     ("panel_trsm", "panel_trsm_rows_kernel"),
     ("trailing_update", "trailing_update_kernel"),
     ("trailing_update", "trailing_update_fma_kernel"),
+    ("secular_bisect", "secular_bisect_kernel"),
     ("library_gemm", "gemm"),
 )
 
@@ -79,34 +81,51 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("port_profile: no CUDA device", flush=True)
         return 2
+    import numpy as np
+
     import chip_smoke
     from dlaf_tpu_torch import tune
+    from dlaf_tpu_torch.testing import random_hermitian_pd
 
     card = chip_smoke.card_line()
     n, nb = chip_smoke.N, chip_smoke.NB
+    nh, nbh = chip_smoke.NH, chip_smoke.NBH
     a, _ = chip_smoke.make_inputs(torch.device("cuda"))
 
     paths = (("A", chip_smoke.PATH_A, (1, 1), nb), ("B", chip_smoke.PATH_B, (1, 1), nb),
              ("M1", chip_smoke.PATH_M1, chip_smoke.GRID_M, nb),
              ("M4", chip_smoke.PATH_M4, chip_smoke.GRID_M, nb),
-             ("M5", chip_smoke.PATH_M4, chip_smoke.GRID_M, chip_smoke.NB_M5))
+             ("M5", chip_smoke.PATH_M4, chip_smoke.GRID_M, chip_smoke.NB_M5),
+             ("H", chip_smoke.PATH_H, (1, 1), nbh))
     wanted = set(sys.argv[1:]) or {p[0] for p in paths}
+    a_h = None
     for name, knobs, shape, nb in paths:
         if name not in wanted:
             continue
         tune.initialize(**knobs)
         grid = dtt.Grid.create(shape)
+        heev = name == "H"
+        if heev and a_h is None:
+            a_h = torch.from_numpy(np.tril(random_hermitian_pd(nh, np.float32, seed=chip_smoke.SEED_H)))
+            a_h = a_h.cuda()
 
         def run():
-            mat = dtt.DistributedMatrix.from_global(grid, a, (nb, nb))
+            mat = dtt.DistributedMatrix.from_global(grid, a_h if heev else a, (nb, nb))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            dtt.cholesky_factorization("L", mat, backend="distributed")
+            if heev:
+                dtt.hermitian_eigensolver("L", mat, backend="pipeline")
+            else:
+                dtt.cholesky_factorization("L", mat, backend="distributed")
             torch.cuda.synchronize()
             return time.perf_counter() - t0
 
         run()  # warm-up
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the HEEV path's host makes hundreds of thousands of eager calls:
+        # their CPU events would slow the run and the trace's processing,
+        # so only the card's are recorded
+        acts = [ProfilerActivity.CUDA] if heev else [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
             wall = run()
         by_name = {}
         for evt in prof.key_averages():
@@ -120,7 +139,8 @@ def main() -> int:
         union_ms = busy_ms(prof)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         print(json.dumps({
-            "path": name, "config": knobs, "grid": list(shape), "n": n, "nb": nb, "card": card,
+            "path": name, "config": knobs, "grid": list(shape), "n": nh if heev else n, "nb": nb,
+            "card": card,
             "wall_ms_profiled": wall * 1e3, "device_ms": device_ms, "busy_union_ms": union_ms,
             "idle_share": (1 - union_ms / (wall * 1e3)) if union_ms else None,
             "groups_ms": groups,

@@ -216,3 +216,39 @@ def test_tier_knob_resolution():
 def test_overlap_window_is_a_no_op_scope():
     with tcoll.overlap_window():
         assert tcoll.my_rank() == (0, 0)
+
+
+@pytest.mark.parametrize("shape", GRID_SHAPES)
+def test_both_axes_psum_and_gather_match_jax(shape):
+    """The collectives over both grid axes that the D&C uses
+    (``tridiag_dc_dist._BOTH``): ``psum_axis(x, BOTH)`` against
+    ``lax.psum`` within ``tol_for(f64, P)``, ``all_gather_axis(x, BOTH)``
+    against ``lax.all_gather`` bit for bit; both stack in the JAX package's
+    order of its axis tuple, flat rank ``r * Pc + c``."""
+    from jax import lax
+
+    from dlaf_tpu.algorithms.tridiag_dc_dist import _BOTH
+
+    pr, pc = shape
+    x = np.random.default_rng(pr * 10 + pc).standard_normal((pr, pc, 3, 4))
+    jgrid = next(g for g in _jax_grids() if tuple(g.grid_size) == shape)
+    f = jcoll.spmd(jgrid, lambda v: tuple(jcoll.relocal(o) for o in (
+        lax.psum(jcoll.local(v), _BOTH), lax.all_gather(jcoll.local(v), _BOTH))))
+    want = [np.asarray(o) for o in f(jax.device_put(x, jgrid.stacked_sharding()))]
+    got = {}
+
+    def body(v):
+        got[tcoll.my_rank()] = [tcoll.psum_axis(v, tcoll.BOTH).clone(),
+                                tcoll.all_gather_axis(v, tcoll.BOTH).clone()]
+
+    tcoll.spmd(grid_like(shape), body, torch.from_numpy(x))
+    assert tcoll.BOTH == tuple(_BOTH)
+    for i in range(2):
+        g = np.stack([np.stack([got[(r, c)][i].numpy() for c in range(pc)]) for r in range(pr)])
+        assert g.shape == want[i].shape
+        if i == 0:
+            assert np.max(np.abs(g - want[i])) <= tol_for(np.float64, pr * pc) * np.abs(x).sum()
+        else:
+            np.testing.assert_array_equal(g, want[i])
+            for f_ in range(pr * pc):
+                np.testing.assert_array_equal(g[0, 0, f_], x[f_ // pc, f_ % pc])

@@ -1,7 +1,7 @@
 """The port stands alone: no module of dlaf_tpu_torch, and not
 chip_smoke.py, imports JAX or the JAX package; importing the port leaves
-JAX unloaded; the card is the default device; what multi-rank grids do
-not run yet raises; and the tune knobs keep the JAX package's names,
+JAX unloaded; the card is the default device; multi-rank grids run the
+factorizations, POTRI and sub-matrix copies; and the tune knobs keep the JAX package's names,
 environment and domains."""
 import ast
 import os
@@ -67,9 +67,10 @@ def test_grid_defaults_to_the_card(monkeypatch):
 def test_multi_rank_grids_wait_for_the_next_slice(shape):
     """Multi-rank grids are rank threads, and the lookahead kernel's fused
     trailing-update tier runs on them (the 'xla' tier's bits on the CPU),
-    as does POTRI (``inverse_from_cholesky_factor``); what waits for a
-    later slice there is the HEEV stages' multi-rank code (ROADMAP §A,
-    item 3), of which ``sub_matrix`` raises naming ROADMAP."""
+    as do POTRI (``inverse_from_cholesky_factor``) and ``sub_matrix`` at an
+    origin off the tile grid, a copy of the window in the layout of its own
+    distribution (the HEEV stages' multi-rank code, which cuts the D&C's
+    padded eigenvectors to size with it)."""
     from dlaf_tpu_torch.algorithms.inverse import inverse_from_cholesky_factor
     from dlaf_tpu_torch.matrix.util import sub_matrix
 
@@ -90,8 +91,10 @@ def test_multi_rank_grids_wait_for_the_next_slice(shape):
     ell = np.tril(a)
     inv = inverse_from_cholesky_factor("L", dtt.DistributedMatrix.from_global(grid, ell, (4, 4)))
     np.testing.assert_allclose(inv.to_global() @ (ell @ ell.T), np.eye(16), atol=1e-10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sub_matrix(dtt.DistributedMatrix.from_global(grid, a, (4, 4)), (0, 0), (4, 4))
+    sub = sub_matrix(dtt.DistributedMatrix.from_global(grid, a, (4, 4)), (3, 5), (9, 10))
+    np.testing.assert_array_equal(sub.to_global(), a[3:12, 5:15])
+    np.testing.assert_array_equal(
+        sub.to_stacked(), dtt.DistributedMatrix.from_global(grid, a[3:12, 5:15], (4, 4)).to_stacked())
 
 
 def test_tune_env_names_precedence_and_domains(monkeypatch):

@@ -130,8 +130,18 @@ def test_reduction_to_band_on_grids_matches_jax(comm_grids, case):
 
 
 def test_eigensolver_names_the_stages_left_on_grids():
-    """reduction_to_band runs on a multi-rank grid; the eigensolver, whose
-    later stages do not yet, refuses the grid before its first stage."""
-    mat = dtt.DistributedMatrix.from_global(grid_like((2, 2)), np.eye(16), (4, 4))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        dtt.hermitian_eigensolver("L", mat, backend="pipeline")
+    """reduction_to_band runs on a multi-rank grid, and so does every later
+    stage of the eigensolver: on 2x2 the pipeline's eigenvalues are
+    LAPACK's, with residual and orthogonality, at tol_for(f64, 16) (the
+    stages are held to the JAX package in
+    ``tests/test_torch_eigensolver_grid.py``)."""
+    a = random_hermitian_pd(16, np.float64, seed=16)
+    mat = dtt.DistributedMatrix.from_global(grid_like((2, 2)), np.tril(a), (4, 4))
+    with knobs([tune.get_tune_parameters()], eigensolver_min_band=2, dc_leaf_size=4,
+               band_chase_backend="native"):
+        res = dtt.hermitian_eigensolver("L", mat, backend="pipeline")
+    tol = tol_for(np.float64, 16)
+    w, v = res.eigenvalues, res.eigenvectors.to_global()
+    assert np.max(np.abs(w - np.linalg.eigvalsh(a))) <= tol * np.max(np.abs(a))
+    assert np.max(np.abs(a @ v - v * w)) <= tol * np.max(np.abs(a))
+    assert np.max(np.abs(v.T @ v - np.eye(16))) <= tol
