@@ -8,8 +8,10 @@ Cholesky configuration of bench.py (N=16384, nb=512, f32, 1x1 grid,
 distributed kernel forced), on a random SPD matrix made from seed 0, the
 same inputs on a 2x4 grid of rank threads (path M), and
 bench.py's HEEV configuration (N=8192, nb=512, f32, 1x1 grid, the full
-pipeline) on random_hermitian_pd(8192, f32, seed=2), and the same on the
-2x4 grid (path H2).  Phases, each fatal
+pipeline) on random_hermitian_pd(8192, f32, seed=2), the same on the
+2x4 grid (path H2), and the JAX miniapp's generalized eigenproblem
+(N=8192, nb=512, f32, A and B random_hermitian_pd of seeds 1 and 2) on
+the 2x4 grid (path G2).  Phases, each fatal
 on failure:
 
 0. header: the card's name and power limit (nvidia-smi), stamped on every
@@ -104,7 +106,12 @@ on failure:
    Cholesky, M2 lookahead Cholesky (trailing_update_impl=xla), M3
    positive_definite_solver(..., return_info=True); residuals as in A, B
    and POSV, wall time, GFlop/s, launch counts (B7 once per rank and
-   panel on M2);
+   panel on M2); then path MU: M3's call from A's upper triangle (the U
+   mirror of the factorization, then the Left/Upper solves), held as M3
+   is, and shift recovery at N=4096 of random_hermitian_pd(4096, f32,
+   seed=0) moved to a smallest eigenvalue of -1e-4: info 0 after at least
+   one shift, the health events, the factor's residual against A +
+   shift I, first shown to reject the next shift;
 5d. the fused trailing-update tier on the same grid: M4, lookahead
    Cholesky with trailing_update_impl=fused (B8 once per step and rank, B7
    for panel 0), its factor held to M2's and, at N=4096, its info on a
@@ -153,6 +160,19 @@ on failure:
    rank); the same runs, the launches of each stage, path H's checks and
    H2's eigenvalues against path H's, each within tol_for(f32, N) and
    first shown to reject a wrong answer;
+6c. path G2: hermitian_generalized_eigensolver("L", A, B) on the 2x4 grid
+   under path H2's knobs, panel_trsm_pallas=1 and gen_to_std_backend=fused
+   (B1, B2, B5 in the Cholesky of B; B2, B5 and two B6 rings a step and
+   rank in the fused hegst; H2's kernels in the pipeline): a warm-up at
+   N=2048, one run at N=8192 with the stage clock on (wall, GFlop/s at
+   31/6 N^3, stage seconds, launches by stage); in float64 on the card,
+   the eigenvalues against eigvalsh(L^-1 A L^-T), the residual
+   max|A V - B V diag(w)| / (max|A| + max|B| max|w|), the B-orthogonality,
+   the composed hegst (the Right TRSM: B2) against the fused one on the
+   run's factor, and the U form (Cholesky of B's upper triangle, whether
+   its factor is bit for bit the transposed L factor, and the composed U
+   transform) against the L form, each within tol_for(f32, N) and first
+   shown to reject a wrong answer;
 7. one {"kernels": [...]} JSON line, the card line again, and as the last
    line {"ok": true, "device": {...}}.
 
@@ -244,6 +264,16 @@ B10_STREAM = (2048, 12288)
 # path H2's per-rank share of the top level's roots: RPD = NH / 8 rows of
 # S = NH poles, every rank at once on its own stream (its mu table only)
 B10_H2 = (-(-NH // (GRID_M[0] * GRID_M[1])), max(S_B10))
+# path G2: the generalized eigensolver (HEGV) of the JAX miniapp's pair
+# (A = random_hermitian_pd(NH, seed 1), B = seed 2) on the 2x4 grid at NH,
+# NBH under path R's knobs, B2 on and the fused hegst (two B6 rings a step
+# and rank); a warm-up at NG_WARM first
+PATH_G = {**PATH_R, "panel_trsm_pallas": True, "gen_to_std_backend": "fused"}
+SEED_GA, SEED_GB, NG_WARM = 1, 2, 2048
+# path MU: M3's call from A's upper triangle; then shift recovery at
+# N_TIERS of random_hermitian_pd(N_TIERS, seed 0) moved so that its
+# smallest eigenvalue is -MU_GAP
+MU_GAP = 1e-4
 
 
 def make_inputs(dev):
@@ -550,6 +580,306 @@ def path_h2(stamp: dict, kept: dict) -> dict:
         fail(f"path H2 did not launch B10 twice per merge level ({levels} levels) and rank "
              f"({ranks}), and B3, B5 and B6: {counts}")
     return counts
+
+
+def path_mu(stamp: dict, a_glob, rhs, solve_err, res_tol) -> dict:
+    """Phase 5c-MU: path M3's call from the upper triangle,
+    positive_definite_solver("U", A, B, return_info=True) at N, NB on the
+    GRID_M grid under PATH_M1 (the U mirror: A's upper triangle transposed
+    into lower storage, M1's bucketed factor, the factor transposed back,
+    then the Left/Upper/C and Left/Upper/N solves), held as M3 is (the
+    factor residual ||A - U^T U||_F / ||A||_F and the forward error against
+    the float64 solve).  Then shift recovery at N_TIERS on the same grid:
+    cholesky_factorization("L", ..., shift_recovery=True, return_info=True)
+    of random_hermitian_pd(N_TIERS, f32, seed 0) - (lambda_min + MU_GAP) I
+    (lambda_min in float64 on the card): info 0 after at least one shift,
+    the health events' shifts, and the factor's residual against A + shift
+    I within tol_for(f32, N_TIERS), the check first shown to reject the
+    residual against A + 100 shift I (the next shift).  Returns each run's
+    launch counts."""
+    import numpy as np
+    import torch
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import health, ops, tune
+    from dlaf_tpu_torch.matrix import layout
+    from dlaf_tpu_torch.testing import random_hermitian_pd, tol_for
+
+    n, nb = N, NB
+    dev = torch.device("cuda")
+    grid = dtt.Grid.create(GRID_M)
+    ranks = grid.size
+    counts_by = {}
+    tune.initialize(**PATH_M1)
+    mat_a = dtt.DistributedMatrix.from_global(grid, a_glob, (nb, nb))
+    mat_b = dtt.DistributedMatrix.from_global(grid, rhs.clone(), (nb, nb))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    x, info = dtt.positive_definite_solver("U", mat_a, mat_b, return_info=True)
+    info = int(info)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counts_by["MU"] = launch_counts()
+    serr = solve_err(layout.unpack(x.data, x.dist)[:n, :nb])
+    del mat_b, x
+    up = torch.triu(layout.unpack(mat_a.data, mat_a.dist)[:n, :n]).double()
+    del mat_a
+    a64 = a_glob.double()
+    fres = (torch.linalg.matrix_norm(a64 - up.T @ up) / torch.linalg.matrix_norm(a64)).item()
+    del up, a64
+    torch.cuda.empty_cache()
+    emit({"phase": "path_MU", "config": "positive_definite_solver(U, return_info=True), "
+          "collectives_impl=pallas, panel_trsm_pallas=1", "grid": list(GRID_M), "n": n,
+          "nrhs": nb, "wall_s": wall, "info": info, "factor_residual": fres,
+          "solve_forward_err": serr, "tol": res_tol, "launches": counts,
+          "launches_per_rank": {k: v / ranks for k, v in counts.items()}, **stamp})
+    if info != 0 or not (serr <= res_tol and fres <= res_tol):
+        fail(f"path MU info {info}, factor residual {fres:.3e}, solve error {serr:.3e}")
+    if min(counts[k] for k in ("potrf", "panel_trsm", "ring_exchange")) <= 0 \
+            or counts["potrf_cluster"] != counts["potrf"]:
+        fail(f"path MU did not launch B1 (on the cluster), B2 and B5: {counts}")
+
+    # shift recovery of a matrix whose smallest eigenvalue is -MU_GAP
+    ns = N_TIERS
+    a64 = torch.from_numpy(random_hermitian_pd(ns, np.float32, seed=0)).to(dev).double()
+    eye = torch.eye(ns, dtype=torch.float64, device=dev)
+    lam = torch.linalg.eigvalsh(a64)[0].item()
+    near = (a64 - (lam + MU_GAP) * eye).float()
+    lam_near = torch.linalg.eigvalsh(near.double())[0].item()
+    del a64
+    mat = dtt.DistributedMatrix.from_global(grid, near, (nb, nb))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with health.capture_events() as events:
+        fac, info = dtt.cholesky_factorization("L", mat, shift_recovery=True, return_info=True)
+    info = int(info)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counts_by["MU_shift"] = launch_counts()
+    shift = events[-1]["shift"] if events else 0.0
+    ell = torch.tril(layout.unpack(fac.data, fac.dist)[:ns, :ns]).double()
+    del fac, mat
+    target = near.double() + shift * eye
+    llt = ell @ ell.T
+    norm_t = torch.linalg.matrix_norm(target)
+    res = (torch.linalg.matrix_norm(target - llt) / norm_t).item()
+    wrong = (torch.linalg.matrix_norm(target + 99.0 * shift * eye - llt) / norm_t).item()
+    del ell, target, llt, eye, near
+    torch.cuda.empty_cache()
+    tol = tol_for("float32", ns)
+    retries = [e for e in events if e["event"] == "cholesky_shift_retry"]
+    emit({"phase": "path_MU_shift", "config": "cholesky_factorization(L, shift_recovery=True, "
+          "return_info=True), collectives_impl=pallas, panel_trsm_pallas=1",
+          "grid": list(GRID_M), "n": ns, "nb": nb, "lambda_min_of_input": lam_near,
+          "wall_s": wall, "info": info, "events": events, "shift": shift,
+          "factor_residual_vs_a_plus_shift": res,
+          "wrong_answers": {"residual against A + 100 shift I": wrong}, "tol": tol,
+          "launches": counts, **stamp})
+    if not wrong > tol:
+        fail(f"path MU's shift check accepts the next shift: {wrong:.3e} <= {tol:.3e}")
+    if info != 0 or not retries or events[-1]["event"] != "cholesky_shift_recovered" \
+            or not res <= tol:
+        fail(f"path MU shift recovery: info {info}, events {events}, residual {res:.3e}")
+    return counts_by
+
+
+def path_g2(stamp: dict) -> dict:
+    """Phase 6c: hermitian_generalized_eigensolver("L", A, B) on the GRID_M
+    grid of rank threads at NH, NBH under PATH_G: Cholesky of B (B1, B2,
+    B5), the fused hegst (B2 for the diagonal tile and the panel, B5 for
+    both panels, and its her2k as two B6 rings a step and rank), the Left
+    solve of phase B, path H2's pipeline, and the back-substitution.  A
+    warm-up at NG_WARM, then one run at NH with the stage clock on (wall,
+    GFlop/s at 31/6 N^3 as the JAX miniapp counts them, stage seconds, the
+    launches of each stage).  Checks in float64 on the card, each within
+    tol_for(f32, NH) and first shown to reject a wrong answer: the
+    eigenvalues against eigvalsh(L^-1 A L^-T) with L the float64 factor of
+    B, relative to max|lambda|; the residual max|A V - B V diag(w)| / (max|A|
+    + max|B| max|w|); the B-orthogonality max|V^T B V - I|; generalized_to_
+    standard on the run's factor under 'composed' (the Right TRSM on the
+    card: B2) against 'fused'; and the U form (cholesky_factorization("U")
+    of B's upper triangle, then the composed transform from A's) against
+    the L form, with whether the U factor is bit for bit the transposed L
+    factor.  Returns each run's launch counts."""
+    import numpy as np
+    import torch
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import ops, tune
+    from dlaf_tpu_torch.algorithms.tridiag_dc_dist import _plan
+    from dlaf_tpu_torch.common import stagetimer
+    from dlaf_tpu_torch.matrix import layout
+    from dlaf_tpu_torch.testing import random_hermitian_pd, tol_for
+
+    n, nb = NH, NBH
+    dev = torch.device("cuda")
+    tune.initialize(**PATH_G)
+    grid = dtt.Grid.create(GRID_M, device=dev)
+    ranks = grid.size
+
+    def lower_inputs(m):
+        return [torch.from_numpy(np.tril(random_hermitian_pd(m, np.float32, seed=s))).to(dev)
+                for s in (SEED_GA, SEED_GB)]
+
+    def mat(x):
+        return dtt.DistributedMatrix.from_global(grid, x, (nb, nb))
+
+    def dense(m):
+        return layout.unpad_global(layout.unpack(m.data, m.dist), m.dist)
+
+    # warm-up at NG_WARM, discarded
+    a_w, b_w = lower_inputs(NG_WARM)
+    dtt.hermitian_generalized_eigensolver("L", mat(a_w), mat(b_w))
+    torch.cuda.synchronize()
+    del a_w, b_w
+    torch.cuda.empty_cache()
+
+    a_low, b_low = lower_inputs(n)
+    by_stage = {}
+    timer_stage = stagetimer.stage
+
+    @contextlib.contextmanager
+    def counted_stage(name, device=None):
+        """stagetimer.stage, and the launches made inside it."""
+        before = launch_counts()
+        with timer_stage(name, device):
+            yield
+        after = launch_counts()
+        by_stage[name] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    mat_a, mat_b = mat(a_low), mat(b_low)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    stagetimer.start()
+    stagetimer.stage = counted_stage
+    t0 = time.perf_counter()
+    try:
+        res = dtt.hermitian_generalized_eigensolver("L", mat_a, mat_b)
+        torch.cuda.synchronize()
+    finally:
+        stagetimer.stage = timer_stage
+    wall = time.perf_counter() - t0
+    times = stagetimer.stop()
+    counts_by = {"G2_hegv": launch_counts()}
+    counts = counts_by["G2_hegv"]
+    gflop = 31.0 / 6.0 * n ** 3 / 1e9
+
+    # float64 checks on the card
+    a64 = a_low.double()
+    a64 = a64 + torch.tril(a64, -1).T
+    b64 = b_low.double()
+    b64 = b64 + torch.tril(b64, -1).T
+    l64 = torch.linalg.cholesky(b64)
+    s64 = torch.linalg.solve_triangular(l64, a64, upper=False)
+    s64 = torch.linalg.solve_triangular(l64, s64.T, upper=False)
+    s64 = 0.5 * (s64 + s64.T)
+    w_ref = torch.linalg.eigvalsh(s64)
+    w_diag = torch.sort(s64.diagonal()).values
+    del l64, s64
+    w = torch.from_numpy(np.asarray(res.eigenvalues, np.float64)).to(dev)
+    v = dense(res.eigenvectors).double()
+    del res
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    scale = a64.abs().max() + b64.abs().max() * w.abs().max()
+
+    def eig_err(x):
+        return ((x - w_ref).abs().max() / w_ref.abs().max()).item()
+
+    def residual(vv):
+        return ((a64 @ vv - (b64 @ vv) * w[None, :]).abs().max() / scale).item()
+
+    def b_orthogonality(vv):
+        return (vv.T @ b64 @ vv - eye).abs().max().item()
+
+    swapped = v[:, [n - 1] + list(range(1, n - 1)) + [0]]
+    dup = v.clone()
+    dup[:, 0] = v[:, n - 1]
+    got = {"eig_err": eig_err(w), "residual": residual(v), "b_orthogonality": b_orthogonality(v)}
+    wrong = {"eig_err of w = sort(diag(L^-1 A L^-T))": eig_err(w_diag),
+             "residual of V with its first and last columns swapped": residual(swapped),
+             "b_orthogonality of V with its first column replaced by its last":
+                 b_orthogonality(dup)}
+    del v, swapped, dup, w_ref, w_diag, eye
+    torch.cuda.empty_cache()
+
+    # the two backends on the run's factor (mat_b holds it), then the U form
+    def transform(uplo, ma, mb, backend):
+        tune.get_tune_parameters().update(gen_to_std_backend=backend)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = dtt.generalized_to_standard(uplo, ma, mb)
+        torch.cuda.synchronize()
+        return dense(out).double(), time.perf_counter() - t0, launch_counts()
+
+    std_f, wall_f, counts_by["G2_fused"] = transform("L", mat_a, mat_b, "fused")
+    std_c, wall_c, counts_by["G2_composed"] = transform("L", mat_a, mat_b, "composed")
+    norm_c = std_c.abs().max()
+    skipped = std_c.clone()  # a wrong answer: the last tile row and column untransformed
+    skipped[-nb:, :] = a64[-nb:, :]
+    skipped[:, -nb:] = a64[:, -nb:]
+    del a64, b64
+    got["backends"] = ((std_f - std_c).abs().max() / norm_c).item()
+    # the yardstick of both comparisons with the composed L form
+    wrong["backends and u_form: the L form with its last tile row and column untransformed"] = (
+        (skipped - std_c).abs().max() / norm_c).item()
+    del std_f
+    mat_bu = mat(b_low.T.contiguous())  # the upper triangle, the mirror of the lower
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fac_u = dtt.cholesky_factorization("U", mat_bu)
+    torch.cuda.synchronize()
+    wall_fu = time.perf_counter() - t0
+    counts_by["G2_upper_factor"] = launch_counts()
+    fl, fu = torch.tril(dense(mat_b)), torch.triu(dense(fac_u))
+    u_bitwise = bool(torch.equal(fu.T, fl))
+    u_max_diff = (fu.T.double() - fl.double()).abs().max().item()
+    del fl, fu
+    std_u, wall_u, counts_by["G2_upper_composed"] = transform(
+        "U", mat(a_low.T.contiguous()), fac_u, "composed")
+    got["u_form"] = ((std_u - std_c).abs().max() / norm_c).item()
+    del std_u, std_c, skipped, mat_a, mat_b, mat_bu, fac_u, a_low, b_low
+    torch.cuda.empty_cache()
+
+    tol = tol_for("float32", n)
+    mt = -(-n // nb)
+    hegst_b6 = by_stage.get("gen_to_std", {}).get("dma_ring_consume", 0)
+    emit({"phase": "path_G2", "config": "hermitian_generalized_eigensolver(L), " + ", ".join(
+              f"{k}={v_}" for k, v_ in PATH_G.items()),
+          "grid": list(GRID_M), "n": n, "nb": nb, "seeds": [SEED_GA, SEED_GB],
+          "warmup_n": NG_WARM, "wall_s": wall, "gflops": gflop / wall, "stage_clock_on": True,
+          "flops_counted": "31/6 N^3", "stage_s": times, "launches_by_stage": by_stage,
+          "hegst_b6_launches": hegst_b6, "checks": got, "tol": tol, "wrong_answers": wrong,
+          "transform_wall_s": {"fused": wall_f, "composed": wall_c, "upper_factor": wall_fu,
+                               "upper_composed": wall_u},
+          "u_factor_bitwise_transposed_l_factor": u_bitwise,
+          "u_factor_max_abs_diff": u_max_diff, "launches": counts,
+          "launches_per_rank": {k: v_ / ranks for k, v_ in counts.items()},
+          "launches_of_the_transforms": {k: counts_by[k] for k in (
+              "G2_fused", "G2_composed", "G2_upper_factor", "G2_upper_composed")}, **stamp})
+    for name, val in wrong.items():
+        if not val > tol:
+            fail(f"path G2 check accepts a wrong answer: {name} = {val:.3e} <= {tol:.3e}")
+    for name, val in got.items():
+        if not val <= tol:
+            fail(f"path G2 {name} {val:.3e} > {tol:.3e}")
+    s0, levels = _plan(n, nb, tune.get_tune_parameters().dc_leaf_size)[:2]
+    chol = by_stage.get("cholesky_b", {})
+    hegst = by_stage.get("gen_to_std", {})
+    if (hegst_b6 != 2 * mt * ranks or min(chol.get(k, 0) for k in (
+            "potrf", "panel_trsm", "ring_exchange")) <= 0
+            or min(hegst.get(k, 0) for k in ("panel_trsm", "ring_exchange")) <= 0
+            or counts["secular_bisect"] != 2 * levels * ranks
+            or min(counts["trailing_update"], counts["dma_ring_consume"]) <= 0
+            or counts_by["G2_composed"]["panel_trsm"] <= 0):
+        fail(f"path G2 did not launch B6 twice a step and rank in hegst ({hegst_b6}, want "
+             f"{2 * mt * ranks}), B1, B2, B5 in cholesky_b, B2 and B5 in hegst, B10 twice per "
+             f"merge level and rank, B3, B6, and B2 in the composed Right TRSM: {by_stage}, "
+             f"{counts_by['G2_composed']}")
+    return counts_by
 
 
 def potrf_phase(stamp: dict, bound, timed_ms, kgen):
@@ -3909,6 +4239,9 @@ def main() -> int:
     # ---- 5c. path M: 2x4 grid of rank threads, the 'pallas' tier
     kept = {}
     by_path.update(path_m(stamp, a_glob, rhs, factor_residual, solve_err, res_tol, kept))
+    # path MU: M3's call from the upper triangle, then shift recovery
+    by_path.update(path_mu(stamp, a_glob, rhs, solve_err, res_tol))
+    torch.cuda.empty_cache()
 
     # ---- 5d. the fused tier on the 2x4 grid: M4, M5, path I, S4
     by_path.update(path_fused(stamp, a_glob, factor_residual, res_tol, kept))
@@ -3932,6 +4265,10 @@ def main() -> int:
     # ---- 6b. path H2: the HEEV pipeline on the 2x4 grid of rank threads
     by_path["H2_heev"] = path_h2(stamp, kept_h)
     del kept_h
+    torch.cuda.empty_cache()
+
+    # ---- 6c. path G2: the generalized eigensolver on the 2x4 grid
+    by_path.update(path_g2(stamp))
 
     # ---- 7. summary
     meta = {

@@ -4,18 +4,20 @@ A second package beside the JAX one (``dlaf_tpu/``, the reference it is
 held against): the same 2D block-cyclic data model
 (``X[Pr, Pc, ltr, ltc, mb, nb]``), the same algorithms, and hand-written
 CUDA kernels for Hopper where the JAX package has Pallas kernels.  This
-package runs distributed Cholesky, the Left triangular solves,
-POTRS/POSV (with residual refinement, ``refine_to``, and the
-mixed-precision solver), the triangular inverse and POTRI, and the
-multiplication family (GEMM, TRMM, HEMM) on any ``Pr x Pc`` grid of ranks
-on one card, under any split-GEMM tier of ``tune.gemm_precision``, with the potrf, panel-TRSM and trailing-update kernels, under
-the 'pallas' collectives tier the ring kernels (hop merge, ring exchange,
-fused factor-and-send), and under the 'fused' trailing-update tier the
-ring consumers (the consume ring and the one-launch lookahead step) and
-the panel contraction; and, on a 1x1 grid, the Hermitian eigensolver
-pipeline (reduction to band, SBR, the host bulge chase, the distributed
-D&C tridiagonal solver with the secular-bisection kernel, and the three
-back-transforms).  Kernels live in
+package runs distributed Cholesky (L and U, with shift recovery), the
+triangular solves (both sides), POTRS/POSV (with residual refinement,
+``refine_to``, and the mixed-precision solver), the triangular inverse and
+POTRI, the multiplication family (GEMM, TRMM, HEMM), the Hermitian
+eigensolver pipeline (reduction to band, SBR, the host bulge chase, the
+distributed D&C tridiagonal solver with the secular-bisection kernel, and
+the three back-transforms) and the generalized eigensolver (Cholesky of B,
+the reduction to standard form, back-substitution) on any ``Pr x Pc`` grid
+of ranks on one card, under any split-GEMM tier of
+``tune.gemm_precision``, with the potrf, panel-TRSM and trailing-update
+kernels, under the 'pallas' collectives tier the ring kernels (hop merge,
+ring exchange, fused factor-and-send), and under the 'fused'
+trailing-update tier the ring consumers (the consume ring and the
+one-launch lookahead step) and the panel contraction.  Kernels live in
 ``ops/`` with their CUDA sources in ``csrc/``; the host chase's C++ source
 is ``csrc/host/band2trid.cpp`` (``native.py``).
 
@@ -39,7 +41,12 @@ from dlaf_tpu_torch.comm import _ranks as _ranks
 
 _ranks.request_cuda_env()
 from dlaf_tpu_torch.algorithms.cholesky import cholesky_factorization  # noqa: E402
-from dlaf_tpu_torch.algorithms.eigensolver import EigResult, hermitian_eigensolver
+from dlaf_tpu_torch.algorithms.eigensolver import (
+    EigResult,
+    hermitian_eigensolver,
+    hermitian_generalized_eigensolver,
+)
+from dlaf_tpu_torch.algorithms.gen_to_std import generalized_to_standard
 from dlaf_tpu_torch.algorithms.inverse import inverse_from_cholesky_factor, triangular_inverse
 from dlaf_tpu_torch.algorithms.multiplication import (
     general_multiplication,
@@ -74,6 +81,8 @@ __all__ = [
     "MixedSolveInfo",
     "positive_definite_solver_mixed",
     "hermitian_eigensolver",
+    "hermitian_generalized_eigensolver",
+    "generalized_to_standard",
     "EigResult",
     "reduction_to_band",
 ]

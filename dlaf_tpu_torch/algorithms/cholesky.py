@@ -1,5 +1,5 @@
 """Distributed tiled Cholesky factorization (counterpart of
-``dlaf_tpu/algorithms/cholesky.py``), lower triangle.
+``dlaf_tpu/algorithms/cholesky.py``).
 
 Each panel step k factors the diagonal tile (hand-written potrf kernel,
 ``ops/potrf.py``), solves the column panel below it (``tile.trsm``, the
@@ -29,19 +29,23 @@ collectives meet the other ranks.  Under ``collectives_impl='pallas'`` with
 a column axis > 1 the lookahead panel is the fused factor-and-send
 (``ops/panel_exchange.fused_factor_bcast``, B7; its plain twin on the CPU).
 
-Not in this slice (they raise ``NotImplementedError``, see ROADMAP.md):
-the U path, ``shift_recovery`` and checkpointing.
+The U path is the L path on the mirrored matrix, as in the JAX package:
+the stored upper triangle is conjugate-transposed into lower storage,
+factored, and the factor transposed back.  ``shift_recovery`` re-factors
+``A + shift*I`` with an escalating shift.  Checkpointing raises
+``NotImplementedError`` (ROADMAP.md §A, item 7).
 """
 from __future__ import annotations
 
 import torch
 
-from dlaf_tpu_torch import tune
+from dlaf_tpu_torch import health, tune
 from dlaf_tpu_torch.algorithms import _spmd
 from dlaf_tpu_torch.comm import collectives as coll
 from dlaf_tpu_torch.comm.grid import COL_AXIS, ROW_AXIS
 from dlaf_tpu_torch.health import DistributionError, NotPositiveDefiniteError
 from dlaf_tpu_torch.matrix import layout
+from dlaf_tpu_torch.matrix import util as mutil
 from dlaf_tpu_torch.matrix.matrix import DistributedMatrix
 from dlaf_tpu_torch.ops import panel_exchange as _px
 from dlaf_tpu_torch.ops import potrf as _potrf
@@ -268,15 +272,54 @@ def _factor_distributed(mat_a: DistributedMatrix, g: _spmd.Geometry, want_info: 
     return coll.spmd(mat_a.grid, body, mat_a.data)
 
 
-def _cholesky_single_device(mat_a: DistributedMatrix) -> DistributedMatrix:
+def _cholesky_single_device(uplo: str, mat_a: DistributedMatrix) -> DistributedMatrix:
     """1x1-grid dense path (``backend='auto'``): one dense Cholesky of the
     whole matrix (``tile.potrf``), where the JAX package leaves the work to
     XLA's dense Cholesky; a matrix that is not positive definite gives NaN,
-    as there.  The caller's upper triangle is kept."""
+    as there.  The caller's other triangle is kept."""
     dist = mat_a.dist
     g_ = layout.unpad_global(layout.unpack(mat_a.data, dist), dist)
-    out = t.potrf(g_, lower=True) + torch.triu(g_, 1)
+    if uplo == t.LOWER:
+        out = t.potrf(g_, lower=True) + torch.triu(g_, 1)
+    else:
+        out = t.potrf(g_, lower=False) + torch.tril(g_, -1)
     return mat_a._inplace(layout.pack(layout.pad_global(out, dist), dist))
+
+
+def _factor_with_recovery(mat_a: DistributedMatrix, g: _spmd.Geometry, max_shift_attempts: int):
+    """Escalating diagonal-shift retry (``_factor_with_recovery``,
+    ``dlaf_tpu/algorithms/cholesky.py:614``): factor A, then
+    ``A + shift*I`` with ``shift = max(||A||_max, 1) * n * eps`` growing
+    x100 an attempt, at most ``max_shift_attempts`` retries, each recorded
+    as a health event.  Every attempt factors a fresh copy, so the caller's
+    matrix survives until the result replaces it.  Returns ``(data, info,
+    shift)`` with ``info`` the host int of the last attempt (each attempt
+    synchronises: whether to retry depends on the device's info)."""
+
+    def attempt(data):
+        info = _factor_distributed(mat_a.like(data), g, True)
+        return data, int(info)
+
+    orig = mat_a.data
+    data, info = attempt(orig.clone())
+    if info == 0:
+        return data, 0, 0.0
+    # the norm of the stored tensor, both triangles and the padding, as the
+    # JAX package takes it
+    eps = float(torch.finfo(mat_a.dtype).eps)
+    anorm = float(orig.abs().max())
+    shift = max(anorm, 1.0) * max(mat_a.size.rows, 1) * eps
+    eye = mutil.eye_like(mat_a).data
+    for n_try in range(1, max_shift_attempts + 1):
+        health.record("cholesky_shift_retry", attempt=n_try, shift=shift, info=info)
+        # the shift rounded to the matrix's dtype, as np.dtype(...).type(shift)
+        data, info = attempt(orig + torch.tensor(shift, dtype=mat_a.dtype, device=orig.device) * eye)
+        if info == 0:
+            health.record("cholesky_shift_recovered", attempt=n_try, shift=shift)
+            return data, 0, shift
+        if n_try < max_shift_attempts:
+            shift *= 100.0
+    return data, info, shift
 
 
 def cholesky_factorization(
@@ -286,13 +329,15 @@ def cholesky_factorization(
     return_info: bool = False,
     raise_on_failure: bool = False,
     shift_recovery: bool = False,
+    max_shift_attempts: int = 3,
     checkpoint_every: int = 0,
     checkpoint_path: str | None = None,
     resume_from: str | None = None,
 ):
     """Factor the Hermitian positive-definite ``mat_a`` in place: on return
-    its lower triangle holds the Cholesky factor (the upper triangle holds
-    update residue, as in LAPACK potrf and the JAX package).
+    its ``uplo`` triangle holds the Cholesky factor.  Only the ``uplo``
+    triangle is read; the other holds update residue (L) or is returned
+    unchanged (U), as in LAPACK potrf and the JAX package.
 
     ``backend='auto'`` uses the dense ``torch.linalg.cholesky`` path on 1x1
     grids; 'distributed' forces the tiled kernel.  ``return_info=True``
@@ -300,32 +345,64 @@ def cholesky_factorization(
     failing pivot (0 on success) as a device int32 scalar;
     ``raise_on_failure=True`` raises :class:`NotPositiveDefiniteError`.
     Info requests route 1x1 grids through the distributed kernel, as in
-    the JAX package: the dense path cannot name the pivot."""
-    if uplo != t.LOWER:
-        raise NotImplementedError(
-            f"cholesky_factorization(uplo={uplo!r}): only 'L' is ported; the U "
-            "mirror is not ported yet (ROADMAP.md §A, item 2: the rest of the main path)"
+    the JAX package: the dense path cannot name the pivot.
+
+    ``shift_recovery=True`` re-factors ``A + shift*I`` on failure, the
+    shift growing x100 for at most ``max_shift_attempts`` retries (health
+    events ``cholesky_shift_retry`` / ``cholesky_shift_recovered``); the
+    info (then a host int) and the exception report the last attempt, the
+    exception with the last shift.
+
+    'U' runs the L path on ``transpose(triu(A), conj=True)`` and transposes
+    the factor back, keeping the caller's strict lower triangle: two
+    whole-matrix copies on the device beside the matrix (1 GiB each at
+    N = 16384 in float32).  It passes ``backend`` on to the L path."""
+    want_info = return_info or raise_on_failure or shift_recovery
+    ckpt = bool(checkpoint_every) or checkpoint_path is not None or resume_from is not None
+    if ckpt and shift_recovery:
+        raise DistributionError(
+            "cholesky: checkpointing and shift_recovery are mutually exclusive "
+            "(recovery restarts from the original matrix, not a checkpoint)"
         )
-    if shift_recovery or checkpoint_every or checkpoint_path is not None or resume_from is not None:
+    if ckpt:
         raise NotImplementedError(
-            "cholesky_factorization: shift_recovery and checkpointing are not "
-            "ported yet (ROADMAP.md §A, item 2: the rest of the main path; the "
-            "checkpoints are item 7: robustness, observability, plan)"
+            "cholesky_factorization: checkpoint_every, checkpoint_path and resume_from "
+            "are not ported yet (ROADMAP.md §A, item 7: robustness, observability, plan)"
         )
+    if uplo not in (t.LOWER, t.UPPER):
+        raise DistributionError(f"bad uplo {uplo}")
     if mat_a.size.rows != mat_a.size.cols:
         raise DistributionError("cholesky: matrix must be square")
     if mat_a.block_size.rows != mat_a.block_size.cols:
         raise DistributionError("cholesky: tiles must be square")
-    want_info = return_info or raise_on_failure
     g = _spmd.Geometry.of(mat_a.dist)
     if g.mt == 0:
         return (mat_a, 0) if return_info else mat_a
     if backend == "auto" and mat_a.grid.grid_size.count() == 1 and not want_info:
-        return _cholesky_single_device(mat_a)
+        return _cholesky_single_device(uplo, mat_a)
     if backend not in ("auto", "distributed"):
         raise ValueError(f"cholesky: unknown backend {backend!r}")
-    info = _factor_distributed(mat_a, g, want_info)
+    if uplo == t.UPPER:
+        # A = U^H U with U = L^H: the mirrored matrix has the same leading
+        # minors, so the L path's info carries over
+        low = mutil.transpose(mutil.extract_triangle(mat_a, "U"), conj=True)
+        res = cholesky_factorization(t.LOWER, low, backend=backend, return_info=want_info,
+                                     raise_on_failure=raise_on_failure,
+                                     shift_recovery=shift_recovery,
+                                     max_shift_attempts=max_shift_attempts)
+        fac, info = res if want_info else (res, None)
+        u = mutil.transpose(mutil.extract_triangle(fac, "L"), conj=True)
+        del low, fac
+        out = mat_a._inplace(mutil.extract_triangle(mat_a, "L", k=-1).data
+                             + mutil.extract_triangle(u, "U").data)
+        return (out, info) if return_info else out
+    shift = 0.0
+    if shift_recovery:
+        data, info, shift = _factor_with_recovery(mat_a, g, max_shift_attempts)
+        mat_a._inplace(data)
+    else:
+        info = _factor_distributed(mat_a, g, want_info)
     out = mat_a._inplace(mat_a.data)
     if raise_on_failure and int(info) > 0:
-        raise NotPositiveDefiniteError(int(info))
+        raise NotPositiveDefiniteError(int(info), shift=shift)
     return (out, info) if return_info else out

@@ -1,5 +1,5 @@
-"""Hermitian eigensolver (counterpart of ``dlaf_tpu/algorithms/eigensolver.py``),
-full spectrum, real dtypes.
+"""Hermitian (generalized) eigensolver (counterpart of
+``dlaf_tpu/algorithms/eigensolver.py``), full spectrum, real dtypes.
 
 ``backend='pipeline'`` runs the reference's staging on the grid's device:
 
@@ -25,9 +25,15 @@ grid.  'U' runs through the hermitized mirror.  Stage clocks: run between
 tridiag, bt_band, bt_sbr, bt_red2band); each boundary then synchronises
 the card, after every rank's stream.
 
-Not ported (ROADMAP.md): the generalized problem, eigenvalues only,
-partial spectra, complex dtypes, the device chase and the dense host band
-stage the JAX package falls back to without a chase library.
+``hermitian_generalized_eigensolver`` solves A x = lambda B x: the
+Cholesky factor of B (stage ``cholesky_b``), the reduction to the standard
+form (``gen_to_std``, ``algorithms/gen_to_std.py``), the eigensolver above,
+and the back-substitution of the eigenvectors (``back_subst``, one Left
+triangular solve).
+
+Not ported (ROADMAP.md §A, item 5): eigenvalues only, partial spectra,
+complex dtypes, the device chase and the dense host band stage the JAX
+package falls back to without a chase library.
 """
 from __future__ import annotations
 
@@ -45,7 +51,10 @@ from dlaf_tpu_torch.algorithms.band_to_tridiag import (
 )
 from dlaf_tpu_torch.algorithms.bt_band_hh import bt_band_to_tridiagonal_hh_dist
 from dlaf_tpu_torch.algorithms.bt_reduction_to_band import bt_reduction_to_band
+from dlaf_tpu_torch.algorithms.cholesky import cholesky_factorization
+from dlaf_tpu_torch.algorithms.gen_to_std import generalized_to_standard
 from dlaf_tpu_torch.algorithms.reduction_to_band import get_band_size, reduction_to_band
+from dlaf_tpu_torch.algorithms.triangular_solver import triangular_solver
 from dlaf_tpu_torch.algorithms.tridiag_solver import tridiagonal_eigensolver
 from dlaf_tpu_torch.common import stagetimer as st
 from dlaf_tpu_torch.matrix import layout
@@ -119,6 +128,17 @@ def _eigh_single_device(mat_a: DistributedMatrix) -> EigResult:
                      DistributedMatrix(dist, mat_a.grid, layout.pack(layout.pad_global(v, dist), dist)))
 
 
+def _check_ported(what: str, mat_a: DistributedMatrix, spectrum) -> None:
+    """Raise for what is not ported yet: partial spectra and complex dtypes."""
+    if spectrum is not None:
+        raise NotImplementedError(
+            f"{what}: partial spectra are not ported yet "
+            "(ROADMAP.md §A, item 5: the rest of the eigensolver)")
+    if mat_a.dtype.is_complex:
+        raise NotImplementedError(f"{what}: complex dtypes are not ported yet "
+                                  "(ROADMAP.md §A, item 5: the rest of the eigensolver)")
+
+
 def hermitian_eigensolver(
     uplo: str,
     mat_a: DistributedMatrix,
@@ -129,15 +149,9 @@ def hermitian_eigensolver(
     triangle of ``mat_a`` (not modified).  ``backend='auto'`` takes
     ``torch.linalg.eigh`` on 1x1 grids and the distributed band-reduction
     pipeline on the others; 'pipeline' forces the pipeline everywhere."""
-    if spectrum is not None:
-        raise NotImplementedError(
-            "hermitian_eigensolver: partial spectra are not ported yet "
-            "(ROADMAP.md §A, item 5: the rest of the eigensolver)")
+    _check_ported("hermitian_eigensolver", mat_a, spectrum)
     if backend not in ("auto", "pipeline"):
         raise ValueError(f"hermitian_eigensolver: unknown backend {backend!r}")
-    if mat_a.dtype.is_complex:
-        raise NotImplementedError("hermitian_eigensolver: complex dtypes are not ported yet "
-                                  "(ROADMAP.md §A, item 5: the rest of the eigensolver)")
     if mat_a.size.rows != mat_a.size.cols:
         raise ValueError("hermitian_eigensolver: matrix must be square")
     if uplo == t.UPPER:
@@ -176,3 +190,33 @@ def hermitian_eigensolver(
         e = bt_reduction_to_band(e, band_mat, taus)
     health.check_finite("bt_red2band", e)
     return EigResult(evals, e)
+
+
+def hermitian_generalized_eigensolver(
+    uplo: str,
+    mat_a: DistributedMatrix,
+    mat_b: DistributedMatrix,
+    spectrum: Optional[Tuple[int, int]] = None,
+    factorized: bool = False,
+) -> EigResult:
+    """Solve A x = lambda B x, A Hermitian and B Hermitian positive
+    definite, both read from their ``uplo`` triangle; the eigenvectors are
+    B-orthonormal.  B is factored in place (``cholesky_factorization``);
+    ``factorized=True`` means ``mat_b`` already holds the factor.  A is not
+    modified.  Stage clocks (``common.stagetimer``): cholesky_b,
+    gen_to_std, the eigensolver's, back_subst."""
+    _check_ported("hermitian_generalized_eigensolver", mat_a, spectrum)
+    dev = mat_a.data.device
+    with st.stage("cholesky_b", dev):
+        fac = mat_b if factorized else cholesky_factorization(uplo, mat_b)
+    with st.stage("gen_to_std", dev):
+        a_std = generalized_to_standard(uplo, mat_a, fac)
+        a_tri = mutil.extract_triangle(a_std, uplo)
+        del a_std
+    res = hermitian_eigensolver(uplo, a_tri)
+    del a_tri
+    # x = L^-H y ('L') or U^-1 y ('U')
+    with st.stage("back_subst", dev):
+        op = t.CONJ_TRANS if uplo == t.LOWER else t.NO_TRANS
+        e = triangular_solver(t.LEFT, uplo, op, t.NON_UNIT, 1.0, fac, res.eigenvectors)
+    return EigResult(res.eigenvalues, e)

@@ -8,8 +8,8 @@ target precision).
 ``positive_definite_solver(..., refine_to='input')`` is the companion of
 the bf16 split-GEMM tiers (``tune.gemm_precision``): up to
 ``refine_sweeps`` residual corrections (``algorithms/refine.py``), the
-residual a full-precision ``hermitian_multiplication``.  Only ``uplo='L'``
-is ported (the U mirror is ROADMAP.md §A, item 2).
+residual a full-precision ``hermitian_multiplication``.  Every entry
+point takes ``uplo`` 'L' or 'U'.
 """
 from __future__ import annotations
 
@@ -53,25 +53,21 @@ def _check_solve_geometry(what: str, uplo: str, mat_a: DistributedMatrix,
 
 def cholesky_solver(uplo: str, mat_l: DistributedMatrix, mat_b: DistributedMatrix,
                     backend: str = "auto") -> DistributedMatrix:
-    """POTRS: solve A X = B given the Cholesky factor of A in the lower
-    triangle of ``mat_l``; B is updated in place and returned.
-    ``backend`` is passed to both triangular solves."""
+    """POTRS: solve A X = B given the Cholesky factor of A in the ``uplo``
+    triangle of ``mat_l`` (A = L L^H, or A = U^H U for 'U'); B is updated
+    in place and returned.  ``backend`` is passed to both triangular
+    solves."""
     _check_solve_geometry("cholesky_solver", uplo, mat_l, mat_b)
-    if uplo != t.LOWER:
-        raise NotImplementedError(
-            "cholesky_solver: only uplo='L' is ported "
-            "(ROADMAP.md §A, item 2: the rest of the main path)"
-        )
-    y = triangular_solver(t.LEFT, t.LOWER, t.NO_TRANS, t.NON_UNIT, 1.0, mat_l, mat_b,
-                          backend=backend)
-    return triangular_solver(t.LEFT, t.LOWER, t.CONJ_TRANS, t.NON_UNIT, 1.0, mat_l, y,
-                             backend=backend)
+    first, second = ((t.NO_TRANS, t.CONJ_TRANS) if uplo == t.LOWER
+                     else (t.CONJ_TRANS, t.NO_TRANS))
+    y = triangular_solver(t.LEFT, uplo, first, t.NON_UNIT, 1.0, mat_l, mat_b, backend=backend)
+    return triangular_solver(t.LEFT, uplo, second, t.NON_UNIT, 1.0, mat_l, y, backend=backend)
 
 
 def positive_definite_solver(uplo: str, mat_a: DistributedMatrix, mat_b: DistributedMatrix,
                              return_info: bool = False, raise_on_failure: bool = False,
                              refine_to: str | None = None, refine_sweeps: int = 2):
-    """POSV: factor ``mat_a`` in place (its lower triangle holds the
+    """POSV: factor ``mat_a`` in place (its ``uplo`` triangle holds the
     Cholesky factor on return) and solve A X = B; returns the solution, or
     ``(x, info)`` with ``return_info=True`` (LAPACK-style 1-based first
     failing pivot, 0 on success).  ``raise_on_failure=True`` raises

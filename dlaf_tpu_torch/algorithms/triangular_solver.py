@@ -1,24 +1,24 @@
-"""Distributed triangular solve, Left side (counterpart of
-``dlaf_tpu/algorithms/triangular_solver.py``).
+"""Distributed triangular solve (counterpart of
+``dlaf_tpu/algorithms/triangular_solver.py``), both sides.
 
 Same skeleton as ``cholesky.py``: an eager loop over the tile diagonal of A
-that solves one tile row of B against the diagonal tile and applies a
-batched update to the remaining rows, in place on B's local tile stack.
-Two kernels, as in the JAX package: bucketed (default; the remaining-rows
-window shrinks by segment) and lookahead (``tune.trsm_lookahead``), whose
-bulk update is the hand-written trailing-update kernel under
-``tune.trailing_update_impl='fused'``.  ``backend='auto'`` on a 1x1 grid
-is one dense ``torch.linalg.solve_triangular``, where the JAX package uses
-one XLA ``triangular_solve``.
+that solves one tile row (Left) or tile column (Right) of B against the
+diagonal tile and applies a batched update to the remaining rows (columns),
+in place on B's local tile stack.  The Left side has two kernels, as in the
+JAX package: bucketed (default; the remaining-rows window shrinks by
+segment) and lookahead (``tune.trsm_lookahead``), whose bulk update is the
+hand-written trailing-update kernel under ``tune.trailing_update_impl=
+'fused'``.  The Right side has the bucketed kernel only, its column mirror,
+as there.  ``backend='auto'`` on a 1x1 grid is one dense
+``torch.linalg.solve_triangular``, where the JAX package uses one XLA
+``triangular_solve``; a failure of the dense solve raises (the JAX package
+remembers the geometry and runs the tiled kernel instead).
 
 On a ``Pr x Pc`` grid the kernel body runs once per rank thread
 (``comm/_ranks.py``) on the ranks' views of A and B.
 
 ``refine_to='input'`` appends residual corrections (``_trsm_refined``,
 ``algorithms/refine.py``), the companion of the bf16 split-GEMM tiers.
-
-Not in this slice (``NotImplementedError``, see ROADMAP.md): the Right
-side.
 """
 from __future__ import annotations
 
@@ -76,6 +76,46 @@ def _trsm_left_bucketed(a, b, g_a, g_b, uplo, op, diag):
                 cp = _masked(remaining, cp)
             bs = b[rs:rs + L]  # a view: the update lands in b
             bs -= t.contract("iab,jbc->ijac", cp, xr)
+
+
+def _trsm_right_bucketed(a, b, g_a, g_b, uplo, op, diag):
+    """Solve X op(A) = B in place of the local stack ``b``, the column
+    mirror of :func:`_trsm_left_bucketed`: the remaining-cols window of B
+    (and the op(A)[k, :] panel) has one size per segment."""
+    myr, myc = coll.my_rank()
+    dev = b.device
+    forward = (uplo == t.LOWER) != (op == t.NO_TRANS)
+    nt = g_a.nt
+    gi = _spmd.local_row_tiles(g_a, myr, dev)
+    for s0, s1 in _spmd.halving_segments(nt):
+        rem = nt - 1 - s0  # max remaining tiles within the segment
+        C = max(min(g_b.ltc, (rem + g_a.pc - 1) // g_a.pc + 1), 1)
+        for s in range(s0, s1):
+            k = s if forward else nt - 1 - s
+            kr, kc = k % g_a.pr, k % g_a.pc
+            lkc = k // g_a.pc
+            akk = _spmd.bcast_diag_tile(a, k, g_a, myr, myc)
+            bcol = _spmd.take_col(b, lkc, g_b)
+            solved = t.trsm(t.RIGHT, uplo, op, diag, 1.0, akk, bcol)
+            xc = coll.bcast(solved, kc, COL_AXIS)
+            if myc == kc:
+                _spmd.put_col(b, solved, lkc)
+            # remaining-cols window, clamped like the JAX window
+            cs = min(max((k + g_a.pc - myc) // g_a.pc, 0), max(g_b.ltc - C, 0)) if forward else 0
+            gj_w = (cs + torch.arange(C, device=dev)) * g_a.pc + myc
+            remaining = (gj_w > k) if forward else (gj_w < k)
+            if op == t.NO_TRANS:
+                ar = a[k // g_a.pr, cs:cs + C]
+                rp = coll.bcast(_masked(remaining, ar), kr, ROW_AXIS)
+            else:
+                ac = _spmd.take_col(a, lkc, g_a)  # tiles A[i, k] for local rows i
+                rem_i = (gi > k) if forward else (gi < k)
+                cp = coll.bcast(_masked(rem_i, ac), kc, COL_AXIS)
+                # col panel -> windowed row panel: tiles indexed by A's row j
+                rp = t.op_tile(coll.transpose_panel_windowed(cp, gj_w, 0, g_a.nt), op)
+                rp = _masked(remaining, rp)
+            bs = b[:, cs:cs + C]  # a view: the update lands in b
+            bs -= t.contract("iab,jbc->ijac", xc, rp)
 
 
 def _trsm_left_lookahead(a, b, g_a, g_b, uplo, op, diag):
@@ -157,21 +197,18 @@ def triangular_solver(side: str, uplo: str, op: str, diag: str, alpha,
                       mat_a: DistributedMatrix, mat_b: DistributedMatrix,
                       backend: str = "auto", refine_to: str | None = None,
                       refine_sweeps: int = 2):
-    """B := solution X of op(A) X = alpha B (Left side), in place in
-    ``mat_b``; A is triangular (only its ``uplo`` triangle is read).
-    ``backend='auto'`` uses the dense path on 1x1 grids; 'distributed'
-    forces the tiled kernel.
+    """B := solution X of op(A) X = alpha B (Left) or X op(A) = alpha B
+    (Right), in place in ``mat_b``; A is triangular (only its ``uplo``
+    triangle is read).  ``backend='auto'`` uses the dense path on 1x1
+    grids; 'distributed' forces the tiled kernel.
 
     ``refine_to='input'`` appends up to ``refine_sweeps`` residual
     corrections: r = alpha B - op(A) X at full precision (a
     ``triangular_multiplication`` under ``gemm_precision_scope('default')``),
     d = the solve of r at the ambient tier, X += d.  It keeps a copy of B
     from before the solve and returns a new matrix."""
-    if side != t.LEFT:
-        raise NotImplementedError(
-            "triangular_solver: the Right side is not ported yet "
-            "(ROADMAP.md §A, item 2: the rest of the main path)"
-        )
+    if side not in (t.LEFT, t.RIGHT):
+        raise ValueError(f"trsm: bad side {side!r}")
     if refine_to is not None:
         from dlaf_tpu_torch.algorithms.refine import validate_refine_to
 
@@ -184,7 +221,9 @@ def triangular_solver(side: str, uplo: str, op: str, diag: str, alpha,
         raise ValueError("trsm: A must be square")
     if mat_a.block_size.rows != mat_a.block_size.cols:
         raise ValueError("trsm: A tiles must be square")
-    if mat_a.size.rows != mat_b.size.rows or mat_a.block_size.rows != mat_b.block_size.rows:
+    need = mat_b.size.rows if side == t.LEFT else mat_b.size.cols
+    need_b = mat_b.block_size.rows if side == t.LEFT else mat_b.block_size.cols
+    if mat_a.size.rows != need or mat_a.block_size.rows != need_b:
         raise ValueError(f"trsm: A size {mat_a.size} incompatible with B {mat_b.size} for side {side}")
     if mat_a.grid is not mat_b.grid and mat_a.grid.grid_size != mat_b.grid.grid_size:
         raise ValueError("trsm: A and B must share the grid")
@@ -196,8 +235,13 @@ def triangular_solver(side: str, uplo: str, op: str, diag: str, alpha,
         return _trsm_single_device(side, uplo, op, diag, alpha, mat_a, mat_b)
     if backend not in ("auto", "distributed"):
         raise ValueError(f"trsm: unknown backend {backend!r}")
-    lookahead = tune.get_tune_parameters().trsm_lookahead and g_a.mt > 1
-    kern = _trsm_left_lookahead if lookahead else _trsm_left_bucketed
+    # lookahead is a Left kernel only, as in the JAX package
+    if side == t.RIGHT:
+        kern = _trsm_right_bucketed
+    elif tune.get_tune_parameters().trsm_lookahead and g_a.mt > 1:
+        kern = _trsm_left_lookahead
+    else:
+        kern = _trsm_left_bucketed
 
     def body(a, b):
         myr, myc = coll.my_rank()

@@ -1,8 +1,9 @@
 """Matrix-level utilities on stacked block-cyclic storage (counterpart of
-``dlaf_tpu/matrix/util.py``): triangle extraction, hermitization and
-sub-matrix copies, as elementwise masks on the stacked
-``[Pr, Pc, ltr, ltc, mb, nb]`` tensor or through the global form (every
-rank's tiles lie on the grid's one device).
+``dlaf_tpu/matrix/util.py``): triangle extraction, the distributed
+(conjugate) transpose, hermitization, the identity and sub-matrix copies,
+as elementwise masks on the stacked ``[Pr, Pc, ltr, ltc, mb, nb]`` tensor
+or through the global form (every rank's tiles lie on the grid's one
+device).
 """
 from __future__ import annotations
 
@@ -43,6 +44,27 @@ def extract_triangle(mat: DistributedMatrix, uplo: str, k: int = 0) -> Distribut
     return mat.like(_triangle_data(mat.data, mat.dist, uplo, k))
 
 
+def transpose(mat: DistributedMatrix, conj: bool = False) -> DistributedMatrix:
+    """Distributed (conjugate) transpose, a new matrix: unpack, swap the
+    axes of the global form (conjugated when ``conj``), pack under the
+    transposed distribution, whose size, block size and source rank are
+    swapped (``dlaf_tpu/matrix/util.py:62``).  Padding is dropped before
+    the swap: the padded extents of the two distributions differ in general.
+    Two copies of the matrix's size on its device."""
+    d = mat.dist
+    dist_t = Distribution((d.size.cols, d.size.rows), (d.block_size.cols, d.block_size.rows),
+                          d.grid_size, (d.source_rank.col, d.source_rank.row))
+    if not mat.data.numel():
+        data = torch.zeros(DistributedMatrix.stacked_shape(dist_t), dtype=mat.dtype,
+                           device=mat.data.device)
+        return DistributedMatrix(dist_t, mat.grid, data)
+    g = layout.unpad_global(layout.unpack(mat.data, d), d).transpose(0, 1)
+    if conj:
+        g = g.conj()
+    data = layout.pack(layout.pad_global(g, dist_t), dist_t).resolve_conj()
+    return DistributedMatrix(dist_t, mat.grid, data)
+
+
 def hermitize(mat: DistributedMatrix, uplo: str) -> DistributedMatrix:
     """Full Hermitian storage from the ``uplo`` triangle (the other
     triangle's stored values are ignored); a new tensor."""
@@ -54,6 +76,16 @@ def hermitize(mat: DistributedMatrix, uplo: str) -> DistributedMatrix:
     g = layout.unpad_global(layout.unpack(strict, dist), dist)
     mirror = layout.pack(layout.pad_global(g.transpose(0, 1).conj(), dist), dist)
     return mat.like(tri + mirror)
+
+
+def eye_like(mat: DistributedMatrix) -> DistributedMatrix:
+    """The identity of ``mat``'s distribution and dtype: 1 on the diagonal,
+    0 elsewhere and in the padding (``laset(mat, 0, 1)``,
+    ``dlaf_tpu/matrix/util.py:178``)."""
+    gi, gj = _global_element_grids(mat.dist, mat.data.device)
+    m, n = mat.dist.size
+    diag = (gi == gj) & (gi < m) & (gj < n)
+    return mat.like(diag.expand(mat.data.shape).to(mat.dtype).contiguous())
 
 
 def sub_matrix(mat: DistributedMatrix, origin, size) -> DistributedMatrix:

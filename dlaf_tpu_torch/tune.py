@@ -1,7 +1,7 @@
 """Tunable algorithm parameters of the port (counterpart of
 ``dlaf_tpu/tune.py``).
 
-Only the knobs the Cholesky/POSV and HEEV slices read are ported.  They keep the
+Only the knobs the Cholesky/POSV, HEEV and HEGV slices read are ported.  They keep the
 JAX package's names, defaults and ``DLAF_TPU_*`` environment variables, so
 one environment configures both packages, and the same precedence:
 defaults, then the environment (read when the parameters are built), then
@@ -34,6 +34,10 @@ explicit :meth:`TuneParameters.update` calls.
   ``comm._ranks.spmd`` starts from it.
 - ``bucket_segment_ratio``: window-shrink factor per bucketed segment
   (``algorithms._spmd.halving_segments``).
+- ``gen_to_std_backend``: 'composed' (default: hermitize, then two full
+  triangular solves) or 'fused' (the hegst tile recursion with the
+  trailing solve deferred to one TRSM, ``algorithms/gen_to_std.py``); a
+  1x1 grid always takes 'composed', as in the JAX package.
 
 The eigensolver knobs (HEEV slice).  Where the JAX package resolves an
 'auto' value (-1) by "the default JAX backend is an accelerator", the port
@@ -76,6 +80,8 @@ BAND_CHASE_BACKENDS = ("native", "device", "auto")
 FULL_F32_PRECISIONS = ("float32", "f32", "highest")
 #: the split-GEMM tiers (``ops/tile.py``)
 GEMM_PRECISIONS = ("default", "bf16x3", "bf16x6", "auto")
+#: the backends of ``generalized_to_standard``
+GEN_TO_STD_BACKENDS = ("composed", "fused")
 
 
 def _env(name: str, default, cast):
@@ -113,6 +119,9 @@ class TuneParameters:
         default_factory=lambda: _env("band_chase_backend", "auto", str)
     )
     dc_secular_pallas: bool = field(default_factory=lambda: _env("dc_secular_pallas", False, bool))
+    gen_to_std_backend: str = field(
+        default_factory=lambda: _env("gen_to_std_backend", "composed", str)
+    )
 
     def update(self, **kwargs) -> "TuneParameters":
         names = {f.name for f in fields(self)}
@@ -129,6 +138,8 @@ class TuneParameters:
                 validate_eigensolver_matmul_precision(v)
             elif k == "band_chase_backend":
                 validate_band_chase_backend(v)
+            elif k == "gen_to_std_backend":
+                validate_gen_to_std_backend(v)
             elif k == "dc_leaf_size" and int(v) < 1:
                 raise ConfigurationError(f"dc_leaf_size must be >= 1, got {v!r}")
             setattr(self, k, v)
@@ -191,6 +202,17 @@ def validate_band_chase_backend(value) -> str:
         raise ConfigurationError(
             f"band_chase_backend must be one of {BAND_CHASE_BACKENDS}, "
             f"got {value!r} (env DLAF_TPU_BAND_CHASE_BACKEND)"
+        )
+    return value
+
+
+def validate_gen_to_std_backend(value) -> str:
+    """Checked on ``update(gen_to_std_backend=...)`` and again where
+    ``generalized_to_standard`` reads the knob (a typo in the environment)."""
+    if value not in GEN_TO_STD_BACKENDS:
+        raise ConfigurationError(
+            f"gen_to_std_backend must be one of {GEN_TO_STD_BACKENDS}, "
+            f"got {value!r} (env DLAF_TPU_GEN_TO_STD_BACKEND)"
         )
     return value
 

@@ -148,12 +148,18 @@ def test_info_zero_and_dense_auto_path_match_jax(grid_1x1, dtype):
 
 
 def test_left_out_options_raise():
+    """The checkpoints still wait (ROADMAP §A, item 7), in both triangles;
+    asked for with ``shift_recovery`` they raise the JAX package's
+    DistributionError first."""
+    from dlaf_tpu_torch.health import DistributionError
+
     tm = DistributedMatrix.from_global(Grid.create(device="cpu"), np.eye(8), (4, 4))
-    for kw in (dict(uplo="U"), dict(shift_recovery=True), dict(checkpoint_every=2),
-               dict(resume_from="x")):
-        uplo = kw.pop("uplo", "L")
-        with pytest.raises(NotImplementedError):
-            cholesky_factorization(uplo, tm, **kw)
+    for uplo in ("L", "U"):
+        for kw in (dict(checkpoint_every=2), dict(checkpoint_path="ck"), dict(resume_from="x")):
+            with pytest.raises(NotImplementedError, match="item 7: robustness"):
+                cholesky_factorization(uplo, tm, **kw)
+    with pytest.raises(DistributionError, match="mutually exclusive"):
+        cholesky_factorization("L", tm, shift_recovery=True, checkpoint_every=2)
 
 
 # ------------------------------------------------------- multi-rank grids
@@ -269,3 +275,114 @@ def test_fused_tier_on_multi_rank_grids_raises():
     np.testing.assert_allclose(np.tril(DistributedMatrix.from_stacked(
         out["fused"], tm.dist, tm.grid).to_global()), np.linalg.cholesky(a + np.tril(a, -1).T),
         atol=tu.tol_for(np.float64, 32))
+
+
+# --------------------------------------------------- the U form, shift recovery
+
+_JAX_UPPER: dict = {}
+
+
+def _upper_cases():
+    """(shape, tier, variant, backend): the dense 1x1 route and the
+    distributed kernels, bucketed and lookahead, on 1x1, and on 2x4 in the
+    three tiers and on 4x2."""
+    return [
+        pytest.param((1, 1), "psum", "bucketed", "auto", id="1x1-dense"),
+        pytest.param((1, 1), "psum", "bucketed", "distributed", id="1x1-bucketed"),
+        pytest.param((1, 1), "psum", "lookahead_fused", "distributed", id="1x1-lookahead"),
+        pytest.param((2, 4), "psum", "bucketed", "auto", id="2x4-psum"),
+        pytest.param((2, 4), "v2", "lookahead_xla", "auto", id="2x4-v2-lookahead"),
+        pytest.param((2, 4), "pallas", "lookahead_xla", "auto", id="2x4-pallas-lookahead"),
+        pytest.param((4, 2), "pallas", "bucketed", "auto", id="4x2-pallas"),
+    ]
+
+
+@pytest.mark.parametrize("shape,tier,variant,backend", _upper_cases())
+def test_cholesky_upper_matches_jax(comm_grids, shape, tier, variant, backend):
+    """cholesky_factorization("U"): the factor in the upper triangle within
+    tol_for(f64, n) of the JAX package's (its default route on the same
+    grid shape), and the caller's strict lower triangle unchanged, bit for
+    bit, as there."""
+    n, mb = 60, 8
+    a = tu.random_hermitian_pd(n, np.float64, seed=27)
+    junk = np.tril(tu.random_matrix(n, n, np.float64, seed=28), -1)
+    key = shape
+    if key not in _JAX_UPPER:
+        jm, _ = _multi_pair(comm_grids, shape, np.triu(a) + junk, mb)
+        _JAX_UPPER[key] = dt.cholesky_factorization("U", jm).to_global()
+    _, tm = _multi_pair(comm_grids, shape, np.triu(a) + junk, mb)
+    with knobs(collectives_impl=tier, **VARIANTS[variant]):
+        out = cholesky_factorization("U", tm, backend=backend)
+    got = out.to_global()
+    assert tm.data is out.data
+    np.testing.assert_array_equal(np.tril(got, -1), junk)
+    np.testing.assert_array_equal(np.tril(_JAX_UPPER[key], -1), junk)
+    assert np.isfinite(got).all()
+    assert _rel_err(np.triu(got), np.triu(_JAX_UPPER[key])) <= tu.tol_for(np.float64, n)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 4)])
+def test_info_on_non_spd_upper_matches_jax(comm_grids, shape):
+    """The U mirror has the same leading minors: the same info as the JAX
+    package, from the upper triangle."""
+    n, mb = 56, 8
+    a = tu.random_hermitian_pd(n, np.float64, seed=29)
+    a[37, 37] = -40.0  # the leading minor of order 38 fails
+    jm, tm = _multi_pair(comm_grids, shape, np.triu(a), mb)
+    _, jinfo = dt.cholesky_factorization("U", jm, return_info=True)
+    with knobs(collectives_impl="pallas"):
+        _, tinfo = cholesky_factorization("U", tm, return_info=True)
+    assert int(tinfo) == int(jinfo) == 38
+
+
+def _near_spd(n, dtype, seed, gap):
+    """A - (lambda_min(A) + gap) I: the smallest eigenvalue is -gap."""
+    a = tu.random_hermitian_pd(n, np.float64, seed=seed)
+    lam = np.linalg.eigvalsh(a)[0]
+    return (a - (lam + gap) * np.eye(n)).astype(dtype)
+
+
+@pytest.mark.parametrize("shape,uplo,attempts", [
+    pytest.param((2, 4), "L", 3, id="2x4-L"),
+    pytest.param((1, 1), "U", 3, id="1x1-U"),
+    pytest.param((4, 2), "L", 1, id="4x2-L-exhausted"),
+])
+def test_shift_recovery_matches_jax(comm_grids, shape, uplo, attempts):
+    """shift_recovery on a matrix whose smallest eigenvalue is -1e-4, in
+    f32 at n = 32: the first shift (max(|A|, 1) n eps, about 1e-5) is too
+    small and the second (x100) recovers.  The factor, the info, the
+    shifts and the health events equal the JAX package's; with one attempt
+    allowed both raise NotPositiveDefiniteError with the same info and
+    shift."""
+    from dlaf_tpu import health as jhealth
+    from dlaf_tpu_torch import health as thealth
+
+    n, mb = 32, 8
+    a = _near_spd(n, np.float32, 30, 1e-4)
+    tri = np.tril(a) if uplo == "L" else np.triu(a)
+    jm, tm = _multi_pair(comm_grids, shape, tri, mb)
+    if attempts == 1:
+        with pytest.raises(dt.NotPositiveDefiniteError) as je:
+            dt.cholesky_factorization(uplo, jm, shift_recovery=True, max_shift_attempts=1,
+                                      raise_on_failure=True)
+        with pytest.raises(NotPositiveDefiniteError) as te:
+            cholesky_factorization(uplo, tm, shift_recovery=True, max_shift_attempts=1,
+                                   raise_on_failure=True)
+        assert (te.value.info, te.value.shift) == (je.value.info, je.value.shift)
+        assert te.value.info > 0 and te.value.shift > 0
+        return
+    with jhealth.capture_events() as jev:
+        jfac, jinfo = dt.cholesky_factorization(uplo, jm, shift_recovery=True, return_info=True)
+    with thealth.capture_events() as tev:
+        tfac, tinfo = cholesky_factorization(uplo, tm, shift_recovery=True, return_info=True)
+    assert int(tinfo) == int(jinfo) == 0
+    assert [e["event"] for e in tev] == ["cholesky_shift_retry", "cholesky_shift_retry",
+                                         "cholesky_shift_recovered"]
+    assert tev == jev
+    part = np.tril if uplo == "L" else np.triu
+    got, ref = part(tfac.to_global()), part(jfac.to_global())
+    assert _rel_err(got, ref) <= tu.tol_for(np.float32, n)
+    shift = tev[-1]["shift"]
+    ell = got.astype(np.float64) if uplo == "L" else got.astype(np.float64).T
+    resid = np.abs(ell @ ell.T - (a.astype(np.float64) + shift * np.eye(n))).max()
+    assert resid <= tu.tol_for(np.float32, n) * np.abs(a).max()

@@ -34,6 +34,7 @@ from dlaf_tpu_torch.algorithms import band_to_tridiag as t_b2t
 from dlaf_tpu_torch.algorithms.bt_band_hh import bt_band_to_tridiagonal_hh_dist as t_bt_band
 from dlaf_tpu_torch.algorithms.bt_reduction_to_band import bt_reduction_to_band as t_bt_r2b
 from dlaf_tpu_torch.algorithms.eigensolver import hermitian_eigensolver as t_heev
+from dlaf_tpu_torch.algorithms.eigensolver import hermitian_generalized_eigensolver as t_hegv
 from dlaf_tpu_torch.algorithms.reduction_to_band import get_band_size, reduction_to_band as t_r2b
 from dlaf_tpu_torch.algorithms.tridiag_dc_dist import tridiag_dc_distributed as t_dc
 from dlaf_tpu_torch.algorithms.tridiag_solver import tridiagonal_eigensolver
@@ -322,8 +323,14 @@ def test_accelerator_defaults_and_guards():
         with pytest.raises(NotImplementedError, match=ITEM_5) as err:
             t_r2b(mat, **kw)
         assert "item 7: robustness, observability, plan" in str(err.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=ITEM_5):
         t_heev("L", mat, spectrum=(0, 3))
+    # the generalized eigensolver: partial spectra and complex dtypes
+    for kw in ({"spectrum": (0, 3)}, {}):
+        ma = mat if kw else mat.astype(np.complex128)
+        with pytest.raises(NotImplementedError, match=ITEM_5) as err:
+            t_hegv("L", ma, ma.astype(ma.dtype), **kw)
+        assert "hermitian_generalized_eigensolver" in str(err.value)
 
 
 

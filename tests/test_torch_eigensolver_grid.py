@@ -1,6 +1,7 @@
 """The port's HEEV pipeline on multi-rank grids of rank threads against the
 JAX package's on its CPU mesh, stage by stage on 2x4 and end to end on
-every multi-rank shape of the JAX fixture (2x4, 4x2, 2x2, 1x2, 2x1).
+every multi-rank shape of the JAX fixture (2x4, 4x2, 2x2, 1x2, 2x1); and
+the generalized eigensolver (HEGV) on 2x4 and on 1x1.
 
 Sizes follow ROADMAP.md's rule for multi-rank tests: N = 48, nb = 8, band
 4, the SBR stage on (band 2), D&C leaves of 8 (n_pad = 64: three merge
@@ -38,6 +39,7 @@ from dlaf_tpu.algorithms import band_to_tridiag as j_b2t
 from dlaf_tpu.algorithms.bt_band_hh import bt_band_to_tridiagonal_hh_dist as j_bt_band
 from dlaf_tpu.algorithms.bt_reduction_to_band import bt_reduction_to_band as j_bt_r2b
 from dlaf_tpu.algorithms.eigensolver import hermitian_eigensolver as j_heev
+from dlaf_tpu.algorithms.eigensolver import hermitian_generalized_eigensolver as j_hegv
 from dlaf_tpu.algorithms.reduction_to_band import reduction_to_band as j_r2b
 from dlaf_tpu.algorithms.tridiag_dc_dist import tridiag_dc_distributed as j_dc
 from dlaf_tpu.matrix.util import sub_matrix as j_sub_matrix
@@ -47,6 +49,7 @@ from dlaf_tpu_torch.algorithms import band_to_tridiag as t_b2t
 from dlaf_tpu_torch.algorithms.bt_band_hh import bt_band_to_tridiagonal_hh_dist as t_bt_band
 from dlaf_tpu_torch.algorithms.bt_reduction_to_band import bt_reduction_to_band as t_bt_r2b
 from dlaf_tpu_torch.algorithms.eigensolver import hermitian_eigensolver as t_heev
+from dlaf_tpu_torch.algorithms.eigensolver import hermitian_generalized_eigensolver as t_hegv
 from dlaf_tpu_torch.algorithms.tridiag_dc_dist import tridiag_dc_distributed as t_dc
 from dlaf_tpu_torch.common import stagetimer
 from dlaf_tpu_torch.matrix import colpanels as cpan
@@ -295,3 +298,81 @@ def test_sub_matrix_matches_jax(comm_grids, shape):
     assert tuple(got.dist.size) == tuple(want.dist.size)
     assert tuple(got.dist.source_rank) == tuple(want.dist.source_rank)
     np.testing.assert_array_equal(got.to_stacked(), np.asarray(want.data))
+
+
+# ------------------------------------------------------------------- HEGV
+
+_JAX_HEGV: dict = {}
+
+
+def _hegv_inputs():
+    return (tu.random_hermitian_pd(N, np.float64, seed=5),
+            tu.random_hermitian_pd(N, np.float64, seed=6))
+
+
+def check_generalized(a, b, evals, evecs, tol):
+    """Residual ``max|A V - B V diag(w)|`` relative to ``max|A| + max|B|
+    max|w|`` and B-orthogonality ``max|V^T B V - I|``."""
+    w = np.asarray(evals, np.float64)
+    res = a @ evecs - (b @ evecs) * w[None, :]
+    scale = np.abs(a).max() + np.abs(b).max() * np.abs(w).max()
+    assert np.max(np.abs(res)) < tol * scale, np.max(np.abs(res))
+    ortho = evecs.T @ b @ evecs - np.eye(evecs.shape[1])
+    assert np.max(np.abs(ortho)) < tol, np.max(np.abs(ortho))
+
+
+def _jax_hegv_w(grid):
+    """The JAX package's generalized eigenvalues (L, f64) on ``grid``."""
+    key = tuple(grid.grid_size)
+    if key not in _JAX_HEGV:
+        a, b = _hegv_inputs()
+        with knobs(**KNOBS):
+            _JAX_HEGV[key] = j_hegv("L", dt.DistributedMatrix.from_global(grid, np.tril(a), (NB, NB)),
+                                    dt.DistributedMatrix.from_global(grid, np.tril(b), (NB, NB))
+                                    ).eigenvalues
+    return _JAX_HEGV[key]
+
+
+@pytest.mark.parametrize("uplo,factorized", [("L", False), ("U", False), ("L", True)],
+                         ids=["L", "U", "L-factorized"])
+def test_generalized_eigensolver_on_2x4(grid_2x4, uplo, factorized):
+    """hermitian_generalized_eigensolver on the 2x4 grid (the pipeline:
+    every stage over the grid) from either triangle, and from B's factor:
+    the eigenvalues against the JAX package's on its 2x4 mesh, the
+    generalized residual and the B-orthogonality within tol_for(f64, N),
+    every stage clocked, A not modified."""
+    a, b = _hegv_inputs()
+    tri = np.tril if uplo == "L" else np.triu
+    w_ref = _jax_hegv_w(grid_2x4)
+    grid = grid_like((2, 4))
+    mat_a = DistributedMatrix.from_global(grid, tri(a), (NB, NB))
+    mat_b = DistributedMatrix.from_global(grid, tri(b), (NB, NB))
+    with knobs(**KNOBS):
+        if factorized:
+            from dlaf_tpu_torch.algorithms.cholesky import cholesky_factorization
+
+            mat_b = cholesky_factorization(uplo, mat_b)
+        stagetimer.start()
+        res = t_hegv(uplo, mat_a, mat_b, factorized=factorized)
+        times = stagetimer.stop()
+    assert list(times) == ["cholesky_b", "gen_to_std", *STAGES, "back_subst"]
+    np.testing.assert_array_equal(mat_a.to_global(), tri(a))
+    tol = tu.tol_for(np.float64, N)
+    assert _rel(res.eigenvalues, w_ref) <= tol
+    assert tuple(res.eigenvectors.data.shape[:2]) == (2, 4)
+    check_generalized(a, b, res.eigenvalues, res.eigenvectors.to_global(), tol)
+
+
+def test_generalized_eigensolver_auto_on_1x1(comm_grids):
+    """The 1x1 grid's route (the dense Cholesky, the dense solves and one
+    ``torch.linalg.eigh``), against the JAX package's on its 1x1 grid, with
+    the fused backend asked for (a 1x1 grid takes the composed one)."""
+    a, b = _hegv_inputs()
+    w_ref = _jax_hegv_w(_jgrid(comm_grids, (1, 1)))
+    mats = [DistributedMatrix.from_global(grid_like((1, 1)), np.tril(v), (NB, NB)) for v in (a, b)]
+    with knobs(**KNOBS, gen_to_std_backend="fused"):
+        res = t_hegv("L", *mats)
+    tol = tu.tol_for(np.float64, N)
+    assert _rel(res.eigenvalues, w_ref) <= tol
+    assert _rel(res.eigenvalues, sla.eigh(a, b, eigvals_only=True)) <= tol
+    check_generalized(a, b, res.eigenvalues, res.eigenvectors.to_global(), tol)

@@ -81,22 +81,27 @@ def _wide(a):
     return a.astype(np.complex128 if np.iscomplexobj(a) else np.float64)
 
 
-@pytest.mark.parametrize("shape", [(2, 4), (2, 2)])
-@pytest.mark.parametrize("dtype", [np.float32, np.complex64], ids=str)
-def test_posv_bf16x3_refined_matches_jax(comm_grids, monkeypatch, dtype, shape):
+@pytest.mark.parametrize("dtype,shape,uplo", [
+    *(pytest.param(d, s, "L", id=f"{d}-shape{i}") for d in (np.float32, np.complex64)
+      for i, s in enumerate([(2, 4), (2, 2)])),
+    pytest.param(np.float32, (2, 4), "U", id=f"{np.float32}-shape0-upper"),
+])
+def test_posv_bf16x3_refined_matches_jax(comm_grids, monkeypatch, dtype, shape, uplo):
     """``tests/test_precision.py::test_posv_bf16x3_refined_meets_seed_bounds``
     in both packages: the solution within tol_for(dtype, m, 500) of the
-    exact one and of the JAX package's, the same RefineInfo outcome."""
+    exact one and of the JAX package's, the same RefineInfo outcome; from
+    A's lower and from its upper triangle."""
     m, k, mb = 64, 8, 8
     a = tu.random_hermitian_pd(m, dtype, seed=3)
     b = tu.random_matrix(m, k, dtype, seed=4)
     expected = np.linalg.solve(_wide(a), _wide(b))
-    (ja, ta), (jb, tb) = (_pair(comm_grids, shape, v, (mb, mb)) for v in (np.tril(a), b))
+    tri = np.tril(a) if uplo == "L" else np.triu(a)
+    (ja, ta), (jb, tb) = (_pair(comm_grids, shape, v, (mb, mb)) for v in (tri, b))
     with gemm_tier("bf16x3"), refine_infos(monkeypatch) as infos:
-        ref = dt.positive_definite_solver("L", ja, jb, refine_to="input").to_global()
-        unrefined = positive_definite_solver("L", *(_pair(comm_grids, shape, v, (mb, mb))[1]
-                                                    for v in (np.tril(a), b))).to_global()
-        out = positive_definite_solver("L", ta, tb, refine_to="input").to_global()
+        ref = dt.positive_definite_solver(uplo, ja, jb, refine_to="input").to_global()
+        unrefined = positive_definite_solver(uplo, *(_pair(comm_grids, shape, v, (mb, mb))[1]
+                                                     for v in (tri, b))).to_global()
+        out = positive_definite_solver(uplo, ta, tb, refine_to="input").to_global()
     tol = tu.tol_for(dtype, m, 500.0)
     assert _rel_err(out, expected) <= tol and _rel_err(out, ref) <= tol
     # the refinement did something: the split-tier solve alone is further off
@@ -105,21 +110,29 @@ def test_posv_bf16x3_refined_matches_jax(comm_grids, monkeypatch, dtype, shape):
     assert (ti.converged, ti.sweeps) == (ji.converged, ji.sweeps) and ti.converged
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.complex64], ids=str)
-def test_trsm_bf16x3_refined_matches_jax(comm_grids, monkeypatch, dtype):
+@pytest.mark.parametrize("dtype,side", [
+    pytest.param(np.float32, "Left", id=str(np.float32)),
+    pytest.param(np.complex64, "Left", id=str(np.complex64)),
+    pytest.param(np.float32, "Right", id=str(np.float32) + "-Right"),
+])
+def test_trsm_bf16x3_refined_matches_jax(comm_grids, monkeypatch, dtype, side):
     """``test_trsm_bf16x3_refined_meets_seed_bounds``: a normwise backward
-    error within 50x the refinement tolerance, in both packages."""
+    error within 50x the refinement tolerance, in both packages; the Right
+    side's residual is a Right TRMM."""
     m, k, mb = 64, 8, 8
     a = tu.random_triangular(m, dtype, lower=True, seed=5)
     b = tu.random_matrix(m, k, dtype, seed=6)
+    if side == "Right":
+        b = np.ascontiguousarray(b.T)
     (ja, ta), (jb, tb) = (_pair(comm_grids, (2, 4), v, (mb, mb)) for v in (a, b))
     with gemm_tier("bf16x3"), refine_infos(monkeypatch) as infos:
-        ref = dt.triangular_solver("Left", "L", "N", "N", 1.0, ja, jb,
+        ref = dt.triangular_solver(side, "L", "N", "N", 1.0, ja, jb,
                                    refine_to="input").to_global()
-        out = triangular_solver("Left", "L", "N", "N", 1.0, ta, tb, refine_to="input").to_global()
+        out = triangular_solver(side, "L", "N", "N", 1.0, ta, tb, refine_to="input").to_global()
     bound = trefine.refine_tolerance(np.max(np.abs(a)), m, dtype)
     for xh in (out, ref):
-        assert np.max(np.abs(b - a @ xh)) <= 50.0 * bound * max(np.max(np.abs(xh)), 1.0)
+        r = b - (a @ xh if side == "Left" else xh @ a)
+        assert np.max(np.abs(r)) <= 50.0 * bound * max(np.max(np.abs(xh)), 1.0)
     assert _rel_err(out, ref) <= tu.tol_for(dtype, m, 500.0)
     (ji,), (ti,) = infos["jax"], infos["port"]
     assert (ti.converged, ti.sweeps) == (ji.converged, ji.sweeps)
@@ -181,28 +194,34 @@ def _ab(m, k, dtype, seed, cond=None):
     return a, tu.random_matrix(m, k, dtype, seed=seed + 1)
 
 
-def _mixed_both(comm_grids, shape, a, b, mb, **kw):
-    (ja, ta), (jb, tb) = (_pair(comm_grids, shape, v, (mb, mb)) for v in (np.tril(a), b))
+def _mixed_both(comm_grids, shape, a, b, mb, uplo="L", **kw):
+    tri = np.tril(a) if uplo == "L" else np.triu(a)
+    (ja, ta), (jb, tb) = (_pair(comm_grids, shape, v, (mb, mb)) for v in (tri, b))
     with jhealth.capture_events() as jev:
-        jx, ji = dt.positive_definite_solver_mixed("L", ja, jb, **kw)
+        jx, ji = dt.positive_definite_solver_mixed(uplo, ja, jb, **kw)
     before = (ta.to_global().copy(), tb.to_global().copy())
     with health.capture_events() as tev:
-        tx, ti = positive_definite_solver_mixed("L", ta, tb, **kw)
+        tx, ti = positive_definite_solver_mixed(uplo, ta, tb, **kw)
     np.testing.assert_array_equal(ta.to_global(), before[0])  # A and B untouched
     np.testing.assert_array_equal(tb.to_global(), before[1])
     return (jx.to_global(), ji, [e["event"] for e in jev]), (tx.to_global(), ti,
                                                               [e["event"] for e in tev])
 
 
-@pytest.mark.parametrize("shape,dtype", [((2, 4), np.float64), ((2, 4), np.complex128),
-                                         ((1, 1), np.float64), ((4, 2), np.float64)])
-def test_posv_mixed_converges_like_jax(comm_grids, shape, dtype):
+@pytest.mark.parametrize("shape,dtype,uplo", [
+    pytest.param((2, 4), np.float64, "L", id="shape0-float64"),
+    pytest.param((2, 4), np.complex128, "L", id="shape1-complex128"),
+    pytest.param((1, 1), np.float64, "L", id="shape2-float64"),
+    pytest.param((4, 2), np.float64, "L", id="shape3-float64"),
+    pytest.param((2, 4), np.float64, "U", id="shape0-float64-upper"),
+])
+def test_posv_mixed_converges_like_jax(comm_grids, shape, dtype, uplo):
     """``tests/test_solver.py::test_posv_mixed_converges``: f64-class
     accuracy from the f32 (c64) factor without the fallback, the same
-    sweep count as the JAX package."""
+    sweep count as the JAX package; from either triangle of A."""
     m, k, mb = 64, 3, 8
     a, b = _ab(m, k, dtype, seed=11)
-    (jx, ji, jev), (tx, ti, tev) = _mixed_both(comm_grids, shape, a, b, mb)
+    (jx, ji, jev), (tx, ti, tev) = _mixed_both(comm_grids, shape, a, b, mb, uplo=uplo)
     assert ti.converged and not ti.fallback and ti.iters <= 10
     assert (ti.converged, ti.fallback, ti.iters) == (ji.converged, ji.fallback, ji.iters)
     assert ti.backward_error < 1e-12 and tev == jev == []

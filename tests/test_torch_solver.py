@@ -1,11 +1,13 @@
-"""The port's Left/Lower triangular_solver and positive_definite_solver
-against the JAX package's, on the 1x1 grid, at small sizes, with the same
-knobs and input state in both packages.
+"""The port's triangular_solver (both sides), cholesky_solver and
+positive_definite_solver (both triangles) against the JAX package's, on
+the 1x1 grid and on multi-rank grids of rank threads, at small sizes,
+with the same knobs and input state in both packages.
 
 Tolerance: ``tol_for(dtype, n)`` of the relative max error
 (``dlaf_tpu/testing/__init__.py:55``).
 """
 import contextlib
+import itertools
 
 import jax
 import numpy as np
@@ -107,14 +109,17 @@ def test_positive_definite_solver_matches_jax(grid_1x1, dtype, return_info, vari
 
 
 def test_left_out_options_raise():
-    """The Right side still waits (ROADMAP §A, item 2); ``refine_to`` is
-    ported, and a value outside its domain raises."""
+    """Both sides are ported; a ``refine_to`` outside its domain, a side
+    other than Left and Right and a Right solve whose A does not match B's
+    columns raise."""
     from dlaf_tpu_torch.health import ConfigurationError
 
     g = Grid.create(device="cpu")
     ta = DistributedMatrix.from_global(g, np.eye(8), (4, 4))
     tb = DistributedMatrix.from_global(g, np.ones((8, 2)), (4, 4))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="side"):
+        triangular_solver("Top", "L", "N", "N", 1.0, ta, tb)
+    with pytest.raises(ValueError, match="incompatible"):
         triangular_solver("Right", "L", "N", "N", 1.0, ta, tb)
     with pytest.raises(ConfigurationError, match="refine_to"):
         triangular_solver("Left", "L", "N", "N", 1.0, ta, tb, refine_to="output")
@@ -185,3 +190,143 @@ def test_triangular_solver_2x4_matches_jax(comm_grids, op):
         out = triangular_solver("Left", "L", op, "N", 2.0, ta, tb)
     np.testing.assert_array_equal(ta.to_global(), a)  # A untouched
     assert _rel_err(out.to_global(), ref) <= tu.tol_for(np.float64, n)
+
+
+# ------------------------------------------------------------- Right side
+
+RIGHT_COMBOS = list(itertools.product("LU", "NTC", "NU"))
+_JAX_RIGHT: dict = {}
+
+
+def _right_inputs(n, dtype, uplo, diag):
+    """A triangular A whose other triangle is garbage (not read), B of 20
+    rows and n columns."""
+    a = tu.random_triangular(n, dtype, lower=uplo == "L", unit=diag == "U", seed=41)
+    junk = np.triu(tu.random_matrix(n, n, dtype, seed=42), 1)
+    a = a + (junk if uplo == "L" else junk.T)
+    return a, tu.random_matrix(20, n, dtype, seed=43)
+
+
+def _jax_right(comm_grids, uplo, op, diag, n, mb, dtype):
+    """The JAX package's Right solve (alpha = 2) on its 2x4 mesh (its
+    distributed Right kernel), once per case."""
+    key = (uplo, op, diag, n, mb, np.dtype(dtype).str)
+    if key not in _JAX_RIGHT:
+        a, b = _right_inputs(n, dtype, uplo, diag)
+        ja, _ = _multi_pair(comm_grids, (2, 4), a, (mb, mb))
+        jb, _ = _multi_pair(comm_grids, (2, 4), b, (mb // 2, mb))
+        _JAX_RIGHT[key] = dt.triangular_solver("Right", uplo, op, diag, 2.0, ja, jb).to_global()
+    return _JAX_RIGHT[key]
+
+
+def _right_cases():
+    """(shape, tier, backend, n, mb, dtype, uplo, op, diag): every combo on
+    2x4 under 'pallas'; 1x1 under 'auto' (the dense solve) and
+    'distributed'; 4x2 in the three tiers and 2x4 in the other two; a
+    ragged N; c128."""
+    out = [pytest.param((2, 4), "pallas", "auto", 44, 8, np.float64, *c, id="2x4-pallas-" + "".join(c))
+           for c in RIGHT_COMBOS]
+    for c in (("L", "C", "N"), ("U", "N", "U")):
+        for backend in ("auto", "distributed"):
+            out.append(pytest.param((1, 1), "psum", backend, 44, 8, np.float64, *c,
+                                    id=f"1x1-{backend}-" + "".join(c)))
+    for tier in ("psum", "v2", "pallas"):
+        for c in (("L", "C", "N"), ("U", "T", "N")):
+            out.append(pytest.param((4, 2), tier, "auto", 44, 8, np.float64, *c,
+                                    id=f"4x2-{tier}-" + "".join(c)))
+    for tier in ("psum", "v2"):
+        out.append(pytest.param((2, 4), tier, "auto", 44, 8, np.float64, "L", "N", "N",
+                                id=f"2x4-{tier}-LNN"))
+    for c in (("L", "C", "N"), ("U", "N", "N")):
+        out.append(pytest.param((2, 4), "pallas", "auto", 13, 4, np.float64, *c,
+                                id="2x4-ragged-" + "".join(c)))
+    for c in (("L", "C", "N"), ("U", "C", "U")):
+        out.append(pytest.param((2, 4), "pallas", "auto", 44, 8, np.complex128, *c,
+                                id="2x4-complex128-" + "".join(c)))
+    return out
+
+
+@pytest.mark.parametrize("shape,tier,backend,n,mb,dtype,uplo,op,diag", _right_cases())
+def test_triangular_solver_right_matches_jax(comm_grids, shape, tier, backend, n, mb, dtype,
+                                             uplo, op, diag):
+    """X op(A) = 2 B: the port's bucketed Right kernel (the dense solve on
+    1x1 under 'auto') against the JAX package's Right kernel on its 2x4
+    mesh, within tol_for(dtype, n); A untouched, B solved in place."""
+    a, b = _right_inputs(n, dtype, uplo, diag)
+    ref = _jax_right(comm_grids, uplo, op, diag, n, mb, dtype)
+    ta = DistributedMatrix.from_global(Grid.create(shape, device="cpu"), a, (mb, mb))
+    tb = DistributedMatrix.from_global(Grid.create(shape, device="cpu"), b, (mb // 2, mb))
+    with knobs(collectives_impl=tier, trsm_lookahead=True):  # lookahead is Left only
+        out = triangular_solver("Right", uplo, op, diag, 2.0, ta, tb, backend=backend)
+    assert out.data is tb.data  # in place
+    np.testing.assert_array_equal(ta.to_global(), a)
+    assert _rel_err(out.to_global(), ref) <= tu.tol_for(dtype, n)
+
+
+# ------------------------------------------------------------ the U forms
+
+_JAX_UPPER: dict = {}
+
+
+def _upper_cases():
+    """(shape, tier, variant, dtype, return_info): the dense 1x1 route, the
+    distributed kernels on 2x4 in the three tiers and on 4x2, c128."""
+    return [
+        pytest.param((1, 1), "psum", "bucketed", np.float64, False, id="1x1-dense"),
+        pytest.param((1, 1), "psum", "lookahead", np.float64, True, id="1x1-lookahead-info"),
+        pytest.param((2, 4), "psum", "bucketed", np.float32, True, id="2x4-psum"),
+        pytest.param((2, 4), "v2", "lookahead", np.float32, False, id="2x4-v2-lookahead"),
+        pytest.param((2, 4), "pallas", "lookahead", np.float32, True, id="2x4-pallas-lookahead"),
+        pytest.param((4, 2), "pallas", "bucketed", np.complex128, True, id="4x2-complex128"),
+    ]
+
+
+@pytest.mark.parametrize("shape,tier,variant,dtype,return_info", _upper_cases())
+def test_posv_upper_matches_jax(comm_grids, shape, tier, variant, dtype, return_info):
+    """POSV with A's upper triangle (the U mirror of the factorization,
+    then the Left/Upper/C and Left/Upper/N solves) against the JAX
+    package's (its default knobs, one run per grid and dtype), within
+    tol_for(dtype, n); the factor left in A's upper triangle, its strict
+    lower triangle the caller's."""
+    n, mb = 52, 8
+    a = tu.random_hermitian_pd(n, dtype, seed=51)
+    junk = np.tril(tu.random_matrix(n, n, dtype, seed=52), -1)
+    a_up = np.triu(a) + junk  # the strict lower triangle is not read
+    b = tu.random_matrix(n, 12, dtype, seed=53)
+    key = (shape, np.dtype(dtype).str)
+    if key not in _JAX_UPPER:
+        ja, _ = _multi_pair(comm_grids, shape, a_up, (mb, mb))
+        jb, _ = _multi_pair(comm_grids, shape, b, (mb, mb))
+        x = dt.positive_definite_solver("U", ja, jb).to_global()
+        _JAX_UPPER[key] = (x, np.triu(ja.to_global()))
+    _, ta = _multi_pair(comm_grids, shape, a_up, (mb, mb))
+    _, tb = _multi_pair(comm_grids, shape, b, (mb, mb))
+    with knobs(collectives_impl=tier, **MULTI_VARIANTS[variant]):
+        out = positive_definite_solver("U", ta, tb, return_info=return_info)
+    if return_info:
+        out, info = out
+        assert int(info) == 0
+    x_ref, u_ref = _JAX_UPPER[key]
+    assert _rel_err(out.to_global(), x_ref) <= tu.tol_for(dtype, n)
+    fac = ta.to_global()
+    np.testing.assert_array_equal(np.tril(fac, -1), junk)
+    assert _rel_err(np.triu(fac), u_ref) <= tu.tol_for(dtype, n)
+
+
+def test_posv_upper_raises_like_jax(comm_grids):
+    """``raise_on_failure`` on a matrix whose leading minor of order 38
+    fails, from its upper triangle: the same info in both packages."""
+    from dlaf_tpu_torch.health import NotPositiveDefiniteError
+
+    n, mb = 56, 8
+    a = tu.random_hermitian_pd(n, np.float64, seed=54)
+    a[37, 37] = -40.0
+    b = tu.random_matrix(n, 3, np.float64, seed=55)
+    ja, ta = _multi_pair(comm_grids, (2, 4), np.triu(a), (mb, mb))
+    jb, tb = _multi_pair(comm_grids, (2, 4), b, (mb, mb))
+    with pytest.raises(dt.NotPositiveDefiniteError) as je:
+        dt.positive_definite_solver("U", ja, jb, raise_on_failure=True)
+    with knobs(collectives_impl="pallas"):
+        with pytest.raises(NotPositiveDefiniteError) as te:
+            positive_definite_solver("U", ta, tb, raise_on_failure=True)
+    assert te.value.info == je.value.info == 38
