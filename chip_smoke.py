@@ -9,9 +9,10 @@ distributed kernel forced), on a random SPD matrix made from seed 0, the
 same inputs on a 2x4 grid of rank threads (path M), and
 bench.py's HEEV configuration (N=8192, nb=512, f32, 1x1 grid, the full
 pipeline) on random_hermitian_pd(8192, f32, seed=2), the same on the
-2x4 grid (path H2), and the JAX miniapp's generalized eigenproblem
-(N=8192, nb=512, f32, A and B random_hermitian_pd of seeds 1 and 2) on
-the 2x4 grid (path G2).  Phases, each fatal
+2x4 grid (path H2) and in float64 through the mixed-precision eigensolver
+(paths E2, EW), and the JAX miniapp's generalized eigenproblem (N=8192,
+nb=512, f32, A and B random_hermitian_pd of seeds 1 and 2) on the 2x4
+grid (path G2).  Phases, each fatal
 on failure:
 
 0. header: the card's name and power limit (nvidia-smi), stamped on every
@@ -147,6 +148,15 @@ on failure:
    eigenvalues against A's, each check first shown to reject a band with
    one panel's second addend dropped; the distance to the 1x1 grid's band
    reported;
+5g. path O2: M1's Cholesky of the leading N=8192 block on the 2x4 grid at
+   source rank (1, 2) (the entry point rolls the rank axes to the origin
+   and back) and at the origin: bit for bit, on the caller's handle, the
+   roll timed alone;
+5h. general_sub_multiplication on the 2x4 grid, f32 parents of 4096^2:
+   windows the multiplying ranks own, windows gathered over both axes,
+   windows off the tile grid, and A's window overlapping C's in one
+   parent, each held to the float64 product of the original windows
+   within tol_for(f32, K), the elements outside C's window unchanged;
 6. path H: hermitian_eigensolver("L", A, backend="pipeline") with
    dc_secular_pallas=1, trailing_update_impl=fused, band_chase_backend=
    native: one warm-up, one timed run (wall, GFlop/s at 4/3 N^3 as bench.py
@@ -173,6 +183,19 @@ on failure:
    its factor is bit for bit the transposed L factor, and the composed U
    transform) against the L form, each within tol_for(f32, N) and first
    shown to reject a wrong answer;
+6d. path E2: hermitian_eigensolver_mixed("L", A) of path H's matrix in
+   float64 on the 2x4 grid under path H2's knobs (H2's call is its low
+   stage), one run with the stage clock on (the low pipeline's seconds,
+   each sweep's, iters, the orthogonality error); converged, the
+   eigenvalues within tol_for(f64, N) of ||A||_2, residual and
+   orthogonality within tol_for(f64, N, 200), A untouched, each check
+   first shown to reject a wrong answer (the float32 pipeline's own
+   eigenpairs among them);
+6e. path EW: its narrow-window route, spectrum (0, 1023), under path G2's
+   knobs (the Cholesky QR's B1 and B2), E2's checks on the window;
+6f. path P2: hermitian_eigensolver(spectrum=(1024, 2047)) and
+   hermitian_eigenvalues (all, and the window) at N=4096 on the 2x4 grid,
+   within tol_for(f32, N); the eigenvalues-only runs launch no B10;
 7. one {"kernels": [...]} JSON line, the card line again, and as the last
    line {"ok": true, "device": {...}}.
 
@@ -274,6 +297,31 @@ SEED_GA, SEED_GB, NG_WARM = 1, 2, 2048
 # N_TIERS of random_hermitian_pd(N_TIERS, seed 0) moved so that its
 # smallest eigenvalue is -MU_GAP
 MU_GAP = 1e-4
+# path E2: hermitian_eigensolver_mixed("L", A) of path H's matrix in
+# float64 on the 2x4 grid under PATH_R (the low stage is path H2's call);
+# path EW: its narrow-window route, spectrum EW_SPECTRUM (the partial
+# refinement: k <= max(WIDE_WINDOW_MIN, N / 2)) at N_EW under PATH_G, whose
+# B2 runs in _cholqr's Cholesky and Right TRSM
+EW_SPECTRUM, N_EW = (0, 1023), NH
+# path P2: hermitian_eigensolver(spectrum=P2_SPECTRUM) and
+# hermitian_eigenvalues (all, and the window) of random_hermitian_pd(N_P2,
+# f32, seed SEED_H) on the 2x4 grid under PATH_R
+N_P2, P2_SPECTRUM = 4096, (1024, 2047)
+# path O2: path M1's Cholesky of the leading N_O2 block of the main path's
+# matrix on the 2x4 grid, at source rank O2_SOURCE and at the origin
+N_O2, O2_SOURCE = 8192, (1, 2)
+# the sub-GEMM phase: general_sub_multiplication on the 2x4 grid under
+# PATH_M1, f32 parents of N_SUB x N_SUB in NB tiles; (A's origin, B's
+# origin, C's origin, (M, K, N)): the windows' tiles owned by the ranks
+# that multiply them, gathered over both axes, off the tile grid, and
+# windows of one parent (A overlapping C's window)
+N_SUB = 4096
+SUB_GEMM_CASES = {
+    "owned": ((1024, 512), (512, 0), (1024, 2048), (2048, 1536, 1536)),
+    "gathered": ((512, 0), (0, 512), (1024, 2048), (2048, 1536, 1536)),
+    "unaligned": ((3, 5), (7, 11), (13, 17), (2000, 1500, 1700)),
+    "aliased": ((2048, 0), (0, 2048), (2048, 512), (2048, 1536, 1536)),
+}
 
 
 def make_inputs(dev):
@@ -555,6 +603,7 @@ def path_h2(stamp: dict, kept: dict) -> dict:
                             res.eigenvectors.dist).double()
     del res
     w_h = kept["H_w"]
+    kept.update(H2_w=w, H2_v=v)  # the float32 pipeline's pairs: wrong answers of E2 and EW
     got = {"eig_err": eig_err(w), "residual": residual(v, w), "orthogonality": orthogonality(v),
            "eig_vs_path_H": eig_err(w, w_h)}
     wrong = heev_wrong_answers(a64, w, v, eig_err, residual, orthogonality, eye)
@@ -879,6 +928,486 @@ def path_g2(stamp: dict) -> dict:
              f"{2 * mt * ranks}), B1, B2, B5 in cholesky_b, B2 and B5 in hegst, B10 twice per "
              f"merge level and rank, B3, B6, and B2 in the composed Right TRSM: {by_stage}, "
              f"{counts_by['G2_composed']}")
+    return counts_by
+
+
+def window_check_fns(a64, w_ref):
+    """The checks of an n x k block of eigenpairs in float64 on the card
+    (paths E2, EW, P2): the eigenvalue error over ||A||_2 against a window
+    of ``w_ref = eigvalsh(a64)``, the residual ||A V - V diag(w)||_F /
+    ||A||_F and the orthogonality ||V^T V - I||_F / sqrt(k)."""
+    import torch
+
+    norm2 = w_ref.abs().max()
+    norm_f = torch.linalg.matrix_norm(a64)
+
+    def eig_err(w, ref):
+        return ((w - ref).abs().max() / norm2).item()
+
+    def residual(v, w):
+        return (torch.linalg.matrix_norm(a64 @ v - v * w[None, :]) / norm_f).item()
+
+    def orthogonality(v):
+        k = v.shape[1]
+        eye = torch.eye(k, dtype=v.dtype, device=v.device)
+        return (torch.linalg.matrix_norm(v.T @ v - eye) / k ** 0.5).item()
+
+    return eig_err, residual, orthogonality
+
+
+def window_wrong_answers(a64, w, v, window, ref, eig_err, residual, orthogonality) -> dict:
+    """The wrong answers each window check is first shown to reject:
+    path H's, on the k columns of ``window`` (``ref`` its eigenvalues)."""
+    import torch
+
+    il, iu = window
+    n, k = v.shape
+    w_diag = torch.sort(a64.diagonal()).values[il:iu + 1]
+    eye_k = torch.eye(n, k, dtype=v.dtype, device=v.device)
+    swapped = v[:, [k - 1] + list(range(1, k - 1)) + [0]]
+    dup = v.clone()
+    dup[:, 0] = v[:, k - 1]
+    return {"eig_err of w = sort(diag A) on the window": eig_err(w_diag, ref),
+            "residual of V = the first k columns of I": residual(eye_k, w),
+            "residual of V with its first and last columns swapped": residual(swapped, w),
+            "orthogonality of V with its first column replaced by its last": orthogonality(dup)}
+
+
+def _low_pairs(kept: dict, grid, a_low, nb):
+    """The float32 pipeline's own eigenpairs of path H's matrix on the grid
+    (float64 on the card): path H2's, kept, or computed here."""
+    import numpy as np
+    import torch
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch.matrix import layout
+
+    if "H2_v" not in kept:
+        res = dtt.hermitian_eigensolver(
+            "L", dtt.DistributedMatrix.from_global(grid, a_low.float(), (nb, nb)))
+        kept["H2_w"] = torch.from_numpy(np.asarray(res.eigenvalues, np.float64)).to(a_low.device)
+        kept["H2_v"] = layout.unpad_global(layout.unpack(res.eigenvectors.data,
+                                                         res.eigenvectors.dist),
+                                           res.eigenvectors.dist).double()
+    return kept["H2_w"], kept["H2_v"]
+
+
+def _path_h_matrix(n: int, dev):
+    """random_hermitian_pd(n, f32, seed SEED_H): its lower triangle in
+    float64, and the whole matrix in float64, on the card."""
+    import numpy as np
+    import torch
+
+    from dlaf_tpu_torch.testing import random_hermitian_pd
+
+    a_low = torch.from_numpy(np.tril(random_hermitian_pd(n, np.float32, seed=SEED_H))).to(dev)
+    a_low = a_low.double()
+    return a_low, a_low + torch.tril(a_low, -1).T
+
+
+def path_e2(stamp: dict, kept: dict) -> dict:
+    """Phase 6d: hermitian_eigensolver_mixed("L", A) on the GRID_M grid of
+    rank threads at NH, NBH under PATH_R, A path H's matrix in float64: the
+    low stage is path H2's call (B3, B5 and B6 in red2band, B10 in the
+    D&C), then Ogita-Aishima sweeps in float64 over the SUMMA products (B5
+    for every panel broadcast).  One run with the stage clock on: the
+    wall, the low pipeline's wall, the seconds of each sweep, info.iters
+    and info.ortho_error, the launches.  Checks in float64 on the card:
+    converged; the eigenvalue error over ||A||_2 within tol_for(f64, N);
+    the residual and the orthogonality within tol_for(f64, N, 200); A left
+    untouched, bit for bit.  Each check is first shown to reject a wrong
+    answer: the float32 pipeline's own eigenpairs (path H2's, ``kept``),
+    heev_wrong_answers' others, and A with one element changed.  Returns
+    the run's launch counts."""
+    import numpy as np
+    import torch
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import ops, tune
+    from dlaf_tpu_torch.algorithms.eigensolver import _sbr_target
+    from dlaf_tpu_torch.algorithms.reduction_to_band import get_band_size
+    from dlaf_tpu_torch.common import stagetimer
+    from dlaf_tpu_torch.matrix import layout
+    from dlaf_tpu_torch.testing import tol_for
+
+    n, nb = NH, NBH
+    dev = torch.device("cuda")
+    tune.initialize(**PATH_R)
+    grid = dtt.Grid.create(GRID_M, device=dev)
+    a_low, a64 = _path_h_matrix(n, dev)
+    w_lo, v_lo = _low_pairs(kept, grid, a_low, nb)
+    mat = dtt.DistributedMatrix.from_global(grid, a_low, (nb, nb))
+    before = mat.data.clone()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    stagetimer.start()
+    t0 = time.perf_counter()
+    res, info = dtt.hermitian_eigensolver_mixed("L", mat)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    times = stagetimer.stop()
+    counts = launch_counts()
+    untouched = bool(torch.equal(mat.data, before))
+    before.view(-1)[0] += 1.0
+    changed_untouched = bool(torch.equal(mat.data, before))
+    del mat, before, a_low
+    w_ref = kept["w_ref"] if "w_ref" in kept else torch.linalg.eigvalsh(a64)
+    eig_err, residual, orthogonality, eye = heev_check_fns(a64, w_ref)
+    w = torch.from_numpy(np.asarray(res.eigenvalues, np.float64)).to(dev)
+    v = layout.unpad_global(layout.unpack(res.eigenvectors.data, res.eigenvectors.dist),
+                            res.eigenvectors.dist)
+    del res
+    got = {"eig_err": eig_err(w), "residual": residual(v, w), "orthogonality": orthogonality(v)}
+    wrong = {f"{k} (the float32 pipeline's)": val for k, val in (
+        ("eig_err", eig_err(w_lo)), ("residual", residual(v_lo, w_lo)),
+        ("orthogonality", orthogonality(v_lo)))}
+    wrong.update(heev_wrong_answers(a64, w, v, eig_err, residual, orthogonality, eye))
+    del a64, eye, v
+    torch.cuda.empty_cache()
+    tol_w, tol_v = tol_for("float64", n), tol_for("float64", n, 200)
+    tols = {"eig_err": tol_w, "residual": tol_v, "orthogonality": tol_v}
+    pipeline = ("red2band", "sbr", "chase", "tridiag", "bt_band", "bt_sbr", "bt_red2band")
+    band = get_band_size(nb, dev)
+    emit({"phase": "path_E2", "config": "hermitian_eigensolver_mixed(L), " + ", ".join(
+              f"{k}={v_}" for k, v_ in PATH_R.items()),
+          "grid": list(GRID_M), "n": n, "nb": nb, "seed": SEED_H, "dtype": "float64",
+          "low_dtype": "float32", "band": band, "sbr_band": _sbr_target(band, dev),
+          "wall_s": wall, "stage_clock_on": True,
+          "low_pipeline_s": sum(times.get(k, 0.0) for k in pipeline),
+          "refine_s": times.get("eig_refine"),
+          "sweep_s": {k: v_ for k, v_ in times.items() if k.startswith("eig_refine/sweep")},
+          "stage_s": times, "iters": info.iters, "ortho_error": info.ortho_error,
+          "converged": info.converged, "a_untouched": untouched, "checks": got, "tol": tols,
+          "wrong_answers": wrong, "a_untouched_of_a_changed_element": changed_untouched,
+          "launches": counts, **stamp})
+    if changed_untouched:
+        fail("path E2's untouched check accepts A with one element changed")
+    for name, val in wrong.items():
+        lim = tols[name.split(" ")[0]]
+        if not val > lim:
+            fail(f"path E2 check accepts a wrong answer: {name} = {val:.3e} <= {lim:.3e}")
+    if not (info.converged and untouched):
+        fail(f"path E2 converged {info.converged} ({info}), A untouched {untouched}")
+    for name, val in got.items():
+        if not val <= tols[name]:
+            fail(f"path E2 {name} {val:.3e} > {tols[name]:.3e}")
+    if min(counts[k] for k in ("trailing_update", "ring_exchange", "dma_ring_consume",
+                               "secular_bisect")) <= 0:
+        fail(f"path E2 did not launch B3, B5, B6 and B10: {counts}")
+    return counts
+
+
+def path_ew(stamp: dict, kept: dict) -> dict:
+    """Phase 6e: the narrow-window route of hermitian_eigensolver_mixed,
+    spectrum EW_SPECTRUM of path H's matrix in float64 at N_EW on the
+    GRID_M grid under PATH_G: the float32 pipeline, then the partial
+    refinement (the in-window Rayleigh-Ritz, the preconditioned step over
+    the whole low basis, and _cholqr: the distributed Cholesky of the k x k
+    Gram matrix, B1, B2, B5, and the Right TRSM, B2).  One run with the
+    stage clock on; path E2's checks on the window, each first shown to
+    reject a wrong answer (the float32 pipeline's window and
+    window_wrong_answers').  Returns the run's launch counts."""
+    import numpy as np
+    import torch
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import ops, tune
+    from dlaf_tpu_torch.common import stagetimer
+    from dlaf_tpu_torch.matrix import layout
+    from dlaf_tpu_torch.testing import tol_for
+
+    n, nb = N_EW, NBH
+    il, iu = EW_SPECTRUM
+    dev = torch.device("cuda")
+    tune.initialize(**PATH_G)
+    grid = dtt.Grid.create(GRID_M, device=dev)
+    a_low, a64 = _path_h_matrix(n, dev)
+    if n == NH:
+        w_lo, v_lo = _low_pairs(kept, grid, a_low, nb)
+        w_lo, v_lo = w_lo[il:iu + 1], v_lo[:, il:iu + 1]
+        w_ref = kept["w_ref"] if "w_ref" in kept else torch.linalg.eigvalsh(a64)
+    else:
+        w_lo, v_lo = _low_pairs({}, grid, a_low, nb)
+        w_lo, v_lo = w_lo[il:iu + 1], v_lo[:, il:iu + 1]
+        w_ref = torch.linalg.eigvalsh(a64)
+    mat = dtt.DistributedMatrix.from_global(grid, a_low, (nb, nb))
+    del a_low
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    stagetimer.start()
+    t0 = time.perf_counter()
+    res, info = dtt.hermitian_eigensolver_mixed("L", mat, spectrum=EW_SPECTRUM)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    times = stagetimer.stop()
+    counts = launch_counts()
+    del mat
+    eig_err, residual, orthogonality = window_check_fns(a64, w_ref)
+    ref = w_ref[il:iu + 1]
+    w = torch.from_numpy(np.asarray(res.eigenvalues, np.float64)).to(dev)
+    v = layout.unpad_global(layout.unpack(res.eigenvectors.data, res.eigenvectors.dist),
+                            res.eigenvectors.dist)
+    k = v.shape[1]
+    del res
+    got = {"eig_err": eig_err(w, ref), "residual": residual(v, w),
+           "orthogonality": orthogonality(v)}
+    wrong = {f"{k_} (the float32 pipeline's window)": val for k_, val in (
+        ("eig_err", eig_err(w_lo, ref)), ("residual", residual(v_lo, w_lo)),
+        ("orthogonality", orthogonality(v_lo)))}
+    wrong.update(window_wrong_answers(a64, w, v, EW_SPECTRUM, ref, eig_err, residual,
+                                      orthogonality))
+    del a64, v, w_lo, v_lo
+    torch.cuda.empty_cache()
+    tol_w, tol_v = tol_for("float64", n), tol_for("float64", n, 200)
+    tols = {"eig_err": tol_w, "residual": tol_v, "orthogonality": tol_v}
+    emit({"phase": "path_EW", "config": f"hermitian_eigensolver_mixed(L, spectrum={EW_SPECTRUM})"
+                                        ", " + ", ".join(f"{k_}={v_}" for k_, v_ in PATH_G.items()),
+          "grid": list(GRID_M), "n": n, "nb": nb, "k": k, "seed": SEED_H, "dtype": "float64",
+          "wall_s": wall, "stage_clock_on": True, "refine_s": times.get("eig_refine/partial"),
+          "sweep_s": {k_: v_ for k_, v_ in times.items()
+                      if k_.startswith("eig_refine/partial/sweep")},
+          "stage_s": times, "iters": info.iters, "residual": info.residual,
+          "converged": info.converged, "checks": got, "tol": tols, "wrong_answers": wrong,
+          "launches": counts, **stamp})
+    for name, val in wrong.items():
+        lim = tols[name.split(" ")[0]]
+        if not val > lim:
+            fail(f"path EW check accepts a wrong answer: {name} = {val:.3e} <= {lim:.3e}")
+    if not info.converged or k != iu - il + 1:
+        fail(f"path EW converged {info.converged} ({info}), {k} columns")
+    for name, val in got.items():
+        if not val <= tols[name]:
+            fail(f"path EW {name} {val:.3e} > {tols[name]:.3e}")
+    if min(counts[k_] for k_ in ("potrf", "panel_trsm", "ring_exchange", "secular_bisect")) <= 0:
+        fail(f"path EW did not launch B1, B2, B5 and B10: {counts}")
+    return counts
+
+
+def path_p2(stamp: dict) -> dict:
+    """Phase 6f: partial spectra and eigenvalues only on the GRID_M grid
+    under PATH_R, on random_hermitian_pd(N_P2, f32, seed SEED_H):
+    hermitian_eigensolver("L", A, spectrum=P2_SPECTRUM) (the D&C's
+    eigenvectors cut to the window, the back-transforms on its k columns),
+    then hermitian_eigenvalues("L", A) of the whole spectrum and of the
+    window (red2band, the SBR stage and the rotation chase with no
+    transform, LAPACK's tridiagonal solver; no B10).  Held in float64 on
+    the card against eigvalsh of the same matrix, each within tol_for(f32,
+    N_P2) and first shown to reject a wrong answer.  Returns each run's
+    launch counts."""
+    import numpy as np
+    import torch
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import ops, tune
+    from dlaf_tpu_torch.matrix import layout
+    from dlaf_tpu_torch.testing import tol_for
+
+    n, nb = N_P2, NBH
+    il, iu = P2_SPECTRUM
+    dev = torch.device("cuda")
+    tune.initialize(**PATH_R)
+    grid = dtt.Grid.create(GRID_M, device=dev)
+    a_low, a64 = _path_h_matrix(n, dev)
+    a_low = a_low.float()
+    w_ref = torch.linalg.eigvalsh(a64)
+    ref = w_ref[il:iu + 1]
+    eig_err, residual, orthogonality = window_check_fns(a64, w_ref)
+
+    def run(fn):
+        mat = dtt.DistributedMatrix.from_global(grid, a_low, (nb, nb))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(mat)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, launch_counts()
+
+    counts_by, walls = {}, {}
+    res, walls["spectrum"], counts_by["P2_spectrum"] = run(
+        lambda m: dtt.hermitian_eigensolver("L", m, spectrum=P2_SPECTRUM))
+    w_all, walls["eigenvalues"], counts_by["P2_eigenvalues"] = run(
+        lambda m: dtt.hermitian_eigenvalues("L", m))
+    w_win, walls["eigenvalues_window"], counts_by["P2_eigenvalues_window"] = run(
+        lambda m: dtt.hermitian_eigenvalues("L", m, spectrum=P2_SPECTRUM))
+
+    def on_card(x):
+        return torch.from_numpy(np.asarray(x, np.float64)).to(dev)
+
+    w = on_card(res.eigenvalues)
+    v = layout.unpad_global(layout.unpack(res.eigenvectors.data, res.eigenvectors.dist),
+                            res.eigenvectors.dist).double()
+    k = v.shape[1]
+    del res
+    got = {"eig_err": eig_err(w, ref), "residual": residual(v, w),
+           "orthogonality": orthogonality(v),
+           "eigenvalues_eig_err": eig_err(on_card(w_all), w_ref),
+           "eigenvalues_window_eig_err": eig_err(on_card(w_win), ref)}
+    wrong = window_wrong_answers(a64, w, v, P2_SPECTRUM, ref, eig_err, residual,
+                                 orthogonality)
+    wrong["eigenvalues_eig_err of w = sort(diag A)"] = eig_err(
+        torch.sort(a64.diagonal()).values, w_ref)
+    del a64, v, a_low, w_ref
+    torch.cuda.empty_cache()
+    tol = tol_for("float32", n)
+    emit({"phase": "path_P2", "config": f"hermitian_eigensolver(L, spectrum={P2_SPECTRUM}), "
+                                        "hermitian_eigenvalues(L) and (L, spectrum), "
+                                        + ", ".join(f"{k_}={v_}" for k_, v_ in PATH_R.items()),
+          "grid": list(GRID_M), "n": n, "nb": nb, "k": k, "seed": SEED_H, "wall_s": walls,
+          "checks": got, "tol": tol, "wrong_answers": wrong, "launches": counts_by, **stamp})
+    for name, val in wrong.items():
+        if not val > tol:
+            fail(f"path P2 check accepts a wrong answer: {name} = {val:.3e} <= {tol:.3e}")
+    for name, val in got.items():
+        if not val <= tol:
+            fail(f"path P2 {name} {val:.3e} > {tol:.3e}")
+    cs, ce = counts_by["P2_spectrum"], counts_by["P2_eigenvalues"]
+    if (k != iu - il + 1 or min(cs[k_] for k_ in ("trailing_update", "ring_exchange",
+                                                   "dma_ring_consume", "secular_bisect")) <= 0
+            or min(ce["trailing_update"], ce["dma_ring_consume"]) <= 0
+            or ce["secular_bisect"] != 0):
+        fail(f"path P2: {k} columns; the window did not launch B3, B5, B6 and B10, or the "
+             f"eigenvalues B3 and B6 and no B10: {counts_by}")
+    return counts_by
+
+
+def path_o2(stamp: dict, a_glob) -> dict:
+    """Phase 5g: path M1's Cholesky (PATH_M1 on the GRID_M grid: B1, B2,
+    B5) of the leading N_O2 block of the main path's matrix at the origin,
+    then at source rank O2_SOURCE: the entry point rolls the stacked
+    tensor's rank axes to the origin and back (algorithms/_origin.py), one
+    device copy each way, timed alone.  The factor at O2_SOURCE must be
+    bit for bit the origin call's (the check first shown to reject it with
+    one element changed), land on the caller's handle with its source
+    rank, and its residual ||A - L L^T||_F / ||A||_F lie within
+    tol_for(f32, N_O2).  Returns each run's launch counts."""
+    import torch
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import ops, tune
+    from dlaf_tpu_torch.matrix import layout
+    from dlaf_tpu_torch.testing import tol_for
+
+    n, nb = N_O2, NB
+    dev = torch.device("cuda")
+    tune.initialize(**PATH_M1)
+    grid = dtt.Grid.create(GRID_M, device=dev)
+    a = a_glob[:n, :n].contiguous()
+
+    def run(src):
+        mat = dtt.DistributedMatrix.from_global(grid, a, (nb, nb), source_rank=src)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fac = dtt.cholesky_factorization("L", mat)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        on_handle = mat.data is fac.data and tuple(mat.dist.source_rank) == tuple(src)
+        g = layout.unpad_global(layout.unpack(fac.data, fac.dist), fac.dist)
+        return g, tuple(fac.dist.source_rank), on_handle, wall, launch_counts()
+
+    g0, src0, _, wall0, counts0 = run((0, 0))
+    g1, src1, on_handle, wall1, counts1 = run(O2_SOURCE)
+    bitwise = bool(torch.equal(g0, g1))
+    flipped = g1.clone()
+    flipped[n - 1, 0] = -flipped[n - 1, 0] if flipped[n - 1, 0] != 0 else 1.0
+    rejects = not torch.equal(g0, flipped)
+    del flipped
+    lo = torch.tril(g1.double())
+    a64 = a.double()
+    res = (torch.linalg.matrix_norm(a64 - lo @ lo.T) / torch.linalg.matrix_norm(a64)).item()
+    del lo, a64, g0, g1
+    probe = dtt.DistributedMatrix.from_global(grid, a, (nb, nb), source_rank=O2_SOURCE)
+    roll_ms = timed_ms(probe.to_origin, 5)
+    del probe, a
+    torch.cuda.empty_cache()
+    tol = tol_for("float32", n)
+    emit({"phase": "path_O2", "config": f"cholesky_factorization(L) at source_rank "
+                                        f"{list(O2_SOURCE)} and (0, 0), " + ", ".join(
+                                            f"{k}={v}" for k, v in PATH_M1.items()),
+          "grid": list(GRID_M), "n": n, "nb": nb, "wall_s": {"origin": wall0, "source": wall1},
+          "roll_ms": roll_ms, "roll_bytes": n * n * 4, "bitwise_vs_origin": bitwise,
+          "bitwise_check_rejects_a_changed_element": rejects, "result_source_rank": list(src1),
+          "on_callers_handle": on_handle, "factor_residual": res, "tol": tol,
+          "launches": {"origin": counts0, "source": counts1}, **stamp})
+    if not rejects:
+        fail("path O2's bitwise check accepts a factor with one element changed")
+    if not (bitwise and on_handle and src1 == tuple(O2_SOURCE) and src0 == (0, 0)
+            and res <= tol):
+        fail(f"path O2: bitwise {bitwise}, on the caller's handle {on_handle}, source rank "
+             f"{src1}, residual {res:.3e} (tol {tol:.3e})")
+    if min(counts1[k] for k in ("potrf", "panel_trsm", "ring_exchange")) <= 0:
+        fail(f"path O2 did not launch B1, B2 and B5: {counts1}")
+    return {"O2_origin": counts0, "O2_source": counts1}
+
+
+def sub_gemm_phase(stamp: dict) -> dict:
+    """Phase 5h: general_sub_multiplication(alpha, A_ref, B_ref, beta,
+    C_ref) on the GRID_M grid under PATH_M1 (B5 for every panel broadcast),
+    f32 parents of N_SUB x N_SUB in NB tiles made from seed SEED + 3, for
+    each of SUB_GEMM_CASES: windows whose tiles the multiplying ranks own,
+    windows gathered over both axes first, windows off the tile grid (the
+    window_extract -> general_multiplication -> window_update route), and
+    A's window overlapping C's in one parent (the rank barrier before the
+    write-back).  C's window is held to the float64 product of the
+    original windows on the card, max|C - C_ref| / max|C_ref| within
+    tol_for(f32, K), the check first shown to reject C's window unchanged;
+    the elements outside C's window bit for bit unchanged.  Returns each
+    case's launch counts."""
+    import torch
+
+    import dlaf_tpu_torch as dtt
+    from dlaf_tpu_torch import ops, tune
+    from dlaf_tpu_torch.matrix import layout
+    from dlaf_tpu_torch.testing import tol_for
+
+    dev = torch.device("cuda")
+    tune.initialize(**PATH_M1)
+    grid = dtt.Grid.create(GRID_M, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    alpha, beta = 0.75, -0.5
+    out, counts_by = {}, {}
+    for case, ((ra, ca), (rb, cb), (rc, cc), (m, k, nn)) in SUB_GEMM_CASES.items():
+        aliased = case == "aliased"
+        xs = [torch.randn(N_SUB, N_SUB, generator=gen, device=dev) for _ in range(1 if aliased
+                                                                                 else 3)]
+        mats = [dtt.DistributedMatrix.from_global(grid, x, (NB, NB)) for x in xs]
+        ma, mb, mc = (mats * 3) if aliased else mats
+        xa, xb, xc = (xs * 3) if aliased else xs
+        want = (beta * xc[rc:rc + m, cc:cc + nn].double()
+                + alpha * xa[ra:ra + m, ca:ca + k].double() @ xb[rb:rb + k, cb:cb + nn].double())
+        refs = (dtt.MatrixRef(ma, (ra, ca), (m, k)), dtt.MatrixRef(mb, (rb, cb), (k, nn)),
+                dtt.MatrixRef(mc, (rc, cc), (m, nn)))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        dtt.general_sub_multiplication(alpha, refs[0], refs[1], beta, refs[2])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts_by[f"sub_gemm_{case}"] = launch_counts()
+        got = layout.unpad_global(layout.unpack(mc.data, mc.dist), mc.dist)
+        scale = want.abs().max()
+        err = ((got[rc:rc + m, cc:cc + nn].double() - want).abs().max() / scale).item()
+        unchanged = ((xc[rc:rc + m, cc:cc + nn].double() - want).abs().max() / scale).item()
+        outside = torch.ones_like(got, dtype=torch.bool)
+        outside[rc:rc + m, cc:cc + nn] = False
+        kept_outside = bool(torch.equal(got[outside], xc[outside]))
+        out[case] = {"aligned": [r.aligned for r in refs], "wall_s": wall, "rel_err": err,
+                     "rel_err_of_c_unchanged": unchanged, "outside_unchanged": kept_outside,
+                     "tol": tol_for("float32", k), "launches": counts_by[f"sub_gemm_{case}"]}
+        del xs, mats, ma, mb, mc, xa, xb, xc, want, got, outside, refs
+        torch.cuda.empty_cache()
+    emit({"phase": "sub_gemm", "config": "general_sub_multiplication, " + ", ".join(
+              f"{k}={v}" for k, v in PATH_M1.items()),
+          "grid": list(GRID_M), "n_parent": N_SUB, "nb": NB, "alpha": alpha, "beta": beta,
+          "cases": out, **stamp})
+    for case, r in out.items():
+        if not r["rel_err_of_c_unchanged"] > r["tol"]:
+            fail(f"sub-GEMM {case}: the check accepts C's window unchanged")
+        if not (r["rel_err"] <= r["tol"] and r["outside_unchanged"]):
+            fail(f"sub-GEMM {case}: rel err {r['rel_err']:.3e} (tol {r['tol']:.3e}), outside "
+                 f"unchanged {r['outside_unchanged']}")
+        if all(r["aligned"]) != (case != "unaligned") or r["launches"]["ring_exchange"] <= 0:
+            fail(f"sub-GEMM {case}: aligned {r['aligned']}, launches {r['launches']}")
     return counts_by
 
 
@@ -4250,6 +4779,13 @@ def main() -> int:
     # ---- 5e. the split-GEMM solvers: S1, S2, S5, S3
     by_path.update(path_split(stamp, a_glob, rhs, solve_err, res_tol, by_path))
 
+    # ---- 5g. path O2: M1's Cholesky at source rank (1, 2) and at the origin
+    by_path.update(path_o2(stamp, a_glob))
+    torch.cuda.empty_cache()
+
+    # ---- 5h. general_sub_multiplication on the 2x4 grid
+    by_path.update(sub_gemm_phase(stamp))
+
     del a_glob, rhs, x_ref
     torch.cuda.empty_cache()
 
@@ -4264,11 +4800,21 @@ def main() -> int:
 
     # ---- 6b. path H2: the HEEV pipeline on the 2x4 grid of rank threads
     by_path["H2_heev"] = path_h2(stamp, kept_h)
-    del kept_h
     torch.cuda.empty_cache()
 
     # ---- 6c. path G2: the generalized eigensolver on the 2x4 grid
     by_path.update(path_g2(stamp))
+    torch.cuda.empty_cache()
+
+    # ---- 6d. path E2: the mixed-precision eigensolver on the 2x4 grid; 6e.
+    # path EW, its narrow-window route; 6f. path P2, partial spectra and
+    # eigenvalues only
+    by_path["E2_mixed"] = path_e2(stamp, kept_h)
+    torch.cuda.empty_cache()
+    by_path["EW_window"] = path_ew(stamp, kept_h)
+    del kept_h
+    torch.cuda.empty_cache()
+    by_path.update(path_p2(stamp))
 
     # ---- 7. summary
     meta = {

@@ -41,6 +41,7 @@ import torch
 
 from dlaf_tpu_torch import health, tune
 from dlaf_tpu_torch.algorithms import _spmd
+from dlaf_tpu_torch.algorithms._origin import origin_transparent
 from dlaf_tpu_torch.comm import collectives as coll
 from dlaf_tpu_torch.comm.grid import COL_AXIS, ROW_AXIS
 from dlaf_tpu_torch.health import DistributionError, NotPositiveDefiniteError
@@ -322,6 +323,7 @@ def _factor_with_recovery(mat_a: DistributedMatrix, g: _spmd.Geometry, max_shift
     return data, info, shift
 
 
+@origin_transparent
 def cholesky_factorization(
     uplo: str,
     mat_a: DistributedMatrix,

@@ -29,6 +29,7 @@ import torch
 
 from dlaf_tpu_torch import tune
 from dlaf_tpu_torch.algorithms import _spmd
+from dlaf_tpu_torch.algorithms._origin import origin_transparent
 from dlaf_tpu_torch.algorithms.triangular_solver import triangular_solver
 from dlaf_tpu_torch.comm import collectives as coll
 from dlaf_tpu_torch.comm.grid import COL_AXIS, ROW_AXIS
@@ -145,6 +146,7 @@ def _gen_to_std_fused(mat_a_full: DistributedMatrix, mat_b_l: DistributedMatrix)
     return mutil.hermitize(lower, "L")
 
 
+@origin_transparent
 def generalized_to_standard(uplo: str, mat_a: DistributedMatrix,
                             mat_b: DistributedMatrix) -> DistributedMatrix:
     """A_std = inv(fac) A inv(fac)^H with fac = L ('L': B = L L^H) or

@@ -36,6 +36,7 @@ import torch
 
 from dlaf_tpu_torch import tune
 from dlaf_tpu_torch.algorithms import _spmd
+from dlaf_tpu_torch.algorithms._origin import origin_transparent
 from dlaf_tpu_torch.comm import collectives as coll
 from dlaf_tpu_torch.comm.grid import COL_AXIS, ROW_AXIS
 from dlaf_tpu_torch.matrix import layout
@@ -158,6 +159,7 @@ def _trtri_single_device(uplo: str, diag: str, mat_a: DistributedMatrix) -> Dist
     return mat_a._inplace(layout.pack(layout.pad_global(out, dist), dist))
 
 
+@origin_transparent
 def triangular_inverse(uplo: str, diag: str, mat_a: DistributedMatrix) -> DistributedMatrix:
     """In-place inverse of the ``uplo`` triangle of A (``diag`` 'N', or 'U'
     for a unit diagonal); the other triangle is not referenced."""
@@ -182,6 +184,7 @@ def triangular_inverse(uplo: str, diag: str, mat_a: DistributedMatrix) -> Distri
     return mat_a._inplace(mat_a.data)
 
 
+@origin_transparent
 def inverse_from_cholesky_factor(uplo: str, mat_a: DistributedMatrix) -> DistributedMatrix:
     """POTRI (``inverse_from_cholesky_factor``, :305): given the Cholesky
     factor in the ``uplo`` triangle of A, return A^-1 in full Hermitian

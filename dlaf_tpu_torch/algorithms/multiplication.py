@@ -16,14 +16,18 @@ On a ``Pr x Pc`` grid the loop runs once per rank thread
 place (the JAX package donates it and returns a new array).  A and B are
 only read, so they may be the same matrix; C must not alias either.
 
-Not in this slice: ``general_sub_multiplication`` (it needs
-``matrix/ref.py`` and ``matrix/window.py``; ROADMAP.md §A, item 1).
+``general_sub_multiplication`` runs the same loop over windows
+(``matrix/ref.py``'s ``MatrixRef``) of the three parents: tile-aligned
+windows in place, on the parents' stacks, any other window through
+``matrix/window.py``'s copies.  Its A and B windows may lie in C's parent.
 """
 from __future__ import annotations
 
 import torch
 
 from dlaf_tpu_torch.algorithms import _spmd
+from dlaf_tpu_torch.algorithms._origin import origin_transparent
+from dlaf_tpu_torch.comm import _ranks
 from dlaf_tpu_torch.comm import collectives as coll
 from dlaf_tpu_torch.comm.grid import COL_AXIS, ROW_AXIS
 from dlaf_tpu_torch.matrix import layout
@@ -235,6 +239,7 @@ def _check_mult_shapes(opa, opb, mat_a, mat_b, mat_c):
         raise ValueError(f"gemm: op(A) {am}x{an} op(B) {bm}x{bn} C {tuple(mat_c.size)}")
 
 
+@origin_transparent
 def general_multiplication(opa: str, opb: str, alpha, mat_a, mat_b, beta,
                            mat_c) -> DistributedMatrix:
     """C := alpha op(A) op(B) + beta C, in place of ``mat_c``'s data;
@@ -245,6 +250,7 @@ def general_multiplication(opa: str, opb: str, alpha, mat_a, mat_b, beta,
     return _run_summa(mat_a, mat_b, mat_c, opa, opb, alpha, beta, _FULL, t.NON_UNIT, kt)
 
 
+@origin_transparent
 def triangular_multiplication(side: str, uplo: str, op: str, diag: str, alpha, mat_a,
                               mat_b) -> DistributedMatrix:
     """alpha op(A) B (Left) or alpha B op(A) (Right), A triangular (only its
@@ -257,6 +263,7 @@ def triangular_multiplication(side: str, uplo: str, op: str, diag: str, alpha, m
     return _run_summa_right(mat_a, mat_b, out, op, alpha, structure, diag)
 
 
+@origin_transparent
 def hermitian_multiplication(side: str, uplo: str, alpha, mat_a, mat_b, beta,
                              mat_c) -> DistributedMatrix:
     """C := alpha A B (Left) or alpha B A (Right) + beta C with A Hermitian,
@@ -269,3 +276,136 @@ def hermitian_multiplication(side: str, uplo: str, alpha, mat_a, mat_b, beta,
                           t.NON_UNIT, kt)
     return _run_summa_right(mat_a, mat_b, mat_c, t.NO_TRANS, alpha, structure, t.NON_UNIT,
                             beta=beta)
+
+
+def _window_panel(panel, t0: int, rel, valid, p: int, my: int, ext: int, owned: bool, axis):
+    """Tiles ``t0 + rel`` of a broadcast panel ``[lt, mb, nb]`` whose
+    global tile ``g`` lies at slot ``g // p`` of position ``g % p`` on
+    ``axis``, for this rank's window slots ``rel``; zero where not
+    ``valid``.  ``owned``: the window's tiles share this rank's position
+    (the windows' origins agree mod ``p``) and are taken by index; else
+    the ``lg``-slot window covering tiles ``[t0, t0 + ext)`` is gathered
+    over ``axis`` first, as ``_sub_gemm_kernel`` does."""
+    lt = panel.shape[0]
+    gt = t0 + rel
+    if owned:
+        got = panel[torch.clamp(gt // p, 0, lt - 1)]
+    else:
+        lg = min(lt, -(-ext // p) + 1)
+        starts = [min(max((t0 + p - 1 - r) // p, 0), lt - lg) for r in range(p)]
+        gat = coll.all_gather_axis(panel[starts[my]:starts[my] + lg], axis)
+        flat = gat.reshape(p * lg, *panel.shape[1:])
+        src = gt % p
+        first = torch.tensor(starts, device=panel.device)[src]
+        got = flat[torch.clamp(src * lg + gt // p - first, 0, p * lg - 1)]
+    return _masked(valid, got)
+
+
+def _sub_gemm(a, b, c, g_a, g_b, g_c, origins, Ri, Rj, Rk, L, Cw, alpha, beta, aliased):
+    """``_sub_gemm_kernel`` (:382) on this rank's stacks: C's window :=
+    alpha A's window B's window + beta C's window, every window a tile
+    range of its parent's stack, in place of ``c``'s window tiles; the
+    tiles outside it are not touched.  The products accumulate apart from
+    C, whose window is written once, after the loop."""
+    ai0, ak0, bk0, bj0, ci0, cj0 = origins
+    myr, myc = coll.my_rank()
+    pr, pc = g_c.pr, g_c.pc
+    dev = c.device
+    # C's window: from the first local slot with global tile >= its origin,
+    # clipped so that the L x Cw slots fit (tiles outside it are masked)
+    rs = min(max((ci0 + pr - 1 - myr) // pr, 0), max(g_c.ltr - L, 0))
+    cs = min(max((cj0 + pc - 1 - myc) // pc, 0), max(g_c.ltc - Cw, 0))
+    rel_i = (rs + torch.arange(L, device=dev)) * pr + myr - ci0
+    rel_j = (cs + torch.arange(Cw, device=dev)) * pc + myc - cj0
+    valid_i = (rel_i >= 0) & (rel_i < Ri)
+    valid_j = (rel_j >= 0) & (rel_j < Rj)
+    owned_r = (ai0 - ci0) % pr == 0
+    owned_c = (bj0 - cj0) % pc == 0
+    acc = torch.zeros((L, Cw, g_c.mb, g_c.nb), dtype=c.dtype, device=dev)
+    for k in range(Rk):
+        gka, gkb = ak0 + k, bk0 + k
+        ac = coll.bcast(_spmd.take_col(a, gka // pc, g_a), gka % pc, COL_AXIS)
+        ap = _window_panel(ac, ai0, rel_i, valid_i, pr, myr, Ri, owned_r, ROW_AXIS)
+        br = coll.bcast(_spmd.take_row(b, gkb // pr, g_b), gkb % pr, ROW_AXIS)
+        bp = _window_panel(br, bj0, rel_j, valid_j, pc, myc, Rj, owned_c, COL_AXIS)
+        acc += t.contract("iab,jbc->ijac", ap, bp)
+    if aliased:
+        # A or B lies in C's parent: no rank writes its window before every
+        # rank has made its last read of the parent on the host.  Another
+        # rank's tiles reach this one only through the collectives above,
+        # which copy them (or, on the ring, finish after every pull).
+        _ranks.rendezvous(None, "general_sub_multiplication write-back")
+    cw = c[rs:rs + L, cs:cs + Cw]
+    valid = (valid_i[:, None] & valid_j[None, :])[:, :, None, None]
+    c[rs:rs + L, cs:cs + Cw] = torch.where(
+        valid, _scalar(beta, c.dtype) * cw + _scalar(alpha, c.dtype) * acc, cw)
+
+
+def _sub_gemm_local(alpha, a_ref, b_ref, beta, c_ref) -> DistributedMatrix:
+    """1x1 grid (``_sub_gemm_local``, :558): the three windows copied out
+    by index, one dense product, C's window written back."""
+    from dlaf_tpu_torch.matrix.window import window_global, window_put
+
+    aw = window_global(a_ref.parent, tuple(a_ref.origin), tuple(a_ref.size))
+    bw = window_global(b_ref.parent, tuple(b_ref.origin), tuple(b_ref.size))
+    mat_c = c_ref.parent
+    cw = window_global(mat_c, tuple(c_ref.origin), tuple(c_ref.size))
+    new = (_scalar(alpha, cw.dtype) * t.contract("...ab,...bc->...ac", aw, bw)
+           + _scalar(beta, cw.dtype) * cw)
+    return window_put(mat_c, tuple(c_ref.origin), new)
+
+
+def general_sub_multiplication(alpha, a_ref, b_ref, beta, c_ref) -> DistributedMatrix:
+    """C's window := alpha A's window B's window + beta C's window
+    (``general_sub_multiplication``, :476), each operand a
+    :class:`~dlaf_tpu_torch.matrix.ref.MatrixRef` or a whole
+    :class:`DistributedMatrix`; the tiles of C outside its window keep
+    their values.  In place of C's parent, which is returned.  Tile-aligned
+    windows of origin-(0, 0) parents run the windowed SUMMA on the parents'
+    stacks; any other window is copied out (``window_extract``),
+    multiplied (``general_multiplication``) and written back
+    (``window_update``)."""
+    from dlaf_tpu_torch.matrix.ref import as_ref
+    from dlaf_tpu_torch.matrix.window import window_extract, window_update
+
+    a_ref, b_ref, c_ref = as_ref(a_ref), as_ref(b_ref), as_ref(c_ref)
+    mb, nb = c_ref.block_size
+    for r in (a_ref, b_ref):
+        if tuple(r.block_size) != (mb, nb):
+            raise ValueError("general_sub_multiplication: block sizes must match")
+    if any(tuple(r.grid.grid_size) != tuple(c_ref.grid.grid_size)
+           or r.grid.device != c_ref.grid.device for r in (a_ref, b_ref)):
+        raise ValueError("general_sub_multiplication: all operands on one grid")
+    M, K = a_ref.size
+    K2, N = b_ref.size
+    if (M, N) != tuple(c_ref.size) or K != K2:
+        raise ValueError(f"sub-gemm: A {M}x{K} B {K2}x{N} C {tuple(c_ref.size)}")
+    mat_a, mat_b, mat_c = a_ref.parent, b_ref.parent, c_ref.parent
+    Ri, Rj = c_ref.nr_tiles
+    Rk = a_ref.nr_tiles.cols
+    if Ri == 0 or Rj == 0:
+        return mat_c
+    if mat_c.grid.size == 1:
+        return _sub_gemm_local(alpha, a_ref, b_ref, beta, c_ref)
+    at_origin = all(tuple(m.dist.source_rank) == (0, 0) for m in (mat_a, mat_b, mat_c))
+    if not (at_origin and a_ref.aligned and b_ref.aligned and c_ref.aligned):
+        wa = window_extract(mat_a, tuple(a_ref.origin), tuple(a_ref.size))
+        wb = window_extract(mat_b, tuple(b_ref.origin), tuple(b_ref.size))
+        wc = window_extract(mat_c, tuple(c_ref.origin), tuple(c_ref.size))
+        out = general_multiplication(t.NO_TRANS, t.NO_TRANS, alpha, wa, wb, beta, wc)
+        return window_update(mat_c, tuple(c_ref.origin), out)
+    g_a = _spmd.Geometry.of(mat_a.dist)
+    g_b = _spmd.Geometry.of(mat_b.dist)
+    g_c = _spmd.Geometry.of(mat_c.dist)
+    L = min(g_c.ltr, -(-Ri // g_c.pr))
+    Cw = min(g_c.ltc, -(-Rj // g_c.pc))
+    origins = (a_ref.tile_origin.row, a_ref.tile_origin.col,
+               b_ref.tile_origin.row, b_ref.tile_origin.col,
+               c_ref.tile_origin.row, c_ref.tile_origin.col)
+    aliased = mat_a.data is mat_c.data or mat_b.data is mat_c.data
+
+    def body(a, b, c):
+        _sub_gemm(a, b, c, g_a, g_b, g_c, origins, Ri, Rj, Rk, L, Cw, alpha, beta, aliased)
+
+    coll.spmd(mat_c.grid, body, mat_a.data, mat_b.data, mat_c.data)
+    return mat_c._inplace(mat_c.data)

@@ -46,6 +46,7 @@ import torch
 
 from dlaf_tpu_torch import tune
 from dlaf_tpu_torch.algorithms import _spmd
+from dlaf_tpu_torch.algorithms._origin import origin_transparent
 from dlaf_tpu_torch.comm import collectives as coll
 from dlaf_tpu_torch.comm.grid import COL_AXIS, ROW_AXIS
 from dlaf_tpu_torch.matrix import util as mutil
@@ -231,6 +232,7 @@ def get_band_size(nb: int, device) -> int:
     return nb
 
 
+@origin_transparent
 def reduction_to_band(mat_a: DistributedMatrix, band: int | None = None,
                       checkpoint_every: int = 0, checkpoint_path: str | None = None,
                       resume_from: str | None = None) -> Tuple[DistributedMatrix, torch.Tensor]:

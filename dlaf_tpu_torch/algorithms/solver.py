@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from dlaf_tpu_torch import health
+from dlaf_tpu_torch.algorithms._origin import origin_transparent
 from dlaf_tpu_torch.algorithms.cholesky import cholesky_factorization
 from dlaf_tpu_torch.algorithms.multiplication import hermitian_multiplication
 from dlaf_tpu_torch.algorithms.norm import max_norm
@@ -51,6 +52,7 @@ def _check_solve_geometry(what: str, uplo: str, mat_a: DistributedMatrix,
         raise DistributionError(f"{what}: A and b must share the process grid")
 
 
+@origin_transparent
 def cholesky_solver(uplo: str, mat_l: DistributedMatrix, mat_b: DistributedMatrix,
                     backend: str = "auto") -> DistributedMatrix:
     """POTRS: solve A X = B given the Cholesky factor of A in the ``uplo``
@@ -64,6 +66,7 @@ def cholesky_solver(uplo: str, mat_l: DistributedMatrix, mat_b: DistributedMatri
     return triangular_solver(t.LEFT, uplo, second, t.NON_UNIT, 1.0, mat_l, y, backend=backend)
 
 
+@origin_transparent
 def positive_definite_solver(uplo: str, mat_a: DistributedMatrix, mat_b: DistributedMatrix,
                              return_info: bool = False, raise_on_failure: bool = False,
                              refine_to: str | None = None, refine_sweeps: int = 2):
@@ -146,6 +149,7 @@ def _lower_dtype(dtype, factor_dtype):
     )
 
 
+@origin_transparent
 def positive_definite_solver_mixed(uplo: str, mat_a: DistributedMatrix,
                                    mat_b: DistributedMatrix, factor_dtype=None,
                                    max_iters: int = 30, fallback: bool = True,

@@ -26,6 +26,7 @@ import torch
 
 from dlaf_tpu_torch import tune
 from dlaf_tpu_torch.algorithms import _spmd
+from dlaf_tpu_torch.algorithms._origin import origin_transparent
 from dlaf_tpu_torch.comm import collectives as coll
 from dlaf_tpu_torch.comm.grid import COL_AXIS, ROW_AXIS
 from dlaf_tpu_torch.matrix import layout
@@ -193,6 +194,7 @@ def _trsm_single_device(side, uplo, op, diag, alpha, mat_a, mat_b):
     return mat_b._inplace(layout.pack(layout.pad_global(out, db), db))
 
 
+@origin_transparent
 def triangular_solver(side: str, uplo: str, op: str, diag: str, alpha,
                       mat_a: DistributedMatrix, mat_b: DistributedMatrix,
                       backend: str = "auto", refine_to: str | None = None,

@@ -472,14 +472,11 @@ def tridiag_dc_distributed(
     spectrum: Optional[Tuple[int, int]] = None,
 ) -> Tuple[np.ndarray, DistributedMatrix]:
     """Multi-level D&C of the real symmetric tridiagonal (d, e).  Returns
-    (eigenvalues ascending, host numpy; eigenvector DistributedMatrix n x n
-    over ``grid``) in the real dtype matching ``dtype``."""
+    (eigenvalues ascending, host numpy; eigenvector DistributedMatrix n x k
+    over ``grid``) in the real dtype matching ``dtype``; ``spectrum=(il,
+    iu)`` keeps eigenpairs il..iu (k = iu - il + 1) of the whole solve."""
     from dlaf_tpu_torch.matrix import util as mutil
 
-    if spectrum is not None:
-        raise NotImplementedError(
-            "tridiag_dc_distributed: partial spectra are not ported yet "
-            "(ROADMAP.md §A, item 5: the rest of the eigensolver)")
     dtype = np.dtype(dtype)
     if dtype.kind == "c":
         raise NotImplementedError("tridiag_dc_distributed: complex dtypes are not ported")
@@ -541,5 +538,7 @@ def tridiag_dc_distributed(
     mat = DistributedMatrix.zeros(grid, (n_pad, n_pad), (nb, nb), rdt)
     lam = coll.spmd(grid, body, mat.data)
     w = lam.cpu().numpy()[:n]
-    out = mutil.sub_matrix(mat, (0, 0), (n, n)) if n_pad != n else mat
-    return w, out
+    il, iu = (0, n - 1) if spectrum is None else spectrum
+    out = (mutil.sub_matrix(mat, (0, il), (n, iu - il + 1))
+           if (n_pad != n or spectrum is not None) else mat)
+    return (w if spectrum is None else w[il:iu + 1]), out

@@ -27,7 +27,7 @@ def tridiagonal_eigensolver(
     raise_on_failure: bool = False,
 ) -> Tuple[np.ndarray, DistributedMatrix]:
     """Eigendecomposition of the real symmetric tridiagonal (d, e): returns
-    (eigenvalues ascending on the host, eigenvector DistributedMatrix n x n
+    (eigenvalues ascending on the host, eigenvector DistributedMatrix n x k
     over ``grid``).  ``raise_on_failure=True`` raises
     :class:`ConvergenceError` with the 1-based index of the first
     non-finite eigenvalue."""

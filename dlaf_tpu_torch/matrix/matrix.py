@@ -118,6 +118,34 @@ class DistributedMatrix:
         """Copy with the data cast to ``dtype``; always a fresh tensor."""
         return self.like(self.data.to(_torch_dtype(dtype), copy=True))
 
+    def to_origin(self) -> "DistributedMatrix":
+        """The same matrix under source rank (0, 0): the stacked tensor's two
+        rank axes rolled by ``(-sr, -sc)``, so that global tile (0, 0) sits at
+        rank (0, 0), where the distributed kernels expect it
+        (``_spmd.Geometry``).  The JAX package relabels its mesh instead at
+        no cost; every rank of the port shares one device, so the roll is
+        one device copy of the matrix (the matrix itself when its source
+        rank is (0, 0) already)."""
+        sr, sc = self.dist.source_rank
+        if (sr, sc) == (0, 0):
+            return self
+        dist0 = Distribution(self.dist.size, self.dist.block_size, self.dist.grid_size)
+        return DistributedMatrix(dist0, self.grid, torch.roll(self.data, (-sr, -sc), (0, 1)))
+
+    def with_source_rank(self, source_rank) -> "DistributedMatrix":
+        """Inverse of :meth:`to_origin`: this origin-(0, 0) matrix under
+        ``source_rank``, the rank axes rolled back (one device copy); the
+        grid is the same (the JAX package relabels it)."""
+        sr, sc = Index2D(*source_rank)
+        if (sr, sc) == (0, 0):
+            return self
+        if tuple(self.dist.source_rank) != (0, 0):
+            raise ValueError(f"with_source_rank: source rank {tuple(self.dist.source_rank)}, "
+                             "expected (0, 0)")
+        dist = Distribution(self.dist.size, self.dist.block_size, self.dist.grid_size,
+                            Index2D(sr, sc))
+        return DistributedMatrix(dist, self.grid, torch.roll(self.data, (sr, sc), (0, 1)))
+
     def _inplace(self, data: torch.Tensor) -> "DistributedMatrix":
         """Repoint this matrix at ``data`` (the algorithms' result) and
         return a fresh handle to the same tensor."""

@@ -12,6 +12,7 @@ import torch
 from dlaf_tpu_torch.matrix import layout
 from dlaf_tpu_torch.matrix.distribution import Distribution
 from dlaf_tpu_torch.matrix.matrix import DistributedMatrix
+from dlaf_tpu_torch.matrix.window import window_extract
 
 
 def _global_element_grids(dist: Distribution, device):
@@ -89,19 +90,15 @@ def eye_like(mat: DistributedMatrix) -> DistributedMatrix:
 
 
 def sub_matrix(mat: DistributedMatrix, origin, size) -> DistributedMatrix:
-    """Sub-matrix copy at any element origin, on any grid: a slice of the
-    global form, an index copy on the grid's one device (the JAX package
-    slices the global form on 1x1 grids and realigns the window by
-    ``ppermute`` on the others, ``matrix/window.py``); the result has source
-    rank (0, 0), as there."""
+    """Sub-matrix copy at any element origin, on any grid and from any
+    source rank: ``window.window_extract``, an index copy of the window's
+    elements on the grid's one device (the JAX package slices the global
+    form on 1x1 grids and realigns the window by ``ppermute`` on the
+    others, ``matrix/window.py``); the result has source rank (0, 0), as
+    there."""
     origin = tuple(int(v) for v in origin)
     size = tuple(int(v) for v in size)
     if (origin[0] < 0 or origin[1] < 0 or origin[0] + size[0] > mat.size.rows
             or origin[1] + size[1] > mat.size.cols):
         raise ValueError(f"sub-matrix {origin}+{size} out of bounds {tuple(mat.size)}")
-    out_dist = Distribution(size, mat.dist.block_size, mat.dist.grid_size)
-    if not all(DistributedMatrix.stacked_shape(out_dist)):
-        return DistributedMatrix.zeros(mat.grid, out_dist.size, out_dist.block_size, mat.dtype)
-    g = layout.unpad_global(layout.unpack(mat.data, mat.dist), mat.dist)
-    s = g[origin[0]:origin[0] + size[0], origin[1]:origin[1] + size[1]]
-    return DistributedMatrix(out_dist, mat.grid, layout.pack(layout.pad_global(s, out_dist), out_dist))
+    return window_extract(mat, origin, size)

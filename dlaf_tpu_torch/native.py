@@ -3,7 +3,8 @@
 The C++ source is a copy of ``dlaf_tpu/native/band2trid.cpp`` (plain C++
 with threads, no framework): the Householder bulge chase that reduces a
 small-band symmetric matrix to tridiagonal form on the host, keeping the
-compact reflector set for the band back-transform.  The JAX package runs
+compact reflector set for the band back-transform, and the rotation sweep
+that keeps no transform, for eigenvalues only.  The JAX package runs
 the same chase on the host by default on CPU backends.
 
 It is compiled at first use with ``g++ -O3 -std=c++17 -fPIC -shared
@@ -80,6 +81,12 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
                 p = ctypes.POINTER(scalar)
                 fn.argtypes = [i64, i64, p, p, p, p, p, ctypes.c_int]
+            for name, scalar in (("dlaf_band2trid_d", ctypes.c_double),
+                                 ("dlaf_band2trid_s", ctypes.c_float)):
+                fn = getattr(handle, name)
+                fn.restype = ctypes.c_int
+                p = ctypes.POINTER(scalar)
+                fn.argtypes = [i64, i64, p, p, p, p, ctypes.c_int]
             _lib = handle
     return _lib
 
@@ -116,3 +123,28 @@ def band2trid_hh(ab: np.ndarray, band: int, nthreads: int = 0):
     if rc != 0:
         raise RuntimeError(f"band2trid_hh: the host chase returned {rc}")
     return d, e, v, tau[:r_total]
+
+
+def band2trid(ab: np.ndarray, band: int, nthreads: int = 0):
+    """The eigenvalues-only chase: the rotation sweep of the same source
+    (``dlaf_band2trid_d``/``_s``, the JAX package's ``band2trid_native``
+    with ``want_q=False``) on the compact lower-band storage ``ab[band+2,
+    n]``, with no transform kept.  Returns ``(d, e)``; real dtypes only;
+    raises on a failed build or call."""
+    names = {np.dtype(np.float64): "dlaf_band2trid_d", np.dtype(np.float32): "dlaf_band2trid_s"}
+    if ab.dtype not in names:
+        raise TypeError(f"band2trid: dtype {ab.dtype} not in (float32, float64)")
+    if ab.shape[0] < band + 2:
+        raise ValueError(f"band2trid: storage has {ab.shape[0]} rows, need band + 2 = {band + 2}")
+    ab = np.array(ab[: band + 2], order="F", copy=True)  # the chase works in place
+    n = ab.shape[1]
+    d = np.zeros(n, ab.dtype)
+    e = np.zeros(max(n - 1, 0), ab.dtype)
+    if nthreads <= 0:
+        nthreads = min(os.cpu_count() or 1, 16)
+    ptr = ctypes.POINTER(ctypes.c_double if ab.dtype == np.float64 else ctypes.c_float)
+    rc = getattr(lib(), names[ab.dtype])(n, band, ab.ctypes.data_as(ptr), d.ctypes.data_as(ptr),
+                                         e.ctypes.data_as(ptr), None, nthreads)
+    if rc != 0:
+        raise RuntimeError(f"band2trid: the host chase returned {rc}")
+    return d, e

@@ -197,6 +197,34 @@ def validate_eigensolver_matmul_precision(value) -> str:
     return value
 
 
+#: the matmul precision strings the JAX package's knobs accept that mean
+#: full float32 in the port ('' and 'default' keep the global setting,
+#: which the port pins to full float32, ``ops/tile.py``)
+MATMUL_PRECISIONS = ("", "default", "float32", "highest")
+
+
+@contextlib.contextmanager
+def matmul_precision(p: str, knob: str = "matmul_precision"):
+    """Scope of one matmul precision (``dlaf_tpu/tune.py:790``).  The port
+    runs its float32 products in full float32 and refuses TF32, so every
+    accepted value means the same thing: the scope checks that TF32 is off
+    on entry.  Any other value raises :class:`ConfigurationError`."""
+    import torch
+
+    if p not in MATMUL_PRECISIONS:
+        raise ConfigurationError(
+            f"{knob}={p!r} is not ported: the port's float32 products are full float32 "
+            f"only, {MATMUL_PRECISIONS} (no TF32, no bf16 passes); see ROADMAP.md, "
+            "queue A item 4"
+        )
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise ConfigurationError(
+            f"{knob}={p!r}: float32 products must be full float32 "
+            "(torch.backends.cuda.matmul.allow_tf32 False, "
+            "torch.get_float32_matmul_precision() == 'highest')")
+    yield p
+
+
 def validate_band_chase_backend(value) -> str:
     if value not in BAND_CHASE_BACKENDS:
         raise ConfigurationError(

@@ -323,14 +323,36 @@ def test_accelerator_defaults_and_guards():
         with pytest.raises(NotImplementedError, match=ITEM_5) as err:
             t_r2b(mat, **kw)
         assert "item 7: robustness, observability, plan" in str(err.value)
-    with pytest.raises(NotImplementedError, match=ITEM_5):
-        t_heev("L", mat, spectrum=(0, 3))
-    # the generalized eigensolver: partial spectra and complex dtypes
-    for kw in ({"spectrum": (0, 3)}, {}):
-        ma = mat if kw else mat.astype(np.complex128)
+    # item 4: the matmul precision hints other than full float32
+    with pytest.raises(health.ConfigurationError, match="queue A item 4"):
+        tp.update(eigensolver_matmul_precision="high")
+    with pytest.raises(health.ConfigurationError, match="queue A item 4"):
+        with tune.matmul_precision("bfloat16"):
+            pass
+    for p in tune.MATMUL_PRECISIONS:
+        with tune.matmul_precision(p):
+            pass
+    # item 5: complex dtypes, in every eigensolver entry point
+    from dlaf_tpu_torch.algorithms import eig_refine as t_er
+    from dlaf_tpu_torch.algorithms.eigensolver import hermitian_eigenvalues as t_eigvals
+
+    mc = mat.astype(np.complex128)
+    for name, call in (("hermitian_eigensolver", lambda: t_heev("L", mc)),
+                       ("hermitian_eigenvalues", lambda: t_eigvals("L", mc)),
+                       ("hermitian_generalized_eigensolver", lambda: t_hegv("L", mc, mc.astype(mc.dtype))),
+                       ("hermitian_eigensolver_mixed", lambda: t_er.hermitian_eigensolver_mixed("L", mc)),
+                       ("refine_eigenpairs", lambda: t_er.refine_eigenpairs("L", mc, mc)),
+                       ("refine_partial_eigenpairs",
+                        lambda: t_er.refine_partial_eigenpairs("L", mc, mc, np.ones(8), (0, 3)))):
         with pytest.raises(NotImplementedError, match=ITEM_5) as err:
-            t_hegv("L", ma, ma.astype(ma.dtype), **kw)
-        assert "hermitian_generalized_eigensolver" in str(err.value)
+            call()
+        assert name in str(err.value)
+    # partial spectra are ported: only a window outside [0, n) raises
+    for sp in ((-1, 3), (0, 8), (5, 4)):
+        with pytest.raises(ValueError, match="spectrum"):
+            t_heev("L", mat, spectrum=sp)
+        with pytest.raises(ValueError, match="spectrum"):
+            t_hegv("L", mat, mat.astype(mat.dtype), spectrum=sp)
 
 
 

@@ -1,7 +1,9 @@
 """The port's HEEV pipeline on multi-rank grids of rank threads against the
 JAX package's on its CPU mesh, stage by stage on 2x4 and end to end on
-every multi-rank shape of the JAX fixture (2x4, 4x2, 2x2, 1x2, 2x1); and
-the generalized eigensolver (HEGV) on 2x4 and on 1x1.
+every multi-rank shape of the JAX fixture (2x4, 4x2, 2x2, 1x2, 2x1); the
+generalized eigensolver (HEGV) on 2x4 and on 1x1; and partial spectra
+(HEEV and HEGV) and eigenvalues only (``hermitian_eigenvalues``) on 2x4
+and 1x1.
 
 Sizes follow ROADMAP.md's rule for multi-rank tests: N = 48, nb = 8, band
 4, the SBR stage on (band 2), D&C leaves of 8 (n_pad = 64: three merge
@@ -376,3 +378,81 @@ def test_generalized_eigensolver_auto_on_1x1(comm_grids):
     assert _rel(res.eigenvalues, w_ref) <= tol
     assert _rel(res.eigenvalues, sla.eigh(a, b, eigvals_only=True)) <= tol
     check_generalized(a, b, res.eigenvalues, res.eigenvectors.to_global(), tol)
+
+
+SPECTRA = [(0, 11), (17, 30), (40, 47)]
+
+
+@pytest.mark.parametrize("spectrum", SPECTRA, ids=[f"{il}-{iu}" for il, iu in SPECTRA])
+def test_partial_spectrum_matches_jax(ref, spectrum):
+    """``spectrum=(il, iu)`` on 2x4: the D&C's eigenvectors cut to the k
+    columns, the three back-transforms on those; the eigenvalues against
+    the window of the JAX package's pipeline on its 2x4 mesh (its partial
+    spectrum cuts the same D&C solve), every stage clocked."""
+    a = ref["a"]
+    il, iu = spectrum
+    mat = DistributedMatrix.from_global(grid_like((2, 4)), np.tril(a), (NB, NB))
+    with knobs(**KNOBS):
+        stagetimer.start()
+        res = t_heev("L", mat, spectrum=spectrum)
+        times = stagetimer.stop()
+    assert list(times) == STAGES
+    assert tuple(res.eigenvectors.size) == (N, iu - il + 1)
+    tol = _tol(ref)
+    assert _rel(res.eigenvalues, ref["heev_w"][il:iu + 1]) <= tol
+    check_eig(a, res.eigenvalues, res.eigenvectors.to_global(), tol)
+
+
+@pytest.mark.parametrize("spectrum", [None, (5, 20)], ids=["all", "5-20"])
+def test_partial_spectrum_on_1x1_and_hegv(comm_grids, spectrum):
+    """The 1x1 route (one ``torch.linalg.eigh``, its columns cut) and HEGV
+    with a window on 2x4, against the JAX package's."""
+    a, b = _hegv_inputs()
+    sl = slice(None) if spectrum is None else slice(spectrum[0], spectrum[1] + 1)
+    w_all = np.linalg.eigvalsh(a)
+    mat = DistributedMatrix.from_global(grid_like((1, 1)), np.tril(a), (NB, NB))
+    jmat = dt.DistributedMatrix.from_global(_jgrid(comm_grids, (1, 1)), np.tril(a), (NB, NB))
+    tol = tu.tol_for(np.float64, N)
+    with knobs(**KNOBS):
+        res = t_heev("L", mat, spectrum=spectrum)
+        jw = j_heev("L", jmat, spectrum=spectrum).eigenvalues
+        assert _rel(res.eigenvalues, jw) <= tol and _rel(res.eigenvalues, w_all[sl]) <= tol
+        check_eig(a, res.eigenvalues, res.eigenvectors.to_global(), tol)
+        if spectrum is None:
+            return
+        g = _jgrid(comm_grids, (2, 4))
+        mats = [DistributedMatrix.from_global(grid_like((2, 4)), np.tril(v), (NB, NB))
+                for v in (a, b)]
+        res = t_hegv("L", *mats, spectrum=spectrum)
+        jw = j_hegv("L", *(dt.DistributedMatrix.from_global(g, np.tril(v), (NB, NB))
+                           for v in (a, b)), spectrum=spectrum).eigenvalues
+    assert tuple(res.eigenvectors.size) == (N, spectrum[1] - spectrum[0] + 1)
+    assert _rel(res.eigenvalues, jw) <= tol
+    assert _rel(res.eigenvalues, sla.eigh(a, b, eigvals_only=True)[sl]) <= tol
+    check_generalized(a, b, res.eigenvalues, res.eigenvectors.to_global(), tol)
+
+
+@pytest.mark.parametrize("shape", [(2, 4), (1, 1)])
+@pytest.mark.parametrize("uplo,spectrum", [("L", None), ("U", (3, 40))])
+def test_eigenvalues_only_match_jax(comm_grids, shape, uplo, spectrum):
+    """``hermitian_eigenvalues``: red2band, the SBR stage and the rotation
+    chase with no transform, then LAPACK's tridiagonal solver (``eigh`` on
+    1x1), against the JAX package's and LAPACK's."""
+    from dlaf_tpu.algorithms.eigensolver import hermitian_eigenvalues as j_eigvals
+    from dlaf_tpu_torch.algorithms.eigensolver import hermitian_eigenvalues as t_eigvals
+
+    a = tu.random_hermitian_pd(N, np.float64, seed=5)
+    tri = np.tril(a) if uplo == "L" else np.triu(a)
+    sl = slice(None) if spectrum is None else slice(spectrum[0], spectrum[1] + 1)
+    with knobs(**KNOBS):
+        stagetimer.start()
+        w = t_eigvals(uplo, DistributedMatrix.from_global(grid_like(shape), tri, (NB, NB)),
+                      spectrum=spectrum)
+        times = stagetimer.stop()
+        jw = j_eigvals(uplo, dt.DistributedMatrix.from_global(_jgrid(comm_grids, shape), tri,
+                                                              (NB, NB)), spectrum=spectrum)
+    if shape != (1, 1):
+        assert list(times) == ["red2band", "sbr", "chase"]
+    tol = tu.tol_for(np.float64, N)
+    assert _rel(w, jw) <= tol
+    assert _rel(w, np.linalg.eigvalsh(a)[sl]) <= tol

@@ -1,4 +1,5 @@
-"""The port's multiplication family (GEMM, TRMM, HEMM), ``max_norm`` and
+"""The port's multiplication family (GEMM, TRMM, HEMM, and the product of
+sub-matrix windows, ``general_sub_multiplication``), ``max_norm`` and
 POTRI (``inverse_from_cholesky_factor``) against the JAX package's, on CPU
 grids of rank threads of the JAX fixture's shapes, with the cases of
 ``tests/test_multiplication.py``.  Each case runs on one of the six
@@ -19,8 +20,10 @@ import dlaf_tpu as dt
 import dlaf_tpu.testing as tu
 from dlaf_tpu import tune as jtune
 from dlaf_tpu.algorithms import multiplication as jmul
-from dlaf_tpu_torch import (general_multiplication, hermitian_multiplication,
-                            inverse_from_cholesky_factor, max_norm, triangular_multiplication)
+from dlaf_tpu.matrix.ref import MatrixRef as JRef
+from dlaf_tpu_torch import (MatrixRef, general_multiplication, general_sub_multiplication,
+                            hermitian_multiplication, inverse_from_cholesky_factor, max_norm,
+                            triangular_multiplication)
 from dlaf_tpu_torch import tune as ttune
 from dlaf_tpu_torch.matrix.matrix import DistributedMatrix
 from dlaf_tpu_torch.testing import GRID_SHAPES, grid_like
@@ -194,3 +197,84 @@ def test_inverse_from_cholesky_factor_matches_jax(comm_grids, shape, dtype):
     assert _rel_err(got, ref) <= tol
     assert _rel_err(got, np.linalg.inv(a.astype(np.complex128))) <= tol
     np.testing.assert_allclose(got, got.conj().T, rtol=0, atol=tol)
+
+
+# (A's origin, B's origin, C's origin, (M, K, N)) on 40 x 48, 48 x 56 and
+# 64 x 64 parents of 8 x 8 tiles; on 2x4, the windows' row tile origins
+# agree mod 2 and their column origins mod 4 (each rank owns the tiles it
+# multiplies), or not (the panel window is gathered over the axis first)
+SUB_CASES = {
+    "owned": ((8, 16), (0, 8), (16, 16), (16, 24, 16)),
+    "gather_rows": ((8, 8), (0, 16), (16, 24), (16, 24, 24)),
+    "gather_both": ((16, 0), (0, 16), (8, 24), (24, 48, 40)),
+    "whole": ((0, 0), (0, 0), (0, 0), (40, 48, 56)),
+    "edge_tiles": ((32, 40), (40, 48), (56, 56), (8, 8, 8)),
+    "ragged_edge": ((24, 32), (32, 40), (48, 48), (16, 16, 16)),
+    "unaligned": ((3, 5), (2, 7), (1, 9), (17, 13, 11)),
+}
+
+
+@pytest.mark.parametrize("shape", [(2, 4), (1, 1)])
+@pytest.mark.parametrize("case", list(SUB_CASES))
+def test_general_sub_multiplication_matches_jax(comm_grids, shape, case):
+    """C's window := alpha A's window B's window + beta C's window, the
+    tiles outside C's window untouched, in place of C's parent."""
+    (ra, ca), (rb, cb), (rc, cc), (m, k, n) = SUB_CASES[case]
+    dtype = np.float64
+    a = tu.random_matrix(40, 48, dtype, seed=1)
+    b = tu.random_matrix(48, 56, dtype, seed=2)
+    c = tu.random_matrix(64, 64, dtype, seed=3)
+    if case == "ragged_edge":  # windows that end inside the parents' last tiles
+        a, b, c = a[:38, :44], b[:44, :52], c[:62, :60]
+        (m, k, n) = (14, 12, 12)
+    mats = [_pair(comm_grids, shape, v, (8, 8)) for v in (a, b, c)]
+    alpha, beta = 0.7, -1.3
+    jr = [JRef(mats[0][0], (ra, ca), (m, k)), JRef(mats[1][0], (rb, cb), (k, n)),
+          JRef(mats[2][0], (rc, cc), (m, n))]
+    tr = [MatrixRef(mats[0][1], (ra, ca), (m, k)), MatrixRef(mats[1][1], (rb, cb), (k, n)),
+          MatrixRef(mats[2][1], (rc, cc), (m, n))]
+    assert [r.aligned for r in tr] == [r.aligned for r in jr]
+    assert all(r.aligned for r in tr) == (case != "unaligned")
+    ref = jmul.general_sub_multiplication(alpha, jr[0], jr[1], beta, jr[2])
+    out = general_sub_multiplication(alpha, tr[0], tr[1], beta, tr[2])
+    assert out.data is mats[2][1].data  # in place of C's parent
+    want = c.copy()
+    want[rc:rc + m, cc:cc + n] = (alpha * a[ra:ra + m, ca:ca + k] @ b[rb:rb + k, cb:cb + n]
+                                  + beta * c[rc:rc + m, cc:cc + n])
+    _check(out, ref, want, tu.tol_for(dtype, k, 50.0))
+    outside = np.ones(want.shape, bool)
+    outside[rc:rc + m, cc:cc + n] = False
+    np.testing.assert_array_equal(out.to_global()[outside], c[outside])
+
+
+@pytest.mark.parametrize("shape", [(2, 4), (1, 1)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_general_sub_multiplication_windows_of_c_parent(comm_grids, shape, aligned):
+    """A's and B's windows in C's parent: every read of the parent ends
+    before C's window is written (the rank barrier before the write-back)."""
+    x = tu.random_matrix(64, 64, np.float64, seed=4)
+    jx, tx = _pair(comm_grids, shape, x, (8, 8))
+    o = 0 if aligned else 3
+    wins = [((o, o), (32, 24)), ((o, 32), (24, 24)), ((32, 8), (32, 24))]
+    ref = jmul.general_sub_multiplication(1.0, *(JRef(jx, *w_) for w_ in wins[:2]), 1.0,
+                                          JRef(jx, *wins[2]))
+    out = general_sub_multiplication(1.0, *(MatrixRef(tx, *w_) for w_ in wins[:2]), 1.0,
+                                     MatrixRef(tx, *wins[2]))
+    want = x.copy()
+    want[32:64, 8:32] += x[o:o + 32, o:o + 24] @ x[o:o + 24, 32:56]
+    _check(out, ref, want, tu.tol_for(np.float64, 24, 50.0))
+
+
+def test_general_sub_multiplication_checks_its_operands(comm_grids):
+    g = grid_like((2, 4))
+    a = DistributedMatrix.from_global(g, np.ones((16, 16)), (8, 8))
+    with pytest.raises(ValueError, match="sub-gemm"):
+        general_sub_multiplication(1.0, MatrixRef(a, (0, 0), (8, 8)),
+                                   MatrixRef(a, (0, 0), (16, 8)), 0.0, a)
+    with pytest.raises(ValueError, match="block sizes"):
+        general_sub_multiplication(1.0, DistributedMatrix.from_global(g, np.ones((16, 16)), (4, 4)),
+                                   a, 0.0, a)
+    with pytest.raises(ValueError, match="one grid"):
+        general_sub_multiplication(1.0, DistributedMatrix.from_global(grid_like((4, 2)),
+                                                                      np.ones((16, 16)), (8, 8)),
+                                   a, 0.0, a)

@@ -155,15 +155,19 @@ def test_grid_shapes_and_default():
 def test_one_rank_algorithms_refuse_multi_rank_stacks():
     """The HEEV pipeline, once a 1x1-only algorithm, runs on a multi-rank
     stack (here the identity: every eigenvalue 1, orthonormal
-    eigenvectors); what it does not run on any grid yet (partial spectra,
-    complex dtypes) raises NotImplementedError naming ROADMAP there too."""
+    eigenvectors), and so does a partial spectrum (four orthonormal
+    columns); what it does not run on any grid yet (complex dtypes) raises
+    NotImplementedError naming ROADMAP there too."""
     mat = DistributedMatrix.from_global(grid_like((2, 2)), np.eye(16), (4, 4))
     res = dtt.hermitian_eigensolver("L", mat, backend="pipeline")
     v = res.eigenvectors.to_global()
     np.testing.assert_allclose(res.eigenvalues, np.ones(16), atol=1e-12)
     np.testing.assert_allclose(v.T @ v, np.eye(16), atol=1e-12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dtt.hermitian_eigensolver("L", mat, spectrum=(0, 3), backend="pipeline")
+    res = dtt.hermitian_eigensolver("L", mat, spectrum=(0, 3), backend="pipeline")
+    v = res.eigenvectors.to_global()
+    assert v.shape == (16, 4)
+    np.testing.assert_allclose(res.eigenvalues, np.ones(4), atol=1e-12)
+    np.testing.assert_allclose(v.T @ v, np.eye(4), atol=1e-12)
     cmat = DistributedMatrix.from_global(grid_like((2, 2)), np.eye(16, dtype=np.complex128),
                                          (4, 4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
